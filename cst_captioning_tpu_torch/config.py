@@ -1,20 +1,23 @@
-"""Model config and fixed token ids, for the PyTorch port.
+"""Configs and fixed token ids, for the PyTorch port.
 
 The port's own copy of the part of ``cst_captioning_tpu/config/config.py``
-the serving path reads: the special token ids and :class:`ModelConfig` with
-its validation. Training, data, RL and mesh configs come with the slices
-that need them.
+that the serving and training paths read: the special token ids,
+:class:`ModelConfig`, the optimizer and RL fields of :class:`TrainConfig`
+and :class:`RLConfig`, and :class:`ExperimentConfig` that bundles them.
+Field names and defaults match the JAX package. Data, eval and mesh configs
+come with the slices that need them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Mapping
 
 PAD_ID = 0
 BOS_ID = 1
 EOS_ID = 2
 UNK_ID = 3
+NUM_SPECIAL_TOKENS = 4
 
 
 @dataclass(frozen=True)
@@ -34,9 +37,13 @@ class ModelConfig:
     max_frames: int = 60        # frame-axis padding length
     dtype: str = "bfloat16"     # compute dtype
     param_dtype: str = "float32"
-    # "pallas" selects the stride kernel (ops/decode_stride.py, a CUDA
-    # kernel on the GPU); "xla" names the JAX package's scan decode, which
-    # the port's serving engine does not carry
+    # "pallas" routes the teacher-forced attention context through the
+    # additive-attention kernel (ops/attention.py, a CUDA kernel on the
+    # GPU); "xla" keeps the plain PyTorch composite
+    attention_impl: str = "xla"
+    # "pallas" selects the decode kernels (ops/decode_stride.py for the
+    # serving strides, ops/decode_step.py for the sampling loop; CUDA
+    # kernels on the GPU); "xla" steps the decoder cell module itself
     decode_impl: str = "xla"
     decode_stride: int = 8      # decode steps per stride launch
     decode_compact: bool = True  # pack unfinished columns between strides
@@ -50,6 +57,11 @@ class ModelConfig:
         )
         if self.encoder not in ("meanpool", "temporal_attention"):
             raise ValueError(f"unknown encoder: {self.encoder!r}")
+        if self.attention_impl not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown attention_impl: {self.attention_impl!r} "
+                "(expected 'xla' or 'pallas')"
+            )
         if self.decode_impl not in ("xla", "pallas"):
             raise ValueError(
                 f"unknown decode_impl: {self.decode_impl!r} "
@@ -65,3 +77,69 @@ class ModelConfig:
             raise ValueError(
                 f"unsupported param dtype {self.param_dtype!r} (float32 only)"
             )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The optimization fields of the JAX ``TrainConfig`` that the XE step
+    and the optimizer chain read."""
+
+    optimizer: str = "adam"             # "adam" | "adamw" | "sgd" | "rmsprop"
+    lr: float = 1e-4
+    lr_decay: float = 0.5               # multiplicative decay factor
+    lr_decay_every: int = 3             # epochs between decays (0 = constant)
+    grad_clip: float = 5.0              # global-norm clip (0 = off)
+    seed: int = 1234
+    weight_decay: float = 0.0
+    label_smoothing: float = 0.0
+    loss: str = "xe"                    # "xe" | "wxe"
+
+    def __post_init__(self):
+        if self.loss not in ("xe", "wxe"):
+            raise ValueError(
+                f"unknown loss {self.loss!r} (expected 'xe' or 'wxe')")
+
+
+@dataclass(frozen=True)
+class RLConfig:
+    """The CST / self-critical fields of the JAX ``RLConfig`` that the
+    sequential RL step reads."""
+
+    num_rollouts: int = 5               # K Monte-Carlo samples per clip
+    baseline: str = "greedy"            # "greedy" | "scb" | "none"
+    reward_cider_weight: float = 1.0
+    reward_bleu4_weight: float = 0.0
+    temperature: float = 1.0
+    lr: float = 2e-5                    # RL phase LR (fresh optimizer)
+    # host threads for the native consensus-reward scorer; 0 = all cores
+    reward_threads: int = 0
+    # sentence-BLEU4 (in [0, 1]) is scaled by this before mixing with
+    # CIDEr-D (x10 scale): reward = w_c * CIDErD + w_b * BLEU4 * scale
+    reward_bleu4_scale: float = 10.0
+    # gradient accumulation over C slices of the K rollout axis in the
+    # REINFORCE update (C divides K; 1 = one pass over all K*B rows)
+    update_chunks: int = 1
+
+    def __post_init__(self):
+        if self.baseline not in ("greedy", "scb", "none"):
+            raise ValueError(f"unknown baseline {self.baseline!r}")
+        if self.update_chunks < 1 or self.num_rollouts % self.update_chunks:
+            raise ValueError(
+                f"update_chunks {self.update_chunks} must be >= 1 and "
+                f"divide num_rollouts {self.num_rollouts}"
+            )
+        if self.reward_threads < 0:
+            raise ValueError(
+                f"reward_threads {self.reward_threads} must be >= 0 "
+                "(0 = all cores)"
+            )
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """A named recipe: model, XE and RL settings."""
+
+    name: str = "experiment"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    rl: RLConfig = field(default_factory=RLConfig)

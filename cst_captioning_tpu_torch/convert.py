@@ -1,4 +1,4 @@
-"""JAX/flax parameter tree -> the port's modules.
+"""JAX/flax parameter trees <-> the port's modules.
 
 The tree is nested dicts of numpy arrays, as ``jax.tree.map(np.asarray,
 params)`` gives it (the top-level ``"params"`` key may be present or not).
@@ -10,8 +10,9 @@ The mapping:
 - ``attention/score/kernel [A, 1]`` becomes the vector ``score [A]``;
 - ``word_embed/embedding [V, E]`` is the ``nn.Embedding`` weight as is.
 
-Reading a flax msgpack checkpoint needs flax or msgpack and comes with the
-training slice.
+:func:`state_dict_to_flax` is the inverse, for parameters and for
+gradients keyed like the state dict. Reading a flax msgpack checkpoint
+needs flax or msgpack and comes with the checkpoint slice.
 """
 
 from __future__ import annotations
@@ -57,6 +58,48 @@ def flax_to_state_dict(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
         dense(f"init_h.{layer}", p[f"init_h{layer}"])
     dense("cell.out_proj", cell["out_proj"])
     return sd
+
+
+def state_dict_to_flax(cfg: ModelConfig, sd) -> dict:
+    """A flax tree ``{"params": ...}`` of float32 numpy arrays from a
+    ``CaptionModel`` state dict, or from gradients keyed like one."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+
+    def dense(prefix, bias=True):
+        d = {"kernel": np.ascontiguousarray(a[f"{prefix}.weight"].T)}
+        if bias:
+            d["bias"] = a[f"{prefix}.bias"]
+        return d
+
+    H = cfg.d_hidden
+    cell = {
+        "word_embed": {"embedding": a["cell.word_embed.weight"]},
+        "attention": {
+            "mem_proj": dense("cell.attention.mem_proj", bias=False),
+            "query_proj": dense("cell.attention.query_proj"),
+            "score": {"kernel": a["cell.attention.score"][:, None]},
+        },
+        "out_proj": dense("cell.out_proj"),
+    }
+    params = {
+        "encoder": {f"embed_{n}": dense(f"encoder.embed.{n}")
+                    for n, _ in cfg.modalities},
+        "cell": cell,
+    }
+    for layer in range(cfg.num_layers):
+        wi = a[f"cell.lstm.{layer}.weight_i"].T
+        wh = a[f"cell.lstm.{layer}.weight_h"].T
+        b = a[f"cell.lstm.{layer}.bias"]
+        lstm = {}
+        for k, g in enumerate(LSTM_GATE_ORDER):
+            cols = slice(k * H, (k + 1) * H)
+            lstm[f"i{g}"] = {"kernel": np.ascontiguousarray(wi[:, cols])}
+            lstm[f"h{g}"] = {"kernel": np.ascontiguousarray(wh[:, cols]),
+                             "bias": b[cols]}
+        cell[f"lstm{layer}"] = lstm
+        params[f"init_c{layer}"] = dense(f"init_c.{layer}")
+        params[f"init_h{layer}"] = dense(f"init_h.{layer}")
+    return {"params": params}
 
 
 def load_flax_params(model: torch.nn.Module, tree) -> torch.nn.Module:

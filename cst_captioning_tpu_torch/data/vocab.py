@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Iterable, Sequence
 
-from cst_captioning_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
+from cst_captioning_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID, UNK_ID
 
 SPECIAL_TOKENS = ("<pad>", "<bos>", "<eos>", "<unk>")
 
@@ -18,12 +18,23 @@ class Vocab:
                 f"vocab must start with {SPECIAL_TOKENS}, got {tuple(words[:4])}"
             )
         self._words = list(words)
-        if len(set(self._words)) != len(self._words):
+        self._ids = {w: i for i, w in enumerate(self._words)}
+        if len(self._ids) != len(self._words):
             raise ValueError("duplicate words in vocab")
 
     @classmethod
     def from_corpus_words(cls, words: Iterable[str]) -> "Vocab":
         return cls(list(SPECIAL_TOKENS) + list(words))
+
+    def __len__(self) -> int:
+        return len(self._words)
+
+    @property
+    def words(self) -> list[str]:
+        return list(self._words)
+
+    def encode(self, tokens: Sequence[str]) -> list[int]:
+        return [self._ids.get(t, UNK_ID) for t in tokens]
 
     def decode(self, ids: Sequence[int], stop_at_eos: bool = True) -> str:
         """ids -> sentence, dropping PAD/BOS and stopping at EOS."""

@@ -2,8 +2,11 @@
 
 Scores are ``v . tanh(W_f f + W_h h)``; the memory projection ``W_f f`` is
 computed once per clip (:meth:`AdditiveAttention.project_memory`), so a
-step costs one small matmul and a masked softmax. The sequence-parallel
-path of the JAX package comes with a later slice.
+step costs one small matmul and a masked softmax. ``impl="pallas"`` routes
+the context through ``ops.attention.fused_additive_attention`` (the
+additive-attention kernel on the GPU), with the ``score`` vector as ``v``;
+``"xla"`` keeps the plain composite below. The sequence-parallel path of
+the JAX package comes with a later slice.
 """
 
 from __future__ import annotations
@@ -14,13 +17,15 @@ import torch
 from torch import nn
 
 from cst_captioning_tpu_torch.models.layers import Dense
+from cst_captioning_tpu_torch.ops import attention as attention_ops
 
 
 class AdditiveAttention(nn.Module):
     def __init__(self, d_memory: int, d_query: int, d_att: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, impl: str = "xla"):
         super().__init__()
         self.dtype = dtype
+        self.impl = impl
         self.mem_proj = Dense(d_memory, d_att, bias=False, dtype=dtype)
         self.query_proj = Dense(d_query, d_att, dtype=dtype)
         # v: the flax ``score`` Dense kernel [A, 1] without its unit axis
@@ -38,6 +43,9 @@ class AdditiveAttention(nn.Module):
         """query [B, H] -> context [B, E]: mask-weighted sum of memory slots."""
         d = self.dtype
         q = self.query_proj(query)
+        if self.impl == "pallas":
+            return attention_ops.fused_additive_attention(
+                q, self.score.to(d), memory, memory_proj, memory_mask)
         t = torch.tanh(memory_proj.to(d) + q.unsqueeze(1))
         scores = t @ self.score.to(d)                          # [B, M]
         # -1e9, not -inf: a row with no valid slot gets a finite uniform

@@ -1,7 +1,9 @@
 """CaptionModel: encoder + LSTM decoder, split into :meth:`encode` (memory
-bank, its attention projection, initial carry) and :meth:`decode_step`
-(one decoder step, shared by every decoding strategy). The teacher-forced
-unroll comes with the training slice."""
+bank, its attention projection, initial carry), :meth:`decode_step` (one
+decoder step, shared by every decoding strategy) and the teacher-forced
+unrolls (:meth:`decode_logits`, :meth:`teacher_force_logps`, and
+:meth:`forward` from features). Each unroll is a Python loop over the T
+steps of the same cell the decoders step."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from cst_captioning_tpu_torch.config import ModelConfig
+from cst_captioning_tpu_torch.config import BOS_ID, ModelConfig
+from cst_captioning_tpu_torch.decoding.common import selected_logprob
 from cst_captioning_tpu_torch.device import resolve_device, torch_dtype
 from cst_captioning_tpu_torch.models.decoder import Carry, DecoderCell
 from cst_captioning_tpu_torch.models.encoders import (
@@ -27,6 +30,12 @@ class EncoderOutput:
     memory_proj: torch.Tensor  # [B, M, d_att]
     memory_mask: torch.Tensor  # [B, M] float32
     carry: Carry               # initial LSTM carry, [B, H] leaves
+
+
+def shift_right(labels: torch.Tensor) -> torch.Tensor:
+    """[B, T] target tokens -> decoder inputs [B, T] starting with BOS."""
+    bos = torch.full_like(labels[:, :1], BOS_ID)
+    return torch.cat([bos, labels[:, :-1]], dim=1)
 
 
 class CaptionModel(nn.Module):
@@ -74,3 +83,46 @@ class CaptionModel(nn.Module):
         """-> (new carry, logits [B, V] float32)."""
         return self.cell(carry, token, enc.memory, enc.memory_proj,
                          enc.memory_mask)
+
+    # ---- teacher forcing -----------------------------------------------------
+
+    def _unroll(self, enc: EncoderOutput, labels: torch.Tensor, train: bool,
+                generator, emit):
+        if train and generator is None:
+            raise ValueError("train=True needs a generator for dropout")
+        inputs = shift_right(labels)
+        carry = enc.carry
+        out = []
+        for t in range(labels.shape[1]):
+            carry, logits = self.cell(
+                carry, inputs[:, t], enc.memory, enc.memory_proj,
+                enc.memory_mask, generator if train else None)
+            out.append(emit(logits, t))
+        return torch.stack(out, dim=1)
+
+    def decode_logits(self, enc: EncoderOutput, labels: torch.Tensor,
+                      train: bool = False,
+                      generator: torch.Generator | None = None):
+        """Teacher-forced logits [B, T, V] (float32) from an encoder output;
+        ``logits[:, t]`` predicts ``labels[:, t]``. ``train`` applies
+        dropout with masks drawn from ``generator``."""
+        return self._unroll(enc, labels, train, generator,
+                            lambda logits, t: logits)
+
+    def teacher_force_logps(self, enc: EncoderOutput, labels: torch.Tensor,
+                            train: bool = False,
+                            generator: torch.Generator | None = None):
+        """Per-position logprob of ``labels`` under teacher forcing, [B, T].
+        Each step's logits are reduced to the target's logprob at once, so
+        the [B, T, V] stack is never built."""
+        return self._unroll(
+            enc, labels, train, generator,
+            lambda logits, t: selected_logprob(logits.float(), labels[:, t]))
+
+    def forward(self, feats: dict[str, torch.Tensor],
+                masks: dict[str, torch.Tensor], labels: torch.Tensor,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """-> logits [B, T, V] (float32); logits[:, t] predicts labels[:, t]."""
+        return self.decode_logits(self.encode(feats, masks), labels, train,
+                                  generator)

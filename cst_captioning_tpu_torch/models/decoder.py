@@ -2,9 +2,12 @@
 
 One step: embed the previous token, attend over the encoder memory with the
 previous top-layer hidden state, feed ``[word_emb, context]`` through the
-LSTM stack, project to vocab logits. Dropout is off: this slice serves,
-and decode is deterministic. ``ops/decode_stride.py`` runs the same math
-for S steps in one kernel launch.
+LSTM stack, project to vocab logits. Dropout (flax ``nn.Dropout``) is
+applied where the JAX cell applies it, after the ``[emb, ctx]`` concat,
+between LSTM layers and before the output projection, and only in training
+(a generator passed, the module in training mode); decode is
+deterministic. ``ops/decode_step.py`` runs the same math for one step and
+``ops/decode_stride.py`` for S steps, each in one kernel launch.
 """
 
 from __future__ import annotations
@@ -55,6 +58,18 @@ class LSTMCell(nn.Module):
         return new_c, new_h
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` (the mask
+    drawn from ``generator``) and scale the kept values by
+    ``1 / (1 - rate)``."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class DecoderCell(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -62,7 +77,8 @@ class DecoderCell(nn.Module):
         self.dtype = dtype = torch_dtype(cfg.dtype)
         E, H = cfg.d_embed, cfg.d_hidden
         self.word_embed = nn.Embedding(cfg.vocab_size, E)
-        self.attention = AdditiveAttention(E, H, cfg.d_att, dtype=dtype)
+        self.attention = AdditiveAttention(E, H, cfg.d_att, dtype=dtype,
+                                           impl=cfg.attention_impl)
         self.lstm = nn.ModuleList([
             LSTMCell(2 * E if i == 0 else H, H, dtype=dtype)
             for i in range(cfg.num_layers)
@@ -73,15 +89,23 @@ class DecoderCell(nn.Module):
         return self.attention.project_memory(memory)
 
     def forward(self, carry: Carry, token: torch.Tensor, memory: torch.Tensor,
-                memory_proj: torch.Tensor, memory_mask: torch.Tensor):
-        """One decode step -> (new carry, logits [B, V] float32)."""
+                memory_proj: torch.Tensor, memory_mask: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """One decode step -> (new carry, logits [B, V] float32). Dropout
+        runs when ``generator`` is given and the module is in training
+        mode."""
+        train = generator is not None and self.training
+
+        def drop(x):
+            return dropout(x, self.cfg.dropout, generator) if train else x
+
         h_top = carry[-1][1]
         ctx = self.attention(h_top, memory, memory_proj, memory_mask)
         emb = self.word_embed.weight.to(self.dtype)[token]
-        x = torch.cat([emb, ctx], dim=-1)
+        x = drop(torch.cat([emb, ctx], dim=-1))
         new_carry = []
         for i, cell in enumerate(self.lstm):
             c_i, h_i = cell(carry[i], x)
             new_carry.append((c_i, h_i))
-            x = h_i
-        return tuple(new_carry), self.out_proj(x).float()
+            x = h_i if i + 1 == len(self.lstm) else drop(h_i)
+        return tuple(new_carry), self.out_proj(drop(x)).float()

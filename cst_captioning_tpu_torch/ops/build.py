@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, on first use, into a shared library with
 a plain C interface under ``ops/_build/`` (git-ignored), named by a hash of
-the source and the flags so an edited source rebuilds. No PyTorch headers
+the source, the shared headers (``csrc/*.cuh``) and the flags so an edited
+source or header rebuilds. No PyTorch headers
 are involved, so a build takes seconds. A failed build raises with the
 compiler's output.
 """
@@ -41,6 +42,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

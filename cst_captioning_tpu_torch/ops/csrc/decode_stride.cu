@@ -39,6 +39,8 @@
 
 #include <climits>
 
+#include "attend.cuh"
+
 struct StrideArgs {
   // memory bank: dense [B, M, Em] / [B, M, A] / [B, M], or page pools
   // [N+1, P, Em] / [N+1, P, A] / [N+1, P] read through table [B, width]
@@ -83,13 +85,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 0;
 constexpr int kBos = 1;
 constexpr int kEos = 2;
-constexpr float kNeg = -1.0e9f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using attend::kFull;
+using attend::kNeg;
+using attend::sigmoid_f32;
+using attend::to_f32;
+using attend::warp_sum;
 
 template <typename T>
 struct DenseBank {
@@ -114,15 +114,6 @@ struct PagedBank {
     return table[b * width + m / P] * P + m % P;
   }
 };
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));

@@ -1,10 +1,18 @@
-"""The five named presets' model configs (the JAX package's
-``config/presets.py``). Their data, train, RL and eval settings come with
-the training and eval slices of the port."""
+"""The five named presets (the JAX package's ``config/presets.py``).
+
+:func:`get_preset` returns a preset's :class:`ModelConfig`, as the serving
+path reads it; :func:`get_experiment` returns the whole
+:class:`ExperimentConfig` with its XE and RL settings.
+"""
 
 from __future__ import annotations
 
-from cst_captioning_tpu_torch.config import ModelConfig
+from cst_captioning_tpu_torch.config import (
+    ExperimentConfig,
+    ModelConfig,
+    RLConfig,
+    TrainConfig,
+)
 
 _MSVD_VOCAB = 4000
 _MSRVTT_VOCAB = 9000
@@ -30,21 +38,39 @@ _MSRVTT_XE_ATTENTION = ModelConfig(
     max_frames=28,
 )
 
-# the RL and beam presets share the MSR-VTT attention model; they differ
-# only in the RL/eval settings the later slices port
-PRESETS: dict[str, ModelConfig] = {
-    "msvd_xe_meanpool": _MSVD_XE_MEANPOOL,
-    "msrvtt_xe_attention": _MSRVTT_XE_ATTENTION,
-    "msrvtt_scst": _MSRVTT_XE_ATTENTION,
-    "msrvtt_cst_consensus": _MSRVTT_XE_ATTENTION,
-    "msrvtt_eval_beam5": _MSRVTT_XE_ATTENTION,
+_XE = TrainConfig(loss="xe", lr=1e-4)
+
+EXPERIMENTS: dict[str, ExperimentConfig] = {
+    "msvd_xe_meanpool": ExperimentConfig(
+        name="msvd_xe_meanpool", model=_MSVD_XE_MEANPOOL, train=_XE),
+    "msrvtt_xe_attention": ExperimentConfig(
+        name="msrvtt_xe_attention", model=_MSRVTT_XE_ATTENTION, train=_XE),
+    "msrvtt_scst": ExperimentConfig(
+        name="msrvtt_scst", model=_MSRVTT_XE_ATTENTION, train=_XE,
+        rl=RLConfig(num_rollouts=1, baseline="greedy",
+                    reward_cider_weight=1.0, reward_bleu4_weight=0.0,
+                    lr=2e-5)),
+    "msrvtt_cst_consensus": ExperimentConfig(
+        name="msrvtt_cst_consensus", model=_MSRVTT_XE_ATTENTION, train=_XE,
+        rl=RLConfig(num_rollouts=5, baseline="scb",
+                    reward_cider_weight=1.0, reward_bleu4_weight=0.5,
+                    lr=2e-5)),
+    # the eval preset's beam settings come with the beam-eval slice
+    "msrvtt_eval_beam5": ExperimentConfig(
+        name="msrvtt_eval_beam5", model=_MSRVTT_XE_ATTENTION, train=_XE),
 }
+
+PRESETS: dict[str, ModelConfig] = {k: v.model for k, v in EXPERIMENTS.items()}
+
+
+def get_experiment(name: str) -> ExperimentConfig:
+    try:
+        return EXPERIMENTS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown preset {name!r}; available: {sorted(EXPERIMENTS)}"
+        ) from None
 
 
 def get_preset(name: str) -> ModelConfig:
-    try:
-        return PRESETS[name]
-    except KeyError:
-        raise KeyError(
-            f"unknown preset {name!r}; available: {sorted(PRESETS)}"
-        ) from None
+    return get_experiment(name).model

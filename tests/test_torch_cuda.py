@@ -1,11 +1,15 @@
-"""The port's CUDA stride kernel against its plain PyTorch version, on the
-GPU, at small odd shapes (V not a multiple of the block width, two LSTM
-layers, float32 and bfloat16 pools). Marked ``gpu``: these skip without a
-CUDA device and run on the H100 (which has no jax, hence no conftest) with
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+GPU, at small odd shapes (V and the widths not multiples of the block
+sizes, one and two LSTM layers, float32 and bfloat16 banks, a fully masked
+row): the stride kernel (dense and paged), the additive-attention kernel
+with its gradient, and the decode-step kernel, and the wrappers' refusals.
+Marked ``gpu``: these skip without a CUDA device and run on the H100
+(which has no jax, hence no conftest) with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-(chip_smoke.py holds the same kernel at the full serving shapes)."""
+(chip_smoke.py holds the same kernels at the full training and serving
+shapes)."""
 
 import pytest
 import torch  # graftlint: disable=GL006
@@ -14,6 +18,18 @@ from cst_captioning_tpu_torch import config as tcfg
 from cst_captioning_tpu_torch.config import EOS_ID
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.ops import decode_stride
+from cst_captioning_tpu_torch.ops.attention import (
+    additive_attention_f32,
+    additive_attention_plain,
+    fused_additive_attention,
+)
+from cst_captioning_tpu_torch.ops.decode_step import (
+    decode_step_plain,
+    fused_decode_step,
+    fused_decode_step_,
+    stack_carry,
+    unstack_carry,
+)
 from cst_captioning_tpu_torch.ops.decode_stride import (
     decode_stride_plain,
     fused_decode_stride,
@@ -28,6 +44,11 @@ torch.set_num_threads(1)
 B, V, E, A, F, S, K, P = 6, 301, 48, 40, 11, 4, 2, 4
 G = 1 + K
 TOL = 1e-4   # float32 sums in another order than cuBLAS
+# bfloat16 attention: the kernel against its own numerics in float32
+# (additive_attention_f32), within its output's one rounding (2^-8 of the
+# value) plus 1e-3 of the row's largest value (sum order, tanh)
+BF16_ROUND, ROW_TOL = 2.0 ** -8, 1e-3
+BF16_ULP = 2.0 ** -7   # one bfloat16 ulp, relative to the value
 
 
 @pytest.fixture(scope="module")
@@ -138,3 +159,133 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
                             noise.cpu(), steps=S)
     decode_stride.reset_launches()
     assert fused_decode_stride.launches == 0
+
+
+# ---- the additive-attention kernel -----------------------------------------
+
+
+def _attention_inputs(dev, dtype, M, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    Bq = 5
+    q = torch.randn(Bq, A, generator=g)
+    v = torch.randn(A, generator=g) / A ** 0.5
+    mem = torch.tanh(torch.randn(Bq, M, E, generator=g))
+    proj = torch.randn(Bq, M, A, generator=g)
+    lens = torch.randint(1, M + 1, (Bq, 1), generator=g)
+    mask = (torch.arange(M)[None] < lens).float()
+    mask[2] = 0.0                     # fully masked: the uniform softmax
+    return ([x.to(dev, dtype) for x in (q, v, mem, proj)], mask.to(dev))
+
+
+@pytest.mark.parametrize("M", [7, 56, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_matches_plain(dev, dtype, M):
+    ins, mask = _attention_inputs(dev, dtype, M)
+    before = fused_additive_attention.launches
+    out = fused_additive_attention(*ins, mask)
+    ref = additive_attention_plain(*ins, mask)
+    torch.cuda.synchronize()
+    assert fused_additive_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+        return
+    ref = additive_attention_f32(*ins, mask)
+    limit = BF16_ROUND * ref.abs() + ROW_TOL * ref.abs().amax(-1, keepdim=True)
+    err = (out.float() - ref).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+def test_attention_kernel_gradient(dev):
+    ins, mask = _attention_inputs(dev, torch.float32, 56, seed=1)
+    g = torch.randn(5, E, device=dev)
+    a = [x.clone().requires_grad_() for x in ins]
+    b = [x.clone().requires_grad_() for x in ins]
+    before = fused_additive_attention.launches
+    ga = torch.autograd.grad((fused_additive_attention(*a, mask) * g).sum(), a)
+    gb = torch.autograd.grad((additive_attention_plain(*b, mask) * g).sum(), b)
+    # one launch, in the forward; the backward recomputes the plain version
+    assert fused_additive_attention.launches == before + 1
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_attention_wrapper_refuses(dev):
+    (q, v, mem, proj), mask = _attention_inputs(dev, torch.float32, 7)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_additive_attention(q.double(), v.double(), mem.double(),
+                                 proj.double(), mask)
+    with pytest.raises(ValueError, match="is on"):
+        fused_additive_attention(q, v, mem, proj, mask.cpu())
+    with pytest.raises(ValueError, match="do not match"):
+        fused_additive_attention(q, v, mem[:, :3], proj, mask)
+
+
+# ---- the decode-step kernel -------------------------------------------------
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("bank_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_step_kernel_matches_plain(dev, layers, bank_dtype):
+    model, carry, token, _, bank, _, _ = _inputs(dev, layers, bank_dtype)
+    mem, proj, mask = bank
+    mask = mask.clone()
+    mask[1] = 0.0                     # a fully masked row
+    w = stride_weights(model.cell)
+    before = fused_decode_step.launches
+    kc, klog = fused_decode_step(model.cell, carry, token, mem, proj, mask)
+    pc, plog = decode_step_plain(w, carry, w.embt[token.long()], mem, proj,
+                                 mask)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    torch.testing.assert_close(klog, plog, rtol=TOL, atol=TOL)
+    for (a, b), (c, d) in zip(kc, pc):
+        torch.testing.assert_close(a, c, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b, d, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_decode_step_in_place_kernel_matches_plain(dev, layers):
+    # the rollout's call: a bfloat16 bank and carry, the carry stacked and
+    # stepped in place; logits within TOL, the carry within TOL plus one
+    # bfloat16 ulp (the kernel rounds float32 values that differ from the
+    # plain version's in their last bits)
+    model, carry, token, _, bank, _, _ = _inputs(dev, layers, torch.bfloat16)
+    carry = tuple((c.bfloat16(), h.bfloat16()) for c, h in carry)
+    w = stride_weights(model.cell)
+    state = stack_carry(carry)
+    before = fused_decode_step.launches
+    klog = fused_decode_step_(model.cell, state, token, *bank, torch.bfloat16)
+    pc, plog = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    torch.testing.assert_close(klog, plog, rtol=TOL, atol=TOL)
+    kc = unstack_carry(state, torch.bfloat16)
+    # the stored carry holds bfloat16 values: the cast back is exact
+    assert torch.equal(state[0, 0], kc[0][0].float())
+    for (a, b), (c, d) in zip(kc, pc):
+        torch.testing.assert_close(a.float(), c.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+        torch.testing.assert_close(b.float(), d.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+
+
+def test_decode_step_wrapper_refuses(dev):
+    model, carry, token, _, bank, _, _ = _inputs(dev, 1, torch.float32)
+    mem, proj, mask = bank
+    with pytest.raises(ValueError, match="dtype"):
+        fused_decode_step(model.cell, carry, token, mem.double(),
+                          proj.double(), mask)
+    with pytest.raises(ValueError, match="is on"):
+        fused_decode_step(model.cell, carry, token, mem, proj, mask,
+                          emb=torch.zeros(G, B, E))
+    with pytest.raises(ValueError, match="do not match"):
+        fused_decode_step(model.cell, carry, token, mem, proj, mask[:, :3])
+    with pytest.raises(ValueError, match="carry dtype"):
+        fused_decode_step_(model.cell, stack_carry(carry), token, mem, proj,
+                           mask, torch.float16)
+    with pytest.raises(ValueError, match="carry has dtype"):
+        fused_decode_step_(model.cell, stack_carry(carry).double(), token,
+                           mem, proj, mask, torch.float32)

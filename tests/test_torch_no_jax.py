@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                 "models.attention", "models.decoder", "models.captioner",
                 "decoding.common", "ops.decode_stride", "ops.build",
                 "serving.pages", "serving.engine", "serving.traffic",
-                "data.vocab"):
+                "data.vocab", "ops.attention", "ops.decode_step",
+                "decoding.sample", "losses", "metrics", "train.schedule",
+                "train.state", "train.steps", "rl.native", "rl.rewards",
+                "rl.scst", "data.batcher"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 
