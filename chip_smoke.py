@@ -5,7 +5,7 @@
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the kernels' build (nvcc, from the sources in the repo).
-2. kernels: every CUDA kernel of the serving and training paths, called
+2. kernels: every CUDA kernel of the serving, training and eval paths, called
    through its wrapper on tensors on the card at the shapes those paths
    give it, held against its plain PyTorch version on the same inputs:
    - the stride kernels (dense, paged) at the serving shapes (capacity 32,
@@ -23,8 +23,14 @@
      reported); its gradient equals the plain version's autograd;
    - the decode-step kernel at G=5, B=64 through the rollout's in-place
      wrapper, float32 bank and carry, and bfloat16 bank and carry (the
-     rollout's): logits within 1e-4, the carry within 1e-4 plus one
-     bfloat16 ulp (2^-7 of the value) where it is rounded to bfloat16.
+     rollout's), and at G=1 (greedy decoding's shape): logits within 1e-4,
+     the carry within 1e-4 plus one bfloat16 ulp (2^-7 of the value) where
+     it is rounded to bfloat16;
+   - the beam-step kernel at W=5, B=64 (the eval's) on the eval model,
+     float32 and bfloat16 bank and carry, about 30% finished lanes, once
+     with t < min_len: flat ids equal except where the plain version's
+     totals tie within 1e-4 (counted), scores within 1e-4, the carry as
+     the decode step's.
    Times are CUDA-event medians of 2 x 20 calls after warm-up, taken in
    turns; the bound is computed from each call's shapes.
 3. serve: CaptionService at msrvtt_xe_attention full width (seeded random
@@ -47,10 +53,31 @@
    versions patched in: XE loss within 1e-3 relative; at least 95% of the
    (rollout, clip) token rows equal, with equal rewards where equal; the
    update on the same tokens within 1e-3 relative in rl_loss.
-5. profile: device time by kernel over one more serve and one more CST
-   step, from torch.profiler, and the device's idle share.
-6. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its path, error, times and bound.
+5. eval: Evaluator.evaluate (pipelined) at msrvtt_eval_beam5 with
+   decode_impl "pallas" (beam 5, max_len 30, batch 64) over an in-memory
+   split of 256 clips (4-28 frames, 20 template references each), the
+   model fitted briefly first (``fitted_model``): one beam-step launch per
+   beam step (counted at the search loop), at least 95% of clips with the
+   caption the plain beam step gives on the card, all 8 metrics finite.
+6. scst: msrvtt_scst (K=1, greedy baseline, CIDEr-D) with attention_impl
+   and decode_impl "pallas" on the train corpus, from a model fitted
+   briefly on it (``fitted_model``, as SCST starts from an XE model):
+   3 steps, one dense
+   stride-kernel launch per stride of the fused greedy-plus-rollout decode
+   and 30 attention launches per update; against the plain versions: at
+   least 95% of greedy and sampled rows equal, rl_loss on the same rows
+   within one bfloat16 rounding (2^-8) of the loss's scale, the same sum
+   over |advantage|: the greedy baseline's advantages take both signs and
+   cancel in the loss, so an error relative to the loss itself says
+   little (it is reported too), and the bfloat16 attention kernel and its
+   plain version round at different places (the plain version rounds the
+   scores and weights to bfloat16), which a fitted model's sharp logits
+   carry into the logprobs.
+7. profile: device time by kernel over one more serve, one more CST step
+   and one beam-5 search of 64 clips, from torch.profiler, and the
+   device's idle share.
+8. kernels: one JSON line with each kernel's TPU counterpart, launches on
+   its paths, error, times and bound.
 
 Each phase prints one JSON line; the card's nvidia-smi line and the kernels
 line come before the last line, ``{"ok": true, "device": {...}}``. Any
@@ -65,6 +92,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -74,15 +102,26 @@ from cst_captioning_tpu_torch import ops
 from cst_captioning_tpu_torch.config import EOS_ID, PAD_ID
 from cst_captioning_tpu_torch.convert import load_flax_params, random_flax_params
 from cst_captioning_tpu_torch.data import Vocab, encode_label_row
+from cst_captioning_tpu_torch.decoding import beam as decoding_beam
+from cst_captioning_tpu_torch.decoding import beam_search
 from cst_captioning_tpu_torch.decoding import common as decoding_common
 from cst_captioning_tpu_torch.decoding import counter_gumbel_noise
+from cst_captioning_tpu_torch.decoding import fused as decoding_fused
+from cst_captioning_tpu_torch.eval import Evaluator
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.ops import attention as attention_ops
+from cst_captioning_tpu_torch.ops import beam_step as beam_ops
 from cst_captioning_tpu_torch.ops import build
 from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_f32,
     additive_attention_plain,
     fused_additive_attention,
+)
+from cst_captioning_tpu_torch.ops.beam_step import (
+    beam_step_plain,
+    beam_topk_plain,
+    fused_beam_step,
+    fused_beam_step_,
 )
 from cst_captioning_tpu_torch.ops.decode_step import (
     decode_step_plain,
@@ -124,7 +163,10 @@ ROW_TOL = 1e-3           # of the row's largest value: sum order, tanh
 TIE_GAP = 1e-3
 REL_TOL = 1e-3           # kernel vs plain, end to end through a step
 AGREE = 0.95             # share of token rows that must agree
-TRAIN_B, XE_STEPS, CST_STEPS = 64, 3, 3
+TRAIN_B, XE_STEPS, CST_STEPS, SCST_STEPS = 64, 3, 3, 3
+BEAM_W = 5               # msrvtt_eval_beam5's beam
+EVAL_CLIPS, EVAL_B, EVAL_REFS = 256, 64, 20
+FIT_STEPS, FIT_LR = 100, 1e-2   # the eval model's short XE fit
 # H100 SXM data sheet: float32
 # outside the tensor cores, and HBM3 bandwidth, at the 700 W limit
 PEAK_F32_FLOPS = 67e12
@@ -136,12 +178,14 @@ SOURCE = {
     "fused_decode_step": CSRC + "decode_step.cu",
     "fused_decode_stride": CSRC + "decode_stride.cu",
     "fused_decode_stride_paged": CSRC + "decode_stride.cu",
+    "fused_beam_step": CSRC + "beam_step.cu",
 }
 REPLACES = {
     "fused_additive_attention": "cst_captioning_tpu/ops/attention_pallas.py:169",
     "fused_decode_step": "cst_captioning_tpu/ops/decode_pallas.py:358",
     "fused_decode_stride": "cst_captioning_tpu/ops/decode_pallas.py:839",
     "fused_decode_stride_paged": "cst_captioning_tpu/ops/decode_pallas.py:1214",
+    "fused_beam_step": "cst_captioning_tpu/ops/decode_pallas.py:1643",
 }
 
 
@@ -376,11 +420,12 @@ def service(model, **kw):
 
 def plain_paged(cell, carry, token, finished, mem_pool, proj_pool, mask_pool,
                 table, noise, t0, n_active, *, steps, temperature, min_len,
-                num_layers, mem_lens):
+                num_layers, mem_lens, weights=None):
     """The paged stride through the plain version, on the card."""
     del num_layers
     return decode_stride_plain(
-        stride_weights(cell), carry, token, finished,
+        weights if weights is not None else stride_weights(cell), carry,
+        token, finished,
         *gather_pages(mem_pool, proj_pool, mask_pool, table), noise, t0,
         n_active, steps=steps, temperature=temperature, min_len=min_len,
         mem_lens=mem_lens)
@@ -431,46 +476,58 @@ def train_config():
         exp.model, attention_impl="pallas", decode_impl="pallas"))
 
 
-def train_corpus(cfg, dev, seed=0) -> dict:
-    """64 clips of 4-28 random-feature frames, each with 5 template
-    captions "<det> <subject> <verb> <det> <object> [in the <place>]" over
-    the vocab's words; a clip keeps its subject, object and place and
-    varies its determiners and three verbs, so its references agree."""
-    mc = cfg.model
+def make_corpus(mc, n_clips: int, n_refs: int, seed: int) -> dict:
+    """``n_clips`` clips of 4-28 random-feature frames (numpy), each with
+    ``n_refs`` template captions "<det> <subject> <verb> <det> <object>
+    [in the <place>]" over the vocab's words; a clip keeps its subject,
+    object and place and varies its determiners and three verbs, so its
+    references agree."""
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(mc.vocab_size - 4)]
     vocab = Vocab.from_corpus_words(words)
-    B, F = TRAIN_B, mc.max_frames
-    frames = rng.integers(4, F + 1, size=B)
-    feats = {n: torch.from_numpy(rng.normal(size=(B, F, d)).astype(np.float32)
-                                 ).to(dev) for n, d in mc.modalities}
-    mask = torch.from_numpy(
-        (np.arange(F)[None] < frames[:, None]).astype(np.float32)).to(dev)
+    F = mc.max_frames
+    frames = rng.integers(4, F + 1, size=n_clips)
+    feats = {n: rng.normal(size=(n_clips, F, d)).astype(np.float32)
+             for n, d in mc.modalities}
+    mask = (np.arange(F)[None] < frames[:, None]).astype(np.float32)
     dets, subjects, verbs = words[0:4], words[10:60], words[60:110]
     objects, places, (w_in, w_the) = words[110:160], words[160:200], words[200:202]
     gts, caption_ids = {}, []
-    for b in range(B):
+    for b in range(n_clips):
         subj, obj, place = (rng.choice(x) for x in (subjects, objects, places))
         vs = rng.choice(verbs, 3, replace=False)
         caps = []
-        for j in range(5):
+        for j in range(n_refs):
             toks = [rng.choice(dets), subj, rng.choice(vs), rng.choice(dets),
                     obj] + ([w_in, w_the, place] if j % 2 == 0 else [])
             caps.append(" ".join(toks))
         gts[f"clip{b:03d}"] = caps
         caption_ids.append([vocab.encode(c.split()) for c in caps])
     used = sorted({w for caps in gts.values() for c in caps for w in c.split()})
-    return dict(feats=feats, masks={n: mask for n, _ in mc.modalities},
-                vocab=vocab, gts=gts, vids=list(gts), caption_ids=caption_ids,
-                words=used)
+    return dict(feats=feats, mask=mask, vocab=vocab, gts=gts, vids=list(gts),
+                caption_ids=caption_ids, words=used)
 
 
-def train_model(cfg, corpus, dev):
+def on_device(c: dict, mc, dev) -> dict:
+    """The corpus with its features and frame masks as tensors on ``dev``
+    (``feats``, ``masks``: name -> [n, F, D] / [n, F])."""
+    mask = torch.from_numpy(c["mask"]).to(dev)
+    return {**c, "feats": {n: torch.from_numpy(x).to(dev)
+                           for n, x in c["feats"].items()},
+            "masks": {n: mask for n, _ in mc.modalities}}
+
+
+def train_corpus(cfg, dev, seed=0) -> dict:
+    """The train phase's 64 clips with 5 references each, on the card."""
+    return on_device(make_corpus(cfg.model, TRAIN_B, 5, seed), cfg.model, dev)
+
+
+def train_model(cfg, corpus, dev, eos_bias: float = 7.5):
     """Seeded random weights with a unigram prior in the output bias: +4
     on the corpus's words and +7.5 on EOS, so that rollouts use the
     corpus's words and end after about ten tokens, as a model past its
     first XE epochs would (no trained checkpoint is in the repo)."""
-    tree = random_flax_params(cfg.model, seed=0, eos_bias=7.5)
+    tree = random_flax_params(cfg.model, seed=0, eos_bias=eos_bias)
     bias = tree["params"]["cell"]["out_proj"]["bias"]
     bias[np.asarray(corpus["vocab"].encode(corpus["words"]))] += np.float32(4.0)
     return load_flax_params(CaptionModel(cfg.model, device=dev), tree)
@@ -575,13 +632,14 @@ def attention_bound(x) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def step_inputs(model, corpus, bf16: bool, seed=3) -> dict:
-    """The decode step's inputs at the rollout's shapes: G=5 lanes of the
-    64 clips' encoder output, a perturbed carry and random tokens. With
-    ``bf16`` the bank is bfloat16 and the carry in the model's carry dtype
-    (bfloat16 at this preset), as the rollout gives them; else both are
-    float32. ``state`` is the carry stacked as the rollout keeps it."""
-    G = train_config().rl.num_rollouts
+def step_inputs(model, corpus, bf16: bool, seed=3, G=None) -> dict:
+    """The decode step's inputs at the rollout's shapes: G=5 lanes (or
+    ``G``: 1 is greedy decoding's) of the 64 clips' encoder output, a
+    perturbed carry and random tokens. With ``bf16`` the bank is bfloat16
+    and the carry in the model's carry dtype (bfloat16 at this preset), as
+    the rollout gives them; else both are float32. ``state`` is the carry
+    stacked as the rollout keeps it."""
+    G = G or train_config().rl.num_rollouts
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         enc = model.encode(corpus["feats"], corpus["masks"])
@@ -657,6 +715,124 @@ def step_bound(model, x) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def beam_inputs(model, corpus, bf16: bool, t: int, min_len: int,
+                seed=4) -> dict:
+    """The beam step's inputs at the eval path's shapes: W=5 lanes of the
+    64 clips' encoder output with a perturbed carry, random last tokens,
+    about 30% finished lanes and running scores, at step ``t``. With
+    ``bf16`` the bank and the carry are bfloat16, as beam eval gives them
+    at this preset; else float32."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        enc = model.encode(corpus["feats"], corpus["masks"])
+    dev = model.device
+    dt = torch.bfloat16 if bf16 else torch.float32
+    carry_dt = enc.carry[0][0].dtype if bf16 else torch.float32
+    carry = tuple(
+        tuple((x.float()[None].expand(BEAM_W, -1, -1)
+               + 0.1 * torch.randn((BEAM_W,) + tuple(x.shape), generator=g
+                                   ).to(dev)).to(carry_dt).contiguous()
+              for x in layer)
+        for layer in enc.carry)
+    token = torch.randint(3, model.cfg.vocab_size, (BEAM_W, TRAIN_B),
+                          generator=g).to(dev)
+    finished = (torch.rand((BEAM_W, TRAIN_B), generator=g) < 0.3).to(dev)
+    scores = (-3.0 * t * torch.rand((BEAM_W, TRAIN_B), generator=g)).to(dev)
+    return dict(carry=carry, state=stack_carry(carry), token=token,
+                finished=finished, scores=scores, t=t, min_len=min_len,
+                w=stride_weights(model.cell),
+                bank=(enc.memory.to(dt), enc.memory_proj.to(dt),
+                      enc.memory_mask),
+                logits=torch.empty((BEAM_W, TRAIN_B, model.cfg.vocab_size),
+                                   device=dev))
+
+
+def run_beam_kernel(model, x, state=None):
+    """The search's call: the step on the stacked carry, in place."""
+    return fused_beam_step_(
+        model.cell, x["state"] if state is None else state, x["token"],
+        x["finished"], x["scores"], *x["bank"], x["carry"][0][0].dtype,
+        t=x["t"], min_len=x["min_len"], weights=x["w"], logits=x["logits"])
+
+
+def run_beam_plain(x, width=None):
+    w = x["w"]
+    carry, logits = decode_step_plain(w, x["carry"], w.embt[x["token"].long()],
+                                      *x["bank"])
+    return (carry,) + beam_topk_plain(logits, x["finished"], x["scores"],
+                                      t=x["t"], min_len=x["min_len"],
+                                      width=width)
+
+
+def compare_beam(model, x) -> dict:
+    """Flat ids equal except where the plain version's totals tie within
+    TOL at that position (its neighbours, the (W+1)-th included: counted
+    as near-ties); scores within TOL; the carry as the decode step's."""
+    dtype = x["carry"][0][0].dtype
+    state = stack_carry(x["carry"])
+    ksc, kfl = run_beam_kernel(model, x, state)
+    kc = unstack_carry(state, dtype)
+    pc, psc, pfl = run_beam_plain(x, width=BEAM_W + 1)
+    torch.cuda.synchronize()
+    ksc, kfl, psc, pfl = (v.cpu() for v in (ksc, kfl, psc, pfl))
+    gap = psc[:, :-1] - psc[:, 1:]
+    near = gap <= TOL
+    near[:, 1:] |= gap[:, :BEAM_W - 1] <= TOL
+    diff = kfl != pfl[:, :BEAM_W]
+    check(not bool((diff & ~near).any()),
+          f"beam step: flat ids differ away from a near-tie: "
+          f"{int((diff & ~near).sum())} candidates")
+    s_err = (ksc - psc[:, :BEAM_W]).abs()
+    check(bool((s_err <= TOL + TOL * psc[:, :BEAM_W].abs()).all()),
+          f"beam step: score error {float(s_err.max()):.3e}")
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    c_err = 0.0
+    for kl, pl in zip(kc, pc):
+        for a, b in zip(kl, pl):
+            d = (a.float() - b.float()).abs()
+            check(bool((d <= TOL + (TOL + ulp) * b.float().abs()).all()),
+                  f"beam step: carry error {float(d.max()):.3e}")
+            c_err = max(c_err, float(d.max()))
+    V = model.cfg.vocab_size
+    if x["t"] < x["min_len"]:
+        check(not bool((kfl % V == EOS_ID).any()), "EOS chosen before min_len")
+    fin = x["finished"].cpu()
+    for g_, b in fin.nonzero().tolist():
+        hit = (kfl[b] == g_ * V).nonzero()
+        if len(hit):
+            check(float(ksc[b, hit[0, 0]]) == float(x["scores"][g_, b]),
+                  "a finished lane's PAD continuation moved its score")
+    return {"max_abs_err": max(float(s_err.max()), c_err),
+            "score_max_abs_err": float(s_err.max()),
+            "near_tie_rows": int(diff.any(dim=1).sum()),
+            "rows": int(diff.shape[0]), "finished_lanes": int(fin.sum()),
+            "carry_dtype": str(dtype)[6:]}
+
+
+def beam_bound(model, x) -> tuple[float, str]:
+    """The decode step's bound without the logits' bytes (the TPU kernel
+    keeps them on chip), plus the selection: bytes of the float32 weights,
+    the bank, the gathered rows, the carry in and out, finished, scores
+    and the [B, W] outputs; operations of the step and about 4 per logit
+    (mask, max, exp, sum)."""
+    cfg = model.cfg
+    w = x["w"]
+    W, B = x["token"].shape
+    E, H, A, V, L = (cfg.d_embed, cfg.d_hidden, cfg.d_att, cfg.vocab_size,
+                     cfg.num_layers)
+    mem, proj, mask = x["bank"]
+    M, Em = mem.shape[1], mem.shape[2]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        w.wq, w.bq, w.v, w.wx, w.wh, w.bg, w.wo, w.bo, mem, proj, mask))
+    nbytes += W * B * (E + 4 * L * H + 2) * 4 + 2 * B * W * 4
+    per_row = 2 * (H * A + (E + Em) * 4 * H + (L - 1) * H * 4 * H
+                   + L * H * 4 * H + H * V) + M * (4 * A + 2 * Em) \
+        + 10 * L * H + 4 * V
+    t_ops = W * B * per_row / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 # ---- phase 4: training -------------------------------------------------------
 
 
@@ -672,14 +848,49 @@ def plain_decode_step_(cell, state, token, memory, memory_proj, memory_mask,
     return logits
 
 
+def plain_dense_stride(cell, carry, token, finished, memory, memory_proj,
+                       memory_mask, noise, t0=0, n_active=None, *, steps,
+                       temperature=1.0, min_len=0, num_layers=None,
+                       mem_lens=None, weights=None):
+    """The dense stride through its plain version, on the card."""
+    del num_layers
+    B, M = memory.shape[:2]
+    if mem_lens is None:
+        mem_lens = torch.full((B,), M, dtype=torch.int32)
+    return decode_stride_plain(
+        weights if weights is not None else stride_weights(cell), carry,
+        token, finished, memory, memory_proj, memory_mask, noise, int(t0),
+        B if n_active is None else int(n_active), steps=steps,
+        temperature=temperature, min_len=min_len, mem_lens=mem_lens)
+
+
+def plain_beam_step_(cell, state, token, finished, scores, memory,
+                     memory_proj, memory_mask, carry_dtype, *, t, min_len=0,
+                     num_layers=None, weights=None, logits=None):
+    """The in-place beam step through its plain version, on the card."""
+    del num_layers, logits
+    w = weights if weights is not None else stride_weights(cell)
+    carry, top_scores, top_flat = beam_step_plain(
+        w, unstack_carry(state, carry_dtype), w.embt[token.long()], finished,
+        scores, memory, memory_proj, memory_mask, t=t, min_len=min_len)
+    state.copy_(stack_carry(carry))
+    return top_scores, top_flat
+
+
 def plain_kernels():
-    """Patch the plain versions in for the training path's kernels."""
+    """Patch the plain versions in for the training and eval paths'
+    kernels: attention, the decode step, the offline dense stride and the
+    beam step."""
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(
         attention_ops, "fused_additive_attention", additive_attention_plain))
     stack.enter_context(mock.patch.object(
         decoding_common.decode_step_ops, "fused_decode_step_",
         plain_decode_step_))
+    stack.enter_context(mock.patch.object(
+        decoding_fused, "fused_decode_stride", plain_dense_stride))
+    stack.enter_context(mock.patch.object(
+        beam_ops, "fused_beam_step_", plain_beam_step_))
     return stack
 
 
@@ -690,6 +901,13 @@ def rel_err(a: float, b: float) -> float:
 def launches() -> dict:
     return {"fused_additive_attention": fused_additive_attention.launches,
             "fused_decode_step": fused_decode_step.launches}
+
+
+def all_launches() -> dict:
+    return {**launches(),
+            "fused_decode_stride": fused_decode_stride.launches,
+            "fused_decode_stride_paged": fused_decode_stride_paged.launches,
+            "fused_beam_step": fused_beam_step.launches}
 
 
 def xe_phase(cfg, corpus, state) -> dict:
@@ -732,9 +950,9 @@ def cst_vs_plain(trainer, state, corpus) -> dict:
     plain versions; then the update on the kernel's tokens from the same
     state, both ways."""
     feats, masks, vids = corpus["feats"], corpus["masks"], corpus["vids"]
-    ks = trainer.decode(state.model, feats, masks, 99)
+    _, ks = trainer.decode(state.model, feats, masks, 99)
     with plain_kernels():
-        ps = trainer.decode(state.model, feats, masks, 99)
+        _, ps = trainer.decode(state.model, feats, masks, 99)
     ks_np, ps_np = ks.cpu().numpy(), ps.cpu().numpy()
     Kr, B, T = ks_np.shape
     equal = (ks_np == ps_np).all(axis=-1).reshape(-1)
@@ -745,7 +963,7 @@ def cst_vs_plain(trainer, state, corpus) -> dict:
     check(np.array_equal(rk[equal], rp[equal]),
           "equal rollouts scored different rewards")
     valid = np.ones((B,), np.float32)
-    adv, _ = trainer._advantage(ks_np, vids, valid)
+    adv, _ = trainer._advantage(None, ks_np, vids, valid)
     a, b = state.clone(), state.clone()
     _, km = trainer._apply(a, adv, {}, ks, feats, masks, valid)
     with plain_kernels():
@@ -789,6 +1007,231 @@ def cst_phase(cfg, corpus, trainer, state) -> dict:
             "grad_norm": [m["grad_norm"] for m in steps], **agreement}
 
 
+# ---- phase 5: beam-5 eval ---------------------------------------------------
+
+
+@dataclasses.dataclass
+class Record:
+    video_id: str
+    caption_ids: list
+    captions: list
+    weights: list
+
+
+class MemoryDataset:
+    """``CaptionDataset``'s interface over a corpus held in memory: the
+    split's records, feature stores (name -> ``.dim``), ``features_for``
+    and the reference pools."""
+
+    def __init__(self, corpus: dict, mc, split: str = "test"):
+        self.vocab = corpus["vocab"]
+        self.split = split
+        self.max_frames = mc.max_frames
+        self.stores = {n: types.SimpleNamespace(dim=d)
+                       for n, d in mc.modalities}
+        self._feats = corpus["feats"]
+        self._mask = corpus["mask"]
+        self._row = {v: i for i, v in enumerate(corpus["vids"])}
+        self.records = [
+            Record(v, ids, caps, [1.0] * len(caps)) for v, ids, caps in zip(
+                corpus["vids"], corpus["caption_ids"],
+                corpus["gts"].values())]
+
+    def features_for(self, video_id: str) -> dict:
+        i = self._row[video_id]
+        return {n: (x[i], self._mask[i]) for n, x in self._feats.items()}
+
+    def gts_pool(self) -> dict:
+        return {r.video_id: list(r.captions) for r in self.records}
+
+
+def fitted_model(cfg, corpus, dev):
+    """A model past its first XE epochs: ``train_model``'s prior with +3
+    on EOS, then FIT_STEPS XE steps (Adam at FIT_LR, the preset's dropout)
+    over the corpus (on the card) in batches of 64, each clip's reference
+    ``step % refs``. A model with the prior alone is the same at every
+    step, so beam search ranks the empty caption first and greedy decoding
+    emits EOS at once; the short fit makes EOS depend on the position, as
+    in a trained model, so captions end before max_len with words in them.
+    The fit sees the clips it is then scored on: the metrics measure the
+    path, not the model. -> (model in eval mode, the fit's last loss)."""
+    mc = cfg.model
+    model = train_model(cfg, corpus, dev, eos_bias=3.0)
+    state = create_train_state(
+        model, make_optimizer(cfg.train, 1, lr_override=FIT_LR),
+        seed=cfg.train.seed)
+    step = make_xe_step(model, cfg.train.label_smoothing)
+    n = len(corpus["vids"]) // EVAL_B
+    ones = torch.ones(EVAL_B, device=dev)
+    loss = float("nan")
+    for i in range(FIT_STEPS):
+        rows = slice((i % n) * EVAL_B, (i % n + 1) * EVAL_B)
+        enc = [encode_label_row(ids[i % len(ids)], mc.max_len)
+               for ids in corpus["caption_ids"][rows]]
+        state, m = step(
+            state, {k: x[rows] for k, x in corpus["feats"].items()},
+            {k: x[rows] for k, x in corpus["masks"].items()},
+            torch.from_numpy(np.stack([r[0] for r in enc])).long().to(dev),
+            torch.from_numpy(np.stack([r[1] for r in enc])).to(dev), ones)
+        loss = m["loss"]
+    check(np.isfinite(loss), f"model fit: loss {loss}")
+    return model.eval(), loss
+
+
+def eval_config():
+    """msrvtt_eval_beam5 with the beam-step kernel."""
+    exp = get_experiment("msrvtt_eval_beam5")
+    return dataclasses.replace(exp, model=dataclasses.replace(
+        exp.model, decode_impl="pallas"))
+
+
+def counted_beam_steps():
+    """Count the beam search's loop steps, apart from any kernel counter:
+    wrap the early-exit loop's step function."""
+    n = [0]
+    real = decoding_beam.scan_until_finished
+
+    def scan(step, init, length, get_finished, y_fills):
+        def counted(state, t):
+            n[0] += 1
+            return step(state, t)
+        return real(counted, init, length, get_finished, y_fills)
+
+    return n, mock.patch.object(decoding_beam, "scan_until_finished", scan)
+
+
+def eval_phase(cfg, data, model) -> dict:
+    """Evaluator.evaluate (pipelined) over the split, the kernel launches
+    against the beam steps, then the same batches through the plain beam
+    step on the card."""
+    ec = cfg.eval
+    ev = Evaluator(model, data, ec, batch_size=EVAL_B)
+    steps, counting = counted_beam_steps()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with counting:
+        t = time.perf_counter()
+        res = ev.evaluate()
+        wall = time.perf_counter() - t
+    n = all_launches()
+    check(n["fused_beam_step"] == steps[0] > 0,
+          f"eval: {n['fused_beam_step']} beam-step launches for {steps[0]} "
+          "beam steps")
+    check(all(v == 0 for k, v in n.items() if k != "fused_beam_step"),
+          f"eval launched other kernels: {n}")
+    caps = res["captions"]
+    check(len(caps) == len(data.records), f"{len(caps)} captions for "
+          f"{len(data.records)} clips")
+    metrics = res["metrics"]
+    keys = ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "CIDEr", "CIDEr-D",
+            "METEOR_approx", "ROUGE_L"]
+    check(sorted(metrics) == keys and all(np.isfinite(metrics[k])
+                                          for k in keys),
+          f"eval metrics {metrics}")
+    with plain_kernels():
+        t = time.perf_counter()
+        plain = ev.generate()
+        plain_wall = time.perf_counter() - t
+    agree = float(np.mean([caps[v] == plain[v] for v in caps]))
+    check(agree >= AGREE, f"eval: kernel/plain caption agreement {agree:.3f} "
+          f"< {AGREE}")
+    lens = [len(c.split()) for c in caps.values()]
+    tm = ev.timing
+    return {"clips": len(caps), "batch": EVAL_B, "beam": ec.beam_size,
+            "beam_steps": steps[0], "launches": n,
+            "decode_clips_per_s": len(caps) / tm["decode_s"],
+            "decode_s": tm["decode_s"], "score_s": tm["score_s"],
+            "eval_wall_s": wall, "drain_s": tm["drain_s"],
+            "plain_agreement": agree, "plain_generate_s": plain_wall,
+            "caption_words_mean": float(np.mean(lens)),
+            "distinct_captions": len(set(caps.values())),
+            "metrics": metrics, "sample_caption": next(iter(caps.values()))}
+
+
+# ---- phase 6: greedy-baseline SCST ------------------------------------------
+
+
+def scst_config():
+    """msrvtt_scst with the attention, decode-step and stride kernels."""
+    exp = get_experiment("msrvtt_scst")
+    return dataclasses.replace(exp, model=dataclasses.replace(
+        exp.model, attention_impl="pallas", decode_impl="pallas"))
+
+
+def scst_vs_plain(trainer, state, corpus) -> dict:
+    """Greedy and sampled rows from the same params and seed with the
+    kernels and with the plain versions; the update on the kernel's rows
+    from the same state, both ways."""
+    feats, masks, vids = corpus["feats"], corpus["masks"], corpus["vids"]
+    kg, ks = trainer.decode(state.model, feats, masks, 99)
+    with plain_kernels():
+        pg, ps = trainer.decode(state.model, feats, masks, 99)
+    rows_k = torch.cat([kg[None], ks]).cpu().numpy()
+    rows_p = torch.cat([pg[None], ps]).cpu().numpy()
+    equal = (rows_k == rows_p).all(axis=-1)                      # [1+K, B]
+    share = float(equal.mean())
+    check(share >= AGREE, f"scst rows equal {share:.3f} < {AGREE}")
+    valid = np.ones((len(vids),), np.float32)
+    adv, host = trainer._advantage(rows_k[0], rows_k[1:], vids, valid)
+    a, b, c = state.clone(), state.clone(), state.clone()
+    _, km = trainer._apply(a, adv, {}, ks, feats, masks, valid)
+    with plain_kernels():
+        _, pm = trainer._apply(b, adv, {}, ks, feats, masks, valid)
+        # the loss's scale: its terms' magnitudes, |advantage| x -logprob,
+        # summed as the loss is. The greedy baseline's advantages take
+        # both signs and cancel in the loss, so its error is held to this
+        _, am = trainer._apply(c, np.abs(adv), {}, ks, feats, masks, valid)
+    del a, b, c
+    err = abs(km["rl_loss"] - pm["rl_loss"])
+    rl_scaled = err / max(am["rl_loss"], 1e-30)
+    check(rl_scaled <= BF16_ROUND, f"scst rl_loss kernel {km['rl_loss']} vs "
+          f"plain {pm['rl_loss']}: error {err:.3e} is {rl_scaled:.3e} of the "
+          f"loss's scale {am['rl_loss']:.4f} > {BF16_ROUND}")
+    return {"greedy_rows_equal": float(equal[0].mean()),
+            "sampled_rows_equal": float(equal[1:].mean()),
+            "kernel_rl_loss": km["rl_loss"], "plain_rl_loss": pm["rl_loss"],
+            "rl_loss_scale": am["rl_loss"], "rl_loss_err_over_scale":
+            rl_scaled, "rl_loss_rel_err": rel_err(km["rl_loss"],
+                                                  pm["rl_loss"]),
+            "greedy_reward_mean": host["baseline_mean"]}
+
+
+def scst_phase(cfg, corpus, trainer, state) -> dict:
+    agreement = scst_vs_plain(trainer, state, corpus)
+    T, S = cfg.model.max_len, cfg.model.decode_stride
+    ops.reset_launches()
+    steps = []
+    for i in range(SCST_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = trainer.train_step(state, corpus["feats"], corpus["masks"],
+                                      corpus["vids"], seed=300 + i)
+        m["step_s"] = time.perf_counter() - t        # the loss read syncs
+        check(m["nonfinite"] == 0.0 and np.isfinite(m["rl_loss"]),
+              f"SCST step {i} not finite: {m}")
+        steps.append(m)
+    n = all_launches()
+    strides = sum(-(-m["decode_steps"] // S) for m in steps)
+    check(n["fused_decode_stride"] == strides,
+          f"SCST: {n['fused_decode_stride']} stride launches for {strides} "
+          "strides")
+    check(n["fused_additive_attention"] == T * SCST_STEPS,
+          f"SCST: {n['fused_additive_attention']} attention launches, "
+          f"expected {T} per update")
+    check(n["fused_decode_step"] == n["fused_beam_step"] ==
+          n["fused_decode_stride_paged"] == 0,
+          f"SCST launched other kernels: {n}")
+    med = lambda key: float(np.median([m[key] for m in steps])) * 1e3  # noqa: E731
+    return {"steps": SCST_STEPS, "launches": n, "strides": strides,
+            "decode_steps": [m["decode_steps"] for m in steps],
+            "step_ms_median": med("step_s"), "decode_ms": med("decode_s"),
+            "reward_ms": med("reward_s"), "update_ms": med("update_s"),
+            "rl_clips_per_s": TRAIN_B / (med("step_s") / 1e3),
+            "reward_mean": [m["reward_mean"] for m in steps],
+            "baseline_mean": [m["baseline_mean"] for m in steps],
+            "rl_loss": [m["rl_loss"] for m in steps], **agreement}
+
+
 def device_breakdown(prof, wall_ms: float) -> dict:
     rows = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
@@ -821,6 +1264,21 @@ def profile_cst(trainer, state, corpus) -> dict:
     out.update(decode_ms=m["decode_s"] * 1e3, reward_ms=m["reward_s"] * 1e3,
                update_ms=m["update_s"] * 1e3)
     return out
+
+
+def profile_beam(model, corpus) -> dict:
+    """Device time by kernel over one beam-5 search of 64 clips."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        beam_search(model, corpus["feats"], corpus["masks"],
+                    beam_size=BEAM_W)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    return device_breakdown(prof, wall_ms)
 
 
 def time_in_turns(pairs: dict) -> dict:
@@ -891,14 +1349,30 @@ def main() -> int:
                   "slots": x[2].shape[1], "dtype": str(dtype)[6:], **res})
             record("fused_additive_attention", res)
             att[label, dtype] = x
-    for bf16 in (False, True):
-        x = step_inputs(tmodel, corpus, bf16)
+    for bf16, G in ((False, None), (True, 1), (True, None)):
+        x = step_inputs(tmodel, corpus, bf16, G=G)
         res = compare_step(tmodel, x)
         emit({"phase": "kernel_check", "kernel": "fused_decode_step",
               "lanes": x["token"].shape[0], "rows": x["token"].shape[1],
               "bank_dtype": "bfloat16" if bf16 else "float32", **res})
         record("fused_decode_step", res)
     step_x = x                          # the rollout's bank: bfloat16
+    # the beam step at the eval's shapes (W=5, B=64) on the eval model
+    ecfg = eval_config()
+    eval_corpus = make_corpus(ecfg.model, EVAL_CLIPS, EVAL_REFS, seed=5)
+    t = time.perf_counter()
+    emodel, fit_loss = fitted_model(
+        ecfg, on_device(eval_corpus, ecfg.model, dev), dev)
+    emit({"phase": "model_fit", "for": "eval", "steps": FIT_STEPS,
+          "lr": FIT_LR, "last_loss": fit_loss, "s": time.perf_counter() - t})
+    for bf16, t, min_len in ((False, 3, 0), (True, 3, 0), (True, 1, 3)):
+        x = beam_inputs(emodel, corpus, bf16, t, min_len)
+        res = compare_beam(emodel, x)
+        emit({"phase": "kernel_check", "kernel": "fused_beam_step",
+              "lanes": BEAM_W, "t": t, "min_len": min_len,
+              "bank_dtype": "bfloat16" if bf16 else "float32", **res})
+        record("fused_beam_step", res)
+    beam_x = beam_inputs(emodel, corpus, True, 3, 0)   # the eval's: bf16
 
     # the training shapes in the model dtype, bfloat16
     xe_att = att["xe_b64", torch.bfloat16]
@@ -912,6 +1386,8 @@ def main() -> int:
                            lambda: additive_attention_plain(*up_att)),
         "fused_decode_step": (lambda: run_step_kernel(tmodel, step_x),
                               lambda: run_step_plain(step_x)),
+        "fused_beam_step": (lambda: run_beam_kernel(emodel, beam_x),
+                            lambda: run_beam_plain(beam_x)),
     })
     times = time_in_turns(pairs)
     clocks = smi_query("clocks.sm,power.draw")
@@ -920,21 +1396,22 @@ def main() -> int:
               for k in KERNELS}
     bounds.update(attention_b64=attention_bound(xe_att),
                   attention_b320=attention_bound(up_att),
-                  fused_decode_step=step_bound(tmodel, step_x))
+                  fused_decode_step=step_bound(tmodel, step_x),
+                  fused_beam_step=beam_bound(emodel, beam_x))
     for key, (ms, plain_ms) in times.items():
         bnd, by = bounds[key]
         emit({"phase": "kernel_time", "kernel": key, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
               "clocks_sm_power_draw": clocks, "nvidia_smi": smi})
     # the kernels line carries the update's shape for the attention kernel
-    for k in KERNELS + ("fused_decode_step",):
+    for k in KERNELS + ("fused_decode_step", "fused_beam_step"):
         kernels[k].update(ms=times[k][0], plain_ms=times[k][1],
                           bound_ms=bounds[k][0], bound_by=bounds[k][1])
     kernels["fused_additive_attention"].update(
         ms=times["attention_b320"][0], plain_ms=times["attention_b320"][1],
         bound_ms=bounds["attention_b320"][0],
         bound_by=bounds["attention_b320"][1])
-    del att, xe_att, up_att, step_x, pairs
+    del att, xe_att, up_att, step_x, beam_x, pairs
 
     draws, mism = noise_mismatches(dev)
     emit({"phase": "noise", "draws": draws, "cpu_gpu_mismatches": mism})
@@ -1002,16 +1479,52 @@ def main() -> int:
     emit({"phase": "train_cst", "preset": tcfg.name, "batch": TRAIN_B,
           "rollouts": rl.num_rollouts, "baseline": rl.baseline, **cst,
           "nvidia_smi": smi})
-    path_launches = {**serve_launches, **{
-        "fused_additive_attention": xe["launches"]["fused_additive_attention"]
-        + cst["launches"]["fused_additive_attention"],
-        "fused_decode_step": cst["launches"]["fused_decode_step"]}}
 
-    # ---- phase 5: profiles --------------------------------------------------
+    # ---- phase 5: beam-5 eval -----------------------------------------------
+    ev = eval_phase(ecfg, MemoryDataset(eval_corpus, ecfg.model), emodel)
+    emit({"phase": "eval", "preset": ecfg.name, "decode_impl": "pallas",
+          **ev, "nvidia_smi": smi})
+
+    # ---- phase 6: greedy-baseline SCST ---------------------------------------
+    scfg = scst_config()
+    srl = scfg.rl
+    t = time.perf_counter()
+    smodel, fit_loss = fitted_model(scfg, corpus, dev)
+    emit({"phase": "model_fit", "for": "scst", "steps": FIT_STEPS,
+          "lr": FIT_LR, "last_loss": fit_loss, "s": time.perf_counter() - t})
+    s_reward = RewardComputer(
+        corpus["vocab"], corpus["gts"], cider_weight=srl.reward_cider_weight,
+        bleu_weight=srl.reward_bleu4_weight, bleu_scale=srl.reward_bleu4_scale,
+        num_threads=srl.reward_threads)
+    s_trainer = SCSTTrainer(smodel, s_reward, srl, guard=True)
+    s_state = create_train_state(
+        smodel, make_optimizer(scfg.train, 1, lr_override=srl.lr),
+        seed=scfg.train.seed)
+    sc = scst_phase(scfg, corpus, s_trainer, s_state)
+    emit({"phase": "train_scst", "preset": scfg.name, "batch": TRAIN_B,
+          "rollouts": srl.num_rollouts, "baseline": srl.baseline,
+          "stride": scfg.model.decode_stride, **sc, "nvidia_smi": smi})
+
+    # launches of each kernel on the paths it runs on, each path counted
+    # from 0 just before it
+    path_launches = {
+        "fused_decode_stride_paged":
+            serve_launches["fused_decode_stride_paged"],
+        "fused_decode_stride": serve_launches["fused_decode_stride"]
+        + sc["launches"]["fused_decode_stride"],
+        "fused_additive_attention": xe["launches"]["fused_additive_attention"]
+        + cst["launches"]["fused_additive_attention"]
+        + sc["launches"]["fused_additive_attention"],
+        "fused_decode_step": cst["launches"]["fused_decode_step"],
+        "fused_beam_step": ev["launches"]["fused_beam_step"]}
+
+    # ---- phase 7: profiles --------------------------------------------------
     emit({"phase": "profile", "path": "serve",
           **profile_serve(model, reqs), "nvidia_smi": smi})
     emit({"phase": "profile", "path": "cst_step",
           **profile_cst(trainer, rl_state, corpus), "nvidia_smi": smi})
+    emit({"phase": "profile", "path": "beam5_batch",
+          **profile_beam(emodel, corpus), "nvidia_smi": smi})
 
     print(smi, flush=True)
     emit({"kernels": [

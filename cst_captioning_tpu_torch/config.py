@@ -1,11 +1,12 @@
 """Configs and fixed token ids, for the PyTorch port.
 
 The port's own copy of the part of ``cst_captioning_tpu/config/config.py``
-that the serving and training paths read: the special token ids,
+that the serving, training and eval paths read: the special token ids,
 :class:`ModelConfig`, the optimizer and RL fields of :class:`TrainConfig`
-and :class:`RLConfig`, and :class:`ExperimentConfig` that bundles them.
-Field names and defaults match the JAX package. Data, eval and mesh configs
-come with the slices that need them.
+and :class:`RLConfig`, :class:`EvalConfig`, and :class:`ExperimentConfig`
+that bundles them. Field names and defaults match the JAX package. Data
+and mesh configs come with the slices that need them; the eval batch size
+is the caller's argument (``Evaluator(batch_size=...)``).
 """
 
 from __future__ import annotations
@@ -136,10 +137,56 @@ class RLConfig:
 
 
 @dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation: the decode (beam, greedy or NPAD) and the metric table."""
+
+    beam_size: int = 5
+    max_len: int = 30
+    min_len: int = 0              # suppress EOS for the first N steps (0 = off)
+    length_penalty: float = 0.0   # 0 = pure sum-logprob ranking
+    split: str = "test"
+    # selector names understood by metrics.scorer.CaptionScorer
+    metrics: tuple[str, ...] = ("Bleu", "ROUGE_L", "METEOR_approx", "CIDEr",
+                                "CIDEr-D")
+    results_json: str = ""
+    # "lanes" = beams on decode lanes (the beam-step kernel at
+    # decode_impl="pallas"), "reference" = beams flattened into the batch
+    beam_impl: str = "lanes"
+    # NPAD mode: > 0 decodes greedy + this many noise-perturbed lanes and
+    # answers with the best-sum-logprob lane instead of beam search
+    npad_lanes: int = 0
+    npad_temperature: float = 1.0
+    npad_seed: int = 0
+    # decode batch i+1 while a worker pool tokenizes batch i's captions
+    pipelined: bool = True
+    score_workers: int = 4        # tokenizer threads feeding the drain
+
+    def __post_init__(self):
+        if self.beam_impl not in ("lanes", "reference"):
+            raise ValueError(
+                f"eval.beam_impl must be 'lanes' or 'reference', got "
+                f"{self.beam_impl!r}"
+            )
+        if self.npad_lanes < 0:
+            raise ValueError(
+                f"eval.npad_lanes {self.npad_lanes} must be >= 0 (0 = off)"
+            )
+        if self.npad_lanes and self.npad_temperature <= 0:
+            raise ValueError(
+                f"eval.npad_temperature {self.npad_temperature} must be > 0"
+            )
+        if self.score_workers < 1:
+            raise ValueError(
+                f"eval.score_workers {self.score_workers} must be >= 1"
+            )
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """A named recipe: model, XE and RL settings."""
+    """A named recipe: model, XE, RL and eval settings."""
 
     name: str = "experiment"
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     rl: RLConfig = field(default_factory=RLConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)

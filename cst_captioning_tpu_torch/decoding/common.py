@@ -1,7 +1,7 @@
 """Shared decode plumbing: logprob selection, special-token masking, frozen
-post-EOS outputs, the NPAD lane pick, the lane-batched decode step, the
-early-exit decode loop, and the counter-based Gumbel noise the serving
-engine and the RL rollouts sample with."""
+post-EOS outputs, the NPAD lane pick and answer, the lane-batched decode
+step, the early-exit decode loop, and the counter-based Gumbel noise the
+serving engine and the RL rollouts sample with."""
 
 from __future__ import annotations
 
@@ -33,6 +33,17 @@ def npad_best_lane_index(logprobs):
     highest sum-logprob lane; ties go to the lowest lane, so the answer is
     never below greedy lane 0). Works on numpy arrays and tensors."""
     return logprobs.sum(axis=-1).argmax(axis=0)
+
+
+def npad_best_lane(tokens: torch.Tensor, logprobs: torch.Tensor):
+    """The NPAD answer: ([G, B, T], [G, B, T]) -> (the best lane's tokens
+    [B, T], its sum-logprob score [B]), gathered on the tensors' device."""
+    best = npad_best_lane_index(logprobs)                         # [B]
+    T = tokens.shape[-1]
+    best_tokens = torch.gather(
+        tokens, 0, best[None, :, None].expand(1, -1, T))[0]
+    best_scores = torch.gather(logprobs.sum(dim=-1), 0, best[None])[0]
+    return best_tokens, best_scores
 
 
 def forbid_special(logits: torch.Tensor) -> torch.Tensor:
@@ -133,11 +144,12 @@ def scan_until_finished(step, init, length: int, get_finished, y_fills):
     return state, tuple(out)
 
 
-def decode_depth(tokens, length: int) -> int:
+def decode_depth(tokens, length: int, stride: int | None = None) -> int:
     """Steps the early-exit loop ran to decode ``tokens`` [.., T]: the next
-    multiple of the exit stride at or above the longest row (EOS
+    multiple of the loop's stride (the exit stride of the per-step loop,
+    or the fused decode's ``stride``) at or above the longest row (EOS
     included), capped at ``length``."""
-    stride = _exit_stride(length)
+    stride = stride or _exit_stride(length)
     longest = max(int((tokens != PAD_ID).sum(-1).max()), 1)
     return min(length, stride * -(-longest // stride))
 

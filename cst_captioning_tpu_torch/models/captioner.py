@@ -31,6 +31,15 @@ class EncoderOutput:
     memory_mask: torch.Tensor  # [B, M] float32
     carry: Carry               # initial LSTM carry, [B, H] leaves
 
+    def take_batch(self, idx: torch.Tensor) -> "EncoderOutput":
+        """Rows ``idx`` of every leaf (all are batch-major): the fused
+        decode's compaction permutes the still-active columns into a dense
+        prefix, and the bank follows so each row keeps its own memory."""
+        t = lambda x: x.index_select(0, idx)  # noqa: E731
+        return EncoderOutput(t(self.memory), t(self.memory_proj),
+                             t(self.memory_mask),
+                             tuple((t(c), t(h)) for c, h in self.carry))
+
 
 def shift_right(labels: torch.Tensor) -> torch.Tensor:
     """[B, T] target tokens -> decoder inputs [B, T] starting with BOS."""

@@ -1,4 +1,9 @@
 from cst_captioning_tpu_torch.ops import decode_stride as _decode_stride
+from cst_captioning_tpu_torch.ops.beam_step import (
+    beam_step_plain,
+    fused_beam_step,
+    fused_beam_step_,
+)
 from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_plain,
     fused_additive_attention,
@@ -22,13 +27,17 @@ def reset_launches() -> None:
     _decode_stride.reset_launches()
     fused_additive_attention.launches = 0
     fused_decode_step.launches = 0
+    fused_beam_step.launches = 0
 
 
 __all__ = [
     "additive_attention_plain",
+    "beam_step_plain",
     "decode_step_plain",
     "decode_stride_plain",
     "fused_additive_attention",
+    "fused_beam_step",
+    "fused_beam_step_",
     "fused_decode_step",
     "fused_decode_step_",
     "fused_decode_stride",

@@ -109,9 +109,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(w: StrideWeights, state, emb, mem, proj, mask,
-            carry_dtype: torch.dtype) -> torch.Tensor:
-    """Step ``state`` [2, L, G, B, H] in place -> logits [G, B, V]."""
+def step_args(w: StrideWeights, state, emb, mem, proj, mask,
+              carry_dtype: torch.dtype, logits: torch.Tensor | None = None):
+    """Check a step's tensors -> (``_StepArgs``, logits [G, B, V], scratch).
+
+    ``state`` [2, L, G, B, H] steps in place; ``logits`` (allocated when
+    not given) receives the logits. The caller keeps ``logits`` and the
+    scratch alive until the launch is queued."""
     dev = mem.device
     G, B, E = emb.shape
     M, Em = mem.shape[1], mem.shape[2]
@@ -132,7 +136,9 @@ def _launch(w: StrideWeights, state, emb, mem, proj, mask,
               "wx": ((E + Em) * 4 * H + (L - 1) * H * 4 * H,)}
     for name, shape in shapes.items():
         _expect(getattr(w, name), name, dev, (torch.float32,), shape)
-    logits = torch.empty((G, B, V), dtype=torch.float32, device=dev)
+    if logits is None:
+        logits = torch.empty((G, B, V), dtype=torch.float32, device=dev)
+    _expect(logits, "logits", dev, (torch.float32,), (G, B, V))
     scratch = torch.empty((G * B * (A + E + Em + 5 * H),),
                           dtype=torch.float32, device=dev)
     args = _StepArgs(
@@ -146,12 +152,20 @@ def _launch(w: StrideWeights, state, emb, mem, proj, mask,
         carry_bf16=int(carry_dtype == torch.bfloat16), G=G, B=B, M=M, V=V,
         E=E, Em=Em, A=A, H=H, L=L,
     )
+    return args, logits, scratch
+
+
+def _launch(w: StrideWeights, state, emb, mem, proj, mask,
+            carry_dtype: torch.dtype) -> torch.Tensor:
+    """Step ``state`` [2, L, G, B, H] in place -> logits [G, B, V]."""
+    args, logits, _scratch = step_args(w, state, emb, mem, proj, mask,
+                                       carry_dtype)
     lib = _lib()
     # the launch is asynchronous; the scratch may be freed on return
     # because the caching allocator reuses its memory only for work queued
     # later on this same stream
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(mem.device).cuda_stream
+    with torch.cuda.device(mem.device):
         rc = lib.decode_step(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.decode_step_error_string(rc).decode()
@@ -163,8 +177,8 @@ def _launch(w: StrideWeights, state, emb, mem, proj, mask,
 # ---- the wrappers ------------------------------------------------------------
 
 
-def _prepare(cell, n_layers: int, token, memory, memory_mask, num_layers,
-             emb, weights):
+def prepare(cell, n_layers: int, token, memory, memory_mask, num_layers,
+            emb, weights):
     """Check the arguments -> (packed weights, embedding rows [G, B, E])."""
     w = weights if weights is not None else stride_weights(cell)
     if num_layers is not None and num_layers != w.num_layers:
@@ -189,7 +203,7 @@ def fused_decode_step(cell, carry, token, memory, memory_proj, memory_mask,
                       num_layers: int | None = None, emb=None,
                       weights: StrideWeights | None = None):
     """One decode step -> (new carry, logits [G, B, V]) (module docstring)."""
-    w, emb = _prepare(cell, len(carry), token, memory, memory_mask,
+    w, emb = prepare(cell, len(carry), token, memory, memory_mask,
                       num_layers, emb, weights)
     if _device_of(memory).type == "cpu":
         return decode_step_plain(w, carry, emb, memory, memory_proj,
@@ -208,7 +222,7 @@ def fused_decode_step_(cell, state, token, memory, memory_proj, memory_mask,
     place to the new carry, its values rounded to ``carry_dtype`` as the
     functional wrapper's are -> logits [G, B, V]. The loop then stacks,
     casts and copies nothing per step."""
-    w, emb = _prepare(cell, state.shape[1], token, memory, memory_mask,
+    w, emb = prepare(cell, state.shape[1], token, memory, memory_mask,
                       num_layers, emb, weights)
     if _device_of(memory).type == "cpu":
         carry, logits = decode_step_plain(

@@ -17,7 +17,9 @@ noise)``; ties go to the lowest token id. Finished rows emit PAD with
 logprob 0; rows ``b >= n_active`` do no work and pass their carry through.
 Each row attends over its own first ``mem_lens[b]`` slots (clipped to
 [1, W]). All arithmetic is float32; the carry is rounded to its dtype only
-when written out.
+when written out. ``weights`` takes the cell's packed float32 weights
+(:func:`stride_weights`) so a decode or a service packs them once, not
+once per stride.
 
 On CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/decode_stride.cu`` (built by ``ops/build.py``) and count the launch
@@ -306,7 +308,7 @@ def fused_decode_stride(cell, carry, token, finished, memory, memory_proj,
                         memory_mask, noise, t0=0, n_active=None, *,
                         steps: int, temperature: float = 1.0,
                         min_len: int = 0, num_layers: int | None = None,
-                        mem_lens=None):
+                        mem_lens=None, weights: StrideWeights | None = None):
     """S decode steps over a dense memory bank (module docstring)."""
     G, B = _check(cell, carry, token, noise, steps, num_layers,
                   "fused_decode_stride")
@@ -319,7 +321,7 @@ def fused_decode_stride(cell, carry, token, finished, memory, memory_proj,
     n_active = B if n_active is None else int(n_active)
     if mem_lens is None:
         mem_lens = torch.full((B,), M, dtype=torch.int32)
-    w = stride_weights(cell)
+    w = weights if weights is not None else stride_weights(cell)
     if _device_of(memory).type == "cpu":
         return decode_stride_plain(
             w, carry, token, finished, memory, memory_proj, memory_mask,
@@ -339,7 +341,8 @@ def fused_decode_stride_paged(cell, carry, token, finished, mem_pool,
                               proj_pool, mask_pool, page_table, noise, t0=0,
                               n_active=None, *, steps: int,
                               temperature: float = 1.0, min_len: int = 0,
-                              num_layers: int | None = None, mem_lens=None):
+                              num_layers: int | None = None, mem_lens=None,
+                              weights: StrideWeights | None = None):
     """:func:`fused_decode_stride` reading the bank through a page table:
     pools ``[N+1, P, *]`` (row 0 the zero page) and ``page_table [B,
     width]``; ``mem_lens`` defaults to every row's full ``width * P``."""
@@ -361,7 +364,7 @@ def fused_decode_stride_paged(cell, carry, token, finished, mem_pool,
     n_active = B if n_active is None else int(n_active)
     if mem_lens is None:
         mem_lens = torch.full((B,), width * P, dtype=torch.int32)
-    w = stride_weights(cell)
+    w = weights if weights is not None else stride_weights(cell)
     if _device_of(mem_pool).type == "cpu":
         memory, memory_proj, memory_mask = gather_pages(
             mem_pool, proj_pool, mask_pool, page_table

@@ -2,12 +2,13 @@
 
 :func:`get_preset` returns a preset's :class:`ModelConfig`, as the serving
 path reads it; :func:`get_experiment` returns the whole
-:class:`ExperimentConfig` with its XE and RL settings.
+:class:`ExperimentConfig` with its XE, RL and eval settings.
 """
 
 from __future__ import annotations
 
 from cst_captioning_tpu_torch.config import (
+    EvalConfig,
     ExperimentConfig,
     ModelConfig,
     RLConfig,
@@ -55,9 +56,9 @@ EXPERIMENTS: dict[str, ExperimentConfig] = {
         rl=RLConfig(num_rollouts=5, baseline="scb",
                     reward_cider_weight=1.0, reward_bleu4_weight=0.5,
                     lr=2e-5)),
-    # the eval preset's beam settings come with the beam-eval slice
     "msrvtt_eval_beam5": ExperimentConfig(
-        name="msrvtt_eval_beam5", model=_MSRVTT_XE_ATTENTION, train=_XE),
+        name="msrvtt_eval_beam5", model=_MSRVTT_XE_ATTENTION, train=_XE,
+        eval=EvalConfig(beam_size=5, max_len=30, split="test")),
 }
 
 PRESETS: dict[str, ModelConfig] = {k: v.model for k, v in EXPERIMENTS.items()}

@@ -1,13 +1,14 @@
 """The sequential CST step: rollout decode -> host consensus reward ->
 REINFORCE update (the JAX package's ``rl/scst.py``).
 
-1. :func:`make_rl_decode`: K multinomial rollouts per clip through
-   ``sample_decode`` (the decode-step kernel at ``decode_impl="pallas"``).
-   The "scb" and "none" baselines need no greedy rollout; the "greedy"
-   baseline rides on ``decoding/fused.py``, which comes with the port's
-   greedy-decode and beam-eval slice.
-2. Host: ``RewardComputer`` scores the rollouts against the consensus
-   pools; advantage = reward - baseline.
+1. :func:`make_rl_decode`: K multinomial rollouts per clip. The "greedy"
+   baseline (SCST) decodes the greedy rollout with them in one loop
+   (``decoding/fused.py``: lane 0 greedy, one stride-kernel launch per
+   stride at ``decode_impl="pallas"``); the "scb" and "none" baselines
+   need no greedy rollout and sample through ``sample_decode`` (the
+   decode-step kernel at ``decode_impl="pallas"``).
+2. Host: ``RewardComputer`` scores the rollouts (and the greedy rollout)
+   against the consensus pools; advantage = reward - baseline.
 3. :func:`make_rl_update`: teacher-forces the sampled tokens through the
    model (the additive-attention kernel at ``attention_impl="pallas"``) for
    differentiable logprobs, with one encoder pass per clip tiled over the
@@ -30,6 +31,8 @@ from cst_captioning_tpu_torch.decoding.common import (
     decode_depth,
     mask_from_tokens,
 )
+from cst_captioning_tpu_torch.decoding.fused import fused_decode
+from cst_captioning_tpu_torch.decoding.greedy import greedy_decode
 from cst_captioning_tpu_torch.decoding.sample import sample_decode
 from cst_captioning_tpu_torch.losses import reinforce_loss
 from cst_captioning_tpu_torch.models.captioner import EncoderOutput
@@ -40,25 +43,33 @@ from cst_captioning_tpu_torch.train.steps import _apply
 
 
 def make_rl_decode(model, num_rollouts: int, temperature: float = 1.0,
-                   max_len: int | None = None,
-                   with_greedy: bool = True) -> Callable:
-    """-> decode(model, feats, masks, seed, noise_fn=None) -> samples
-    [K, B, T] int32, sampling from the parameters of the ``model`` passed
-    to ``decode`` (the JAX decode's ``params``; the training state's
-    model). The JAX decode also returns the greedy rollout, which only the
-    'greedy' baseline reads."""
+                   max_len: int | None = None, with_greedy: bool = True,
+                   fused: bool = True) -> Callable:
+    """-> decode(model, feats, masks, seed, noise_fn=None) -> (greedy
+    [B, T] or None, samples [K, B, T]) int32, decoding with the parameters
+    of the ``model`` passed to ``decode`` (the JAX decode's ``params``; the
+    training state's model). ``noise_fn(t) -> [K, B, V]`` replaces the
+    rollouts' Gumbel noise.
+
+    ``with_greedy`` and ``fused``: one loop gives greedy lane 0 and the K
+    rollouts (``fused_decode``); ``fused=False`` runs ``greedy_decode``
+    and then ``sample_decode``, the two-loop reference. Without
+    ``with_greedy`` (the scb and none baselines) ``greedy`` is None."""
     del model  # the decode call names the model that holds the params
-    if with_greedy:
-        raise NotImplementedError(
-            "the greedy rollout (baseline 'greedy') runs through "
-            "decoding/fused.py, which comes with the port's greedy-decode and "
-            "beam-eval slice; use baseline 'scb' or 'none'")
 
     def decode(model, feats, masks, seed: int, noise_fn=None):
+        if with_greedy and fused:
+            greedy, _, samples, _ = fused_decode(
+                model, feats, masks, seed, num_rollouts=num_rollouts,
+                temperature=temperature, max_len=max_len, noise_fn=noise_fn)
+            return greedy, samples
+        greedy = None
+        if with_greedy:
+            greedy, _ = greedy_decode(model, feats, masks, max_len=max_len)
         samples, _ = sample_decode(
             model, feats, masks, seed, num_rollouts=num_rollouts,
             temperature=temperature, max_len=max_len, noise_fn=noise_fn)
-        return samples
+        return greedy, samples
 
     return decode
 
@@ -170,12 +181,13 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False) -> Callable:
 class SCSTTrainer:
     """Per-batch CST step: decode -> consensus reward -> REINFORCE update.
 
-    ``baseline``: 'scb' (self-consensus across the other K-1 rollouts,
-    CST_MS_SCB) or 'none'; 'greedy' (SCST) raises until the fused
-    greedy-lane decode is ported. ``guard=True`` adds the finite-update
-    guard. The metrics carry the phase times in seconds (``decode_s`` up to
-    the tokens on the host, ``reward_s``, ``update_s`` up to the loss on
-    the host) and ``decode_steps``, the steps the early-exit loop ran.
+    ``baseline``: 'greedy' (SCST: the greedy rollout's reward), 'scb'
+    (self-consensus across the other K-1 rollouts, CST_MS_SCB) or 'none'.
+    ``guard=True`` adds the finite-update guard. The metrics carry the
+    phase times in seconds (``decode_s`` up to the tokens on the host,
+    ``reward_s``, ``update_s`` up to the loss on the host) and
+    ``decode_steps``, the steps the early-exit loop ran (a multiple of the
+    decode stride on the greedy baseline's strided loop).
     """
 
     def __init__(self, model, reward, cfg: RLConfig,
@@ -187,19 +199,30 @@ class SCSTTrainer:
         self.decode = make_rl_decode(
             model, cfg.num_rollouts, cfg.temperature, max_len,
             with_greedy=cfg.baseline == "greedy")
+        # the loop's stride: the fused decode's, or the per-step exit check
+        stride = max(1, min(model.cfg.decode_stride, self.max_len))
+        self._stride = stride if cfg.baseline == "greedy" and stride > 1 \
+            else None
         self.update = make_rl_update(model, chunks=cfg.update_chunks,
                                      guard=guard)
 
     # ---- reward / advantage (host) ------------------------------------------
 
-    def _advantage(self, samples_np, video_ids, valid_np):
+    def _advantage(self, greedy, samples_np, video_ids, valid_np):
         """-> (advantage [K, B] np, metrics dict)."""
         K = self.cfg.num_rollouts
         B = samples_np.shape[1]
         r_samples = self.reward(video_ids, samples_np.reshape(K * B, -1))
         r_kb = r_samples.reshape(K, B)
 
-        if self.cfg.baseline == "scb":
+        if self.cfg.baseline == "greedy":
+            if greedy is None:
+                raise ValueError(
+                    "baseline='greedy' needs the greedy rollout; the decode "
+                    "was built with with_greedy=False")
+            r_greedy = self.reward(video_ids, np.asarray(greedy))
+            baseline = np.broadcast_to(r_greedy[None, :], (K, B))
+        elif self.cfg.baseline == "scb":
             baseline = scb_baseline(r_kb)
         elif self.cfg.baseline == "none":
             baseline = np.zeros_like(r_kb)
@@ -229,13 +252,14 @@ class SCSTTrainer:
         }
         return advantage, metrics
 
-    def _score(self, samples, feats, masks, video_ids, valid_np):
+    def _score(self, greedy, samples, feats, masks, video_ids, valid_np):
         """Host half: read the tokens back and compute the advantage ->
         the argument tuple of :meth:`_apply`."""
         samples_np = samples.cpu().numpy()
+        greedy_np = None if greedy is None else greedy.cpu().numpy()
         t = time.perf_counter()
         advantage, host_metrics = self._advantage(
-            samples_np, video_ids, valid_np)
+            greedy_np, samples_np, video_ids, valid_np)
         host_metrics["reward_s"] = time.perf_counter() - t
         return advantage, host_metrics, samples, feats, masks, valid_np
 
@@ -261,12 +285,17 @@ class SCSTTrainer:
         """One CST step on a batch; ``seed`` keys the rollout noise and
         ``noise_fn(t) -> [K, B, V]`` replaces it."""
         t0 = time.perf_counter()
-        samples = self.decode(state.model, feats, masks, seed, noise_fn)
+        greedy, samples = self.decode(state.model, feats, masks, seed,
+                                      noise_fn)
         valid_np = self._valid_np(valid, len(video_ids))
-        scored = self._score(samples, feats, masks, video_ids, valid_np)
+        scored = self._score(greedy, samples, feats, masks, video_ids,
+                             valid_np)
         t1 = time.perf_counter()
         state, metrics = self._apply(state, *scored)
+        rows = samples if greedy is None else \
+            torch.cat([greedy[None], samples])
         metrics.update(decode_s=t1 - t0 - metrics["reward_s"],
                        update_s=time.perf_counter() - t1,
-                       decode_steps=decode_depth(samples, self.max_len))
+                       decode_steps=decode_depth(rows, self.max_len,
+                                                 self._stride))
         return state, metrics

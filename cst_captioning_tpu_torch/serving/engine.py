@@ -43,6 +43,7 @@ from cst_captioning_tpu_torch.models.captioner import CaptionModel, EncoderOutpu
 from cst_captioning_tpu_torch.ops.decode_stride import (
     fused_decode_stride,
     fused_decode_stride_paged,
+    stride_weights,
 )
 from cst_captioning_tpu_torch.serving.pages import (
     OutOfPages,
@@ -208,6 +209,8 @@ class CaptionService:
         self._staged: deque[str] = deque()
         self._free_slots: deque[int] = deque(range(self.B))
         self._lanes: _Lanes | None = None
+        # the stride kernel's packed float32 weights, packed once per serve
+        self._weights = None
 
     # ---- public API ---------------------------------------------------------
 
@@ -238,6 +241,7 @@ class CaptionService:
         t0 = self.clock()
         now = lambda: self.clock() - t0  # noqa: E731
         with torch.no_grad():
+            self._weights = stride_weights(self.model.cell)
             while True:
                 self._admit_arrived(now, realtime)
                 if not self._inflight:
@@ -369,7 +373,8 @@ class CaptionService:
                                self.model.cfg.vocab_size)
         pools = (self.bank.mem, self.bank.proj, self.bank.mask)
         kw = dict(steps=self.S, temperature=self.temperature, min_len=0,
-                  num_layers=self.model.cfg.num_layers, mem_lens=lens)
+                  num_layers=self.model.cfg.num_layers, mem_lens=lens,
+                  weights=self._weights)
         cell = self.model.cell
         if self.paged:
             carry, toks, lps = fused_decode_stride_paged(

@@ -2,7 +2,9 @@
 GPU, at small odd shapes (V and the widths not multiples of the block
 sizes, one and two LSTM layers, float32 and bfloat16 banks, a fully masked
 row): the stride kernel (dense and paged), the additive-attention kernel
-with its gradient, and the decode-step kernel, and the wrappers' refusals.
+with its gradient, the decode-step kernel (also at one lane, greedy's
+shape) and the beam-step kernel (finished lanes, EOS blocked while
+t < min_len), and the wrappers' refusals.
 Marked ``gpu``: these skip without a CUDA device and run on the H100
 (which has no jax, hence no conftest) with
 
@@ -22,6 +24,11 @@ from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_f32,
     additive_attention_plain,
     fused_additive_attention,
+)
+from cst_captioning_tpu_torch.ops.beam_step import (
+    beam_topk_plain,
+    fused_beam_step,
+    fused_beam_step_,
 )
 from cst_captioning_tpu_torch.ops.decode_step import (
     decode_step_plain,
@@ -49,6 +56,7 @@ TOL = 1e-4   # float32 sums in another order than cuBLAS
 # value) plus 1e-3 of the row's largest value (sum order, tanh)
 BF16_ROUND, ROW_TOL = 2.0 ** -8, 1e-3
 BF16_ULP = 2.0 ** -7   # one bfloat16 ulp, relative to the value
+TIE = 1e-4    # beam candidates this close may order either way
 
 
 @pytest.fixture(scope="module")
@@ -289,3 +297,124 @@ def test_decode_step_wrapper_refuses(dev):
     with pytest.raises(ValueError, match="carry has dtype"):
         fused_decode_step_(model.cell, stack_carry(carry).double(), token,
                            mem, proj, mask, torch.float32)
+
+
+def test_decode_step_kernel_at_one_lane(dev):
+    # greedy decoding's shape: G=1
+    model, carry, token, _, bank, _, _ = _inputs(dev, 1, torch.bfloat16)
+    carry = tuple((c[:1].bfloat16(), h[:1].bfloat16()) for c, h in carry)
+    w = stride_weights(model.cell)
+    state = stack_carry(carry)
+    before = fused_decode_step.launches
+    klog = fused_decode_step_(model.cell, state, token[:1], *bank,
+                              torch.bfloat16, weights=w)
+    pc, plog = decode_step_plain(w, carry, w.embt[token[:1].long()], *bank)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    assert klog.shape == (1, B, V)
+    torch.testing.assert_close(klog, plog, rtol=TOL, atol=TOL)
+    for (a, b), (c, d) in zip(unstack_carry(state, torch.bfloat16), pc):
+        torch.testing.assert_close(a.float(), c.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+        torch.testing.assert_close(b.float(), d.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+
+
+# ---- the beam-step kernel ---------------------------------------------------
+
+
+def _assert_beam_close(ksc, kfl, psc, pfl):
+    """Kernel (top_scores, top_flat) [B, W] against the plain version's
+    first W + 1 candidates: flat ids equal except where the plain totals
+    tie within TIE at that position (its neighbours, the (W+1)-th
+    included); scores within TOL. -> rows with a near-tie difference."""
+    ksc, kfl, psc, pfl = (x.cpu() for x in (ksc, kfl, psc, pfl))
+    W = kfl.shape[1]
+    gap = psc[:, :-1] - psc[:, 1:]                      # [B, W]
+    near = gap <= TIE                                   # ties with j + 1
+    near[:, 1:] |= gap[:, :W - 1] <= TIE                # ties with j - 1
+    diff = kfl != pfl[:, :W]
+    assert not bool((diff & ~near).any()), (kfl, pfl)
+    torch.testing.assert_close(ksc, psc[:, :W], rtol=TOL, atol=TOL)
+    return int(diff.any(dim=1).sum())
+
+
+@pytest.mark.parametrize("t,min_len", [(0, 0), (1, 3)])
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("bank_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_beam_step_kernel_matches_plain(dev, layers, bank_dtype, t, min_len):
+    model, carry, token, fin, bank, _, _ = _inputs(dev, layers, bank_dtype)
+    scores = 2.0 * torch.randn(G, B, generator=torch.Generator()
+                               .manual_seed(1)).to(dev)
+    w = stride_weights(model.cell)
+    before = fused_beam_step.launches
+    kc, ksc, kfl = fused_beam_step(model.cell, carry, token, fin, scores,
+                                   *bank, t=t, min_len=min_len)
+    pc, logits = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    psc, pfl = beam_topk_plain(logits, fin, scores, t=t, min_len=min_len,
+                               width=G + 1)
+    torch.cuda.synchronize()
+    assert fused_beam_step.launches == before + 1
+    assert ksc.shape == (B, G) and kfl.dtype == torch.int32
+    _assert_beam_close(ksc, kfl, psc, pfl)
+    for (a, b), (c, d) in zip(kc, pc):
+        torch.testing.assert_close(a, c, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b, d, rtol=TOL, atol=TOL)
+    if t < min_len:
+        assert not bool((kfl % V == EOS_ID).any())
+    # a finished lane offers PAD at its frozen score
+    for g, b in fin.nonzero().tolist():
+        hit = (kfl[b] == g * V).nonzero()
+        if len(hit):
+            assert float(ksc[b, hit[0, 0]]) == float(scores[g, b])
+
+
+def test_beam_step_in_place_kernel_matches_plain(dev):
+    # the search's call: a bfloat16 bank and carry stepped in place, the
+    # logits through a buffer the search allocates once
+    model, carry, token, fin, bank, _, _ = _inputs(dev, 2, torch.bfloat16)
+    carry = tuple((c.bfloat16(), h.bfloat16()) for c, h in carry)
+    scores = torch.randn(G, B, generator=torch.Generator().manual_seed(2)
+                         ).to(dev)
+    w = stride_weights(model.cell)
+    state = stack_carry(carry)
+    buf = torch.empty((G, B, V), device=dev)
+    ksc, kfl = fused_beam_step_(model.cell, state, token, fin, scores, *bank,
+                                torch.bfloat16, t=2, min_len=1, weights=w,
+                                logits=buf)
+    pc, logits = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    psc, pfl = beam_topk_plain(logits, fin, scores, t=2, min_len=1,
+                               width=G + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(buf, logits, rtol=TOL, atol=TOL)
+    _assert_beam_close(ksc, kfl, psc, pfl)
+    for (a, b), (c, d) in zip(unstack_carry(state, torch.bfloat16), pc):
+        torch.testing.assert_close(a.float(), c.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+        torch.testing.assert_close(b.float(), d.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+
+
+def test_beam_step_wrapper_refuses(dev):
+    model, carry, token, fin, bank, _, _ = _inputs(dev, 1, torch.float32)
+    mem, proj, mask = bank
+
+    def lanes(n):
+        return (tuple((c[:1].expand(n, -1, -1).contiguous(),
+                       h[:1].expand(n, -1, -1).contiguous())
+                      for c, h in carry),
+                torch.full((n, B), 5, dtype=torch.int32, device=dev),
+                torch.zeros((n, B), dtype=torch.bool, device=dev),
+                torch.zeros((n, B), device=dev))
+
+    with pytest.raises(ValueError, match="beam width"):
+        fused_beam_step(model.cell, *lanes(V + 1), *bank, t=0)
+    with pytest.raises(ValueError, match="beam width"):
+        fused_beam_step(model.cell, *lanes(17), *bank, t=0)   # above 16
+    c, tok, f, sc = lanes(G)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_beam_step(model.cell, c, tok, f, sc, mem.double(),
+                        proj.double(), mask, t=0)
+    with pytest.raises(ValueError, match="scores"):
+        fused_beam_step(model.cell, c, tok, f, sc[:1], *bank, t=0)

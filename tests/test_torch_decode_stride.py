@@ -30,6 +30,7 @@ from cst_captioning_tpu_torch.ops import (
     fused_decode_stride,
     fused_decode_stride_paged,
     gather_pages,
+    stride_weights,
 )
 
 torch.set_num_threads(1)
@@ -170,6 +171,26 @@ def test_paged_plain_equals_dense_plain(setup):
     assert torch.equal(ptok, dtok) and torch.equal(plp, dlp)
     for p_, d_ in zip(pc, dc):
         assert torch.equal(p_[0], d_[0]) and torch.equal(p_[1], d_[1])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_packed_weights_give_the_same_stride(setup, paged):
+    """``weights=`` (packed once per decode or serve) changes no result."""
+    _, tcell, carry, token, noise, bank = setup
+    lens = np.asarray([2, F, 4, 1, F], np.int32)
+    ins = ([torch.from_numpy(x) for x in _pages(bank, lens, seed=1)] if paged
+           else [torch.from_numpy(x) for x in bank])
+    fn = fused_decode_stride_paged if paged else fused_decode_stride
+    args = (tcell, tuple(tuple(map(torch.from_numpy, layer))
+                         for layer in carry),
+            torch.from_numpy(token), torch.zeros((G, B), dtype=torch.bool),
+            *ins, torch.from_numpy(noise))
+    kw = dict(steps=S, mem_lens=torch.from_numpy(lens), temperature=0.9)
+    want = fn(*args, **kw)
+    got = fn(*args, weights=stride_weights(tcell), **kw)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
 
 
 def test_wrappers_validate_operands(setup):

@@ -49,7 +49,11 @@ def test_port_imports_no_jax():
                 "data.vocab", "ops.attention", "ops.decode_step",
                 "decoding.sample", "losses", "metrics", "train.schedule",
                 "train.state", "train.steps", "rl.native", "rl.rewards",
-                "rl.scst", "data.batcher"):
+                "rl.scst", "data.batcher", "ops.beam_step", "decoding.greedy",
+                "decoding.fused", "decoding.beam", "metrics.ngram",
+                "metrics.cider", "metrics.bleu", "metrics.rouge",
+                "metrics.meteor", "metrics.tokenizer", "metrics.scorer",
+                "metrics.native_cider", "eval.evaluator"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 

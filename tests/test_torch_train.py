@@ -430,11 +430,12 @@ def test_cst_step_matches_jax(setup):
     noise = _jax_noise(rng, K, T, B)
 
     _, jsam = jtr.decode(jstate.params, feats, masks, rng)
-    tsam = ttr.decode(tstate.model, tfeats, tmasks, 0, noise)
+    tgreedy, tsam = ttr.decode(tstate.model, tfeats, tmasks, 0, noise)
+    assert tgreedy is None               # the scb baseline needs no greedy
     np.testing.assert_array_equal(tsam.numpy(), np.asarray(jsam))
     valid = np.ones((B,), np.float32)
     jadv, jm_ = jtr._advantage(None, np.asarray(jsam), s["vids"], valid)
-    tadv, tm_ = ttr._advantage(tsam.numpy(), s["vids"], valid)
+    tadv, tm_ = ttr._advantage(None, tsam.numpy(), s["vids"], valid)
     np.testing.assert_array_equal(tadv, jadv)
     assert tm_ == jm_ and jm_["reward_mean"] > 0
 
@@ -449,5 +450,70 @@ def test_cst_step_matches_jax(setup):
                                rtol=TOL, atol=TOL)
     _grads_close(jold, jstate, told, tstate)
     assert 1 <= tmet["decode_steps"] <= T
-    with pytest.raises(NotImplementedError, match="fused"):
-        trl.SCSTTrainer(tstate.model, None, tcfg.RLConfig(baseline="greedy"))
+    with pytest.raises(ValueError, match="greedy rollout"):
+        trl.SCSTTrainer(tstate.model, ttr.reward,
+                        tcfg.RLConfig(num_rollouts=K, baseline="greedy")
+                        )._advantage(None, tsam.numpy(), s["vids"], valid)
+
+
+@pytest.mark.parametrize("stride", [1, 8], ids=["per_step", "stride8"])
+def test_greedy_baseline_scst_step_matches_jax(setup, stride):
+    """SCST (baseline 'greedy', K=2): the fused decode's greedy lane and
+    rollouts (the decode-step kernel per step, or one stride-kernel launch
+    per stride, on both sides), their rewards, the advantage, and the
+    update."""
+    s = setup
+    K2 = 2
+    cfg = dict(num_rollouts=K2, baseline="greedy", reward_cider_weight=1.0,
+               reward_bleu4_weight=0.0)
+    jmodel = CaptionModel(ModelConfig(**{**KW, "decode_stride": stride}))
+    jstate, tstate = _sgd(s)
+    tstate = ttrain.create_train_state(
+        _port_model(s["params"], decode_stride=stride), tstate.tx)
+    feats = jax.tree.map(jnp.asarray, s["feats"])
+    masks = jax.tree.map(jnp.asarray, s["masks"])
+    tfeats = {k: _t(v) for k, v in s["feats"].items()}
+    tmasks = {k: _t(v) for k, v in s["masks"].items()}
+    rng = jax.random.key(23)
+    noise = _jax_noise(rng, K2, T, B)
+    tgreedy, tsam = trl.make_rl_decode(None, K2)(tstate.model, tfeats,
+                                                 tmasks, 0, noise)
+    # the two-loop reference gives the same rollouts
+    two = trl.make_rl_decode(None, K2, fused=False)(tstate.model, tfeats,
+                                                    tmasks, 0, noise)
+    assert torch.equal(two[0], tgreedy) and torch.equal(two[1], tsam)
+    vocab = Vocab.from_corpus_words(WORDS)
+    jtr = SCSTTrainer(jmodel, RewardComputer(vocab, s["gts"]),
+                      RLConfig(**cfg))
+    ttr = trl.SCSTTrainer(tstate.model, trl.RewardComputer(
+        TorchVocab.from_corpus_words(WORDS), s["gts"]), tcfg.RLConfig(**cfg))
+
+    jgreedy, jsam = jtr.decode(jstate.params, feats, masks, rng)
+    np.testing.assert_array_equal(tgreedy.numpy(), np.asarray(jgreedy))
+    np.testing.assert_array_equal(tsam.numpy(), np.asarray(jsam))
+    valid = np.ones((B,), np.float32)
+    valid[-1] = 0.0
+    jadv, jm_ = jtr._advantage(np.asarray(jgreedy), np.asarray(jsam),
+                               s["vids"], valid)
+    tadv, tm_ = ttr._advantage(tgreedy.numpy(), tsam.numpy(), s["vids"],
+                               valid)
+    np.testing.assert_array_equal(tadv, jadv)
+    assert tm_ == jm_
+    # advantage = (rollout reward - the clip's greedy reward) on valid rows
+    r_s = ttr.reward(s["vids"], tsam.numpy().reshape(K2 * B, T))
+    r_g = ttr.reward(s["vids"], tgreedy.numpy())
+    np.testing.assert_array_equal(
+        tadv, (r_s.reshape(K2, B) - r_g[None]) * valid[None])
+
+    jold, told = jstate, {k: v.clone() for k, v in
+                          tstate.model.state_dict().items()}
+    jstate, jmet = jtr.train_step(jstate, feats, masks, s["vids"], rng,
+                                  valid=valid)
+    tstate, tmet = ttr.train_step(tstate, tfeats, tmasks, s["vids"], 0,
+                                  valid=valid, noise_fn=noise)
+    for key in ("reward_mean", "baseline_mean", "advantage_mean"):
+        assert tmet[key] == jmet[key]
+    np.testing.assert_allclose(tmet["rl_loss"], float(jmet["rl_loss"]),
+                               rtol=TOL, atol=TOL)
+    _grads_close(jold, jstate, told, tstate)
+    assert 1 <= tmet["decode_steps"] <= T
