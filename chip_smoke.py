@@ -10,7 +10,9 @@
    give it, held against its plain PyTorch version on the same inputs:
    - the stride kernels (dense, paged) at the serving shapes (capacity 32,
      K=2, S=8, msrvtt width: V=9000, E=H=512, A=256, 56 memory slots),
-     float32 and bfloat16 pools. Tokens must be equal except at argmax
+     float32 and bfloat16 pools, and the dense one at the SCST decode's
+     (B=64, K=1, bfloat16 bank; timed too, and split by phase from the
+     kernel's own timeline). Tokens must be equal except at argmax
      near-ties (the plain version's top-2 gap at the first divergence
      <= 1e-3); logprobs and the carry of rows still live within 1e-4;
    - the additive-attention kernel at the XE step's B=64 and the REINFORCE
@@ -32,7 +34,9 @@
      totals tie within 1e-4 (counted), scores within 1e-4, the carry as
      the decode step's.
    Times are CUDA-event medians of 2 x 20 calls after warm-up, taken in
-   turns; the bound is computed from each call's shapes.
+   turns, with the weights packed once as the paths pack them; the bound
+   is computed from each call's shapes, and each time line gives the
+   kernel's share of it (bound / time).
 3. serve: CaptionService at msrvtt_xe_attention full width (seeded random
    weights, +2 on the EOS bias so caption lengths vary) answers 64 trace
    requests on the paged path and again on the dense-gather path; the
@@ -112,6 +116,7 @@ from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import beam_step as beam_ops
 from cst_captioning_tpu_torch.ops import build
+from cst_captioning_tpu_torch.ops import decode_stride
 from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_f32,
     additive_attention_plain,
@@ -213,13 +218,15 @@ def make_model(dev):
 # ---- phase 2: kernels against their plain versions ------------------------
 
 
-def stride_inputs(model, dev, bf16: bool, seed: int = 1):
-    """Serving-shaped stride inputs: B=32 rows of ragged clips encoded by the
-    model, some rows finished, a compaction prefix of 28, pages of 8 slots
-    scattered over a pool in random order."""
+def stride_inputs(model, dev, bf16: bool, seed: int = 1, B: int = CAPACITY,
+                  K: int = K):
+    """Serving-shaped stride inputs (or, with B=64 and K=1, the SCST
+    decode's): B rows of ragged clips encoded by the model, some rows
+    finished, a compaction prefix of B - 4, pages of 8 slots scattered over
+    a pool in random order."""
     cfg = model.cfg
     rng = np.random.default_rng(seed)
-    B, G, F = CAPACITY, 1 + K, cfg.max_frames
+    G, F = 1 + K, cfg.max_frames
     frames = rng.integers(1, F + 1, size=B)
     feats = {n: torch.from_numpy(rng.normal(size=(B, F, d)).astype(np.float32)
                                  ).to(dev) for n, d in cfg.modalities}
@@ -242,7 +249,7 @@ def stride_inputs(model, dev, bf16: bool, seed: int = 1):
     finished = torch.zeros((G, B), dtype=torch.bool)
     finished[:, n_active:] = True
     finished[:, 3::7] = True
-    finished[2, 5] = True
+    finished[G - 1, 5] = True
     noise = counter_gumbel_noise(
         torch.arange(B, device=dev) + 100,
         torch.arange(S, device=dev)[:, None].expand(S, B), K, cfg.vocab_size)
@@ -262,6 +269,7 @@ def stride_inputs(model, dev, bf16: bool, seed: int = 1):
         pool[order.to(dev)] = xp.reshape((n_pages, P) + tuple(x.shape[2:]))
         pools.append(pool)
     return dict(
+        w=stride_weights(model.cell),  # packed once, as a serve or decode does
         carry=carry, token=token, finished=finished.to(dev),
         dense=(mem, proj, enc.memory_mask.float()),
         paged=(*pools, table.to(dev)), noise=noise, t0=0, n_active=n_active,
@@ -275,7 +283,7 @@ def run_kernel(name, model, x):
     bank = x["paged"] if name.endswith("paged") else x["dense"]
     return fn(model.cell, x["carry"], x["token"], x["finished"], *bank,
               x["noise"], x["t0"], x["n_active"], steps=S, temperature=1.0,
-              min_len=0, mem_lens=x["mem_lens"])
+              min_len=0, mem_lens=x["mem_lens"], weights=x["w"])
 
 
 def run_plain(name, model, x, return_gap=False):
@@ -283,7 +291,7 @@ def run_plain(name, model, x, return_gap=False):
     if name.endswith("paged"):
         bank = gather_pages(*x["paged"])
     return decode_stride_plain(
-        stride_weights(model.cell), x["carry"], x["token"], x["finished"],
+        x["w"], x["carry"], x["token"], x["finished"],
         *bank, x["noise"], x["t0"], x["n_active"], steps=S, temperature=1.0,
         min_len=0, mem_lens=x["mem_lens"], return_gap=return_gap)
 
@@ -342,6 +350,40 @@ def event_times(fn, reps=20, warmup=3) -> list[float]:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
+
+
+STRIDE_PHASES = ("start", "init", "q", "attend", "gates", "cell", "logits",
+                 "end")
+
+
+def stride_phases(name, model, x) -> dict:
+    """Device ms by phase of one stride launch on ``x`` (after a warm-up),
+    from the kernel's own timeline: block 0's %globaltimer as it leaves
+    each grid barrier, summed over the steps by phase."""
+    dense = not name.endswith("paged")
+    bank = x["dense"] if dense else x["paged"][:3]
+    table = None if dense else x["paged"][3]
+    slots, width = (bank[0].shape[1], 1) if dense else (
+        bank[0].shape[1], table.shape[1])
+    L = model.cfg.num_layers
+    tl = torch.zeros(decode_stride.timeline_len(S, L), dtype=torch.int64,
+                     device=bank[0].device)
+    args = ("decode_stride_dense" if dense else "decode_stride_paged",
+            x["w"], x["carry"], x["token"],
+            x["finished"], *bank, table, slots, width, x["noise"], x["t0"],
+            x["n_active"], S, 1.0, 0, x["mem_lens"])
+    decode_stride._launch(*args)
+    decode_stride._launch(*args, timeline=tl)
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(STRIDE_PHASES[1:], 0.0)
+    prev = None
+    for code, t in tl.view(-1, 2).cpu().tolist():
+        if t == 0:
+            break
+        if prev is not None:
+            ms[STRIDE_PHASES[code]] += (t - prev) / 1e6
+        prev = t
+    return {**ms, "total": sum(ms.values())}
 
 
 def smi_query(fields: str) -> str:
@@ -1336,6 +1378,12 @@ def main() -> int:
                   "bank_dtype": "bfloat16" if bf16 else "float32", **res})
             record(kname, res)
         timed[kname] = x    # the serving dtype: bfloat16 pools
+    # the SCST decode's stride: lane 0 greedy + 1 rollout over 64 clips
+    scst_x = stride_inputs(model, dev, True, seed=6, B=TRAIN_B, K=1)
+    res = compare("fused_decode_stride", model, scst_x)
+    emit({"phase": "kernel_check", "kernel": "fused_decode_stride",
+          "shape": "scst_g2_b64", "bank_dtype": "bfloat16", **res})
+    record("fused_decode_stride", res)
     att = {}
     for dtype in (torch.float32, torch.bfloat16):
         for label, x in (
@@ -1380,6 +1428,9 @@ def main() -> int:
     pairs = {k: (lambda k=k: run_kernel(k, model, timed[k]),
                  lambda k=k: run_plain(k, model, timed[k])) for k in KERNELS}
     pairs.update({
+        "fused_decode_stride_scst": (
+            lambda: run_kernel("fused_decode_stride", model, scst_x),
+            lambda: run_plain("fused_decode_stride", model, scst_x)),
         "attention_b64": (lambda: fused_additive_attention(*xe_att),
                           lambda: additive_attention_plain(*xe_att)),
         "attention_b320": (lambda: fused_additive_attention(*up_att),
@@ -1394,6 +1445,9 @@ def main() -> int:
     bounds = {k: bound_ms(k, model, timed[k], run_kernel(k, model,
                                                          timed[k])[1])
               for k in KERNELS}
+    bounds["fused_decode_stride_scst"] = bound_ms(
+        "fused_decode_stride", model, scst_x,
+        run_kernel("fused_decode_stride", model, scst_x)[1])
     bounds.update(attention_b64=attention_bound(xe_att),
                   attention_b320=attention_bound(up_att),
                   fused_decode_step=step_bound(tmodel, step_x),
@@ -1402,6 +1456,7 @@ def main() -> int:
         bnd, by = bounds[key]
         emit({"phase": "kernel_time", "kernel": key, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+              "bound_share": bnd / ms,
               "clocks_sm_power_draw": clocks, "nvidia_smi": smi})
     # the kernels line carries the update's shape for the attention kernel
     for k in KERNELS + ("fused_decode_step", "fused_beam_step"):
@@ -1411,7 +1466,11 @@ def main() -> int:
         ms=times["attention_b320"][0], plain_ms=times["attention_b320"][1],
         bound_ms=bounds["attention_b320"][0],
         bound_by=bounds["attention_b320"][1])
-    del att, xe_att, up_att, step_x, beam_x, pairs
+    for key, x in (("fused_decode_stride_paged", timed[KERNELS[1]]),
+                   ("fused_decode_stride_scst", scst_x)):
+        emit({"phase": "stride_phases", "kernel": key,
+              **stride_phases(key, model, x), "nvidia_smi": smi})
+    del att, xe_att, up_att, step_x, beam_x, scst_x, pairs
 
     draws, mism = noise_mismatches(dev)
     emit({"phase": "noise", "draws": draws, "cpu_gpu_mismatches": mism})

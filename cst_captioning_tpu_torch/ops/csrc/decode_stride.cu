@@ -1,9 +1,10 @@
 // S-step caption decode stride for NVIDIA Hopper (sm_90a), one kernel body
 // with two ways of reading the encoder memory bank.
 //
-// Replaces the TPU kernels fused_decode_stride (_stride_kernel) and
-// fused_decode_stride_paged (_paged_stride_kernel) of
-// cst_captioning_tpu/ops/decode_pallas.py. Per step, per (row b, lane g):
+// Replaces the TPU kernels _stride_kernel (cst_captioning_tpu/ops/
+// decode_pallas.py:449, public fused_decode_stride at :839) and
+// _paged_stride_kernel (:938, public fused_decode_stride_paged at :1214).
+// Per step, for every live (lane g, row b):
 //
 //   q      = h_top Wq + bq
 //   s_m    = v . tanh(proj_m + q)        mask_m == 0 -> -1e9, m >= len -> out
@@ -17,21 +18,44 @@
 // Finished rows emit PAD with logprob 0 and stop doing work (their carry is
 // frozen, as the TPU kernel freezes a dead block's carry); rows b >= n_active
 // emit PAD/0 for every step and pass their carry through. Argmax ties go to
-// the lowest token id. All arithmetic is float32; the carry stays float32 for
-// the whole stride. The next step's embedding is read by index from the
-// [V, E] table.
+// the lowest token id, across column tiles too. All arithmetic is float32;
+// the carry stays float32 for the whole stride.
 //
-// Design: one thread block per (row, lane) walks the S steps and, inside a
-// step, the vocab in strides of the block width; x, h, c, the gates and the
-// attention weights live in shared memory. The page table is plain address
-// arithmetic: each row's slot offsets are resolved once per launch.
+// Bound: per step and live (row, lane) the decoder's weights (Wq, Wx, Wh,
+// Wo: 7.88 M float32 at the msrvtt presets) take about two operations
+// each, so the card's float32 rate bounds a stride, not its memory
+// (chip_smoke.bound_ms counts both). The weights are 31.5 MB: read once a
+// step for all rows they fit in the 50 MB L2; read once per row they do not.
 //
-// Bound: per step and (row, lane) the block reads Wq + Wx + Wh + Wo (7.90 M
-// float32 weights at the msrvtt_xe_attention preset) and does about two
-// operations per weight, so the card's float32 rate bounds the stride,
-// not its memory. This first design re-reads every weight once per block
-// from L2 and launches only B*G blocks; it sits far from that bound.
+// Design: one persistent cooperative grid (occupancy x SMs blocks, all
+// co-resident) walks the S steps in lockstep, with grid-wide barriers
+// between the phases of a step, over the R = G * n_active rows:
+//
+//   init     carry and tokens into the workspace, outputs to PAD/0, the
+//            carry of rows past n_active passed through; then q of step 0
+//   attend   per row (a block each): the previous step's selection (merge
+//            of the logits tiles' partials), the next embedding, q from its
+//            split-K partials, the masked softmax and the context
+//   gates    per layer: [x, h] . [Wx; Wh] as split-K row-GEMM tiles
+//   cell     per layer: the partials summed with the bias, the LSTM update
+//   logits   h_top Wo + bo as row-GEMM tiles whose epilogue leaves each
+//            row's (max, sum of exps, best selection value, its id, its
+//            logit) per 64-column tile; beside them q of the next step
+//
+// The GEMM tiles (rowgemm.cuh) multiply all live rows by one weight tile, so
+// each weight is read once a step for every row, not once per row, in
+// register-tiled FMA chains that do not wait on each other. Each block
+// rebuilds the same list of live rows after every barrier, so finished rows
+// cost nothing and the stride ends early, for the whole grid at once, when
+// no row is live. Sums run in an order fixed by the shapes alone, so the
+// dense and paged entries, and any grid size, give the same bits. The
+// workspace comes from the caller (sizes: stride_workspace in
+// ops/decode_stride.py, checked here). A card that refuses the cooperative
+// launch returns its error; nothing falls back. Given a timeline buffer,
+// block 0 records the time it leaves each barrier (chip_smoke's
+// stride_phases splits a launch's time by phase from it).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,6 +64,7 @@
 #include <climits>
 
 #include "attend.cuh"
+#include "rowgemm.cuh"
 
 struct StrideArgs {
   // memory bank: dense [B, M, Em] / [B, M, A] / [B, M], or page pools
@@ -76,20 +101,105 @@ struct StrideArgs {
   int G, B, S, V, E, Em, A, H, L;
   int t0, n_active, min_len;
   float temperature;
+  // the caller's scratch, stride_workspace(...) floats
+  float* ws;
+  long long ws_floats;
+  // optional: (phase code, %globaltimer ns) pairs that block 0 records as
+  // it leaves each grid barrier (kPhase* below); null records nothing
+  unsigned long long* timeline;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = rowgemm::kThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 0;
 constexpr int kBos = 1;
 constexpr int kEos = 2;
+constexpr int kSlotLanes = 8;  // lanes that score one memory slot
+// k of one split-K slice of the q and gate GEMMs (SPLIT_K in
+// ops/decode_stride.py, which sizes the workspace)
+constexpr int kSplitK = 256;
+constexpr int kMinBlocks = 2;  // resident blocks per SM
+constexpr int kTM = 4;         // GEMM tile rows per thread (16 * kTM a tile)
+constexpr int kBK = 32;        // k depth of one staged GEMM tile
+constexpr int kStages = 2;     // cp.async buffers in the GEMM's ring
+// the row-GEMM tile: 16 * kTM rows x 64 columns, k staged kBK deep in a
+// ring of kStages buffers
+using Tile = rowgemm::Tile<kTM, kBK, kStages>;
+// timeline phase codes: the phase that ends at the mark
+enum { kPhaseStart, kPhaseInit, kPhaseQ, kPhaseAttend, kPhaseGates,
+       kPhaseCell, kPhaseLogits, kPhaseEnd };
 using attend::kFull;
 using attend::kNeg;
 using attend::sigmoid_f32;
 using attend::to_f32;
 using attend::warp_sum;
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Shapes of the workspace: rows (G * B: sized for every row, used for the
+// G * n_active live ones), logits column tiles, split-K slices of q and of
+// the widest gate GEMM.
+struct Dims {
+  int R, nT, ksq, ksg;
+};
+
+__host__ __device__ inline Dims dims_of(const StrideArgs& p) {
+  return Dims{p.G * p.B, cdiv(p.V, rowgemm::BN), cdiv(p.H, kSplitK),
+              cdiv(imax(p.E + p.Em, p.H) + p.H, kSplitK)};
+}
+
+struct Workspace {
+  float4* part;   // [R, nT] (max, sum of exps, best selection, its logit)
+  int* part_i;    // [R, nT] the best selection's token id
+  float* qpart;   // [ksq, R, A]
+  float* gpart;   // [ksg, R, 4H]
+  float* x;       // [R, E + Em] layer-0 input (emb | ctx)
+  float* h;       // [L, R, H]
+  float* c;       // [L, R, H]
+  int* fin;       // [R]
+  int* tok;       // [R]
+};
+
+struct Carve {
+  float* base;
+  long long off;
+  __host__ __device__ float* take(long long n) {
+    float* q = base ? base + off : nullptr;
+    off += (n + 3) / 4 * 4;  // every region 16-byte aligned
+    return q;
+  }
+};
+
+// Carve the workspace (if w) and return its size in floats; the order and
+// the rounding are stride_workspace's in ops/decode_stride.py.
+__host__ __device__ inline long long carve(const StrideArgs& p, Workspace* w) {
+  const Dims d = dims_of(p);
+  const long long R = d.R;
+  Carve c{w ? p.ws : nullptr, 0};
+  Workspace v;
+  v.part = reinterpret_cast<float4*>(c.take(4 * R * d.nT));
+  v.part_i = reinterpret_cast<int*>(c.take(R * d.nT));
+  v.qpart = c.take((long long)d.ksq * R * p.A);
+  v.gpart = c.take((long long)d.ksg * R * 4 * p.H);
+  v.x = c.take(R * (p.E + p.Em));
+  v.h = c.take((long long)p.L * R * p.H);
+  v.c = c.take((long long)p.L * R * p.H);
+  v.fin = reinterpret_cast<int*>(c.take(R));
+  v.tok = reinterpret_cast<int*>(c.take(R));
+  if (w) *w = v;
+  return c.off;
+}
+
+// Shared floats of one phase: the GEMM tiles, or one row's attention (q,
+// scores, slot offsets). The list of live rows [G * B] follows them.
+__host__ __device__ inline int phase_floats(int A, int W) {
+  return imax(Tile::kSmemFloats, (A + 2 * W + 3) / 4 * 4);
+}
 
 template <typename T>
 struct DenseBank {
@@ -139,11 +249,12 @@ __device__ __forceinline__ void pick_merge(float& sel, int& idx, float& lg,
   }
 }
 
-// butterfly over a warp: every lane ends with the warp's result
-__device__ __forceinline__ void warp_reduce_step(float& lm, float& ls,
-                                                 float& best, int& best_i,
-                                                 float& best_lg) {
-  for (int o = 16; o > 0; o >>= 1) {
+// butterfly over lanes lane ^ o, o = top .. 1: each lane ends with the
+// merge of its group of 2 * top lanes
+__device__ __forceinline__ void reduce_sel(float& lm, float& ls, float& best,
+                                           int& best_i, float& best_lg,
+                                           int top) {
+  for (int o = top; o > 0; o >>= 1) {
     const float om = __shfl_xor_sync(kFull, lm, o);
     const float os = __shfl_xor_sync(kFull, ls, o);
     lse_merge(lm, ls, om, os);
@@ -154,217 +265,504 @@ __device__ __forceinline__ void warp_reduce_step(float& lm, float& ls,
   }
 }
 
-template <class Bank>
-__global__ void __launch_bounds__(kThreads)
-    stride_kernel(const StrideArgs p, const Bank bank) {
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
+// The rows r < R with fin[r] == 0, ascending, into live; returns how many.
+// Every block builds the same list from the same data.
+__device__ int build_live(const int* fin, int R, int* live, int* wcount) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int G = p.G, B = p.B, H = p.H, A = p.A, E = p.E, Em = p.Em;
-  const int V = p.V, L = p.L;
-  const int H4 = 4 * H;
-  const int W = bank.slots();
-  const int x_len = max(E + Em, H);
-  const size_t row = (size_t)g * B + b;          // index into [G, B]
-  const size_t layer_stride = (size_t)G * B * H;  // of [L, G, B, H]
-
-  if (b >= p.n_active) {
-    // compacted away: frozen outputs, carry passed through
-    for (int s = tid; s < p.S; s += kThreads) {
-      p.tokens[((size_t)s * G + g) * B + b] = kPad;
-      p.logprobs[((size_t)s * G + g) * B + b] = 0.0f;
+  int total = 0;
+  for (int base = 0; base < R; base += kThreads) {
+    const int r = base + tid;
+    const bool f = r < R && __ldcg(fin + r) == 0;
+    const unsigned m = __ballot_sync(kFull, f);
+    if (lane == 0) wcount[warp] = __popc(m);
+    __syncthreads();
+    int off = total;
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) off += wcount[w];
+      sum += wcount[w];
     }
-    for (int i = tid; i < L * H; i += kThreads) {
-      const size_t o = (i / H) * layer_stride + row * H + i % H;
-      p.c_out[o] = p.c_in[o];
-      p.h_out[o] = p.h_in[o];
-    }
-    return;
+    if (f) live[off + __popc(m & ((1u << lane) - 1u))] = r;
+    __syncthreads();
+    total += sum;
   }
-
-  extern __shared__ float smem[];
-  float* x = smem;               // [x_len] layer input: (emb | ctx), then h
-  float* gates = x + x_len;      // [4H]
-  float* cs = gates + H4;        // [L, H]
-  float* hs = cs + L * H;        // [L, H]
-  float* q = hs + L * H;         // [A]
-  float* att = q + A;            // [W] scores, then softmax weights
-  float* red = att + W;          // [4, kWarps] cross-warp reduction
-  int* red_i = reinterpret_cast<int*>(red + 4 * kWarps);  // [kWarps]
-  int* slot_of = red_i + kWarps;                          // [W]
-  __shared__ int next_tok;
-
-  for (int i = tid; i < L * H; i += kThreads) {
-    const size_t o = (i / H) * layer_stride + row * H + i % H;
-    cs[i] = p.c_in[o];
-    hs[i] = p.h_in[o];
-  }
-  const int len = min(max(p.mem_lens[b], 1), W);
-  for (int m = tid; m < len; m += kThreads) slot_of[m] = bank.slot(b, m);
-  const int tok0 = p.token[row];
-  for (int e = tid; e < E; e += kThreads) x[e] = p.embt[(size_t)tok0 * E + e];
-  bool fin = p.finished[row] != 0;
-  const int K = G - 1;
   __syncthreads();
+  return total;
+}
 
-  for (int s = 0; s < p.S; ++s) {
-    const size_t out = ((size_t)s * G + g) * B + b;
-    if (fin) {  // uniform over the block
-      if (tid == 0) {
-        p.tokens[out] = kPad;
-        p.logprobs[out] = 0.0f;
-      }
-      continue;
-    }
-    // query projection of the top layer's hidden state
-    const float* h_top = hs + (L - 1) * H;
-    for (int a = tid; a < A; a += kThreads) {
-      float acc = 0.0f;
-      for (int k = 0; k < H; ++k) acc = fmaf(h_top[k], p.wq[(size_t)k * A + a], acc);
-      q[a] = acc + p.bq[a];
-    }
-    __syncthreads();
-    // scores: one warp per memory slot of this row
-    for (int m = warp; m < len; m += kWarps) {
-      const size_t base = (size_t)slot_of[m] * A;
-      float acc = 0.0f;
-      for (int a = lane; a < A; a += 32) {
-        acc += tanhf(to_f32(bank.proj[base + a]) + q[a]) * p.v[a];
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) att[m] = bank.mask[slot_of[m]] > 0.0f ? acc : kNeg;
-    }
-    __syncthreads();
-    // softmax over the row's slots (slots past len carry exactly 0 weight)
-    if (warp == 0) {
-      float mx = -INFINITY;
-      for (int m = lane; m < len; m += 32) mx = fmaxf(mx, att[m]);
-      mx = warp_max(mx);
-      float sum = 0.0f;
-      for (int m = lane; m < len; m += 32) {
-        const float e = expf(att[m] - mx);
-        att[m] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int m = lane; m < len; m += 32) att[m] = att[m] / sum;
-    }
-    __syncthreads();
-    for (int e = tid; e < Em; e += kThreads) {
-      float acc = 0.0f;
-      for (int m = 0; m < len; ++m) {
-        acc = fmaf(att[m], to_f32(bank.mem[(size_t)slot_of[m] * Em + e]), acc);
-      }
-      x[E + e] = acc;
-    }
-    __syncthreads();
-    // LSTM stack
-    const float* wx = p.wx;
-    int n_in = E + Em;
-    for (int l = 0; l < L; ++l) {
-      const float* wh = p.wh + (size_t)l * H * H4;
-      const float* bg = p.bg + (size_t)l * H4;
-      float* c = cs + l * H;
-      float* h = hs + l * H;
-      for (int j = tid; j < H4; j += kThreads) {
-        float ax = 0.0f;
-        float ah = 0.0f;
-        for (int k = 0; k < n_in; ++k) ax = fmaf(x[k], wx[(size_t)k * H4 + j], ax);
-        for (int k = 0; k < H; ++k) ah = fmaf(h[k], wh[(size_t)k * H4 + j], ah);
-        gates[j] = ax + ah + bg[j];
-      }
-      __syncthreads();
-      for (int j = tid; j < H; j += kThreads) {
-        const float ig = sigmoid_f32(gates[j]);
-        const float fg = sigmoid_f32(gates[H + j]);
-        const float gg = tanhf(gates[2 * H + j]);
-        const float og = sigmoid_f32(gates[3 * H + j]);
-        const float cn = fg * c[j] + ig * gg;
-        const float hn = og * tanhf(cn);
-        c[j] = cn;
-        h[j] = hn;
-        x[j] = hn;
-      }
-      __syncthreads();
-      wx += (size_t)n_in * H4;
-      n_in = H;
-    }
-    // vocab projection with online logsumexp and selection
-    const float* hx = hs + (L - 1) * H;
-    const bool eos_blocked = p.t0 + s < p.min_len;
+// One row-GEMM of a phase: Y = X[live rows] . W over k slices of kslice,
+// either into split-K partials out[ks, R, N] or, with out == nullptr,
+// through the selection epilogue of the logits.
+struct Job {
+  rowgemm::Seg seg[2];
+  int N;
+  int kslice;
+  float* out;
+};
+
+__device__ __forceinline__ int job_slices(const Job& j) {
+  return cdiv(j.seg[0].k + j.seg[1].k, j.kslice);
+}
+
+// Selection epilogue: this tile's partials for each of its rows.
+__device__ __forceinline__ void select_epilogue(
+    const StrideArgs& p, const Workspace& ws, const Dims& d, int step,
+    int tile, int n0, const int* rows, int n_rows, float (&acc)[kTM][4]) {
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const int NA = p.n_active;
+  const bool eos_blocked = p.t0 + step < p.min_len;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int m = ty * kTM + i;
+    const bool ok = m < n_rows;
+    const int r = ok ? rows[m] : 0;
+    const int g = ok ? r / NA : 0;
+    const int b = ok ? r % NA : 0;
     const float* nz =
-        g > 0 ? p.noise + (((size_t)s * K + (g - 1)) * B + b) * V : nullptr;
+        g > 0 ? p.noise + (((size_t)step * (p.G - 1) + (g - 1)) * p.B + b) * p.V
+              : nullptr;
     float lm = -INFINITY;
     float ls = 0.0f;
     float best = -INFINITY;
     float best_lg = 0.0f;
     int best_i = INT_MAX;
-    for (int vv = tid; vv < V; vv += kThreads) {
-      float acc = 0.0f;
-      for (int k = 0; k < H; ++k) acc = fmaf(hx[k], p.wo[(size_t)k * V + vv], acc);
-      float lg = acc + p.bo[vv];
-      if (vv == kPad || vv == kBos || (eos_blocked && vv == kEos)) lg = kNeg;
-      lse_merge(lm, ls, lg, 1.0f);
-      const float sel = nz ? lg / p.temperature + nz[vv] : lg;
-      if (sel > best) {  // strict: within a thread ids ascend
-        best = sel;
-        best_i = vv;
-        best_lg = lg;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int vv = n0 + tx * 4 + j;
+      if (ok && vv < p.V) {
+        float lg = acc[i][j] + p.bo[vv];
+        if (vv == kPad || vv == kBos || (eos_blocked && vv == kEos)) lg = kNeg;
+        lse_merge(lm, ls, lg, 1.0f);
+        const float sel = nz ? lg / p.temperature + nz[vv] : lg;
+        if (sel > best) {  // strict: within a thread ids ascend
+          best = sel;
+          best_i = vv;
+          best_lg = lg;
+        }
       }
     }
-    warp_reduce_step(lm, ls, best, best_i, best_lg);
-    if (lane == 0) {
-      red[warp] = lm;
-      red[kWarps + warp] = ls;
-      red[2 * kWarps + warp] = best;
-      red[3 * kWarps + warp] = best_lg;
-      red_i[warp] = best_i;
+    // the 16 threads of a tile row are lanes 16 * (ty & 1) .. + 15
+    reduce_sel(lm, ls, best, best_i, best_lg, 8);
+    if (tx == 0 && ok) {
+      const size_t o = (size_t)r * d.nT + tile;
+      ws.part[o] = make_float4(lm, ls, best, best_lg);
+      ws.part_i[o] = best_i;
     }
-    __syncthreads();
-    if (warp == 0) {
-      const bool has = lane < kWarps;
-      lm = has ? red[lane] : -INFINITY;
-      ls = has ? red[kWarps + lane] : 0.0f;
-      best = has ? red[2 * kWarps + lane] : -INFINITY;
-      best_lg = has ? red[3 * kWarps + lane] : 0.0f;
-      best_i = has ? red_i[lane] : INT_MAX;
-      warp_reduce_step(lm, ls, best, best_i, best_lg);
-      if (lane == 0) {
-        p.tokens[out] = best_i;
-        p.logprobs[out] = best_lg - (lm + logf(ls));
-        next_tok = best_i;
-      }
-    }
-    __syncthreads();
-    const int tok = next_tok;
-    fin = tok == kEos;
-    for (int e = tid; e < E; e += kThreads) x[e] = p.embt[(size_t)tok * E + e];
-    __syncthreads();
   }
+}
 
-  for (int i = tid; i < L * H; i += kThreads) {
-    const size_t o = (i / H) * layer_stride + row * H + i % H;
-    p.c_out[o] = cs[i];
-    p.h_out[o] = hs[i];
+// The tiles of up to two jobs, spread over the grid: (column tile, row
+// chunk, k slice) each.
+__device__ void gemm_phase(const StrideArgs& p, const Workspace& ws,
+                           const Dims& d, const Job* jobs, int n_jobs,
+                           const int* live, int n_live, float* smem,
+                           int step) {
+  const int n_rc = cdiv(n_live, Tile::BM);
+  int count[2];
+  int total = 0;
+  for (int j = 0; j < n_jobs; ++j) {
+    count[j] = cdiv(jobs[j].N, rowgemm::BN) * n_rc * job_slices(jobs[j]);
+    total += count[j];
   }
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    int j = 0;
+    int local = item;
+    while (local >= count[j]) local -= count[j++];
+    const Job& job = jobs[j];
+    const int ks = job_slices(job);
+    const int slice = local % ks;
+    const int rest = local / ks;
+    const int rc = rest % n_rc;
+    const int ct = rest / n_rc;
+    const int k_all = job.seg[0].k + job.seg[1].k;
+    const int kb = slice * job.kslice;
+    const int ke = min(k_all, kb + job.kslice);
+    const int* rows = live + rc * Tile::BM;
+    const int n_rows = min(Tile::BM, n_live - rc * Tile::BM);
+    const int n0 = ct * rowgemm::BN;
+    float acc[kTM][4];
+    Tile::run(job.seg, kb, ke, job.N, n0, rows, n_rows, smem, acc);
+    if (job.out == nullptr) {
+      select_epilogue(p, ws, d, step, ct, n0, rows, n_rows, acc);
+      continue;
+    }
+    float* out = job.out + (size_t)slice * d.R * job.N;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int m = ty * kTM + i;
+      if (m >= n_rows) continue;
+      float* o = out + (size_t)rows[m] * job.N;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = n0 + tx * 4 + jj;
+        if (col < job.N) o[col] = acc[i][jj];
+      }
+    }
+  }
+}
+
+// Merge row r's logits partials of `step`: write its token and logprob,
+// mark it finished on EOS. Returns the token (the same in every thread).
+__device__ int select_row(const StrideArgs& p, const Workspace& ws,
+                          const Dims& d, int r, int step, float* red,
+                          int* red_i) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float lm = -INFINITY;
+  float ls = 0.0f;
+  float best = -INFINITY;
+  float best_lg = 0.0f;
+  int best_i = INT_MAX;
+  for (int t = tid; t < d.nT; t += kThreads) {
+    const size_t o = (size_t)r * d.nT + t;
+    const float4 pt = __ldcg(ws.part + o);
+    lse_merge(lm, ls, pt.x, pt.y);
+    pick_merge(best, best_i, best_lg, pt.z, __ldcg(ws.part_i + o), pt.w);
+  }
+  reduce_sel(lm, ls, best, best_i, best_lg, 16);
+  if (lane == 0) {
+    red[warp] = lm;
+    red[kWarps + warp] = ls;
+    red[2 * kWarps + warp] = best;
+    red[3 * kWarps + warp] = best_lg;
+    red_i[warp] = best_i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool has = lane < kWarps;
+    lm = has ? red[lane] : -INFINITY;
+    ls = has ? red[kWarps + lane] : 0.0f;
+    best = has ? red[2 * kWarps + lane] : -INFINITY;
+    best_lg = has ? red[3 * kWarps + lane] : 0.0f;
+    best_i = has ? red_i[lane] : INT_MAX;
+    reduce_sel(lm, ls, best, best_i, best_lg, 16);
+    if (lane == 0) {
+      const int NA = p.n_active;
+      const size_t out = ((size_t)step * p.G + r / NA) * p.B + r % NA;
+      p.tokens[out] = best_i;
+      p.logprobs[out] = best_lg - (lm + logf(ls));
+      ws.tok[r] = best_i;
+      if (best_i == kEos) ws.fin[r] = 1;
+      red_i[kWarps] = best_i;
+    }
+  }
+  __syncthreads();
+  const int tok = red_i[kWarps];
+  __syncthreads();  // red_i is reused by the next row
+  return tok;
+}
+
+// One row's attention for the step: x[r] = (emb of tok | ctx).
+template <class Bank>
+__device__ void attend_row(const StrideArgs& p, const Bank& bank,
+                           const Workspace& ws, const Dims& d, int r, int tok,
+                           float* smem) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int A = p.A, E = p.E, Em = p.Em;
+  const int W = bank.slots();
+  const int b = r % p.n_active;
+  float* q = smem;                                 // [A]
+  float* att = q + A;                              // [W]
+  int* slot_of = reinterpret_cast<int*>(att + W);  // [W]
+  float* xr = ws.x + (size_t)r * (E + Em);
+  for (int e = tid; e < E; e += kThreads) xr[e] = p.embt[(size_t)tok * E + e];
+  for (int a = tid; a < A; a += kThreads) {
+    float acc = p.bq[a];
+    for (int k = 0; k < d.ksq; ++k) {
+      acc += __ldcg(ws.qpart + ((size_t)k * d.R + r) * A + a);
+    }
+    q[a] = acc;
+  }
+  const int len = min(max(p.mem_lens[b], 1), W);
+  for (int m = tid; m < len; m += kThreads) slot_of[m] = bank.slot(b, m);
+  __syncthreads();
+  // scores: eight lanes per memory slot, 32 slots at a time
+  const int grp = tid / kSlotLanes;
+  const int sub = tid % kSlotLanes;
+  for (int m0 = 0; m0 < len; m0 += kThreads / kSlotLanes) {
+    const int m = m0 + grp;
+    float acc = 0.0f;
+    if (m < len) {
+      const size_t base = (size_t)slot_of[m] * A;
+      for (int a = sub; a < A; a += kSlotLanes) {
+        acc += tanhf(to_f32(bank.proj[base + a]) + q[a]) * p.v[a];
+      }
+    }
+    for (int o = kSlotLanes / 2; o > 0; o >>= 1) {
+      acc += __shfl_xor_sync(kFull, acc, o);
+    }
+    if (m < len && sub == 0) {
+      att[m] = bank.mask[slot_of[m]] > 0.0f ? acc : kNeg;
+    }
+  }
+  __syncthreads();
+  // softmax over the row's slots (slots past len carry exactly 0 weight)
+  if (warp == 0) {
+    float mx = -INFINITY;
+    for (int m = lane; m < len; m += 32) mx = fmaxf(mx, att[m]);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int m = lane; m < len; m += 32) {
+      const float e = expf(att[m] - mx);
+      att[m] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int m = lane; m < len; m += 32) att[m] = att[m] / sum;
+  }
+  __syncthreads();
+  // context: columns over the threads, four independent slot chains each
+  for (int e = tid; e < Em; e += kThreads) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int m = 0;
+    for (; m + 4 <= len; m += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[u] = fmaf(att[m + u],
+                      to_f32(bank.mem[(size_t)slot_of[m + u] * Em + e]),
+                      acc[u]);
+      }
+    }
+    for (int u = 0; m < len; ++m, ++u) {
+      acc[u] = fmaf(att[m], to_f32(bank.mem[(size_t)slot_of[m] * Em + e]),
+                    acc[u]);
+    }
+    xr[E + e] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+  __syncthreads();  // smem is reused by the next row
+}
+
+// The gate GEMM of layer l: [x_l, h_l] . [Wx_l; Wh_l] into split-K partials.
+__device__ __forceinline__ Job gate_job(const StrideArgs& p,
+                                        const Workspace& ws, const Dims& d,
+                                        int l) {
+  const int H4 = 4 * p.H;
+  const size_t layer = (size_t)d.R * p.H;
+  Job j;
+  if (l == 0) {
+    j.seg[0] = rowgemm::Seg{ws.x, p.E + p.Em, p.wx, p.E + p.Em};
+  } else {
+    j.seg[0] = rowgemm::Seg{
+        ws.h + (l - 1) * layer, p.H,
+        p.wx + (size_t)(p.E + p.Em) * H4 + (size_t)(l - 1) * p.H * H4, p.H};
+  }
+  j.seg[1] = rowgemm::Seg{ws.h + l * layer, p.H, p.wh + (size_t)l * p.H * H4,
+                          p.H};
+  j.N = H4;
+  j.kslice = kSplitK;
+  j.out = ws.gpart;
+  return j;
+}
+
+// q = h_top Wq into split-K partials (the bias is added where it is read).
+__device__ __forceinline__ Job q_job(const StrideArgs& p, const Workspace& ws,
+                                     const Dims& d) {
+  Job j;
+  j.seg[0] = rowgemm::Seg{ws.h + (size_t)(p.L - 1) * d.R * p.H, p.H, p.wq,
+                          p.H};
+  j.seg[1] = rowgemm::Seg{ws.h, p.H, p.wq, 0};
+  j.N = p.A;
+  j.kslice = kSplitK;
+  j.out = ws.qpart;
+  return j;
+}
+
+// logits = h_top Wo, one k slice, through the selection epilogue.
+__device__ __forceinline__ Job logits_job(const StrideArgs& p,
+                                          const Workspace& ws, const Dims& d) {
+  Job j;
+  j.seg[0] = rowgemm::Seg{ws.h + (size_t)(p.L - 1) * d.R * p.H, p.H, p.wo,
+                          p.H};
+  j.seg[1] = rowgemm::Seg{ws.h, p.H, p.wo, 0};
+  j.N = p.V;
+  j.kslice = p.H;
+  j.out = nullptr;
+  return j;
+}
+
+__device__ __forceinline__ void mark(const StrideArgs& p, int& n, int code) {
+  if (p.timeline != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.timeline[2 * n] = code;
+    p.timeline[2 * n + 1] = t;
+  }
+  ++n;
+}
+
+template <class Bank>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    stride_kernel(const StrideArgs p, const Bank bank) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[4 * kWarps];
+  __shared__ int red_i[kWarps + 1];
+  const int tid = threadIdx.x;
+  const int G = p.G, B = p.B, H = p.H, L = p.L, S = p.S, NA = p.n_active;
+  const int H4 = 4 * H;
+  const int R = G * NA;
+  const Dims d = dims_of(p);
+  Workspace ws;
+  carve(p, &ws);
+  int* live = reinterpret_cast<int*>(smem + phase_floats(p.A, bank.slots()));
+  const size_t gtid = (size_t)blockIdx.x * kThreads + tid;
+  const size_t gstride = (size_t)gridDim.x * kThreads;
+  int marks = 0;
+  mark(p, marks, kPhaseStart);
+
+  // ---- init: outputs PAD/0, the carry in (or through), lane state
+  for (size_t i = gtid; i < (size_t)S * G * B; i += gstride) {
+    p.tokens[i] = kPad;
+    p.logprobs[i] = 0.0f;
+  }
+  for (size_t i = gtid; i < (size_t)L * G * B * H; i += gstride) {
+    const size_t lgb = i / H;
+    const int b = (int)(lgb % B);
+    if (b >= NA) {
+      p.c_out[i] = p.c_in[i];
+      p.h_out[i] = p.h_in[i];
+      continue;
+    }
+    const int g = (int)((lgb / B) % G);
+    const int l = (int)(lgb / ((size_t)B * G));
+    const size_t o = ((size_t)l * d.R + g * NA + b) * H + i % H;
+    ws.c[o] = p.c_in[i];
+    ws.h[o] = p.h_in[i];
+  }
+  for (size_t r = gtid; r < (size_t)R; r += gstride) {
+    const int gb = (int)(r / NA) * B + (int)(r % NA);
+    ws.fin[r] = p.finished[gb] != 0;
+    ws.tok[r] = p.token[gb];
+  }
+  grid.sync();
+  mark(p, marks, kPhaseInit);
+  int n_live = build_live(ws.fin, R, live, red_i);
+  Job jobs[2];
+  jobs[0] = q_job(p, ws, d);
+  gemm_phase(p, ws, d, jobs, 1, live, n_live, smem, 0);
+  grid.sync();
+  mark(p, marks, kPhaseQ);
+
+  int pending = -1;  // the step whose logits partials wait for selection
+  for (int s = 0; s < S; ++s) {
+    // ---- attend: the last step's selection, then this step's context
+    for (int i = blockIdx.x; i < n_live; i += gridDim.x) {
+      const int r = live[i];
+      const int tok = pending >= 0 ? select_row(p, ws, d, r, pending, red,
+                                                red_i)
+                                   : __ldcg(ws.tok + r);
+      if (tok == kEos && pending >= 0) continue;
+      attend_row(p, bank, ws, d, r, tok, smem);
+    }
+    pending = -1;
+    grid.sync();
+    mark(p, marks, kPhaseAttend);
+    n_live = build_live(ws.fin, R, live, red_i);
+    if (n_live == 0) break;  // the same in every block
+    // ---- LSTM stack
+    for (int l = 0; l < L; ++l) {
+      jobs[0] = gate_job(p, ws, d, l);
+      gemm_phase(p, ws, d, jobs, 1, live, n_live, smem, s);
+      grid.sync();
+      mark(p, marks, kPhaseGates);
+      const int ks = job_slices(jobs[0]);
+      const float* bg = p.bg + (size_t)l * H4;
+      float* c = ws.c + (size_t)l * d.R * H;
+      float* h = ws.h + (size_t)l * d.R * H;
+      for (size_t i = gtid; i < (size_t)n_live * H; i += gstride) {
+        const int r = live[i / H];
+        const int j = (int)(i % H);
+        float gi = bg[j], gf = bg[H + j], gg = bg[2 * H + j],
+              go = bg[3 * H + j];
+        for (int k = 0; k < ks; ++k) {
+          const float* gp = ws.gpart + ((size_t)k * d.R + r) * H4;
+          gi += __ldcg(gp + j);
+          gf += __ldcg(gp + H + j);
+          gg += __ldcg(gp + 2 * H + j);
+          go += __ldcg(gp + 3 * H + j);
+        }
+        const size_t o = (size_t)r * H + j;
+        const float cn = sigmoid_f32(gf) * __ldcg(c + o) +
+                         sigmoid_f32(gi) * tanhf(gg);
+        c[o] = cn;
+        h[o] = sigmoid_f32(go) * tanhf(cn);
+      }
+      grid.sync();
+      mark(p, marks, kPhaseCell);
+    }
+    // ---- logits with their selection partials, and the next step's q
+    int n_jobs = 0;
+    if (s + 1 < S) jobs[n_jobs++] = q_job(p, ws, d);
+    jobs[n_jobs++] = logits_job(p, ws, d);
+    gemm_phase(p, ws, d, jobs, n_jobs, live, n_live, smem, s);
+    grid.sync();
+    mark(p, marks, kPhaseLogits);
+    pending = s;
+  }
+  // ---- the last step's selection (if the stride ran to its end), carry out
+  if (pending >= 0) {
+    for (int i = blockIdx.x; i < n_live; i += gridDim.x) {
+      select_row(p, ws, d, live[i], pending, red, red_i);
+    }
+  }
+  for (size_t i = gtid; i < (size_t)L * R * H; i += gstride) {
+    const size_t lr = i / H;
+    const int r = (int)(lr % R);
+    const int l = (int)(lr / R);
+    const size_t o =
+        (((size_t)l * G + r / NA) * B + r % NA) * H + i % H;
+    const size_t src = ((size_t)l * d.R + r) * H + i % H;
+    p.c_out[o] = __ldcg(ws.c + src);
+    p.h_out[o] = __ldcg(ws.h + src);
+  }
+  mark(p, marks, kPhaseEnd);
 }
 
 template <class Bank>
 int launch(const StrideArgs& p, const Bank& bank, int W, cudaStream_t stream) {
-  const int x_len = p.E + p.Em > p.H ? p.E + p.Em : p.H;
-  const size_t floats =
-      (size_t)x_len + 4 * p.H + 2 * p.L * p.H + p.A + W + 4 * kWarps;
-  const size_t bytes = floats * sizeof(float) + (kWarps + W) * sizeof(int);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&stride_kernel<Bank>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+  if (p.ws == nullptr || p.ws_floats < carve(p, nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(p.B, p.G);
-  stride_kernel<Bank><<<grid, kThreads, bytes, stream>>>(p, bank);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const void* fn = reinterpret_cast<const void*>(&stride_kernel<Bank>);
+  const size_t bytes =
+      ((size_t)phase_floats(p.A, W) + (size_t)p.G * p.B) * sizeof(float);
+  // the grid for (device, shared bytes), worked out on first use
+  static int cached_dev = -1;
+  static size_t cached_bytes = 0;
+  static int cached_blocks = 0;
+  if (dev != cached_dev || bytes != cached_bytes) {
+    int coop = 0;
+    int sms = 0;
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!coop) return (int)cudaErrorNotSupported;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cached_blocks = (per_sm < kMinBlocks ? per_sm : kMinBlocks) * sms;
+    cached_dev = dev;
+    cached_bytes = bytes;
+  }
+  void* args[] = {const_cast<StrideArgs*>(&p), const_cast<Bank*>(&bank)};
+  e = cudaLaunchCooperativeKernel(fn, dim3(cached_blocks), dim3(kThreads),
+                                  args, bytes, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -407,6 +805,12 @@ int decode_stride_paged(const StrideArgs* args, void* stream) {
                               static_cast<const float*>(p.proj), p.mask,
                               p.table, p.slots, p.width};
   return launch(p, bank, W, st);
+}
+
+// Floats of workspace a launch with these arguments needs (what the launch
+// checks the caller's against).
+long long decode_stride_workspace_floats(const StrideArgs* args) {
+  return carve(*args, nullptr);
 }
 
 const char* decode_stride_error_string(int code) {

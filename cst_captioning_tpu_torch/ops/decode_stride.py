@@ -24,7 +24,10 @@ once per stride.
 On CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/decode_stride.cu`` (built by ``ops/build.py``) and count the launch
 in their ``launches`` attribute; on CPU tensors they run the plain version.
-Nothing falls back: a CUDA call that cannot launch raises.
+The kernel is one cooperative launch (a grid whose blocks are all resident
+at once, stepping in lockstep); the wrapper allocates its workspace
+(:func:`stride_workspace`). Nothing falls back: a CUDA call that cannot
+launch, a card that refuses the cooperative launch included, raises.
 """
 
 from __future__ import annotations
@@ -74,6 +77,43 @@ def stride_weights(cell) -> StrideWeights:
         bo=f(cell.out_proj.bias).contiguous(),
         embt=f(cell.word_embed.weight).contiguous(),
     )
+
+
+# ---- the kernel's workspace --------------------------------------------------
+
+TILE_N = 64      # logits columns of one kernel tile (rowgemm.cuh BN)
+SPLIT_K = 256    # k of one split-K slice of q and the gates (kSplitK in the .cu)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stride_workspace(G: int, B: int, E: int, Em: int, A: int, H: int,
+                     L: int, V: int) -> dict[str, int]:
+    """The kernel's workspace regions in floats, in its order (``carve`` in
+    csrc/decode_stride.cu, which checks the total), each rounded up to 4
+    floats: per row (R = G * B) and 64-column logits tile the selection
+    partials (4 floats and an id), q's and the widest gate GEMM's split-K
+    partials, the layer-0 input, the working carry, finished and token."""
+    R = G * B
+    n_tiles = _cdiv(V, TILE_N)
+    ks_q = _cdiv(H, SPLIT_K)
+    ks_gates = _cdiv(max(E + Em, H) + H, SPLIT_K)
+    sizes = {
+        "part": 4 * R * n_tiles, "part_id": R * n_tiles,
+        "q": ks_q * R * A, "gates": ks_gates * R * 4 * H,
+        "x": R * (E + Em), "h": L * R * H, "c": L * R * H,
+        "finished": R, "token": R,
+    }
+    return {k: _cdiv(n, 4) * 4 for k, n in sizes.items()}
+
+
+def timeline_len(steps: int, num_layers: int) -> int:
+    """Entries of a stride launch's phase timeline: a (code, ns) pair at the
+    start, after init and q, after each step's attend, gates and cell (per
+    layer) and logits, and at the end."""
+    return 2 * (4 + steps * (2 + 2 * num_layers))
 
 
 # ---- plain versions ----------------------------------------------------------
@@ -175,7 +215,8 @@ class _StrideArgs(ctypes.Structure):
     )] + [(n, ctypes.c_int) for n in (
         "bank_bf16", "slots", "width", "G", "B", "S", "V", "E", "Em", "A",
         "H", "L", "t0", "n_active", "min_len",
-    )] + [("temperature", ctypes.c_float)]
+    )] + [("temperature", ctypes.c_float), ("ws", ctypes.c_void_p),
+          ("ws_floats", ctypes.c_longlong), ("timeline", ctypes.c_void_p)]
 
 
 @functools.cache
@@ -187,6 +228,9 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.decode_stride_dense, lib.decode_stride_paged):
         fn.argtypes = [ctypes.POINTER(_StrideArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.decode_stride_workspace_floats.argtypes = [
+        ctypes.POINTER(_StrideArgs)]
+    lib.decode_stride_workspace_floats.restype = ctypes.c_longlong
     lib.decode_stride_error_string.argtypes = [ctypes.c_int]
     lib.decode_stride_error_string.restype = ctypes.c_char_p
     return lib
@@ -206,7 +250,12 @@ def _expect(t: torch.Tensor, name: str, dev, dtypes, shape=None) -> None:
 def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
             mask, table, slots: int, width: int, noise, t0: int,
             n_active: int, steps: int, temperature: float, min_len: int,
-            mem_lens):
+            mem_lens, timeline=None):
+    """Launch ``entry``. ``timeline``: None, or an int64 tensor on the
+    card of at least ``timeline_len(steps, L)`` zeros, into which block 0
+    writes a (phase code, %globaltimer ns) pair as it leaves each grid
+    barrier (codes: 0 start, 1 init, 2 q, 3 attend, 4 gates, 5 cell,
+    6 logits, 7 end; the phase that ends at the mark)."""
     dev = mem.device
     G, B = token.shape
     L = len(carry)
@@ -228,6 +277,10 @@ def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
         _expect(getattr(w, name), name, dev, (torch.float32,))
     if w.wx.numel() != (E + Em) * 4 * H + (L - 1) * H * 4 * H:
         raise ValueError("LSTM input weights do not match [E + Em, 4H]")
+    if timeline is not None:
+        _expect(timeline, "timeline", dev, (torch.int64,))
+        if timeline.numel() < timeline_len(steps, L):
+            raise ValueError("timeline is shorter than timeline_len")
     tok = token.to(torch.int32).contiguous()
     fin = finished.to(torch.int32).contiguous()
     lens = mem_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -242,6 +295,8 @@ def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
     logprobs = torch.empty((steps, G, B), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(c_in)
     h_out = torch.empty_like(h_in)
+    ws = torch.empty(sum(stride_workspace(G, B, E, Em, A, H, L, V).values()),
+                     dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = _StrideArgs(
         mem=ptr(mem), proj=ptr(proj), mask=ptr(mask), table=ptr(table),
@@ -254,7 +309,8 @@ def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
         bank_bf16=int(mem.dtype == torch.bfloat16), slots=slots, width=width,
         G=G, B=B, S=steps, V=V, E=E, Em=Em, A=A, H=H, L=L, t0=int(t0),
         n_active=int(n_active), min_len=int(min_len),
-        temperature=float(temperature),
+        temperature=float(temperature), ws=ptr(ws), ws_floats=ws.numel(),
+        timeline=ptr(timeline),
     )
     lib = _lib()
     # the launch is asynchronous; the temporaries above may be freed on

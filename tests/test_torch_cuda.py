@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 GPU, at small odd shapes (V and the widths not multiples of the block
 sizes, one and two LSTM layers, float32 and bfloat16 banks, a fully masked
-row): the stride kernel (dense and paged), the additive-attention kernel
+row): the stride kernel (dense and paged; also with more live rows than
+SMs, every row finished, no active row, and its workspace sizes against
+the kernel's own), the additive-attention kernel
 with its gradient, the decode-step kernel (also at one lane, greedy's
 shape) and the beam-step kernel (finished lanes, EOS blocked while
 t < min_len), and the wrappers' refusals.
@@ -12,6 +14,8 @@ Marked ``gpu``: these skip without a CUDA device and run on the H100
 
 (chip_smoke.py holds the same kernels at the full training and serving
 shapes)."""
+
+import ctypes
 
 import pytest
 import torch  # graftlint: disable=GL006
@@ -97,10 +101,10 @@ def _inputs(dev, layers, bank_dtype, seed=0):
     return model, carry, token, finished, (mem, proj, enc.memory_mask), noise, lens
 
 
-def _paged(bank, seed=0):
+def _paged(bank, seed=0, B_=B):
     mem, proj, mask = bank
     width = -(-F // P)
-    n = B * width
+    n = B_ * width
     order = torch.randperm(n, generator=torch.Generator().manual_seed(seed)) + 1
     pools = []
     for x in bank:
@@ -110,7 +114,7 @@ def _paged(bank, seed=0):
                            device=x.device)
         pool[order.to(x.device)] = xp.reshape((n, P) + tuple(x.shape[2:]))
         pools.append(pool)
-    return (*pools, order.reshape(B, width).int().to(mem.device))
+    return (*pools, order.reshape(B_, width).int().to(mem.device))
 
 
 @pytest.mark.parametrize("layers", [1, 2])
@@ -149,6 +153,95 @@ def test_kernel_matches_plain(dev, layers, bank_dtype, paged):
     for (a, b), (c0, h0) in zip(kc, carry):
         assert torch.equal(a[:, n_active:], c0[:, n_active:])
         assert torch.equal(b[:, n_active:], h0[:, n_active:])
+
+
+def _stride_case(dev, layers, B_, K_, V_, E_=E, seed=3):
+    """Stride inputs at other shapes than ``_inputs``: B_ rows, 1 + K_
+    lanes, V_ tokens, widths E_, ragged clips and memory lengths, a
+    float32 bank."""
+    g = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    cfg = tcfg.ModelConfig(vocab_size=V_, modalities=(("resnet", 20),),
+                           d_embed=E_, d_hidden=E_, d_att=A,
+                           encoder="temporal_attention", max_frames=F,
+                           dtype="float32", num_layers=layers)
+    model = CaptionModel(cfg, device=dev)
+    G_ = 1 + K_
+    frames = torch.randint(1, F + 1, (B_, 1), generator=g)
+    with torch.no_grad():
+        model.cell.out_proj.bias[EOS_ID] += 2.0
+        enc = model.encode(
+            {"resnet": torch.randn(B_, F, 20, generator=g).to(dev)},
+            {"resnet": (torch.arange(F)[None] < frames).float().to(dev)})
+    carry = tuple((c[None].expand(G_, -1, -1).contiguous(),
+                   h[None].expand(G_, -1, -1).contiguous())
+                  for c, h in enc.carry)
+    token = torch.randint(3, V_, (G_, B_), generator=g).int().to(dev)
+    finished = (torch.rand((G_, B_), generator=g) < 0.2).to(dev)
+    noise = -torch.log(-torch.log(torch.rand(
+        (S, K_, B_, V_), generator=g).clamp(1e-7, 1 - 1e-7))).to(dev)
+    lens = torch.randint(1, F + 1, (B_,), generator=g).int().to(dev)
+    return (model, carry, token, finished,
+            (enc.memory, enc.memory_proj, enc.memory_mask), noise, lens)
+
+
+# more live rows than SMs; a vocab of whole 16-byte rows whose last column
+# tile is ragged; widths that are not multiples of 4 (4-byte copies); every
+# row finished from the start; no active row; two layers at the wide shape
+STRIDE_CASES = {
+    "rows_over_sms": dict(layers=1, B_=40, K_=3, V_=V, n_active=40),
+    "ragged_vocab": dict(layers=1, B_=B, K_=K, V_=300, n_active=B - 1),
+    "odd_widths": dict(layers=2, B_=B, K_=K, V_=V, E_=45, n_active=B),
+    "all_finished": dict(layers=1, B_=B, K_=K, V_=V, n_active=B,
+                         all_finished=True),
+    "n_active_0": dict(layers=1, B_=B, K_=K, V_=V, n_active=0),
+    "two_layers": dict(layers=2, B_=40, K_=3, V_=V, n_active=37),
+}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("case", sorted(STRIDE_CASES))
+def test_stride_kernel_cases(dev, case, paged):
+    c = STRIDE_CASES[case]
+    model, carry, token, fin, bank, noise, lens = _stride_case(
+        dev, c["layers"], c["B_"], c["K_"], c["V_"], c.get("E_", E))
+    if c.get("all_finished"):
+        fin = torch.ones_like(fin)
+    n_active = c["n_active"]
+    kw = dict(steps=S, temperature=0.9, min_len=1, mem_lens=lens)
+    fn = fused_decode_stride_paged if paged else fused_decode_stride
+    ins = _paged(bank, B_=c["B_"]) if paged else bank
+    before = fn.launches
+    kc, ktok, klp = fn(model.cell, carry, token, fin, *ins, noise, 0,
+                       n_active, **kw)
+    pc, ptok, plp = decode_stride_plain(
+        stride_weights(model.cell), carry, token, fin,
+        *(gather_pages(*ins) if paged else bank), noise, 0, n_active, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(ktok, ptok)
+    torch.testing.assert_close(klp, plp, rtol=TOL, atol=TOL)
+    done = fin.clone()
+    done[:, n_active:] = True
+    assert bool((ktok[:, done] == 0).all()) and bool((klp[:, done] == 0).all())
+    live = ~(done | (ktok == EOS_ID).any(0))
+    for (a, b), (c_, d), (c0, h0) in zip(kc, pc, carry):
+        torch.testing.assert_close(a[live], c_[live], rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b[live], d[live], rtol=TOL, atol=TOL)
+        # rows finished from the start, or past n_active: bit for bit
+        assert torch.equal(a[done], c0[done]) and torch.equal(b[done], h0[done])
+
+
+def test_workspace_sizes_match_the_kernel(dev):
+    lib = decode_stride._lib()
+    for G_, B_, E_, Em, A_, H, L, V_ in ((3, 32, 512, 512, 256, 512, 1, 9000),
+                                         (4, 40, 48, 48, 40, 48, 2, 301),
+                                         (2, 1, 8, 12, 4, 16, 1, 3)):
+        args = decode_stride._StrideArgs(G=G_, B=B_, E=E_, Em=Em, A=A_, H=H,
+                                         L=L, V=V_)
+        want = sum(decode_stride.stride_workspace(G_, B_, E_, Em, A_, H, L,
+                                                  V_).values())
+        assert lib.decode_stride_workspace_floats(ctypes.byref(args)) == want
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
