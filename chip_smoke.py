@@ -34,9 +34,12 @@
      totals tie within 1e-4 (counted), scores within 1e-4, the carry as
      the decode step's.
    Times are CUDA-event medians of 2 x 20 calls after warm-up, taken in
-   turns, with the weights packed once as the paths pack them; the bound
-   is computed from each call's shapes, and each time line gives the
-   kernel's share of it (bound / time).
+   turns, with the weights packed once as the paths pack them (the
+   decode step at G=1 too); the bound is computed from each call's
+   shapes, and each time line gives the kernel's share of it (bound /
+   time). The decode-step and beam-step kernels' device time a call is
+   split by launch (q, attend, gates, cell, logits, merge) from
+   torch.profiler over 10 more calls (``step_phases``).
 3. serve: CaptionService at msrvtt_xe_attention full width (seeded random
    weights, +2 on the EOS bias so caption lengths vary) answers 64 trace
    requests on the paged path and again on the dense-gather path; the
@@ -81,7 +84,8 @@
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
 8. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its paths, error, times and bound.
+   its paths, error, times and bound; for the decode and beam steps also
+   their device time by launch, and the decode step's at G=1.
 
 Each phase prints one JSON line; the card's nvidia-smi line and the kernels
 line come before the last line, ``{"ok": true, "device": {...}}``. Any
@@ -125,6 +129,7 @@ from cst_captioning_tpu_torch.ops.attention import (
 from cst_captioning_tpu_torch.ops.beam_step import (
     beam_step_plain,
     beam_topk_plain,
+    beam_workspace,
     fused_beam_step,
     fused_beam_step_,
 )
@@ -177,6 +182,10 @@ FIT_STEPS, FIT_LR = 100, 1e-2   # the eval model's short XE fit
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 CSRC = "cst_captioning_tpu_torch/ops/csrc/"
+# the step kernels' launches by kernel name (csrc/step.cuh, beam_step.cu)
+STEP_LAUNCHES = {"step_q_gemm": "q", "step_attend": "attend",
+                 "step_gates_gemm": "gates", "step_cell": "cell",
+                 "step_logits": "logits", "beam_merge": "merge"}
 KERNELS = ("fused_decode_stride", "fused_decode_stride_paged")
 SOURCE = {
     "fused_additive_attention": CSRC + "additive_attention.cu",
@@ -785,8 +794,10 @@ def beam_inputs(model, corpus, bf16: bool, t: int, min_len: int,
                 w=stride_weights(model.cell),
                 bank=(enc.memory.to(dt), enc.memory_proj.to(dt),
                       enc.memory_mask),
-                logits=torch.empty((BEAM_W, TRAIN_B, model.cfg.vocab_size),
-                                   device=dev))
+                # the search's selection workspace, allocated once
+                logits=torch.empty(
+                    (beam_workspace(BEAM_W, TRAIN_B, model.cfg.vocab_size),),
+                    device=dev))
 
 
 def run_beam_kernel(model, x, state=None):
@@ -1337,6 +1348,43 @@ def time_in_turns(pairs: dict) -> dict:
             for n, (k, p) in samples.items()}
 
 
+def step_phases(fn, layers: int, beam: bool, reps: int = 10) -> dict:
+    """Device ms a call of the decode-step (or, with ``beam``, the
+    beam-step) kernel spends in each of its launches, from torch.profiler
+    over ``reps`` calls of ``fn`` after a warm-up; ``total`` is their sum
+    and ``other`` the wrapper's own device work (casts) beside them. Each
+    launch must appear as often as the step runs it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    want = {"q": 1, "attend": 1, "gates": layers, "cell": layers,
+            "logits": 1, **({"merge": 1} if beam else {})}
+    ms = dict.fromkeys(want, 0.0)
+    count = dict.fromkeys(want, 0)
+    other = 0.0
+    for e in prof.key_averages():
+        if not (str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0):
+            continue
+        phase = next((v for k, v in STEP_LAUNCHES.items() if k in e.key),
+                     None)
+        if phase is None:
+            other += e.self_device_time_total / 1e3 / reps
+            continue
+        ms[phase] += e.self_device_time_total / 1e3 / reps
+        count[phase] += e.count
+    check(count == {k: n * reps for k, n in want.items()},
+          f"step launches seen by the profiler {count}, expected "
+          f"{want} x {reps}")
+    return {**ms, "total": sum(ms.values()), "other": other}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1404,6 +1452,8 @@ def main() -> int:
               "lanes": x["token"].shape[0], "rows": x["token"].shape[1],
               "bank_dtype": "bfloat16" if bf16 else "float32", **res})
         record("fused_decode_step", res)
+        if G == 1:
+            step_x1 = x                 # greedy decoding's shape
     step_x = x                          # the rollout's bank: bfloat16
     # the beam step at the eval's shapes (W=5, B=64) on the eval model
     ecfg = eval_config()
@@ -1437,6 +1487,8 @@ def main() -> int:
                            lambda: additive_attention_plain(*up_att)),
         "fused_decode_step": (lambda: run_step_kernel(tmodel, step_x),
                               lambda: run_step_plain(step_x)),
+        "fused_decode_step_g1": (lambda: run_step_kernel(tmodel, step_x1),
+                                 lambda: run_step_plain(step_x1)),
         "fused_beam_step": (lambda: run_beam_kernel(emodel, beam_x),
                             lambda: run_beam_plain(beam_x)),
     })
@@ -1451,6 +1503,7 @@ def main() -> int:
     bounds.update(attention_b64=attention_bound(xe_att),
                   attention_b320=attention_bound(up_att),
                   fused_decode_step=step_bound(tmodel, step_x),
+                  fused_decode_step_g1=step_bound(tmodel, step_x1),
                   fused_beam_step=beam_bound(emodel, beam_x))
     for key, (ms, plain_ms) in times.items():
         bnd, by = bounds[key]
@@ -1470,7 +1523,27 @@ def main() -> int:
                    ("fused_decode_stride_scst", scst_x)):
         emit({"phase": "stride_phases", "kernel": key,
               **stride_phases(key, model, x), "nvidia_smi": smi})
-    del att, xe_att, up_att, step_x, beam_x, scst_x, pairs
+    L, eL = tmodel.cfg.num_layers, emodel.cfg.num_layers
+    phases = {
+        "fused_decode_step": step_phases(
+            lambda: run_step_kernel(tmodel, step_x), L, beam=False),
+        "fused_decode_step_g1": step_phases(
+            lambda: run_step_kernel(tmodel, step_x1), L, beam=False),
+        "fused_beam_step": step_phases(
+            lambda: run_beam_kernel(emodel, beam_x), eL, beam=True)}
+    for key, ph in phases.items():
+        emit({"phase": "step_phases", "kernel": key, "device_ms": ph,
+              "event_ms": times[key][0], "nvidia_smi": smi})
+    for k in ("fused_decode_step", "fused_beam_step"):
+        kernels[k].update(device_ms=phases[k]["total"],
+                          device_phases_ms=phases[k])
+    kernels["fused_decode_step"]["g1"] = {
+        "ms": times["fused_decode_step_g1"][0],
+        "plain_ms": times["fused_decode_step_g1"][1],
+        "bound_ms": bounds["fused_decode_step_g1"][0],
+        "bound_by": bounds["fused_decode_step_g1"][1],
+        "device_ms": phases["fused_decode_step_g1"]["total"]}
+    del att, xe_att, up_att, step_x, step_x1, beam_x, scst_x, pairs
 
     draws, mism = noise_mismatches(dev)
     emit({"phase": "noise", "draws": draws, "cpu_gpu_mismatches": mism})
@@ -1589,9 +1662,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": REPLACES[k], "launches": path_launches[k],
-         "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-         "bound_by": v["bound_by"], "library_ms": None}
+         "library_ms": None, **v}
         for k, v in kernels.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

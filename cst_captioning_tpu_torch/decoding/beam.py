@@ -128,11 +128,12 @@ def _run_lanes(model, enc, B, V, W, T, min_len):
     dev = enc.memory.device
     carry0 = lane_carry(model, enc.carry, W)
     pad_row = _pad_row(V, dev)
-    weights = logits_buf = None
+    weights = workspace = None
     if use_kernel:
-        # packed once per search, and the kernel's logits scratch
+        # packed once per search, and the kernel's selection workspace
         weights = stride_weights(model.cell)
-        logits_buf = torch.empty((W, B, V), dtype=torch.float32, device=dev)
+        workspace = torch.empty((beam_ops.beam_workspace(W, B, V),),
+                                dtype=torch.float32, device=dev)
     carry_dtype = enc.carry[0][0].dtype
 
     def step(state, t):
@@ -144,7 +145,7 @@ def _run_lanes(model, enc, B, V, W, T, min_len):
                 model.cell, carry, last, finished.T, scores.T,
                 enc.memory, enc.memory_proj, enc.memory_mask, carry_dtype,
                 t=t, min_len=min_len, num_layers=model.cfg.num_layers,
-                weights=weights, logits=logits_buf)
+                weights=weights, logits=workspace)
             flat = flat.long()
             parent, tok = flat // V, (flat % V).to(torch.int32)
             carry = _reorder(carry, parent, 2)

@@ -21,10 +21,13 @@ hypotheses between steps. :func:`fused_beam_step_` is the same step on a
 carry kept as one float32 tensor [2, L, W, B, H] and updated in place.
 
 On CUDA tensors the wrappers launch the hand-written kernel
-``csrc/beam_step.cu`` (built by ``ops/build.py``) and count the launch in
+``csrc/beam_step.cu`` (the step's launches from ``csrc/step.cuh``, then a
+merge; built by ``ops/build.py``) and count the launch in
 ``fused_beam_step.launches``; on CPU tensors they run
-:func:`beam_step_plain`. Nothing falls back: a CUDA call that cannot launch
-raises.
+:func:`beam_step_plain`. The kernel writes no logits: its logits GEMM
+leaves per-tile selection partials in a workspace
+(:func:`beam_workspace`) that a merge launch reduces. Nothing falls back:
+a CUDA call that cannot launch raises.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ from cst_captioning_tpu_torch.ops.decode_step import (
 )
 from cst_captioning_tpu_torch.ops.decode_stride import (
     NEG,
+    TILE_N,
     StrideWeights,
+    _cdiv,
     _device_of,
     _expect,
 )
@@ -95,12 +100,21 @@ def beam_step_plain(w: StrideWeights, carry, emb, finished, scores, memory,
 # ---- the kernel's binding ----------------------------------------------------
 
 
+def beam_workspace(W: int, B: int, V: int) -> int:
+    """Floats of the beam kernel's selection partials (``part_floats`` in
+    csrc/beam_step.cu, which checks them): for each of the W * B lane rows
+    and each 64-column logits tile, the masked logits' max and sum of exps,
+    then the tile's top W values and their columns."""
+    return W * B * _cdiv(V, TILE_N) * (2 + 2 * W)
+
+
 class _BeamArgs(ctypes.Structure):
     """Mirror of ``struct BeamArgs`` in csrc/beam_step.cu."""
 
     _fields_ = [("step", _StepArgs)] + [(n, ctypes.c_void_p) for n in (
-        "finished", "scores", "top_scores", "top_flat",
-    )] + [(n, ctypes.c_int) for n in ("t", "min_len")]
+        "finished", "scores", "top_scores", "top_flat", "part",
+    )] + [("part_floats", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("t", "min_len")]
 
 
 @functools.cache
@@ -110,20 +124,29 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("beam_step")
     lib.beam_step.argtypes = [ctypes.POINTER(_BeamArgs), ctypes.c_void_p]
     lib.beam_step.restype = ctypes.c_int
+    lib.beam_step_part_floats.argtypes = [ctypes.POINTER(_BeamArgs)]
+    lib.beam_step_part_floats.restype = ctypes.c_longlong
     lib.beam_step_error_string.argtypes = [ctypes.c_int]
     lib.beam_step_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(w: StrideWeights, state, emb, finished, scores, mem, proj, mask,
-            carry_dtype: torch.dtype, t: int, min_len: int, logits=None):
+            carry_dtype: torch.dtype, t: int, min_len: int, workspace=None):
     """Step ``state`` [2, L, W, B, H] in place -> (top_scores, top_flat)."""
     dev = mem.device
     W, B = finished.shape
     if W > MAX_BEAM:
         raise ValueError(f"beam width {W} is above the kernel's {MAX_BEAM}")
-    step, logits, _scratch = step_args(w, state, emb, mem, proj, mask,
-                                       carry_dtype, logits)
+    step, _scratch = step_args(w, state, emb, mem, proj, mask, carry_dtype,
+                               None)
+    n_part = beam_workspace(W, B, w.bo.shape[0])
+    if workspace is None:
+        workspace = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    _expect(workspace, "workspace", dev, (torch.float32,))
+    if workspace.numel() < n_part:
+        raise ValueError(f"workspace holds {workspace.numel()} floats, the "
+                         f"step needs {n_part} (beam_workspace)")
     fin = finished.to(torch.int32).contiguous()
     sc = scores.to(torch.float32).contiguous()
     _expect(fin, "finished", dev, (torch.int32,), (W, B))
@@ -132,7 +155,9 @@ def _launch(w: StrideWeights, state, emb, finished, scores, mem, proj, mask,
     top_flat = torch.empty((B, W), dtype=torch.int32, device=dev)
     args = _BeamArgs(step=step, finished=fin.data_ptr(),
                      scores=sc.data_ptr(), top_scores=top_scores.data_ptr(),
-                     top_flat=top_flat.data_ptr(), t=int(t),
+                     top_flat=top_flat.data_ptr(),
+                     part=workspace.data_ptr(),
+                     part_floats=workspace.numel(), t=int(t),
                      min_len=int(min_len))
     lib = _lib()
     # the launch is asynchronous; the temporaries may be freed on return
@@ -191,8 +216,10 @@ def fused_beam_step_(cell, state, token, finished, scores, memory,
     """:func:`fused_beam_step` on a beam search's carry kept as one float32
     tensor [2, L, W, B, H]: ``state`` steps in place to the new carry,
     rounded to ``carry_dtype`` -> (top_scores, top_flat). ``logits``, a
-    float32 [W, B, V] buffer the search allocates once, receives the
-    step's logits on the GPU."""
+    contiguous float32 buffer of at least :func:`beam_workspace` floats
+    that the search allocates once, is the kernel's workspace on the GPU:
+    it receives the selection partials of the step's logits, which never
+    reach device memory themselves (allocated per call when None)."""
     w, emb = prepare(cell, state.shape[1], token, memory, memory_mask,
                      num_layers, None, weights)
     _check(w, token, finished, scores)

@@ -2,8 +2,9 @@
 // (beam lane, row) of a [W, B] batch, then the per-row global top-W
 // candidate selection over (lane, token).
 //
-// Replaces the TPU kernel fused_beam_step (_beam_kernel, _beam_call) of
-// cst_captioning_tpu/ops/decode_pallas.py. Per row b:
+// Replaces the TPU kernel fused_beam_step of
+// cst_captioning_tpu/ops/decode_pallas.py (public fn :1643, _beam_kernel
+// :1324, _beam_call :1500, pallas_call :1613). Per row b:
 //
 //   logits  = the decode step of lane g (step.cuh)         [W, V] float32
 //   masked  = logits with PAD, BOS -> -1e9, EOS -> -1e9 while t < min_len
@@ -21,23 +22,27 @@
 // totals round to the same float32 keep raw-logit order here where a full
 // sort of the totals would take the lower flat id.
 //
-// Design: the entry runs the decode step's five kernels (step.cuh, shared
-// with decode_step.cu) with the logits written to the caller's float32
-// scratch [W, B, V], then one selection kernel: one block of 256 threads
-// per row b. For each live lane the threads walk strided columns keeping
-// the running max and a register top-W list each; a block reduction gives
-// the max and then the sum of exponentials (the lane's logsumexp in
-// float32); a tree of pairwise merges in shared memory gives the lane's
-// top W; thread 0 then merges the W x W lane candidates. The TPU kernel
-// keeps the logits in VMEM; here they make one round trip through device
-// memory (11.5 MB at W=5, B=64, V=9000), which later work can fuse away.
-// The hypothesis reorder (a gather across lanes) stays with the caller,
-// between launches.
-//
 // Bound: at W=5, B=64 and the msrvtt width the step does about 5.1 GFLOP
 // of float32 multiply-adds (Wx, Wh, Wo and Wq for 320 lane rows) against
 // about 37 MB of weights and bank: the card's float32 rate bounds it,
 // 0.076 ms at 67 TFLOP/s; the memory bound is 0.011 ms at 3.35 TB/s.
+//
+// Design: the decode step's launches (step.cuh, shared with decode_step.cu:
+// split-K row-GEMM tiles for q and the gates, the attention a block a row,
+// the LSTM update) and its logits GEMM, whose epilogue keeps the logits out
+// of device memory as the TPU kernel keeps them in VMEM (its running
+// (max, sumexp) and in-lane top W over vocab blocks, decode_pallas.py
+// :1290-1322). Each (lane row, 64-column tile) leaves its max, its sum of
+// exps and its own top W (value, column) in the caller's workspace
+// (beam_workspace in ops/beam_step.py: 2.2 MB at W=5, B=64 against 11.5 MB
+// of logits). One merge launch, a block per row b, then folds, per live
+// lane (a warp each), the 141 tiles' (max, sumexp) into the lane's
+// logsumexp and takes the lane's top W from the tiles' lists in W rounds
+// (the best entry behind the last round's: each list is sorted, so a
+// tile's first entry behind it is its best); thread 0 merges the W x W
+// lane candidates. Ties go to the lower column inside a tile, across tiles
+// and across lanes. The hypothesis reorder (a gather across lanes) stays
+// with the caller, between launches.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -46,160 +51,111 @@
 #include "step.cuh"
 
 struct BeamArgs {
-  StepArgs step;        // step.G = W lanes; step.logits: [W, B, V] scratch
+  StepArgs step;        // step.G = W lanes; step.logits unused
   const int* finished;  // [W, B] 0 or 1
   const float* scores;  // [W, B] running hypothesis scores
   float* top_scores;    // [B, W]
   int* top_flat;        // [B, W] flat ids g * V + v
+  float* part;          // beam_workspace(W, B, V) floats: the partials
+  long long part_floats;
   int t;                // the step index, for min_len
   int min_len;
 };
 
 namespace {
 
+using step::ahead;
+using step::kThreads;
+using step::kWarps;
+
 constexpr int kMaxBeam = 16;  // the widest beam the selection takes
-constexpr int kSelThreads = 256;
-constexpr int kSelWarps = kSelThreads / 32;
-constexpr int kPad = 0;
-constexpr int kBos = 1;
-constexpr int kEos = 2;
 
-// (av, ai) goes before (bv, bi): value descending, then the lower id
-__device__ __forceinline__ bool ahead(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+// online logsumexp: (m, s) stands for log(s) + m
+__device__ __forceinline__ void lse_merge(float& m, float& s, float om,
+                                          float os) {
+  const float nm = fmaxf(m, om);
+  if (nm == -INFINITY) return;
+  s = s * expf(m - nm) + os * expf(om - nm);
+  m = nm;
 }
 
-__device__ __forceinline__ float masked(float x, int v, bool block_eos) {
-  return (v == kPad || v == kBos || (block_eos && v == kEos)) ? attend::kNeg
-                                                              : x;
+// Floats of the selection partials (beam_workspace in ops/beam_step.py).
+long long part_floats(const StepArgs& s) {
+  return (long long)s.G * s.B * step::cdiv(s.V, rowgemm::BN) *
+         step::slots(s.G);
 }
 
-// Block-wide max / sum of one value per thread; every thread gets it.
-__device__ float block_max(float x, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(attend::kFull, x, o));
-  }
-  __syncthreads();  // the previous reduction's readers are done with red
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < kSelWarps; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
-
-__device__ float block_sum(float x, float* red) {
-  x = attend::warp_sum(x);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < kSelWarps; ++w) s += red[w];
-  return s;
-}
-
-// The first W of the union of two lists sorted by ahead(), into (av, ai).
-__device__ void merge_lists(float* av, int* ai, const float* bv,
-                            const int* bi, int W) {
-  float ov[kMaxBeam];
-  int oi[kMaxBeam];
-  int x = 0;
-  int y = 0;
-  for (int j = 0; j < W; ++j) {
-    if (ahead(av[x], ai[x], bv[y], bi[y])) {
-      ov[j] = av[x];
-      oi[j] = ai[x];
-      ++x;
-    } else {
-      ov[j] = bv[y];
-      oi[j] = bi[y];
-      ++y;
-    }
-  }
-  for (int j = 0; j < W; ++j) {
-    av[j] = ov[j];
-    ai[j] = oi[j];
-  }
-}
-
-__global__ void __launch_bounds__(kSelThreads) select_kernel(const BeamArgs p) {
-  __shared__ float list_v[kSelThreads * kMaxBeam];
-  __shared__ int list_i[kSelThreads * kMaxBeam];
+__global__ void __launch_bounds__(kThreads) beam_merge(const BeamArgs p) {
   __shared__ float cand_v[kMaxBeam * kMaxBeam];
   __shared__ int cand_i[kMaxBeam * kMaxBeam];
-  __shared__ float red[kSelWarps];
   const int W = p.step.G;
   const int B = p.step.B;
   const int V = p.step.V;
+  const int nT = step::cdiv(V, rowgemm::BN);
+  const int S = step::slots(W);
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const bool block_eos = p.t < p.min_len;
-  for (int g = 0; g < W; ++g) {
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < W; g += kWarps) {
     const float score = p.scores[g * B + b];
-    if (p.finished[g * B + b]) {  // the same branch for the whole block
-      if (tid < W) {
-        cand_v[g * W + tid] = score + (tid == 0 ? 0.0f : attend::kNeg);
-        cand_i[g * W + tid] = g * V + tid;
+    if (p.finished[g * B + b]) {
+      if (lane < W) {
+        cand_v[g * W + lane] = score + (lane == 0 ? 0.0f : attend::kNeg);
+        cand_i[g * W + lane] = g * V + lane;
       }
       continue;
     }
-    const float* row = p.step.logits + ((size_t)g * B + b) * V;
-    float tv[kMaxBeam];
-    int ti[kMaxBeam];
-#pragma unroll
-    for (int j = 0; j < kMaxBeam; ++j) {
-      tv[j] = -INFINITY;
-      ti[j] = INT_MAX;
+    const float* pr = p.part + (size_t)(g * B + b) * nT * S;
+    // the lane's logsumexp: tiles lane, lane + 32, .. in order, then a
+    // butterfly over the lanes
+    float lm = -INFINITY;
+    float ls = 0.0f;
+    for (int t = lane; t < nT; t += 32) {
+      lse_merge(lm, ls, pr[(size_t)t * S], pr[(size_t)t * S + 1]);
     }
-    float mx = -INFINITY;
-    for (int v = tid; v < V; v += kSelThreads) {
-      float x = masked(row[v], v, block_eos);
-      int xi = v;
-      mx = fmaxf(mx, x);
-      // insert into the sorted register list, carrying the displaced
-      // entry down (columns arrive in ascending order, so a tie stays
-      // behind the lower column already there)
-#pragma unroll
-      for (int j = 0; j < kMaxBeam; ++j) {
-        if (j < W && ahead(x, xi, tv[j], ti[j])) {
-          const float sv = tv[j];
-          const int si = ti[j];
-          tv[j] = x;
-          ti[j] = xi;
-          x = sv;
-          xi = si;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float om = __shfl_xor_sync(attend::kFull, lm, o);
+      const float os = __shfl_xor_sync(attend::kFull, ls, o);
+      lse_merge(lm, ls, om, os);
+    }
+    const float lse = lm + logf(ls);
+    // the lane's top W: round k takes the best entry behind round k - 1's
+    float pv = INFINITY;
+    int pi = -1;
+    for (int k = 0; k < W; ++k) {
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+      for (int t = lane; t < nT; t += 32) {
+        const float* vals = pr + (size_t)t * S + 2;
+        for (int j = 0; j < W; ++j) {
+          const float v = vals[j];
+          const int c = __float_as_int(vals[W + j]);
+          if (ahead(pv, pi, v, c)) {
+            if (ahead(v, c, bv, bi)) {
+              bv = v;
+              bi = c;
+            }
+            break;
+          }
         }
       }
-    }
-    const float m = block_max(mx, red);
-    float s = 0.0f;
-    for (int v = tid; v < V; v += kSelThreads) {
-      s += expf(masked(row[v], v, block_eos) - m);
-    }
-    const float lse = m + logf(block_sum(s, red));
-#pragma unroll
-    for (int j = 0; j < kMaxBeam; ++j) {
-      if (j < W) {
-        list_v[tid * W + j] = tv[j];
-        list_i[tid * W + j] = ti[j];
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(attend::kFull, bv, o);
+        const int oi = __shfl_xor_sync(attend::kFull, bi, o);
+        if (ahead(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
       }
-    }
-    __syncthreads();
-    for (int n = kSelThreads / 2; n > 0; n >>= 1) {
-      if (tid < n) {
-        merge_lists(list_v + tid * W, list_i + tid * W,
-                    list_v + (tid + n) * W, list_i + (tid + n) * W, W);
+      if (lane == 0) {
+        cand_v[g * W + k] = score + (bv - lse);
+        cand_i[g * W + k] = g * V + bi;
       }
-      __syncthreads();
+      pv = bv;
+      pi = bi;
     }
-    if (tid < W) {
-      cand_v[g * W + tid] = score + (list_v[tid] - lse);
-      cand_i[g * W + tid] = g * V + list_i[tid];
-    }
-    // the next live lane writes the lists only after its reductions'
-    // barriers, so these reads finish first
   }
   __syncthreads();
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     const int n = W * W;
     for (int j = 0; j < W; ++j) {
       int best = 0;
@@ -225,11 +181,21 @@ int beam_step(const BeamArgs* args, void* stream) {
     return (int)cudaErrorInvalidValue;
   }
   if (s.B == 0) return 0;
+  if (p.part == nullptr || p.part_floats < part_floats(s)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = step::run(s, st);
+  const step::Sel sel{p.part, s.G, p.t < p.min_len};
+  const int rc = step::run(s, &sel, st);
   if (rc) return rc;
-  select_kernel<<<s.B, kSelThreads, 0, st>>>(p);
+  beam_merge<<<s.B, kThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Floats of selection partials a launch with these arguments needs (what
+// the launch checks the caller's against).
+long long beam_step_part_floats(const BeamArgs* args) {
+  return part_floats(args->step);
 }
 
 const char* beam_step_error_string(int code) {

@@ -19,10 +19,12 @@ step on a carry kept as one float32 tensor across a decode loop and
 updated in place.
 
 On CUDA tensors the wrappers launch the hand-written kernel
-``csrc/decode_step.cu`` (built by ``ops/build.py``) and count the launch
-in ``fused_decode_step.launches``; on CPU tensors they run
-:func:`decode_step_plain`. Decode never takes gradients, so there is no
-autograd rule. Nothing falls back: a CUDA call that cannot launch raises.
+``csrc/decode_step.cu`` (its launches in ``csrc/step.cuh``, built by
+``ops/build.py``) and count the launch in ``fused_decode_step.launches``;
+on CPU tensors they run :func:`decode_step_plain`. The wrapper allocates
+the kernel's scratch (:func:`step_workspace`, which the kernel checks).
+Decode never takes gradients, so there is no autograd rule. Nothing falls
+back: a CUDA call that cannot launch raises.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ import torch
 
 from cst_captioning_tpu_torch.ops.decode_stride import (
     NEG,
+    SPLIT_K,
     StrideWeights,
+    _cdiv,
     _device_of,
     _expect,
     stride_weights,
@@ -86,15 +90,30 @@ def unstack_carry(state: torch.Tensor, dtype: torch.dtype):
                  for i in range(state.shape[1]))
 
 
+def step_workspace(G: int, B: int, E: int, Em: int, A: int,
+                   H: int) -> dict[str, int]:
+    """The kernel's scratch regions in floats, in its order (``carve`` in
+    csrc/step.cuh, which checks the total), each rounded up to 4 floats:
+    over the R = G * B lane rows, q's and the widest gate GEMM's split-K
+    partials (256-deep k slices), the layer-0 input (emb | ctx) and the
+    layer's new h before rounding."""
+    R = G * B
+    sizes = {"q": _cdiv(H, SPLIT_K) * R * A,
+             "gates": _cdiv(max(E + Em, H) + H, SPLIT_K) * R * 4 * H,
+             "x": R * (E + Em), "h": R * H}
+    return {k: _cdiv(n, 4) * 4 for k, n in sizes.items()}
+
+
 class _StepArgs(ctypes.Structure):
-    """Mirror of ``struct StepArgs`` in csrc/decode_step.cu."""
+    """Mirror of ``struct StepArgs`` in csrc/step.cuh."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "mem", "proj", "mask", "wq", "bq", "v", "wx", "wh", "bg", "wo", "bo",
         "emb", "c", "h", "logits", "scratch",
-    )] + [(n, ctypes.c_int) for n in (
-        "bank_bf16", "carry_bf16", "G", "B", "M", "V", "E", "Em", "A", "H",
-        "L")]
+    )] + [("scratch_floats", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in (
+            "bank_bf16", "carry_bf16", "G", "B", "M", "V", "E", "Em", "A",
+            "H", "L")]
 
 
 @functools.cache
@@ -104,18 +123,20 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("decode_step")
     lib.decode_step.argtypes = [ctypes.POINTER(_StepArgs), ctypes.c_void_p]
     lib.decode_step.restype = ctypes.c_int
+    lib.decode_step_scratch_floats.argtypes = [ctypes.POINTER(_StepArgs)]
+    lib.decode_step_scratch_floats.restype = ctypes.c_longlong
     lib.decode_step_error_string.argtypes = [ctypes.c_int]
     lib.decode_step_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def step_args(w: StrideWeights, state, emb, mem, proj, mask,
-              carry_dtype: torch.dtype, logits: torch.Tensor | None = None):
-    """Check a step's tensors -> (``_StepArgs``, logits [G, B, V], scratch).
+              carry_dtype: torch.dtype, logits: torch.Tensor | None):
+    """Check a step's tensors -> (``_StepArgs``, scratch).
 
-    ``state`` [2, L, G, B, H] steps in place; ``logits`` (allocated when
-    not given) receives the logits. The caller keeps ``logits`` and the
-    scratch alive until the launch is queued."""
+    ``state`` [2, L, G, B, H] steps in place; ``logits`` [G, B, V] receives
+    the logits (None: the beam step, which reduces them in the kernel).
+    The caller keeps the scratch alive until the launch is queued."""
     dev = mem.device
     G, B, E = emb.shape
     M, Em = mem.shape[1], mem.shape[2]
@@ -131,35 +152,38 @@ def step_args(w: StrideWeights, state, emb, mem, proj, mask,
     _expect(mask, "memory_mask", dev, (torch.float32,), (B, M))
     _expect(emb, "emb", dev, (torch.float32,), (G, B, E))
     _expect(state, "carry", dev, (torch.float32,), (2, L, G, B, H))
-    shapes = {"wq": (H, A), "bq": (A,), "v": (A,), "wh": (L, H, 4 * H),
-              "bg": (L, 4 * H), "wo": (H, V), "bo": (V,),
-              "wx": ((E + Em) * 4 * H + (L - 1) * H * 4 * H,)}
-    for name, shape in shapes.items():
-        _expect(getattr(w, name), name, dev, (torch.float32,), shape)
-    if logits is None:
-        logits = torch.empty((G, B, V), dtype=torch.float32, device=dev)
-    _expect(logits, "logits", dev, (torch.float32,), (G, B, V))
-    scratch = torch.empty((G * B * (A + E + Em + 5 * H),),
-                          dtype=torch.float32, device=dev)
+    if (dev, E, Em, A, H, L) not in w.checked:
+        shapes = {"wq": (H, A), "bq": (A,), "v": (A,), "wh": (L, H, 4 * H),
+                  "bg": (L, 4 * H), "wo": (H, V), "bo": (V,),
+                  "wx": ((E + Em) * 4 * H + (L - 1) * H * 4 * H,)}
+        for name, shape in shapes.items():
+            _expect(getattr(w, name), name, dev, (torch.float32,), shape)
+        w.checked.add((dev, E, Em, A, H, L))
+    n = sum(step_workspace(G, B, E, Em, A, H).values())
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev)
     args = _StepArgs(
         mem=mem.data_ptr(), proj=proj.data_ptr(), mask=mask.data_ptr(),
         wq=w.wq.data_ptr(), bq=w.bq.data_ptr(), v=w.v.data_ptr(),
         wx=w.wx.data_ptr(), wh=w.wh.data_ptr(), bg=w.bg.data_ptr(),
         wo=w.wo.data_ptr(), bo=w.bo.data_ptr(), emb=emb.data_ptr(),
         c=state[0].data_ptr(), h=state[1].data_ptr(),
-        logits=logits.data_ptr(), scratch=scratch.data_ptr(),
+        logits=None if logits is None else logits.data_ptr(),
+        scratch=scratch.data_ptr(), scratch_floats=n,
         bank_bf16=int(mem.dtype == torch.bfloat16),
         carry_bf16=int(carry_dtype == torch.bfloat16), G=G, B=B, M=M, V=V,
         E=E, Em=Em, A=A, H=H, L=L,
     )
-    return args, logits, scratch
+    return args, scratch
 
 
 def _launch(w: StrideWeights, state, emb, mem, proj, mask,
             carry_dtype: torch.dtype) -> torch.Tensor:
     """Step ``state`` [2, L, G, B, H] in place -> logits [G, B, V]."""
-    args, logits, _scratch = step_args(w, state, emb, mem, proj, mask,
-                                       carry_dtype)
+    G, B = emb.shape[:2]
+    logits = torch.empty((G, B, w.bo.shape[0]), dtype=torch.float32,
+                         device=mem.device)
+    args, _scratch = step_args(w, state, emb, mem, proj, mask, carry_dtype,
+                               logits)
     lib = _lib()
     # the launch is asynchronous; the scratch may be freed on return
     # because the caching allocator reuses its memory only for work queued

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -56,6 +56,10 @@ class StrideWeights:
     wo: torch.Tensor    # [H, V]
     bo: torch.Tensor    # [V]
     embt: torch.Tensor  # [V, E]
+    # (device, widths) the step wrappers have checked these tensors for
+    # (ops/decode_step.step_args), so a decode loop checks them once
+    checked: set = field(default_factory=set, init=False, compare=False,
+                         repr=False)
 
     @property
     def num_layers(self) -> int:

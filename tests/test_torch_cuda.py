@@ -5,8 +5,11 @@ row): the stride kernel (dense and paged; also with more live rows than
 SMs, every row finished, no active row, and its workspace sizes against
 the kernel's own), the additive-attention kernel
 with its gradient, the decode-step kernel (also at one lane, greedy's
-shape) and the beam-step kernel (finished lanes, EOS blocked while
-t < min_len), and the wrappers' refusals.
+shape; rows that are not a multiple of its tiles, k segments that do not
+fill a split-K slice, a row's results bit-equal whichever rows share its
+tiles) and the beam-step kernel (finished lanes, EOS blocked while
+t < min_len, beams of 1 and 16), the workspace sizes against the
+kernels' own, and the wrappers' refusals.
 Marked ``gpu``: these skip without a CUDA device and run on the H100
 (which has no jax, hence no conftest) with
 
@@ -29,8 +32,11 @@ from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_plain,
     fused_additive_attention,
 )
+from cst_captioning_tpu_torch.ops import beam_step as beam_ops
+from cst_captioning_tpu_torch.ops import decode_step as step_ops
 from cst_captioning_tpu_torch.ops.beam_step import (
     beam_topk_plain,
+    beam_workspace,
     fused_beam_step,
     fused_beam_step_,
 )
@@ -413,6 +419,73 @@ def test_decode_step_kernel_at_one_lane(dev):
                                    atol=TOL)
 
 
+# rows that are not a multiple of the 64-row tile (G=5, B=37 and one row);
+# two layers; a vocab one column into a new tile; k segments that do not
+# fill a 256-deep split-K slice, with the [x, h] seam inside a slice
+# (E=H=200: layer-0 k = 600, layer-1 k = 400, q k = 200); widths that are
+# not multiples of 4 (the tiles' 4-byte copies)
+STEP_CASES = {
+    "g5_b37": dict(layers=1, G_=5, B_=37, V_=V),
+    "g1_b1": dict(layers=1, G_=1, B_=1, V_=V),
+    "two_layers": dict(layers=2, G_=5, B_=37, V_=V),
+    "vocab_257": dict(layers=1, G_=2, B_=9, V_=257),
+    "ragged_split_k": dict(layers=2, G_=3, B_=23, V_=V, E_=200),
+    "odd_widths": dict(layers=2, G_=2, B_=5, V_=V, E_=45),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_decode_step_kernel_cases(dev, case):
+    c = STEP_CASES[case]
+    model, carry, token, _, bank, _, _ = _stride_case(
+        dev, c["layers"], c["B_"], c["G_"] - 1, c["V_"], c.get("E_", E))
+    w = stride_weights(model.cell)
+    before = fused_decode_step.launches
+    kc, klog = fused_decode_step(model.cell, carry, token, *bank, weights=w)
+    pc, plog = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    assert klog.shape == (c["G_"], c["B_"], c["V_"])
+    torch.testing.assert_close(klog, plog, rtol=TOL, atol=TOL)
+    for (a, b), (c_, d) in zip(kc, pc):
+        torch.testing.assert_close(a, c_, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b, d, rtol=TOL, atol=TOL)
+
+
+def test_decode_step_row_does_not_depend_on_its_tile(dev):
+    # the same (lane, row) inside two batches: 2 x 40 rows (two row tiles)
+    # and 2 x 6 rows picked from them in another order; its logits and new
+    # carry are bit-equal (every sum's order is fixed by the shapes alone)
+    model, carry, token, _, bank, _, _ = _stride_case(dev, 2, 40, 1, V)
+    w = stride_weights(model.cell)
+    idx = torch.tensor([37, 3, 20, 11, 0, 39], device=dev)
+    sub_carry = tuple((c[:, idx].contiguous(), h[:, idx].contiguous())
+                      for c, h in carry)
+    sub_bank = tuple(x[idx].contiguous() for x in bank)
+    kc, klog = fused_decode_step(model.cell, carry, token, *bank, weights=w)
+    sc, slog = fused_decode_step(model.cell, sub_carry,
+                                 token[:, idx].contiguous(), *sub_bank,
+                                 weights=w)
+    torch.cuda.synchronize()
+    assert torch.equal(klog[:, idx], slog)
+    for (a, b), (c, d) in zip(kc, sc):
+        assert torch.equal(a[:, idx], c) and torch.equal(b[:, idx], d)
+
+
+def test_step_workspace_sizes_match_the_kernel(dev):
+    slib, blib = step_ops._lib(), beam_ops._lib()
+    for G_, B_, E_, Em, A_, H, V_ in ((5, 64, 512, 512, 256, 512, 9000),
+                                      (1, 1, 45, 45, 40, 45, 301),
+                                      (3, 23, 200, 200, 40, 200, 257)):
+        sa = step_ops._StepArgs(G=G_, B=B_, E=E_, Em=Em, A=A_, H=H, V=V_,
+                                L=2)
+        want = sum(step_ops.step_workspace(G_, B_, E_, Em, A_, H).values())
+        assert slib.decode_step_scratch_floats(ctypes.byref(sa)) == want
+        ba = beam_ops._BeamArgs(step=sa)
+        assert blib.beam_step_part_floats(ctypes.byref(ba)) == \
+            beam_workspace(G_, B_, V_)
+
+
 # ---- the beam-step kernel ---------------------------------------------------
 
 
@@ -465,14 +538,20 @@ def test_beam_step_kernel_matches_plain(dev, layers, bank_dtype, t, min_len):
 
 def test_beam_step_in_place_kernel_matches_plain(dev):
     # the search's call: a bfloat16 bank and carry stepped in place, the
-    # logits through a buffer the search allocates once
+    # selection partials through a workspace the search allocates once (the
+    # logits themselves never reach device memory); a smaller workspace is
+    # refused
     model, carry, token, fin, bank, _, _ = _inputs(dev, 2, torch.bfloat16)
     carry = tuple((c.bfloat16(), h.bfloat16()) for c, h in carry)
     scores = torch.randn(G, B, generator=torch.Generator().manual_seed(2)
                          ).to(dev)
     w = stride_weights(model.cell)
     state = stack_carry(carry)
-    buf = torch.empty((G, B, V), device=dev)
+    buf = torch.full((beam_workspace(G, B, V),), float("nan"), device=dev)
+    with pytest.raises(ValueError, match="beam_workspace"):
+        fused_beam_step_(model.cell, state.clone(), token, fin, scores, *bank,
+                         torch.bfloat16, t=2, min_len=1, weights=w,
+                         logits=buf[:-1])
     ksc, kfl = fused_beam_step_(model.cell, state, token, fin, scores, *bank,
                                 torch.bfloat16, t=2, min_len=1, weights=w,
                                 logits=buf)
@@ -480,13 +559,70 @@ def test_beam_step_in_place_kernel_matches_plain(dev):
     psc, pfl = beam_topk_plain(logits, fin, scores, t=2, min_len=1,
                                width=G + 1)
     torch.cuda.synchronize()
-    torch.testing.assert_close(buf, logits, rtol=TOL, atol=TOL)
+    assert not bool(buf.isnan().any())      # every partial written
     _assert_beam_close(ksc, kfl, psc, pfl)
     for (a, b), (c, d) in zip(unstack_carry(state, torch.bfloat16), pc):
         torch.testing.assert_close(a.float(), c.float(), rtol=TOL + BF16_ULP,
                                    atol=TOL)
         torch.testing.assert_close(b.float(), d.float(), rtol=TOL + BF16_ULP,
                                    atol=TOL)
+
+
+@pytest.mark.parametrize("W", [1, 16])
+def test_beam_step_kernel_widths(dev, W):
+    # the narrowest and the widest beam the kernel takes, rows that are not
+    # a multiple of the tile, about 20% finished lanes, EOS blocked
+    B_ = 37
+    model, carry, token, fin, bank, _, _ = _stride_case(dev, 1, B_, W - 1, V)
+    scores = 2.0 * torch.randn(W, B_, generator=torch.Generator()
+                               .manual_seed(W)).to(dev)
+    w = stride_weights(model.cell)
+    before = fused_beam_step.launches
+    kc, ksc, kfl = fused_beam_step(model.cell, carry, token, fin, scores,
+                                   *bank, t=1, min_len=2, weights=w)
+    pc, logits = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    psc, pfl = beam_topk_plain(logits, fin, scores, t=1, min_len=2,
+                               width=W + 1)
+    torch.cuda.synchronize()
+    assert fused_beam_step.launches == before + 1
+    assert ksc.shape == (B_, W)
+    _assert_beam_close(ksc, kfl, psc, pfl)
+    assert not bool((kfl % V == EOS_ID).any())
+    for (a, b), (c, d) in zip(kc, pc):
+        torch.testing.assert_close(a, c, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b, d, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("a,b", [(70, 71), (63, 64)],
+                         ids=["in_tile", "across_tile_edge"])
+def test_beam_step_kernel_exact_ties(dev, a, b):
+    # columns a < b get the same Wo column and a bias that makes them every
+    # lane's best, and lanes 0 and 1 are the same hypothesis at score 0
+    # (the others at -50): the logits tie exactly, so the row's top four
+    # must be lane 0's a, b, then lane 1's a, b (ties to the lower flat id)
+    W, B_ = 5, 6
+    model, carry, token, _, bank, _, _ = _stride_case(dev, 1, B_, W - 1, V)
+    with torch.no_grad():
+        out = model.cell.out_proj
+        out.weight[b] = out.weight[a]
+        out.bias[a] = out.bias[b] = out.bias.max() + 20.0
+    carry = tuple((torch.cat([c[:1], c[:1], c[2:]]),
+                   torch.cat([h[:1], h[:1], h[2:]])) for c, h in carry)
+    token = torch.cat([token[:1], token[:1], token[2:]])
+    fin = torch.zeros((W, B_), dtype=torch.bool, device=dev)
+    scores = torch.full((W, B_), -50.0, device=dev)
+    scores[:2] = 0.0
+    w = stride_weights(model.cell)
+    _, ksc, kfl = fused_beam_step(model.cell, carry, token, fin, scores,
+                                  *bank, t=0, weights=w)
+    _, logits = decode_step_plain(w, carry, w.embt[token.long()], *bank)
+    psc, pfl = beam_topk_plain(logits, fin, scores, t=0, min_len=0,
+                               width=W + 1)
+    torch.cuda.synchronize()
+    want = torch.tensor([a, b, V + a, V + b], dtype=torch.int32)
+    assert bool((kfl[:, :4].cpu() == want).all()), kfl
+    assert torch.equal(ksc[:, 0], ksc[:, 3])
+    _assert_beam_close(ksc, kfl, psc, pfl)
 
 
 def test_beam_step_wrapper_refuses(dev):

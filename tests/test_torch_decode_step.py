@@ -26,6 +26,7 @@ from cst_captioning_tpu_torch.ops.decode_step import (
     fused_decode_step,
     fused_decode_step_,
     stack_carry,
+    step_workspace,
     unstack_carry,
 )
 
@@ -135,3 +136,19 @@ def test_in_place_step_matches_functional(setup, dtype):
         assert a.dtype == dtype and b.dtype == dtype
         torch.testing.assert_close(a, c, rtol=0, atol=0)
         torch.testing.assert_close(b, d, rtol=0, atol=0)
+
+
+def test_step_workspace_at_the_rollout_shape():
+    # msrvtt widths, G=5 lanes x B=64 rows = 320: q (512 deep) in 2
+    # split-K slices of 256, layer-0 gates (1024 + 512 deep) in 6
+    ws = step_workspace(G=5, B=64, E=512, Em=512, A=256, H=512)
+    assert ws == {"q": 2 * 320 * 256, "gates": 6 * 320 * 2048,
+                  "x": 320 * 1024, "h": 320 * 512}
+    assert sum(ws.values()) == 4_587_520
+
+
+def test_step_workspace_at_a_small_shape():
+    # 2 x 3 = 6 rows, one slice each (k = 12 + 6 and 6 deep), every region
+    # rounded up to 4 floats
+    ws = step_workspace(G=2, B=3, E=5, Em=7, A=3, H=6)
+    assert ws == {"q": 20, "gates": 144, "x": 72, "h": 36}
