@@ -39,7 +39,13 @@
    shapes, and each time line gives the kernel's share of it (bound /
    time). The decode-step and beam-step kernels' device time a call is
    split by launch (q, attend, gates, cell, logits, merge) from
-   torch.profiler over 10 more calls (``step_phases``).
+   torch.profiler over 10 more calls (``step_phases``). The attention
+   kernel is timed at B=64, B=320 and M=1000 in bfloat16, in turns with
+   its plain version, and by ``attention_phases``: its device time from
+   torch.profiler over 10 calls (one launch a call), warm (the same
+   inputs, which L2 holds) and cold (rotating through copies of the
+   inputs that exceed twice the 50 MB L2), and the cold CUDA-event time;
+   every call as the decoder makes it, on inputs that need gradients.
 3. serve: CaptionService at msrvtt_xe_attention full width (seeded random
    weights, +2 on the EOS bias so caption lengths vary) answers 64 trace
    requests on the paged path and again on the dense-gather path; the
@@ -85,7 +91,9 @@
    device's idle share.
 8. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths, error, times and bound; for the decode and beam steps also
-   their device time by launch, and the decode step's at G=1.
+   their device time by launch, and the decode step's at G=1; for the
+   attention its warm and cold device and event times at B=320, and the
+   same at B=64 and M=1000.
 
 Each phase prints one JSON line; the card's nvidia-smi line and the kernels
 line come before the last line, ``{"ok": true, "device": {...}}``. Any
@@ -96,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -683,6 +692,111 @@ def attention_bound(x) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+ATT_SHAPES = {"b64": "xe_b64", "b320": "update_b320", "m1000": "long_m1000"}
+L2_BYTES = 50e6          # the H100's L2 cache
+
+
+def check_attention(tmodel, corpus, tcfg) -> tuple[dict, float]:
+    """Kernel 1 against its plain version at the XE step's B=64, the
+    update's B=320 and M=1000, float32 and bfloat16, one kernel_check
+    line each -> (the inputs by (shape, dtype), the largest error)."""
+    att, worst = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, x in (
+                ("xe_b64", attention_inputs(tmodel, corpus, dtype, TRAIN_B)),
+                ("update_b320", attention_inputs(
+                    tmodel, corpus, dtype, TRAIN_B * tcfg.rl.num_rollouts)),
+                ("long_m1000", long_attention_inputs(tmodel, dtype))):
+            res = compare_attention(x)
+            emit({"phase": "kernel_check", "kernel": "fused_additive_attention",
+                  "shape": label, "rows": x[0].shape[0],
+                  "slots": x[2].shape[1], "dtype": str(dtype)[6:], **res})
+            worst = max(worst, res["max_abs_err"])
+            att[label, dtype] = x
+    return att, worst
+
+
+def cold_copies(x, total=2 * L2_BYTES) -> list:
+    """Copies of the inputs ``x`` whose bytes together exceed ``total``: a
+    call that rotates through them finds its inputs out of L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in x)
+    return [tuple(t.clone() for t in x)
+            for _ in range(int(total // nbytes) + 2)]
+
+
+def attention_device_ms(fn, reps: int = 10) -> float:
+    """Device ms a call of ``fn`` spends in the attention kernel, from
+    torch.profiler over ``reps`` calls after a warm-up; the kernel must
+    appear once a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms, count = 0.0, 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") \
+                and "additive_attention_kernel" in e.key:
+            ms += e.self_device_time_total / 1e3
+            count += e.count
+    check(count == reps, f"attention launches seen by the profiler {count}, "
+          f"expected {reps}")
+    return ms / reps
+
+
+def as_decoder_inputs(x) -> tuple:
+    """``x`` as the teacher-forced decoder passes them: q, v, memory and
+    memory_proj need gradients (the query and score layers' outputs and
+    the encoder's), so a call goes through the autograd Function."""
+    return tuple(t.detach().requires_grad_(i < 4) for i, t in enumerate(x))
+
+
+def attention_phases(x) -> dict:
+    """Kernel 1 on ``x`` by device time, warm (the same inputs again: L2
+    holds them up to B=320) and cold (rotating through ``cold_copies``),
+    and by cold CUDA-event time (median of 40 calls)."""
+    copies = [as_decoder_inputs(c) for c in cold_copies(x)]
+    it = itertools.cycle(copies)
+    cold = lambda: fused_additive_attention(*next(it))  # noqa: E731
+    return {"device_ms": attention_device_ms(
+                lambda: fused_additive_attention(*x)),
+            "cold_device_ms": attention_device_ms(cold),
+            "cold_ms": float(np.median(event_times(cold, reps=40))),
+            "cold_copies": len(copies)}
+
+
+def time_attention(att: dict, smi: str) -> dict:
+    """Kernel 1 at the bfloat16 shapes, on ``as_decoder_inputs``: CUDA-event
+    medians in turns with the plain version (warm), ``attention_phases``,
+    the bound and the shares (bound over each time; the warm ones can pass
+    1, since L2 holds the inputs), one attention_phases line each ->
+    {shape: dict}."""
+    xs = {k: as_decoder_inputs(att[label, torch.bfloat16])
+          for k, label in ATT_SHAPES.items()}
+    times = time_in_turns({
+        k: (lambda x=x: fused_additive_attention(*x),
+            lambda x=x: additive_attention_plain(*x)) for k, x in xs.items()})
+    clocks = smi_query("clocks.sm,power.draw")
+    res = {}
+    for k, x in xs.items():
+        bnd, by = attention_bound(x)
+        ph = attention_phases(x)
+        ms, plain_ms = times[k]
+        res[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                  "bound_by": by, **ph, "share": bnd / ms,
+                  "device_share": bnd / ph["device_ms"],
+                  "cold_share": bnd / ph["cold_ms"],
+                  "cold_device_share": bnd / ph["cold_device_ms"]}
+        emit({"phase": "attention_phases", "kernel": "fused_additive_attention",
+              "shape": k, "rows": x[0].shape[0], "slots": x[2].shape[1],
+              **res[k], "clocks_sm_power_draw": clocks, "nvidia_smi": smi})
+    return res
+
+
 def step_inputs(model, corpus, bf16: bool, seed=3, G=None) -> dict:
     """The decode step's inputs at the rollout's shapes: G=5 lanes (or
     ``G``: 1 is greedy decoding's) of the 64 clips' encoder output, a
@@ -1244,8 +1358,8 @@ def scst_vs_plain(trainer, state, corpus) -> dict:
             "sampled_rows_equal": float(equal[1:].mean()),
             "kernel_rl_loss": km["rl_loss"], "plain_rl_loss": pm["rl_loss"],
             "rl_loss_scale": am["rl_loss"], "rl_loss_err_over_scale":
-            rl_scaled, "rl_loss_rel_err": rel_err(km["rl_loss"],
-                                                  pm["rl_loss"]),
+            rl_scaled, "rl_loss_gate": BF16_ROUND,
+            "rl_loss_rel_err": rel_err(km["rl_loss"], pm["rl_loss"]),
             "greedy_reward_mean": host["baseline_mean"]}
 
 
@@ -1432,19 +1546,8 @@ def main() -> int:
     emit({"phase": "kernel_check", "kernel": "fused_decode_stride",
           "shape": "scst_g2_b64", "bank_dtype": "bfloat16", **res})
     record("fused_decode_stride", res)
-    att = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for label, x in (
-                ("xe_b64", attention_inputs(tmodel, corpus, dtype, TRAIN_B)),
-                ("update_b320", attention_inputs(
-                    tmodel, corpus, dtype, TRAIN_B * tcfg.rl.num_rollouts)),
-                ("long_m1000", long_attention_inputs(tmodel, dtype))):
-            res = compare_attention(x)
-            emit({"phase": "kernel_check", "kernel": "fused_additive_attention",
-                  "shape": label, "rows": x[0].shape[0],
-                  "slots": x[2].shape[1], "dtype": str(dtype)[6:], **res})
-            record("fused_additive_attention", res)
-            att[label, dtype] = x
+    att, err = check_attention(tmodel, corpus, tcfg)
+    record("fused_additive_attention", {"max_abs_err": err})
     for bf16, G in ((False, None), (True, 1), (True, None)):
         x = step_inputs(tmodel, corpus, bf16, G=G)
         res = compare_step(tmodel, x)
@@ -1472,19 +1575,12 @@ def main() -> int:
         record("fused_beam_step", res)
     beam_x = beam_inputs(emodel, corpus, True, 3, 0)   # the eval's: bf16
 
-    # the training shapes in the model dtype, bfloat16
-    xe_att = att["xe_b64", torch.bfloat16]
-    up_att = att["update_b320", torch.bfloat16]
     pairs = {k: (lambda k=k: run_kernel(k, model, timed[k]),
                  lambda k=k: run_plain(k, model, timed[k])) for k in KERNELS}
     pairs.update({
         "fused_decode_stride_scst": (
             lambda: run_kernel("fused_decode_stride", model, scst_x),
             lambda: run_plain("fused_decode_stride", model, scst_x)),
-        "attention_b64": (lambda: fused_additive_attention(*xe_att),
-                          lambda: additive_attention_plain(*xe_att)),
-        "attention_b320": (lambda: fused_additive_attention(*up_att),
-                           lambda: additive_attention_plain(*up_att)),
         "fused_decode_step": (lambda: run_step_kernel(tmodel, step_x),
                               lambda: run_step_plain(step_x)),
         "fused_decode_step_g1": (lambda: run_step_kernel(tmodel, step_x1),
@@ -1500,9 +1596,7 @@ def main() -> int:
     bounds["fused_decode_stride_scst"] = bound_ms(
         "fused_decode_stride", model, scst_x,
         run_kernel("fused_decode_stride", model, scst_x)[1])
-    bounds.update(attention_b64=attention_bound(xe_att),
-                  attention_b320=attention_bound(up_att),
-                  fused_decode_step=step_bound(tmodel, step_x),
+    bounds.update(fused_decode_step=step_bound(tmodel, step_x),
                   fused_decode_step_g1=step_bound(tmodel, step_x1),
                   fused_beam_step=beam_bound(emodel, beam_x))
     for key, (ms, plain_ms) in times.items():
@@ -1511,14 +1605,19 @@ def main() -> int:
               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
               "bound_share": bnd / ms,
               "clocks_sm_power_draw": clocks, "nvidia_smi": smi})
-    # the kernels line carries the update's shape for the attention kernel
     for k in KERNELS + ("fused_decode_step", "fused_beam_step"):
         kernels[k].update(ms=times[k][0], plain_ms=times[k][1],
                           bound_ms=bounds[k][0], bound_by=bounds[k][1])
+    # the kernels line carries the update's shape for the attention kernel
+    # and the XE step's and M=1000 beside it
+    att_t = time_attention(att, smi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, label in ATT_SHAPES.items():
+        q, _, mem = att[label, torch.bfloat16][:3]
+        att_t[k]["n_e"], att_t[k]["passes"] = attention_ops.attention_split(
+            q.shape[0], mem.shape[2], mem.element_size(), sms)
     kernels["fused_additive_attention"].update(
-        ms=times["attention_b320"][0], plain_ms=times["attention_b320"][1],
-        bound_ms=bounds["attention_b320"][0],
-        bound_by=bounds["attention_b320"][1])
+        att_t["b320"], b64=att_t["b64"], m1000=att_t["m1000"])
     for key, x in (("fused_decode_stride_paged", timed[KERNELS[1]]),
                    ("fused_decode_stride_scst", scst_x)):
         emit({"phase": "stride_phases", "kernel": key,
@@ -1543,7 +1642,7 @@ def main() -> int:
         "bound_ms": bounds["fused_decode_step_g1"][0],
         "bound_by": bounds["fused_decode_step_g1"][1],
         "device_ms": phases["fused_decode_step_g1"]["total"]}
-    del att, xe_att, up_att, step_x, step_x1, beam_x, scst_x, pairs
+    del att, step_x, step_x1, beam_x, scst_x, pairs
 
     draws, mism = noise_mismatches(dev)
     emit({"phase": "noise", "draws": draws, "cpu_gpu_mismatches": mism})

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from cst_captioning_tpu_torch.ops.decode_stride import _device_of, _expect
+from cst_captioning_tpu_torch.ops.decode_stride import _device_of
 
 NEG = -1.0e9
 
@@ -59,13 +59,38 @@ def additive_attention_f32(q, v, memory, memory_proj, mask):
 
 # ---- the kernel's binding ----------------------------------------------------
 
+# the kernel's grid (kColVecs and kMaxCluster in the .cu)
+COL_VECS = 16        # 16-byte column vectors of one pass of a block
+MAX_CLUSTER = 8      # blocks a row at most: the portable cluster size
+BLOCKS_PER_SM = 2    # the grid's target cover of the SMs
+
+
+def attention_split(B: int, E: int, itemsize: int, sms: int,
+                    n_e: int = 0) -> tuple[int, int]:
+    """The kernel's grid: (nE, passes). Each row is a cluster of nE blocks
+    (1, 2, 4 or 8), each block writing ``passes`` (1 or 2) passes of
+    COL_VECS 16-byte column vectors; a row's blocks cover nE x passes
+    passes a column group, in as many groups as E needs, and score the
+    row again for each group. nE is the least power of two that gives
+    about BLOCKS_PER_SM blocks an SM over all rows and covers E in one
+    group, never more than MAX_CLUSTER or the passes in E; ``n_e`` > 0
+    asks for the power of two at or below it instead (the tests' hook)."""
+    total = max(1, -(-E // (COL_VECS * (16 // itemsize))))
+    if n_e <= 0:
+        fill = -(-BLOCKS_PER_SM * sms // max(B, 1))
+        n_e = max(1 << (fill.bit_length() - 1),
+                  1 << (-(-total // 2) - 1).bit_length())
+    n_e = 1 << (max(1, min(n_e, total, MAX_CLUSTER)).bit_length() - 1)
+    return n_e, 1 if n_e >= total else 2
+
 
 class _AttentionArgs(ctypes.Structure):
     """Mirror of ``struct AttentionArgs`` in csrc/additive_attention.cu."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "q", "v", "mem", "proj", "mask", "out")] + [
-        (n, ctypes.c_int) for n in ("bf16", "B", "M", "A", "E")]
+        (n, ctypes.c_int) for n in ("bf16", "B", "M", "A", "E", "nE",
+                                    "passes")]
 
 
 @functools.cache
@@ -81,27 +106,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q, v, memory, memory_proj, mask):
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(q, v, memory, memory_proj, mask, n_e: int = 0):
+    """Launch the kernel on shape-checked CUDA tensors -> ctx [B, E];
+    ``n_e`` > 0 asks for that many column blocks a row."""
     dev = memory.device
+    dt = memory.dtype
+    ins = (q, v, memory, memory_proj, mask)
+    for name, t in zip(("q", "v", "memory", "memory_proj", "mask"), ins):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dt not in (torch.float32, torch.bfloat16) or q.dtype != dt \
+            or v.dtype != dt or memory_proj.dtype != dt \
+            or mask.dtype != torch.float32:
+        raise ValueError(
+            f"dtypes q {q.dtype}, v {v.dtype}, memory {dt}, memory_proj "
+            f"{memory_proj.dtype}, mask {mask.dtype}: expected one of "
+            "float32 and bfloat16 for the first four, float32 for the mask")
     B, M, E = memory.shape
-    A = q.shape[-1]
-    types = (torch.float32, torch.bfloat16)
-    _expect(q, "q", dev, types, (B, A))
-    for name, t, shape in (("v", v, (A,)), ("memory", memory, (B, M, E)),
-                           ("memory_proj", memory_proj, (B, M, A))):
-        _expect(t, name, dev, (q.dtype,), shape)
-    _expect(mask, "mask", dev, (torch.float32,), (B, M))
-    out = torch.empty((B, E), dtype=memory.dtype, device=dev)
+    n_e, passes = attention_split(B, E, memory.element_size(),
+                                  _sm_count(dev.index), n_e)
+    out = torch.empty((B, E), dtype=dt, device=dev)
     args = _AttentionArgs(
-        q=q.data_ptr(), v=v.data_ptr(), mem=memory.data_ptr(),
-        proj=memory_proj.data_ptr(), mask=mask.data_ptr(),
-        out=out.data_ptr(), bf16=int(q.dtype == torch.bfloat16),
-        B=B, M=M, A=A, E=E)
+        q.data_ptr(), v.data_ptr(), memory.data_ptr(),
+        memory_proj.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        int(dt == torch.bfloat16), B, M, q.shape[1], E, n_e, passes)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.additive_attention(ctypes.byref(args),
-                                    ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.additive_attention(ctypes.byref(args), stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.additive_attention(ctypes.byref(args), stream)
     if rc != 0:
         msg = lib.additive_attention_error_string(rc).decode()
         raise RuntimeError(
@@ -137,7 +179,7 @@ class _FusedAdditiveAttention(torch.autograd.Function):
 def fused_additive_attention(q, v, memory, memory_proj, mask):
     """Masked additive-attention context -> [B, E] (module docstring)."""
     B, M = mask.shape
-    if memory.ndim != 3 or memory.shape[:2] != (B, M) \
+    if memory.ndim != 3 or memory.shape[:2] != (B, M) or v.ndim != 1 \
             or memory_proj.shape[:2] != (B, M) or q.shape != (B, v.shape[0]) \
             or memory_proj.shape[2] != v.shape[0]:
         raise ValueError(

@@ -4,7 +4,10 @@ sizes, one and two LSTM layers, float32 and bfloat16 banks, a fully masked
 row): the stride kernel (dense and paged; also with more live rows than
 SMs, every row finished, no active row, and its workspace sizes against
 the kernel's own), the additive-attention kernel
-with its gradient, the decode-step kernel (also at one lane, greedy's
+with its gradient (also over ten 512-slot chunks, at widths that take
+its scalar loads or several column groups, at 1 and 320 rows, a row's
+bits equal whatever batch and column split it is launched in, and a
+misaligned bank), the decode-step kernel (also at one lane, greedy's
 shape; rows that are not a multiple of its tiles, k segments that do not
 fill a split-K slice, a row's results bit-equal whichever rows share its
 tiles) and the beam-step kernel (finished lanes, EOS blocked while
@@ -26,6 +29,7 @@ import torch  # graftlint: disable=GL006
 from cst_captioning_tpu_torch import config as tcfg
 from cst_captioning_tpu_torch.config import EOS_ID
 from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import decode_stride
 from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_f32,
@@ -327,6 +331,131 @@ def test_attention_wrapper_refuses(dev):
         fused_additive_attention(q, v, mem, proj, mask.cpu())
     with pytest.raises(ValueError, match="do not match"):
         fused_additive_attention(q, v, mem[:, :3], proj, mask)
+
+
+def _attention_bank(dev, dtype, B_, M, A_, E_, seed=0):
+    """A bank of B_ rows: ragged lengths with masked holes inside them,
+    the middle row fully masked."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B_, A_, generator=g)
+    v = torch.randn(A_, generator=g) / A_ ** 0.5
+    mem = torch.tanh(torch.randn(B_, M, E_, generator=g))
+    proj = torch.randn(B_, M, A_, generator=g)
+    lens = torch.randint(1, M + 1, (B_, 1), generator=g)
+    mask = (torch.arange(M)[None] < lens).float()
+    mask[torch.rand(B_, M, generator=g) < 0.1] = 0.0
+    if B_ > 1:
+        mask[B_ // 2] = 0.0
+    return [x.to(dev, dtype) for x in (q, v, mem, proj)], mask.to(dev)
+
+
+def _attention_close(out, ins, mask):
+    """float32: the plain version within TOL; bfloat16: the kernel's own
+    numerics in float32 within BF16_ROUND of the value + ROW_TOL of the
+    row's largest value (as test_attention_kernel_matches_plain)."""
+    if out.dtype == torch.float32:
+        ref = additive_attention_plain(*ins, mask)
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+        return
+    ref = additive_attention_f32(*ins, mask)
+    limit = BF16_ROUND * ref.abs() + ROW_TOL * ref.abs().amax(-1, keepdim=True)
+    err = (out.float() - ref).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+def _attention_launch(ins, mask):
+    before = fused_additive_attention.launches
+    out = fused_additive_attention(*ins, mask)
+    torch.cuda.synchronize()
+    assert fused_additive_attention.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_long_bank(dev, dtype):
+    """M=5000: ten chunks of 512 slots, the running max and sum carried
+    across them."""
+    ins, mask = _attention_bank(dev, dtype, 3, 5000, A, E, seed=2)
+    out = _attention_launch(ins, mask)
+    assert out.shape == (3, E) and out.dtype == dtype
+    _attention_close(out, ins, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_long_bank_column_groups(dev, dtype):
+    """M=1100 (three chunks) at E=700 launched as one block a row: its
+    column groups score the row again, with the bits of the default
+    split."""
+    ins, mask = _attention_bank(dev, dtype, 3, 1100, A, 700, seed=7)
+    out = _attention_launch(ins, mask)
+    _attention_close(out, ins, mask)
+    assert torch.equal(attention_ops._launch(*ins, mask, n_e=1), out)
+
+
+@pytest.mark.parametrize("widths", [(100, 72), (37, 19), (24, 4100),
+                                    (5000, 24)],
+                         ids=["A100-E72", "A37-E19", "A24-E4100", "A5000-E24"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_odd_widths(dev, dtype, widths):
+    """Widths that are not multiples of 16 bytes take the scalar loads
+    (A=100 and E=4100 in bfloat16, A=37 and E=19 in both); E=4100 needs
+    more than one column group of 8 blocks x 2 passes, and A=5000 twenty
+    rounds of the lanes' vectors a score."""
+    A_, E_ = widths
+    ins, mask = _attention_bank(dev, dtype, 5, 56, A_, E_, seed=3)
+    _attention_close(_attention_launch(ins, mask), ins, mask)
+
+
+@pytest.mark.parametrize("rows", [1, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_kernel_batch_sizes(dev, dtype, rows):
+    """One row (the most column blocks a row) and the update's 320 rows,
+    at the msrvtt widths."""
+    ins, mask = _attention_bank(dev, dtype, rows, 56, 256, 512, seed=4)
+    _attention_close(_attention_launch(ins, mask), ins, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_row_bits_do_not_depend_on_batch(dev, dtype):
+    """A row's output is bit-equal launched among 320 rows, among 64 and
+    alone, and at every column split nE."""
+    ins, mask = _attention_bank(dev, dtype, 320, 56, 256, 512, seed=5)
+    full = _attention_launch(ins, mask)
+    first = _attention_launch([x if x.ndim == 1 else x[:64] for x in ins],
+                              mask[:64])
+    alone = _attention_launch([x if x.ndim == 1 else x[7:8] for x in ins],
+                              mask[7:8])
+    assert torch.equal(full[:64], first)
+    assert torch.equal(full[7:8], alone)
+    for n_e in (1, 2, 4, 8):   # nE=1: two column groups (four in float32)
+        assert torch.equal(attention_ops._launch(*ins, mask, n_e=n_e), full)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_misaligned_and_narrow_views(dev, dtype):
+    """A contiguous bank whose base is not 16-byte aligned takes the
+    kernel's scalar loads, with the vector loads' bits; a view narrower
+    than its rows is refused. Neither reaches the plain version."""
+    ins, mask = _attention_bank(dev, dtype, 5, 56, 256, 512, seed=6)
+    q, v, mem, proj = ins
+    buf = torch.empty(mem.numel() + 1, dtype=dtype, device=dev)
+    shifted = buf[1:].view(mem.shape)
+    shifted.copy_(mem)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    out = _attention_launch([q, v, shifted, proj], mask)
+    assert torch.equal(out, _attention_launch(ins, mask))
+    wide = torch.zeros(5, 56, 520, dtype=dtype, device=dev)
+    wide[..., :512] = mem
+    before = fused_additive_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_additive_attention(q, v, wide[..., :512], proj, mask)
+    assert fused_additive_attention.launches == before
 
 
 # ---- the decode-step kernel -------------------------------------------------

@@ -1,7 +1,8 @@
 """The PyTorch port's model (cst_captioning_tpu_torch.models) against the
 JAX CaptionModel on converted weights: encode with both encoders and one
 decode step, float32 on the CPU, within the 2e-5 bound the JAX kernel
-parity tests use for float32."""
+parity tests use for float32; encode also at dtype bfloat16, within one
+bfloat16 ulp."""
 
 import jax
 import jax.numpy as jnp
@@ -25,13 +26,14 @@ from cst_captioning_tpu_torch.presets import PRESETS, get_preset
 torch.set_num_threads(1)
 
 TOL = 2e-5
+BF16_ULP = 2.0 ** -7
 MODAL = (("resnet", 16), ("c3d", 12))
 
 
-def _configs(encoder, layers=1):
+def _configs(encoder, layers=1, dtype="float32"):
     kw = dict(vocab_size=97, modalities=MODAL, d_embed=16, d_hidden=16,
               d_att=8, encoder=encoder, dropout=0.0, max_len=12,
-              max_frames=8, dtype="float32", num_layers=layers)
+              max_frames=8, dtype=dtype, num_layers=layers)
     return ModelConfig(**kw), tcfg.ModelConfig(**kw)
 
 
@@ -44,8 +46,8 @@ def _inputs(rng, B, F):
     return feats, masks
 
 
-def _pair(encoder, layers=1, seed=0):
-    jcfg, tc = _configs(encoder, layers)
+def _pair(encoder, layers=1, seed=0, dtype="float32"):
+    jcfg, tc = _configs(encoder, layers, dtype)
     jmodel = CaptionModel(jcfg)
     rng = np.random.default_rng(seed)
     feats, masks = _inputs(rng, 4, 8)
@@ -79,6 +81,32 @@ def test_encode_matches_jax(encoder, layers):
     for (jc, jh), (tc_, th) in zip(jenc.carry, tenc.carry):
         _close(jc, tc_)
         _close(jh, th)
+
+
+@pytest.mark.parametrize("encoder", ["meanpool", "temporal_attention"])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_encode_matches_jax_bf16(encoder, layers):
+    """Both encoders at dtype bfloat16 from the same float32 parameters:
+    every output in bfloat16 on both sides, within one bfloat16 ulp
+    (2^-7) of values of order 1, relative and absolute: both round the
+    same float32 sums to bfloat16, and a sum taken in another order can
+    land across a rounding boundary."""
+    jmodel, params, tmodel, rng = _pair(encoder, layers, dtype="bfloat16")
+    feats, masks = _inputs(rng, 5, 8)
+    jenc = jmodel.apply(params, jax.tree.map(jnp.asarray, feats),
+                        jax.tree.map(jnp.asarray, masks), method=CM.encode)
+    tenc = tmodel.encode({k: torch.from_numpy(v) for k, v in feats.items()},
+                         {k: torch.from_numpy(v) for k, v in masks.items()})
+    pairs = [(jenc.memory, tenc.memory), (jenc.memory_proj, tenc.memory_proj)]
+    pairs += [p for (jc, jh), (tc_, th) in zip(jenc.carry, tenc.carry)
+              for p in ((jc, tc_), (jh, th))]
+    for j, t in pairs:
+        assert j.dtype == jnp.bfloat16 and t.dtype == torch.bfloat16
+        np.testing.assert_allclose(np.asarray(j.astype(jnp.float32)),
+                                   t.detach().float().numpy(), rtol=BF16_ULP,
+                                   atol=BF16_ULP)
+    np.testing.assert_array_equal(np.asarray(jenc.memory_mask),
+                                  tenc.memory_mask.numpy())
 
 
 @pytest.mark.parametrize("encoder", ["meanpool", "temporal_attention"])
