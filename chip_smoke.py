@@ -89,8 +89,33 @@
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
-8. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its paths, error, times and bound; for the decode and beam steps also
+8. recipe: the trainer and the CLIs from files. A template corpus in the
+   port's feature format (``data.synthetic``: msrvtt modalities, 28
+   frames, 200 words, 384 / 64 / 128 clips, 5 captions a clip, about
+   123 MB of features) with its WXE weights and CIDEr df
+   (``data.preprocess``), in a temporary directory; then, in process:
+   ``cli.train`` at msrvtt_cst_consensus with attention_impl and
+   decode_impl "pallas", 2 XE epochs and 1 CST epoch (30 attention
+   launches per XE step and per update, one decode-step launch per CST
+   decode step, one per greedy validation step at G=1, best and latest
+   written, every validation CIDEr-D finite); a 1-epoch XE run resumed
+   ("auto") to 2 epochs, and a resume from a mid-epoch
+   ``ckpt_every_steps`` save alone, each against the uninterrupted run
+   (the same video ids at every step, the same infos, per-step losses
+   within 1e-3 relative); msrvtt_scst for one RL epoch from the XE best
+   (one dense stride launch per stride, 30 attention launches per
+   update); ``cli.eval`` at msrvtt_eval_beam5 on the XE best with the
+   beam-step kernel (one launch per beam step, 8 finite metrics); one
+   XE epoch of msvd_xe_meanpool with kernel 1 (kernel 1 at M=1 against
+   its plain version); the first batch of every epoch, staged by the
+   prefetch thread on its side stream, equal to a blocking copy; the
+   device idle share of a pipelined and a sequential CST epoch from
+   torch.profiler. One ``recipe`` line: clips/s by epoch, validation
+   ms, checkpoint save and restore ms and bytes, the idle shares, the
+   eval wall and CIDEr-D after XE and after CST.
+9. kernels: one JSON line with each kernel's TPU counterpart, launches on
+   its paths (the recipe's included), error, times and bound; for the
+   decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
    attention its warm and cold device and event times at B=320, and the
    same at B=64 and M=1000.
@@ -106,8 +131,11 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from unittest import mock
@@ -116,15 +144,27 @@ import numpy as np
 import torch
 
 from cst_captioning_tpu_torch import ops
+from cst_captioning_tpu_torch.cli import eval as cli_eval
+from cst_captioning_tpu_torch.cli import train as cli_train
 from cst_captioning_tpu_torch.config import EOS_ID, PAD_ID
 from cst_captioning_tpu_torch.convert import load_flax_params, random_flax_params
-from cst_captioning_tpu_torch.data import Vocab, encode_label_row
+from cst_captioning_tpu_torch.data import (
+    Batcher,
+    Vocab,
+    compute_cider_df,
+    compute_consensus_weights,
+    encode_label_row,
+    make_synthetic_dataset,
+)
+from cst_captioning_tpu_torch.data import prefetch as prefetch_mod
 from cst_captioning_tpu_torch.decoding import beam as decoding_beam
 from cst_captioning_tpu_torch.decoding import beam_search
 from cst_captioning_tpu_torch.decoding import common as decoding_common
 from cst_captioning_tpu_torch.decoding import counter_gumbel_noise
 from cst_captioning_tpu_torch.decoding import fused as decoding_fused
+from cst_captioning_tpu_torch.decoding.common import decode_depth
 from cst_captioning_tpu_torch.eval import Evaluator
+from cst_captioning_tpu_torch.eval import evaluator as evaluator_mod
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import beam_step as beam_ops
@@ -158,6 +198,7 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
 )
 from cst_captioning_tpu_torch.presets import get_experiment, get_preset
 from cst_captioning_tpu_torch.rl import RewardComputer, SCSTTrainer
+from cst_captioning_tpu_torch.rl import rollout_seed
 from cst_captioning_tpu_torch.train import (
     create_train_state,
     make_optimizer,
@@ -172,6 +213,7 @@ from cst_captioning_tpu_torch.serving import (
     synth_request_features,
 )
 from cst_captioning_tpu_torch.serving import engine
+from cst_captioning_tpu_torch.train import trainer as trainer_mod
 
 CAPACITY, K, S, FRAME_BUCKET = 32, 2, 8, 4
 N_REQUESTS = 64
@@ -1499,6 +1541,385 @@ def step_phases(fn, layers: int, beam: bool, reps: int = 10) -> dict:
     return {**ms, "total": sum(ms.values()), "other": other}
 
 
+# ---- phase 8: the recipe through the CLIs, from files ----------------------
+
+# a template-style corpus in the port's feature format: msrvtt modalities,
+# 28 frames, 200 words, 384 / 64 / 128 clips, 5 captions a clip
+RECIPE_CORPUS = dict(num_videos=576, num_topics=8, vocab_words=200,
+                     captions_per_video=5, caption_len=(5, 10),
+                     max_frames=28, splits=(0.667, 0.112), seed=17,
+                     caption_style="template", feature_noise=0.05)
+RESUME_LOSS_TOL = 1e-3   # the embedding backward's atomics: not bitwise
+RECIPE_DEVICE = "cuda"
+INFO_KEYS = ("epoch", "xe_epochs", "phase", "batch_index", "global_step")
+
+
+def recipe_corpus(root: str) -> dict:
+    """The corpus through ``data.synthetic``, then its WXE weights and
+    CIDEr df through ``data.preprocess``."""
+    mods = dict(get_preset("msrvtt_xe_attention").modalities)
+    t = time.perf_counter()
+    paths = make_synthetic_dataset(os.path.join(root, "data"),
+                                   modalities=mods, **RECIPE_CORPUS)
+    info = json.load(open(paths["info_json"]))
+    tok = {v["id"]: [c.split() for c in v["captions"]]
+           for v in info["videos"] if v["split"] == "train"}
+    paths["consensus_weights"] = os.path.join(root, "data", "weights.npz")
+    np.savez(paths["consensus_weights"], **compute_consensus_weights(tok))
+    paths["cider_df"] = os.path.join(root, "data", "cider_df.npz")
+    compute_cider_df(tok).save(paths["cider_df"])
+    splits = {s: sum(v["split"] == s for v in info["videos"])
+              for s in ("train", "val", "test")}
+    check(splits == {"train": 384, "val": 64, "test": 128},
+          f"recipe corpus splits {splits}")
+    paths["meta"] = {"clips": splits, "words": len(info["vocab"]) - 4,
+                     "feature_bytes": sum(os.path.getsize(paths[n])
+                                          for n in mods),
+                     "write_s": time.perf_counter() - t}
+    return paths
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+class BatchTap:
+    """Stands in for the trainer's ``prefetch_to_device``: records every
+    batch's video ids by epoch, and holds the first batch of each epoch,
+    staged by the prefetch thread on its side stream, against a blocking
+    copy of the same batch."""
+
+    def __init__(self):
+        self.real = prefetch_mod.prefetch_to_device
+        self.epochs: list = []       # (kind, [video ids of each batch])
+        self.checked = 0
+
+    def __call__(self, it, size=2, transform=None, place=True,
+                 stop_event=None, device=None):
+        it = iter(it)
+        first = next(it, None)
+        if first is None:
+            return
+        want = prefetch_mod.place_blocking(transform(first), device)
+        ids: list = []
+        self.epochs.append(("xe" if len(want) == 6 else "rl", ids))
+
+        def source():
+            for b in itertools.chain([first], it):
+                ids.append(list(b.video_ids))
+                yield b
+
+        for k, out in enumerate(self.real(source(), size, transform, place,
+                                          stop_event, device)):
+            if k == 0:
+                check(_same(out, want), "a prefetched batch differs from "
+                      "its blocking copy")
+                self.checked += 1
+            yield out
+
+
+class ValidationTap:
+    """Wraps the Evaluator's greedy decode: the decode-step launches of
+    the validations against their decode steps (one lane, G=1)."""
+
+    def __init__(self):
+        self.real = evaluator_mod.greedy_decode
+        self.launches = self.steps = 0
+
+    def __call__(self, model, feats, masks, max_len=None, min_len=0):
+        before = fused_decode_step.launches
+        out = self.real(model, feats, masks, max_len=max_len,
+                        min_len=min_len)
+        self.launches += fused_decode_step.launches - before
+        self.steps += decode_depth(out[0].cpu().numpy(),
+                                   max_len or model.cfg.max_len)
+        return out
+
+
+def run_train(argv: list, log: str) -> dict:
+    """``cli.train.main(argv)`` with every launch count set to 0 just
+    before and read just after; -> the trainer, its events, the launches,
+    the batches by epoch and the validations' decode launches."""
+    tap, vtap = BatchTap(), ValidationTap()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    with mock.patch.object(trainer_mod, "prefetch_to_device", tap), \
+            mock.patch.object(evaluator_mod, "greedy_decode", vtap):
+        tr = cli_train.main(argv + ["--log-jsonl", log])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = all_launches()
+    events = [json.loads(line) for line in open(log)]
+    check(tap.checked == len(tap.epochs) > 0, "prefetch check missed epochs")
+    return {"trainer": tr, "events": events, "launches": n, "wall_s": wall,
+            "epochs": tap.epochs, "val_launches": vtap.launches,
+            "val_steps": vtap.steps}
+
+
+def _ev(run, name) -> list:
+    return [e for e in run["events"] if e["event"] == name]
+
+
+def _infos(ckpt_dir: str, name: str = "latest") -> dict:
+    infos = json.load(open(os.path.join(ckpt_dir, name, "infos.json")))
+    return {k: infos[k] for k in INFO_KEYS}
+
+
+def _resume_gates(label, got_ids, want_ids, got_loss, want_loss, got_infos,
+                  want_infos) -> float:
+    check(got_ids == want_ids, f"{label}: the resumed run's batches differ")
+    check(got_infos == want_infos,
+          f"{label}: infos {got_infos} != {want_infos}")
+    check(len(got_loss) == len(want_loss) > 0, f"{label}: step counts")
+    worst = max(rel_err(a, b) for a, b in zip(got_loss, want_loss))
+    check(worst <= RESUME_LOSS_TOL, f"{label}: step loss relative error "
+          f"{worst:.3e} > {RESUME_LOSS_TOL}")
+    return worst
+
+
+def profile_rl_epoch(trainer, pipelined: bool) -> dict:
+    """Device busy and idle share of one CST epoch of the trained state
+    (its batches staged on the card first), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = trainer.cfg
+    state = trainer.state.clone()
+    scst = SCSTTrainer(state.model, trainer.reward, cfg.rl,
+                       max_len=cfg.model.max_len, guard=True)
+    batcher = Batcher(trainer.train_ds, batch_size=cfg.data.batch_size,
+                      max_len=cfg.model.max_len, mode="video")
+    batches = list(trainer._rl_device_batches(batcher))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, ms = scst.train_epoch(state, iter(batches),
+                                 lambda j: rollout_seed(1, 0, 0, j),
+                                 pipelined=pipelined)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    out = device_breakdown(prof, wall_ms)
+    del out["top"]
+    out.update(pipelined=pipelined, steps=len(ms),
+               clips_per_s=len(ms) * cfg.data.batch_size / (wall_ms / 1e3))
+    return out
+
+
+def meanpool_attention(trainer) -> dict:
+    """Kernel 1 at M=1 (the mean-pool encoder's bank) against its plain
+    version on the trained model's encoder output, float32 and bfloat16,
+    within the existing tolerances."""
+    model = trainer.model
+    batch = next(Batcher(trainer.train_ds, batch_size=TRAIN_B,
+                         max_len=model.cfg.max_len, mode="caption")
+                 .epoch(shuffle=False))
+    corpus = {"feats": {n: torch.from_numpy(v).to(model.device)
+                        for n, v in batch.feats.items()},
+              "masks": {n: torch.from_numpy(v).to(model.device)
+                        for n, v in batch.feat_masks.items()}}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = attention_inputs(model, corpus, dtype, TRAIN_B)
+        check(x[2].shape[1] == 1, f"mean-pool bank has {x[2].shape[1]} slots")
+        res = compare_attention(x)
+        emit({"phase": "kernel_check", "kernel": "fused_additive_attention",
+              "shape": "meanpool_m1", "rows": x[0].shape[0], "slots": 1,
+              "dtype": str(dtype)[6:], **res})
+        worst = max(worst, res["max_abs_err"])
+    return {"max_abs_err": worst}
+
+
+def recipe_phase(smi: str) -> tuple[dict, dict]:
+    """Phase 8 in a temporary directory -> (the recipe line, the launches
+    of each kernel over the recipe's runs)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        return _recipe(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _recipe(root: str, smi: str) -> tuple[dict, dict]:
+    t0 = time.perf_counter()
+    data = recipe_corpus(root)
+    d = lambda name: os.path.join(root, name)  # noqa: E731
+    files = ["--info-json", data["info_json"],
+             "--feature", f"resnet={data['resnet']}"]
+    common = files + [
+        "--feature", f"c3d={data['c3d']}", "--device", RECIPE_DEVICE,
+        "--set", "model__attention_impl='pallas'",
+        "--set", "model__decode_impl='pallas'",
+        "--set", "train__log_every_steps=1",
+        "--set", f"data__consensus_weights='{data['consensus_weights']}'",
+        "--set", f"data__cider_df='{data['cider_df']}'"]
+    T = get_preset("msrvtt_cst_consensus").max_len
+    total = dict.fromkeys(all_launches(), 0)
+
+    def add(n):
+        for k, v in n.items():
+            total[k] += v
+
+    def train(preset, ckpt, log, *extra):
+        run = run_train(["--preset", preset, *common, "--set",
+                         f"train__ckpt_dir='{d(ckpt)}'", *extra], d(log))
+        add(run["launches"])
+        return run
+
+    # -- XE (2 epochs) then CST (1 epoch) at msrvtt_cst_consensus ---------
+    a = train("msrvtt_cst_consensus", "ck_a", "a.jsonl",
+              "--set", "train__epochs=2", "--set", "rl__epochs=1")
+    xe_steps, rl_steps = _ev(a, "xe_step"), _ev(a, "rl_step")
+    n = a["launches"]
+    check(n["fused_additive_attention"] == T * (len(xe_steps)
+                                                + len(rl_steps)),
+          f"recipe: {n['fused_additive_attention']} attention launches for "
+          f"{len(xe_steps)} XE steps and {len(rl_steps)} updates")
+    cst_decode = n["fused_decode_step"] - a["val_launches"]
+    cst_steps = sum(e["decode_steps"] for e in rl_steps)
+    check(cst_decode == cst_steps > 0, f"recipe: {cst_decode} CST "
+          f"decode-step launches for {cst_steps} decode steps")
+    check(a["val_launches"] == a["val_steps"] > 0,
+          f"recipe: {a['val_launches']} validation decode-step launches for "
+          f"{a['val_steps']} greedy steps")
+    check(n["fused_decode_stride"] == n["fused_decode_stride_paged"]
+          == n["fused_beam_step"] == 0, f"recipe launched others: {n}")
+    vals = _ev(a, "validate")
+    check(len(vals) == 3 and all(np.isfinite(v["cider_d"]) for v in vals),
+          f"recipe validations {vals}")
+    for name in ("best", "latest"):
+        check(os.path.exists(os.path.join(d("ck_a"), name, "state.npz")),
+              f"recipe: no {name} checkpoint")
+    xe_ids = [ids for kind, ids in a["epochs"] if kind == "xe"]
+    xe_loss = [e["loss"] for e in xe_steps]
+    spe = len(xe_ids[0])
+    # the XE phase's end: latest.prev, demoted by the CST epoch's save
+    xe_infos = _infos(d("ck_a"), "latest.prev")
+    saves = _ev(a, "ckpt_epoch")
+
+    # -- resume: 1 epoch, then resume="auto" to 2 (a mid-epoch save on
+    # the way), then from that mid-epoch save alone ------------------------
+    no_rl = ("--set", "rl__enabled=False")
+    b1 = train("msrvtt_cst_consensus", "ck_b", "b1.jsonl",
+               "--set", "train__epochs=1", *no_rl)
+    mid = spe + 2
+    b2 = train("msrvtt_cst_consensus", "ck_b", "b2.jsonl",
+               "--set", "train__epochs=2", "--set", "train__resume='auto'",
+               "--set", f"train__ckpt_every_steps={mid}", *no_rl)
+    ids_b = [ids for _, ids in b1["epochs"] + b2["epochs"]]
+    loss_b = [e["loss"] for e in _ev(b1, "xe_step") + _ev(b2, "xe_step")]
+    err_b = _resume_gates("resume", ids_b, xe_ids, loss_b, xe_loss,
+                          _infos(d("ck_b")), xe_infos)
+    step_ck = f"step_{mid:08d}"
+    check(json.load(open(os.path.join(d("ck_b"), step_ck, "infos.json")))
+          ["batch_index"] == 2, "the mid-epoch save's batch index")
+    os.makedirs(d("ck_c"))
+    shutil.copytree(os.path.join(d("ck_b"), step_ck),
+                    os.path.join(d("ck_c"), step_ck))
+    c = train("msrvtt_cst_consensus", "ck_c", "c.jsonl",
+              "--set", "train__epochs=2", "--set", "train__resume='auto'",
+              *no_rl)
+    err_c = _resume_gates(
+        "mid-epoch resume", [ids for _, ids in c["epochs"]],
+        [xe_ids[1][2:]], [e["loss"] for e in _ev(c, "xe_step")],
+        xe_loss[mid:], _infos(d("ck_c")), xe_infos)
+    restores = [e["restore_ms"] for r in (b2, c) for e in _ev(r, "resume")]
+
+    # -- SCST: greedy baseline from the XE best ------------------------------
+    sd = train("msrvtt_scst", "ck_d", "d.jsonl", "--skip-xe",
+               "--set", f"rl__init_from='{d('ck_a')}'", "--set", "rl__epochs=1")
+    S = get_preset("msrvtt_scst").decode_stride
+    s_steps = _ev(sd, "rl_step")
+    strides = sum(-(-e["decode_steps"] // S) for e in s_steps)
+    n = sd["launches"]
+    check(n["fused_decode_stride"] == strides > 0, f"recipe SCST: "
+          f"{n['fused_decode_stride']} stride launches for {strides} strides")
+    check(n["fused_additive_attention"] == T * len(s_steps),
+          f"recipe SCST: {n['fused_additive_attention']} attention launches "
+          f"for {len(s_steps)} updates")
+    check(n["fused_decode_step"] == sd["val_launches"] == sd["val_steps"],
+          f"recipe SCST: decode-step launches {n} outside validation")
+    check(bool(_ev(sd, "handoff")), "recipe SCST: no handoff")
+
+    # -- eval: beam 5 on the XE best ----------------------------------------
+    steps, counting = counted_beam_steps()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    with counting, contextlib.redirect_stdout(sys.stderr):
+        res = cli_eval.main(["--preset", "msrvtt_eval_beam5", *files,
+                             "--feature", f"c3d={data['c3d']}",
+                             "--device", RECIPE_DEVICE,
+                             "--set", "model__decode_impl='pallas'",
+                             "--ckpt-dir", d("ck_a"), "--ckpt-name", "best",
+                             "--results-json", d("results.json")])
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t
+    n = all_launches()
+    add(n)
+    check(n["fused_beam_step"] == steps[0] > 0, f"recipe eval: "
+          f"{n['fused_beam_step']} beam-step launches for {steps[0]} steps")
+    metrics = res["metrics"]
+    check(len(metrics) == 8 and all(np.isfinite(v) for v in metrics.values())
+          and len(res["captions"]) == 128, f"recipe eval metrics {metrics}")
+
+    # -- mean-pool: one XE epoch of msvd_xe_meanpool -------------------------
+    e = run_train(["--preset", "msvd_xe_meanpool", *files,
+                   "--device", RECIPE_DEVICE,
+                   "--set", "model__attention_impl='pallas'",
+                   "--set", "train__epochs=1", "--set",
+                   "train__log_every_steps=1",
+                   "--set", f"train__ckpt_dir='{d('ck_e')}'"], d("e.jsonl"))
+    add(e["launches"])
+    e_steps = _ev(e, "xe_step")
+    # decode_impl "xla": the validation's greedy steps run the decoder
+    # cell module, whose attention is kernel 1 too
+    check(e["launches"]["fused_additive_attention"]
+          == e["trainer"].cfg.model.max_len * len(e_steps) + e["val_steps"]
+          and e["val_steps"] > 0 and len(e_steps) > 0,
+          f"mean-pool: {e['launches']} for {len(e_steps)} steps and "
+          f"{e['val_steps']} validation decode steps")
+    m1 = meanpool_attention(e["trainer"])
+
+    # -- device idle share of a pipelined and a sequential CST epoch --------
+    idle = {("pipelined" if p else "sequential"):
+            profile_rl_epoch(a["trainer"], p) for p in (True, False)}
+
+    rate = lambda run, name: [x["clips_per_s"] for x in _ev(run, name)]  # noqa: E731
+    line = {
+        "phase": "recipe", "preset": "msrvtt_cst_consensus",
+        "corpus": data["meta"], "batch": a["trainer"].cfg.data.batch_size,
+        "steps_per_epoch": spe,
+        "xe_clips_per_s": rate(a, "xe_epoch"),
+        "cst_clips_per_s": rate(a, "rl_epoch"),
+        "scst_clips_per_s": rate(sd, "rl_epoch"),
+        "meanpool_xe_clips_per_s": rate(e, "xe_epoch"),
+        "xe_step_ms_median": [x["step_ms_median"] for x in _ev(a, "xe_epoch")],
+        "cst_step_ms_median": [x["step_ms_median"]
+                               for x in _ev(a, "rl_epoch")],
+        "validation_ms": [v["ms"] for v in vals],
+        "ckpt_save_ms": [x["ms"] for x in saves],
+        "ckpt_save_bytes": [x["bytes"] for x in saves],
+        "ckpt_step_save_ms": [x["ms"] for x in _ev(b2, "ckpt_step")],
+        "ckpt_restore_ms": restores,
+        "cst_epoch_profile": idle,
+        "eval_wall_s": eval_wall, "eval_metrics": metrics,
+        "cider_d_after_xe": vals[1]["cider_d"],
+        "cider_d_after_cst": vals[2]["cider_d"],
+        "scst_cider_d": [v["cider_d"] for v in _ev(sd, "validate")],
+        "resume_loss_rel_err": err_b, "mid_epoch_resume_loss_rel_err": err_c,
+        "meanpool_attention_max_abs_err": m1["max_abs_err"],
+        "launches": dict(total), "wall_s": time.perf_counter() - t0,
+        "nvidia_smi": smi}
+    return line, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -1756,6 +2177,17 @@ def main() -> int:
           **profile_cst(trainer, rl_state, corpus), "nvidia_smi": smi})
     emit({"phase": "profile", "path": "beam5_batch",
           **profile_beam(emodel, corpus), "nvidia_smi": smi})
+
+    # ---- phase 8: the recipe through the CLIs, from files -------------------
+    del model, tmodel, emodel, smodel, trainer, s_trainer, state, rl_state
+    del s_state
+    torch.cuda.empty_cache()
+    recipe, recipe_launches = recipe_phase(smi)
+    emit(recipe)
+    for k, v in recipe_launches.items():
+        path_launches[k] += v
+    record("fused_additive_attention",
+           {"max_abs_err": recipe["meanpool_attention_max_abs_err"]})
 
     print(smi, flush=True)
     emit({"kernels": [

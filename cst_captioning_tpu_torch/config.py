@@ -1,18 +1,27 @@
 """Configs and fixed token ids, for the PyTorch port.
 
-The port's own copy of the part of ``cst_captioning_tpu/config/config.py``
-that the serving, training and eval paths read: the special token ids,
-:class:`ModelConfig`, the optimizer and RL fields of :class:`TrainConfig`
-and :class:`RLConfig`, :class:`EvalConfig`, and :class:`ExperimentConfig`
-that bundles them. Field names and defaults match the JAX package. Data
-and mesh configs come with the slices that need them; the eval batch size
-is the caller's argument (``Evaluator(batch_size=...)``).
+The port's own copy of ``cst_captioning_tpu/config/config.py``: the
+special token ids, :class:`ModelConfig`, :class:`DataConfig`,
+:class:`TrainConfig`, :class:`RLConfig`, :class:`EvalConfig`,
+:class:`MeshConfig` and :class:`ExperimentConfig` with its JSON round trip
+and ``section__field`` overrides. Field names and defaults match the JAX
+package; ``DataConfig.feature_files`` name the port's feature files
+(``data/dataset.py``) in place of h5 files.
+
+A field whose machinery the port does not have yet (meshes, the health
+monitor and elastic meshes, the observability spans and flight recorder,
+the adaptive spike bound, the profiler, the NaN sanitizer, the decoupled
+and online RL topologies, gradient-communication knobs) raises
+``ValueError`` when it is set to anything but its default, naming what is
+missing: nothing is accepted and then ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Mapping
+from typing import Any, Mapping
 
 PAD_ID = 0
 BOS_ID = 1
@@ -81,37 +90,164 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset wiring; ``feature_files`` are (modality, path of the port's
+    ``<modality>.npy`` feature file) pairs."""
+
+    dataset: str = "synthetic"          # "msvd" | "msrvtt" | "synthetic"
+    feature_files: tuple[tuple[str, str], ...] = ()
+    info_json: str = ""                 # vocab + splits + tokenized captions
+    consensus_weights: str = ""         # WXE per-caption weights (npz)
+    cider_df: str = ""                  # precomputed CIDEr-D document freqs
+    batch_size: int = 64
+    seq_per_vid: int = 1                # caption rows sampled per video (XE)
+    shuffle_seed: int = 0
+    prefetch: int = 2                   # batches staged ahead on the device
+    # keep every clip's padded features in host memory after the first
+    # read; cached arrays come back read-only
+    cache_features: bool = False
+
+    def __post_init__(self):
+        if isinstance(self.feature_files, Mapping):
+            object.__setattr__(
+                self, "feature_files",
+                tuple((str(k), str(v)) for k, v in self.feature_files.items()))
+        else:
+            object.__setattr__(
+                self, "feature_files",
+                tuple((str(k), str(v)) for k, v in self.feature_files))
+
+
+def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
+    """Raise for each field of ``missing`` set away from its default."""
+    for f in dataclasses.fields(cfg):
+        if f.name in missing and getattr(cfg, f.name) != f.default:
+            raise ValueError(
+                f"{section}.{f.name}={getattr(cfg, f.name)!r} is not "
+                f"supported by the PyTorch port: {missing[f.name]} is not "
+                "ported yet (leave it at its default "
+                f"{f.default!r})")
+
+
+_NO_OBS = "the observability subsystem (spans, counters, run report)"
+_NO_HEALTH = "the multi-host health monitor and elastic meshes"
+_NO_COMMS = "data-parallel gradient communication"
+_TRAIN_UNPORTED = {
+    "profile_dir": "the step profiler", "profile_steps": "the step profiler",
+    "debug_nans": "the NaN sanitizer", "obs": _NO_OBS, "obs_dir": _NO_OBS,
+    "recorder_steps": "the flight recorder", "anomaly": "anomaly detection",
+    "spike_mode": "the adaptive spike bound",
+    "spike_factor_min": "the adaptive spike bound",
+    "health": _NO_HEALTH, "health_dir": _NO_HEALTH,
+    "health_interval_s": _NO_HEALTH, "peer_timeout_s": _NO_HEALTH,
+    "health_misses": _NO_HEALTH, "health_sim_hosts": _NO_HEALTH,
+    "elastic": _NO_HEALTH, "elastic_regrow": _NO_HEALTH,
+    "dcn_stall_s": _NO_HEALTH, "comm_bucket_mb": _NO_COMMS,
+    "comm_dtype": _NO_COMMS, "comm_overlap": _NO_COMMS,
+    "rl_topology": "the decoupled actor/learner RL topology",
+}
+_NO_DECOUPLED = "the decoupled actor/learner RL topology"
+_NO_ONLINE = "online RL from served traffic"
+_RL_UNPORTED = {
+    "rollout_depth": _NO_DECOUPLED, "staleness_bound": _NO_DECOUPLED,
+    "actor_fraction": _NO_DECOUPLED, "online_batch_size": _NO_ONLINE,
+    "swap_every": _NO_ONLINE,
+}
+_MESH_UNPORTED = {
+    "seq_devices": "sequence parallelism", "mp_devices": "model parallelism",
+}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """The optimization fields of the JAX ``TrainConfig`` that the XE step
-    and the optimizer chain read."""
+    """The optimization loop and its run plumbing (the JAX package's
+    ``TrainConfig``)."""
 
     optimizer: str = "adam"             # "adam" | "adamw" | "sgd" | "rmsprop"
     lr: float = 1e-4
     lr_decay: float = 0.5               # multiplicative decay factor
     lr_decay_every: int = 3             # epochs between decays (0 = constant)
     grad_clip: float = 5.0              # global-norm clip (0 = off)
+    epochs: int = 30                    # XE phase total
     seed: int = 1234
     weight_decay: float = 0.0
     label_smoothing: float = 0.0
     loss: str = "xe"                    # "xe" | "wxe"
+    # per-step JSONL events every N steps (0 = epoch summaries only)
+    log_every_steps: int = 0
+    eval_every_epochs: int = 1
+    ckpt_dir: str = "checkpoints"
+    resume: str = ""                    # "", "auto", or a checkpoint dir
+    profile_dir: str = ""
+    profile_steps: int = 10
+    debug_nans: bool = False
+    obs: bool = False
+    obs_dir: str = ""
+    # mid-epoch step_<n> checkpoint interval in steps (0 = epoch ends and
+    # SIGTERM saves only)
+    ckpt_every_steps: int = 0
+    keep_ckpts: int = 3                 # keep-last-K rotation of step_*
+    # divergence policy: "off" | "skip_batch" | "rollback" | "abort"
+    on_divergence: str = "skip_batch"
+    # flag a finite loss > factor * median(recent window); 0 = off
+    spike_factor: float = 0.0
+    spike_mode: str = "fixed"
+    spike_factor_min: float = 1.5
+    max_rollbacks: int = 2              # rollback budget per run
+    health: bool = False
+    health_dir: str = ""
+    health_interval_s: float = 0.5
+    peer_timeout_s: float = 5.0
+    health_misses: int = 2
+    health_sim_hosts: int = 0
+    elastic: str = "strict"
+    elastic_regrow: bool = True
+    dcn_stall_s: float = 2.0
+    comm_bucket_mb: float = 4.0
+    comm_dtype: str = "f32"
+    comm_overlap: bool = False
+    recorder_steps: int = 0
+    anomaly: bool = False
+    rl_topology: str = "sync"
 
     def __post_init__(self):
         if self.loss not in ("xe", "wxe"):
             raise ValueError(
                 f"unknown loss {self.loss!r} (expected 'xe' or 'wxe')")
+        if self.on_divergence not in ("off", "skip_batch", "rollback",
+                                      "abort"):
+            raise ValueError(
+                f"unknown on_divergence policy {self.on_divergence!r} "
+                "(expected 'off', 'skip_batch', 'rollback', or 'abort')")
+        if (self.ckpt_every_steps < 0 or self.keep_ckpts < 1
+                or self.max_rollbacks < 0):
+            raise ValueError(
+                "resilience knobs out of range: ckpt_every_steps >= 0, "
+                "keep_ckpts >= 1, max_rollbacks >= 0 required "
+                f"(got {self.ckpt_every_steps}, {self.keep_ckpts}, "
+                f"{self.max_rollbacks})")
+        if self.eval_every_epochs < 1:
+            raise ValueError(
+                f"eval_every_epochs {self.eval_every_epochs} must be >= 1")
+        _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 
 @dataclass(frozen=True)
 class RLConfig:
-    """The CST / self-critical fields of the JAX ``RLConfig`` that the
-    sequential RL step reads."""
+    """The CST / self-critical phase (the JAX package's ``RLConfig``)."""
 
+    enabled: bool = False
     num_rollouts: int = 5               # K Monte-Carlo samples per clip
     baseline: str = "greedy"            # "greedy" | "scb" | "none"
     reward_cider_weight: float = 1.0
     reward_bleu4_weight: float = 0.0
     temperature: float = 1.0
     lr: float = 2e-5                    # RL phase LR (fresh optimizer)
+    epochs: int = 20                    # RL phase total
+    init_from: str = ""                 # XE checkpoint dir to start from
+    # True: the two-stage epoch, update(i-2) -> decode(i) -> score(i-1);
+    # False: decode -> score -> update per batch
+    pipelined: bool = True
     # host threads for the native consensus-reward scorer; 0 = all cores
     reward_threads: int = 0
     # sentence-BLEU4 (in [0, 1]) is scaled by this before mixing with
@@ -120,6 +256,11 @@ class RLConfig:
     # gradient accumulation over C slices of the K rollout axis in the
     # REINFORCE update (C divides K; 1 = one pass over all K*B rows)
     update_chunks: int = 1
+    rollout_depth: int = 2
+    staleness_bound: int = 1
+    actor_fraction: float = 0.5
+    online_batch_size: int = 4
+    swap_every: int = 1
 
     def __post_init__(self):
         if self.baseline not in ("greedy", "scb", "none"):
@@ -134,6 +275,7 @@ class RLConfig:
                 f"reward_threads {self.reward_threads} must be >= 0 "
                 "(0 = all cores)"
             )
+        _refuse_unported(self, "rl", _RL_UNPORTED)
 
 
 @dataclass(frozen=True)
@@ -182,11 +324,84 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh; the port runs on one device."""
+
+    data_axis: str = "data"
+    num_devices: int = 0                # 0 = all visible devices (one here)
+    seq_devices: int = 1
+    mp_devices: int = 1
+
+    def __post_init__(self):
+        if self.num_devices > 1:
+            raise ValueError(
+                f"mesh.num_devices={self.num_devices} is not supported by "
+                "the PyTorch port: data parallelism is not ported yet "
+                "(one device; leave it at 0 or 1)")
+        _refuse_unported(self, "mesh", _MESH_UNPORTED)
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
-    """A named recipe: model, XE, RL and eval settings."""
+    """A named recipe: model, data, XE, RL, eval and mesh settings."""
 
     name: str = "experiment"
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     rl: RLConfig = field(default_factory=RLConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    # ---- serialization ----------------------------------------------------
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, default=list)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentConfig":
+        def build(tp, val):
+            if val is None:
+                return tp()
+            fields = {f.name for f in dataclasses.fields(tp)}
+            kwargs = {}
+            for k, v in val.items():
+                if k not in fields:
+                    raise KeyError(f"{tp.__name__}: unknown field {k!r}")
+                if isinstance(v, list):
+                    v = tuple(tuple(x) if isinstance(x, list) else x
+                              for x in v)
+                kwargs[k] = v
+            return tp(**kwargs)
+
+        return cls(
+            name=d.get("name", "experiment"),
+            model=build(ModelConfig, d.get("model")),
+            data=build(DataConfig, d.get("data")),
+            train=build(TrainConfig, d.get("train")),
+            rl=build(RLConfig, d.get("rl")),
+            eval=build(EvalConfig, d.get("eval")),
+            mesh=build(MeshConfig, d.get("mesh")),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentConfig":
+        return cls.from_dict(json.loads(s))
+
+    def override(self, **dotted: Any) -> "ExperimentConfig":
+        """Apply ``section__field=value`` overrides:
+        ``cfg.override(model__d_hidden=1024, rl__enabled=True)``."""
+        out = self
+        for key, value in dotted.items():
+            section, _, fname = key.partition("__")
+            if not fname:
+                out = dataclasses.replace(out, **{section: value})
+                continue
+            sub = getattr(out, section)
+            out = dataclasses.replace(
+                out, **{section: dataclasses.replace(sub, **{fname: value})}
+            )
+        return out

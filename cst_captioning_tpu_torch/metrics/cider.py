@@ -13,7 +13,9 @@ a :class:`CorpusDF` over the train split is what the RL reward uses.
 
 from __future__ import annotations
 
+import io
 import math
+import pickle
 from collections import Counter, defaultdict
 from typing import Dict, List, Sequence, Tuple
 
@@ -48,6 +50,42 @@ class CorpusDF:
             for g in seen:
                 df[g] += 1.0
         return cls(dict(df), ndoc)
+
+    def save(self, path: str) -> None:
+        """Write the port's npz: ``grams`` (each n-gram's words joined by
+        a space), ``counts`` and ``num_docs``; no pickle."""
+        grams = list(self.df)
+        with open(path, "wb") as f:
+            np.savez(f, grams=np.array([" ".join(g) for g in grams], dtype=str),
+                     counts=np.array([self.df[g] for g in grams], np.float64),
+                     num_docs=np.int64(self.num_docs))
+
+    @classmethod
+    def load(cls, path: str) -> "CorpusDF":
+        """Read the port's npz or the JAX package's ``CorpusDF.save`` file
+        (a pickle of ``{"df": {n-gram tuple: count}, "num_docs": n}``,
+        read with an unpickler that builds no objects but plain
+        containers, strings and numbers)."""
+        with open(path, "rb") as f:
+            blob = f.read()
+        if blob[:2] == b"PK":
+            with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+                df = {tuple(str(g).split(" ")): float(c)
+                      for g, c in zip(z["grams"], z["counts"])}
+                return cls(df, int(z["num_docs"]))
+        d = _PlainUnpickler(io.BytesIO(blob)).load()
+        return cls({tuple(g): float(c) for g, c in d["df"].items()},
+                   int(d["num_docs"]))
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """Refuses every global, so only builtin containers, strings and
+    numbers come out."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(
+            f"CorpusDF file refers to {module}.{name}; only plain data is "
+            "read")
 
 
 def _counts_to_vec(

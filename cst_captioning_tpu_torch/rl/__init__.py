@@ -3,6 +3,7 @@ from cst_captioning_tpu_torch.rl.scst import (
     SCSTTrainer,
     make_rl_decode,
     make_rl_update,
+    rollout_seed,
 )
 
 __all__ = [
@@ -10,5 +11,6 @@ __all__ = [
     "SCSTTrainer",
     "make_rl_decode",
     "make_rl_update",
+    "rollout_seed",
     "scb_baseline",
 ]

@@ -14,13 +14,26 @@ REINFORCE update (the JAX package's ``rl/scst.py``).
    differentiable logprobs, with one encoder pass per clip tiled over the
    rollouts, and applies the REINFORCE gradient.
 
-Not carried from the JAX trainer: the pipelined ``train_epoch``, meshes,
-reward retries and chaos hooks, and the obs spans and counters.
+:meth:`SCSTTrainer.train_epoch` runs an epoch of batches, strictly
+sequential or pipelined (update(i-2) -> decode(i) -> score(i-1)), with a
+drain that stops at a batch boundary and the seam: the tokens a drained
+pipeline decoded but did not score, persisted and replayed on resume.
+
+Rollout seeds: the port's rollout noise is a counter hash of an integer
+seed, not a JAX key, so the seed of each batch is :func:`rollout_seed` of
+``(train.seed + 1, data salt, epoch, batch index)``. A resumed epoch thus
+continues the stream without replaying a split chain; the draws differ
+from the JAX trainer's by design, and parity tests feed the JAX draws in
+through ``noise_fn``.
+
+Not carried from the JAX trainer: meshes, reward retries and chaos hooks,
+and the obs spans and counters.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
@@ -40,6 +53,50 @@ from cst_captioning_tpu_torch.rl.rewards import scb_baseline
 from cst_captioning_tpu_torch.train.schedule import global_norm
 from cst_captioning_tpu_torch.train.state import TrainState
 from cst_captioning_tpu_torch.train.steps import _apply
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer."""
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & _M64
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & _M64
+    return x ^ (x >> 31)
+
+
+def rollout_seed(seed: int, salt: int, epoch: int, batch_index: int) -> int:
+    """The rollout-noise seed of one RL batch: a fixed hash of
+    ``(seed, data salt, epoch, batch index)`` (the trainer passes
+    ``train.seed + 1`` as ``seed``), so the stream of a resumed epoch
+    continues where the interrupted one stopped."""
+    x = 0x9E3779B97F4A7C15
+    for v in (seed, salt, epoch, batch_index):
+        x = _mix64((x + (int(v) & _M64)) & _M64)
+    return x & 0x7FFFFFFF
+
+
+def _host_copy(t: torch.Tensor | None):
+    """Start copying ``t`` to the host: -> (host tensor, event or None).
+    On CUDA the copy goes to pinned memory without blocking; reading the
+    host tensor waits for the event first."""
+    if t is None:
+        return None
+    if t.device.type != "cuda":
+        return t.detach().cpu(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _host_numpy(copy) -> np.ndarray | None:
+    if copy is None:
+        return None
+    host, event = copy
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
 
 
 def make_rl_decode(model, num_rollouts: int, temperature: float = 1.0,
@@ -252,15 +309,21 @@ class SCSTTrainer:
         }
         return advantage, metrics
 
-    def _score(self, greedy, samples, feats, masks, video_ids, valid_np):
+    def _score(self, greedy, samples, feats, masks, video_ids, valid_np,
+               host=None):
         """Host half: read the tokens back and compute the advantage ->
-        the argument tuple of :meth:`_apply`."""
-        samples_np = samples.cpu().numpy()
-        greedy_np = None if greedy is None else greedy.cpu().numpy()
+        the argument tuple of :meth:`_apply`. ``host`` is a started
+        :func:`_host_copy` of (greedy, samples)."""
+        host = host or (_host_copy(greedy), _host_copy(samples))
+        greedy_np, samples_np = (_host_numpy(c) for c in host)
         t = time.perf_counter()
         advantage, host_metrics = self._advantage(
             greedy_np, samples_np, video_ids, valid_np)
         host_metrics["reward_s"] = time.perf_counter() - t
+        rows = samples_np if greedy_np is None else \
+            np.concatenate([greedy_np[None], samples_np])
+        host_metrics["decode_steps"] = decode_depth(rows, self.max_len,
+                                                    self._stride)
         return advantage, host_metrics, samples, feats, masks, valid_np
 
     def _apply(self, state, advantage, host_metrics, samples, feats, masks,
@@ -292,10 +355,137 @@ class SCSTTrainer:
                              valid_np)
         t1 = time.perf_counter()
         state, metrics = self._apply(state, *scored)
-        rows = samples if greedy is None else \
-            torch.cat([greedy[None], samples])
         metrics.update(decode_s=t1 - t0 - metrics["reward_s"],
-                       update_s=time.perf_counter() - t1,
-                       decode_steps=decode_depth(rows, self.max_len,
-                                                 self._stride))
+                       update_s=time.perf_counter() - t1)
         return state, metrics
+
+    # ---- the seam of a drained pipeline -----------------------------------
+
+    @staticmethod
+    def _seam_capture(decoded, video_ids) -> dict:
+        """Host copies of a decoded, unscored batch's tokens."""
+        greedy, samples = decoded
+        out = {"samples": samples.cpu().numpy(),
+               "video_ids": [str(v) for v in video_ids]}
+        if greedy is not None:
+            out["greedy"] = greedy.cpu().numpy()
+        return out
+
+    @staticmethod
+    def _seam_tokens_to_device(seam: dict, device):
+        """Persisted seam tokens -> (greedy or None, samples) on
+        ``device``, as the decode gives them."""
+        samples = torch.from_numpy(np.asarray(seam["samples"])).to(device)
+        greedy = seam.get("greedy")
+        if greedy is not None:
+            greedy = torch.from_numpy(np.asarray(greedy)).to(device)
+        return greedy, samples
+
+    @staticmethod
+    def _seam_matches(seam: dict, video_ids) -> bool:
+        return list(seam.get("video_ids", [])) == [str(v) for v in video_ids]
+
+    # ---- an epoch ----------------------------------------------------------
+
+    def train_epoch(self, state: TrainState, batches, seeds,
+                    on_step=None, pipelined: bool = True, should_stop=None,
+                    seam: dict | None = None,
+                    seam_sink: dict | None = None, noise_fns=None):
+        """CST over an epoch of batches -> (state, metrics list).
+
+        ``batches`` yields ``(feats, masks, video_ids, valid)`` with the
+        arrays on the device; ``seeds(j)`` is the rollout seed of the
+        ``j``-th batch this call takes (0-based), ``noise_fns(j)``
+        (optional) its ``noise_fn``. ``on_step(metrics)`` fires per step.
+
+        ``pipelined=False``: :meth:`train_step` per batch, decode -> score
+        -> update. ``pipelined=True``: per batch ``i`` the order is
+        update(i-2) -> decode(i) -> score(i-1), as in the JAX loop: the
+        decoded policy is one update stale. The state is updated in
+        place, in that order, on one stream; the decode's early exit reads
+        the device, so score(i-1) runs on a worker thread while this
+        thread drives decode(i), and the tokens reach the host through
+        pinned memory and an event.
+
+        ``should_stop()`` is read once a batch. When it turns true the
+        epoch stops taking batches and drains: every decoded batch gets
+        its update, so the state is exactly ``len(metrics)`` steps on.
+        With ``seam_sink`` (pipelined) the drain first runs the stopped
+        iteration's update(i-2) and decode(i) and puts batch i's tokens
+        into ``seam_sink``; a resume that passes them back as ``seam``
+        replays them for its first batch (when its video ids match)
+        instead of decoding it again, so the resumed run equals the
+        uninterrupted one.
+        """
+        out = []
+        dev = state.model.device
+
+        def emit(m):
+            out.append(m)
+            if on_step is not None:
+                on_step(m)
+
+        noise = (lambda j: None) if noise_fns is None else noise_fns
+
+        if not pipelined:
+            for j, (feats, masks, video_ids, valid) in enumerate(batches):
+                if should_stop is not None and should_stop():
+                    break
+                state, m = self.train_step(state, feats, masks, video_ids,
+                                           seeds(j), valid,
+                                           noise_fn=noise(j))
+                emit(m)
+            return state, out
+
+        def decode(j, feats, masks):
+            greedy, samples = self.decode(state.model, feats, masks,
+                                          seeds(j), noise(j))
+            return greedy, samples, (_host_copy(greedy), _host_copy(samples))
+
+        scored = None     # future: _apply args of batch i-2
+        decoded = None    # _score args of batch i-1
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="rl-score")
+        try:
+            for j, (feats, masks, video_ids, valid) in enumerate(batches):
+                valid_np = self._valid_np(valid, len(video_ids))
+                if should_stop is not None and should_stop():
+                    if seam_sink is not None:
+                        if scored is not None:
+                            state, m = self._apply(state, *scored.result())
+                            scored = None
+                            emit(m)
+                        greedy, samples, _ = decode(j, feats, masks)
+                        seam_sink.update(self._seam_capture(
+                            (greedy, samples), video_ids))
+                        if decoded is not None:
+                            state, m = self._apply(
+                                state, *self._score(*decoded))
+                            emit(m)
+                        decoded = None
+                    break
+                if scored is not None:
+                    state, m = self._apply(state, *scored.result())
+                    scored = None
+                    emit(m)
+                if decoded is not None:
+                    # the host scores batch i-1 while decode(i) runs
+                    scored = pool.submit(self._score, *decoded)
+                if j == 0 and seam is not None and self._seam_matches(
+                        seam, video_ids):
+                    greedy, samples = self._seam_tokens_to_device(seam, dev)
+                    host = (_host_copy(greedy), _host_copy(samples))
+                else:
+                    greedy, samples, host = decode(j, feats, masks)
+                decoded = (greedy, samples, feats, masks, video_ids,
+                           valid_np, host)
+            # drain in order: update(n-2), then score and update(n-1)
+            if scored is not None:
+                state, m = self._apply(state, *scored.result())
+                emit(m)
+            if decoded is not None:
+                state, m = self._apply(state, *self._score(*decoded))
+                emit(m)
+        finally:
+            pool.shutdown(wait=True)
+        return state, out

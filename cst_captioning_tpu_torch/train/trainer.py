@@ -1,0 +1,606 @@
+"""The training loop on one device (the JAX package's
+``train/trainer.py``): XE epochs, greedy validation by CIDEr-D,
+best/latest checkpoints, resume, the XE -> RL handoff and CST epochs.
+
+Batches are collated and staged on the device by the prefetch thread
+(``data/prefetch.py``). Both phase loops run under a SIGTERM handler: a
+preemption saves a mid-epoch checkpoint that records the batch index, and
+the epoch-keyed shuffle lets a resumed run train exactly the rest of the
+epoch; a drained pipelined RL epoch also saves its seam (``seam.npz``, in
+the same atomic save) so the resumed run replays it. A divergence
+sentinel applies ``train.on_divergence``; ``train.ckpt_every_steps`` adds
+mid-epoch ``step_*`` checkpoints with keep-last-K rotation.
+
+Initial parameters are seeded numpy draws in the JAX layout
+(``convert.random_flax_params`` at ``train.seed``), the same on every
+device; ``params=`` starts from a given flax tree instead. Epoch events
+carry clips/s and the median step ms from a host timer.
+
+Not ported (ROADMAP.md names their slices): meshes and data parallelism,
+peer loss and degraded or regrown meshes, the obs spans and counters, the
+flight recorder, FLOPs counters, the profiler and chaos visits; their
+config fields raise (``config.py``).
+"""
+
+from __future__ import annotations
+
+import io
+import itertools
+import json
+import os
+import threading
+import time
+
+import numpy as np
+
+from cst_captioning_tpu_torch.ckpt import CheckpointManager, load_params
+from cst_captioning_tpu_torch.config import EvalConfig, ExperimentConfig
+from cst_captioning_tpu_torch.convert import (
+    load_flax_params,
+    random_flax_params,
+)
+from cst_captioning_tpu_torch.data.batcher import Batcher
+from cst_captioning_tpu_torch.data.prefetch import prefetch_to_device
+from cst_captioning_tpu_torch.device import resolve_device
+from cst_captioning_tpu_torch.eval.evaluator import Evaluator
+from cst_captioning_tpu_torch.metrics.cider import CorpusDF
+from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.resilience.preempt import (
+    Preempted,
+    PreemptionHandler,
+)
+from cst_captioning_tpu_torch.resilience.sentinel import (
+    DivergenceSentinel,
+    RollbackRequested,
+    TrainingDiverged,
+)
+from cst_captioning_tpu_torch.rl import RewardComputer, SCSTTrainer
+from cst_captioning_tpu_torch.rl.scst import rollout_seed
+from cst_captioning_tpu_torch.train.schedule import make_optimizer
+from cst_captioning_tpu_torch.train.state import create_train_state
+from cst_captioning_tpu_torch.train.steps import make_xe_step, xe_row_weights
+from cst_captioning_tpu_torch.utils.logging import EventLogger
+
+# run plumbing that may differ between a run and its resume; left out of
+# the config-drift check
+_VOLATILE_CONFIG_FIELDS = frozenset({
+    "train.resume", "train.ckpt_dir", "train.profile_dir",
+    "train.profile_steps", "train.debug_nans", "train.log_every_steps",
+    "train.ckpt_every_steps", "train.keep_ckpts", "train.max_rollbacks",
+    "train.health", "train.health_dir", "train.health_interval_s",
+    "train.peer_timeout_s", "train.health_misses", "train.health_sim_hosts",
+    "train.dcn_stall_s",
+    "train.obs", "train.obs_dir", "train.recorder_steps", "train.anomaly",
+    "eval.results_json",
+})
+
+__all__ = ["Preempted", "Trainer", "TrainingDiverged"]
+
+
+def _config_drift(saved: dict, current: dict, prefix: str = "") -> list[str]:
+    """Dotted paths whose values differ between two JSON-born snapshots."""
+    out: list[str] = []
+    for key in sorted(set(saved) | set(current)):
+        path = f"{prefix}{key}"
+        if path in _VOLATILE_CONFIG_FIELDS:
+            continue
+        a, b = saved.get(key), current.get(key)
+        if isinstance(a, dict) and isinstance(b, dict):
+            out.extend(_config_drift(a, b, prefix=path + "."))
+        elif a != b:
+            out.append(path)
+    return out
+
+
+def _rate(batch: int, times: list[float]) -> tuple[float, float]:
+    """(clips/s past the first step, median step ms) of a phase epoch."""
+    if not times:
+        return 0.0, 0.0
+    timed = times[1:] or times
+    return (batch * len(timed) / max(sum(timed), 1e-12),
+            float(np.median(timed)) * 1e3)
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, train_ds, val_ds=None,
+                 log_path: str = "", device=None, params=None):
+        self.cfg = cfg
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.device = resolve_device(device)
+        self.model = CaptionModel(cfg.model, device=self.device)
+        load_flax_params(self.model, params if params is not None
+                         else random_flax_params(cfg.model, cfg.train.seed))
+        self.log = EventLogger(log_path)
+        self.batcher = Batcher(
+            train_ds, batch_size=cfg.data.batch_size,
+            max_len=cfg.model.max_len, mode="caption",
+            seq_per_vid=cfg.data.seq_per_vid, seed=cfg.data.shuffle_seed)
+        self.steps_per_epoch = self.batcher.num_batches()
+        tx = make_optimizer(cfg.train, self.steps_per_epoch)
+        self.state = create_train_state(self.model, tx, seed=cfg.train.seed)
+        # the finite-update guard rides with any active sentinel policy
+        self.guard = cfg.train.on_divergence != "off"
+        self.xe_step = make_xe_step(self.model, cfg.train.label_smoothing,
+                                    guard=self.guard)
+        self.ckpt = CheckpointManager(
+            cfg.train.ckpt_dir, metric="CIDEr-D", keep=cfg.train.keep_ckpts,
+            log=self.log.log)
+        self.epoch = 0        # global epoch counter (batch-order key)
+        self.xe_epochs = 0    # per-phase progress; the epochs fields are
+        self.rl_epochs = 0    # phase totals, so a resume trains the rest
+        self._resume_batch = 0
+        self._resume_rl_batch = 0
+        self._rollbacks = 0
+        self._rl_batcher: Batcher | None = None
+        self.reward: RewardComputer | None = None
+        # tokens a drained pipelined RL epoch decoded but did not score
+        self._pending_seam: dict | None = None
+        if cfg.train.resume:
+            self._resume()
+        self._build_validator()
+
+    def _build_validator(self) -> None:
+        cfg = self.cfg
+        self.validator = (
+            Evaluator(self.model, self.val_ds,
+                      EvalConfig(beam_size=1, max_len=cfg.model.max_len,
+                                 metrics=("CIDEr-D",)),
+                      batch_size=cfg.data.batch_size)
+            if self.val_ds is not None else None)
+
+    def close(self) -> None:
+        self.log.close()
+
+    # ---- resume / handoff ----------------------------------------------------
+
+    def _resume(self):
+        # "auto": the newest valid checkpoint of this run's ckpt_dir;
+        # a directory: the newest valid one in it
+        resume = self.cfg.train.resume
+        src_dir = self.cfg.train.ckpt_dir if resume == "auto" else resume
+        mgr = (self.ckpt if resume == "auto"
+               else CheckpointManager(src_dir, log=self.log.log))
+        restored = mgr.restore_latest(self.state)
+        if restored is None:
+            self.log.log("resume_not_found", dir=src_dir)
+            return
+        state, infos = restored
+        batch_index, phase = self._adopt_restored(state, infos, src_dir)
+        saved_cfg = infos.get("config")
+        if saved_cfg:
+            drift = _config_drift(saved_cfg, json.loads(self.cfg.to_json()))
+            if drift:
+                self.log.log("resume_config_drift", fields=drift)
+        self.log.log("resume", dir=src_dir, step=int(state.step),
+                     epoch=self.epoch, batch_index=batch_index,
+                     phase=phase or "epoch_end",
+                     restore_ms=mgr.last_restore.get("ms"))
+
+    def _adopt_restored(self, state, infos: dict,
+                        src_dir: str) -> tuple[int, str]:
+        """Install a restored state's bookkeeping -> (batch_index, phase)."""
+        self.state = state
+        self.epoch = int(infos.get("epoch", 0))
+        self.xe_epochs = int(infos.get("xe_epochs", self.epoch))
+        self.rl_epochs = int(infos.get("rl_epochs", 0))
+        # the caption batcher takes one epoch index per XE epoch (RL epochs
+        # run their own video-mode batcher), so the XE count is its key
+        self.batcher.epoch_index = self.xe_epochs
+        # a mid-epoch save: the counters are completed epochs, batch_index
+        # how far into the next one the save came
+        batch_index = int(infos.get("batch_index", 0))
+        phase = infos.get("phase", "")
+        self._resume_batch = self._resume_rl_batch = 0
+        if batch_index and phase == "xe":
+            self._resume_batch = batch_index
+        elif batch_index and phase == "rl":
+            self._resume_rl_batch = batch_index
+        self.batcher.salt = int(infos.get("data_salt", 0))
+        self._pending_seam = self._load_seam(src_dir, infos)
+        return batch_index, phase
+
+    # ---- the RL seam -----------------------------------------------------------
+
+    @staticmethod
+    def _seam_bytes(seam: dict, epoch: int, batch_index: int) -> bytes:
+        """A captured seam and its position as ``seam.npz`` bytes."""
+        arrays = {"epoch": np.asarray(int(epoch)),
+                  "batch_index": np.asarray(int(batch_index)),
+                  "samples": np.asarray(seam["samples"]),
+                  "video_ids": np.asarray([str(v) for v in
+                                           seam["video_ids"]])}
+        if seam.get("greedy") is not None:
+            arrays["greedy"] = np.asarray(seam["greedy"])
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def _load_seam(self, src_dir: str, infos: dict) -> dict | None:
+        """The seam of the checkpoint just restored, when its save drained
+        a pipelined RL epoch."""
+        name = infos.get("ckpt_name", "")
+        if not name or infos.get("phase") != "rl" \
+                or not infos.get("batch_index"):
+            return None
+        path = os.path.join(src_dir, name, "seam.npz")
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                seam = {
+                    "samples": np.asarray(z["samples"]),
+                    "greedy": (np.asarray(z["greedy"])
+                               if "greedy" in z.files else None),
+                    "video_ids": [str(v) for v in z["video_ids"]],
+                    "epoch": int(z["epoch"]),
+                    "batch_index": int(z["batch_index"]),
+                }
+        except (OSError, ValueError, KeyError) as e:
+            # a torn seam falls back to decoding the batch again
+            self.log.log("seam_unreadable", path=path,
+                         error=type(e).__name__, detail=str(e))
+            return None
+        self.log.log("seam_loaded", ckpt=name, epoch=seam["epoch"],
+                     batch_index=seam["batch_index"])
+        return seam
+
+    def load_params_from(self, ckpt_dir: str, name: str = "best"):
+        """XE -> RL handoff: params only (the optimizer starts fresh)."""
+        load_params(ckpt_dir, name, self.model)
+        self.log.log("handoff", source=f"{ckpt_dir}/{name}")
+
+    # ---- batches ---------------------------------------------------------------
+
+    def _device_batches(self, batcher: Batcher, skip: int = 0,
+                        stop_event: threading.Event | None = None):
+        """XE batches on the device: (feats, masks, labels, mask, weights,
+        valid); ``skip`` drops the first batches of the epoch's order."""
+        def transform(b):
+            return (b.feats, b.feat_masks, b.labels.astype(np.int64), b.mask,
+                    b.weights, np.asarray(b.valid, np.float32))
+
+        it = itertools.islice(batcher.epoch(), skip, None)
+        yield from prefetch_to_device(
+            it, size=self.cfg.data.prefetch, transform=transform,
+            stop_event=stop_event, device=self.device)
+
+    def _rl_device_batches(self, batcher: Batcher, skip: int = 0,
+                           stop_event: threading.Event | None = None):
+        """RL batches: features on the device, video ids and the valid
+        flags (lists) on the host for the reward."""
+        def transform(b):
+            return (b.feats, b.feat_masks, list(b.video_ids),
+                    [bool(v) for v in b.valid])
+
+        it = itertools.islice(batcher.epoch(shuffle=True), skip, None)
+        yield from prefetch_to_device(
+            it, size=self.cfg.data.prefetch, transform=transform,
+            stop_event=stop_event, device=self.device)
+
+    # ---- resilience ------------------------------------------------------------
+
+    def _make_sentinel(self, phase: str) -> DivergenceSentinel:
+        """skip_batch checks at epoch ends and save points; rollback and
+        abort every 32 steps."""
+        cfg = self.cfg.train
+        return DivergenceSentinel(
+            policy=cfg.on_divergence, phase=phase, log=self.log.log,
+            spike_factor=cfg.spike_factor,
+            check_every=(32 if cfg.on_divergence in ("rollback", "abort")
+                         else None))
+
+    def _ckpt_infos(self, phase: str = "", batch_index: int = 0,
+                    step_no: int | None = None) -> dict:
+        return {
+            "epoch": self.epoch,
+            "xe_epochs": self.xe_epochs,
+            "rl_epochs": self.rl_epochs,
+            "phase": phase,
+            "batch_index": batch_index,
+            "global_step": step_no,
+            "data_salt": self.batcher.salt,
+            "config": self.cfg.to_dict(),
+        }
+
+    def _save_step_ckpt(self, phase: str, step_no: int, batch_index: int,
+                        seam: dict | None = None) -> None:
+        """A mid-epoch checkpoint recording the batch index; ``seam``
+        rides along as ``seam.npz`` in the same swap."""
+        extra = None
+        if seam:
+            extra = {"seam.npz": self._seam_bytes(seam, self.epoch,
+                                                  batch_index)}
+        self.ckpt.save_step(self.state, step_no,
+                            self._ckpt_infos(phase, batch_index, step_no),
+                            extra_files=extra)
+        self.log.log("ckpt_step", phase=phase, step=step_no,
+                     batch_index=batch_index, seam=bool(seam),
+                     **self.ckpt.last_save)
+
+    def _preempt_save(self, phase: str, step_no: int, batch_index: int,
+                      sentinel: DivergenceSentinel,
+                      seam: dict | None = None) -> None:
+        """SIGTERM: check pending steps (never save an update the sentinel
+        would reject), save mid-epoch, flush the log, raise Preempted."""
+        sentinel.flush()
+        self._save_step_ckpt(phase, step_no, batch_index, seam=seam)
+        self.log.log("preempt", phase=phase, step=step_no,
+                     batch_index=batch_index)
+        self.log.flush()
+        raise Preempted(
+            f"preempted at {phase} step {step_no} "
+            f"(epoch {self.epoch + 1}, batch {batch_index}); "
+            "checkpoint saved - rerun with train.resume='auto'")
+
+    def _apply_rollback(self, phase: str, err: RollbackRequested,
+                        sentinel: DivergenceSentinel) -> None:
+        """Restore the newest verifiable checkpoint and salt the data
+        order, within ``train.max_rollbacks``."""
+        self._rollbacks += 1
+        if self._rollbacks > self.cfg.train.max_rollbacks:
+            raise TrainingDiverged(
+                f"rollback budget exhausted ({self.cfg.train.max_rollbacks})"
+                f" after {phase} divergence: {err}") from err
+        restored = self.ckpt.restore_latest(self.state)
+        if restored is None:
+            raise TrainingDiverged(
+                f"{phase} diverged with no checkpoint to roll back to: "
+                f"{err}") from err
+        state, infos = restored
+        self.state = state
+        self.epoch = int(infos.get("epoch", 0))
+        self.xe_epochs = int(infos.get("xe_epochs", self.epoch))
+        self.rl_epochs = int(infos.get("rl_epochs", 0))
+        # the epoch restarts at batch 0 under the new salt: a saved
+        # batch_index or seam names batches of the old order
+        self._resume_batch = self._resume_rl_batch = 0
+        self._pending_seam = None
+        self.batcher.salt = self._rollbacks
+        if self._rl_batcher is not None:
+            self._rl_batcher.salt = self._rollbacks
+        sentinel.reset()
+        self.log.log("rollback", phase=phase, step=err.step, kind=err.kind,
+                     restored_step=infos.get("global_step"),
+                     restored_epoch=self.epoch, salt=self._rollbacks)
+
+    # ---- XE ----------------------------------------------------------------------
+
+    def train_xe(self, epochs: int | None = None) -> float | None:
+        """The XE/WXE phase -> the last validation CIDEr-D.
+
+        ``epochs=None`` takes ``train.epochs`` as the phase total (a
+        resumed run trains the rest); a number trains that many more.
+        Raises :class:`Preempted` after a SIGTERM save and
+        :class:`TrainingDiverged` under ``abort`` or past the rollback
+        budget."""
+        cfg = self.cfg
+        if epochs is None:
+            epochs = max(0, cfg.train.epochs - self.xe_epochs)
+        if epochs == 0:
+            return None
+        target = self.xe_epochs + epochs
+        sentinel = self._make_sentinel("xe")
+        last_val = None
+        with PreemptionHandler() as pre:
+            while self.xe_epochs < target:
+                try:
+                    last_val = self._xe_epoch(sentinel, pre)
+                except RollbackRequested as e:
+                    self._apply_rollback("xe", e, sentinel)
+        return last_val
+
+    def _xe_epoch(self, sentinel, pre) -> float | None:
+        """One XE epoch (or the rest of one): steps, sentinel, mid-epoch
+        saves, then validation and the epoch checkpoint."""
+        cfg = self.cfg
+        log_every = cfg.train.log_every_steps
+        ckpt_every = cfg.train.ckpt_every_steps
+        self.batcher.epoch_index = self.xe_epochs
+        skip = self._resume_batch
+        self._resume_batch = 0
+        batch_no = skip
+        step_no = int(self.state.step)
+        losses, times = [], []
+        stop = threading.Event()
+        try:
+            t_prev = time.perf_counter()
+            for arrays in self._device_batches(self.batcher, skip=skip,
+                                               stop_event=stop):
+                feats, masks, labels, mask, weights, valid = arrays
+                w = xe_row_weights(cfg.train.loss, weights, valid)
+                self.state, m = self.xe_step(self.state, feats, masks,
+                                             labels, mask, w)
+                losses.append(m["loss"])
+                sentinel.push(step_no + 1, m["loss"], m.get("nonfinite"))
+                step_no += 1
+                batch_no += 1
+                now = time.perf_counter()
+                times.append(now - t_prev)
+                t_prev = now
+                if log_every and step_no % log_every == 0:
+                    self.log.log("xe_step", phase="xe", step=step_no,
+                                 epoch=self.epoch + 1, loss=m["loss"],
+                                 grad_norm=m["grad_norm"])
+                if pre.requested:
+                    self._preempt_save("xe", step_no, batch_no, sentinel)
+                if ckpt_every and step_no % ckpt_every == 0:
+                    sentinel.flush()   # never save a rejected update
+                    self._save_step_ckpt("xe", step_no, batch_no)
+        finally:
+            stop.set()
+        # a SIGTERM between the last step and here must not let the
+        # counters pass the saved state
+        if pre.requested:
+            self._preempt_save("xe", step_no, batch_no, sentinel)
+        sentinel.flush()
+        self.epoch += 1
+        self.xe_epochs += 1
+        vals = np.asarray(losses, np.float64)
+        vals = vals[np.isfinite(vals)]  # guard-skipped steps
+        clips_s, step_ms = _rate(cfg.data.batch_size, times)
+        self.log.log("xe_epoch", epoch=self.epoch,
+                     loss=float(vals.mean()) if vals.size else float("nan"),
+                     steps=len(times), clips_per_s=clips_s,
+                     step_ms_median=step_ms)
+        return self._validate_and_checkpoint(step_no)
+
+    # ---- RL ----------------------------------------------------------------------
+
+    def train_rl(self, epochs: int | None = None) -> float | None:
+        """The CST/SCST phase (``cfg.rl``) -> the last validation CIDEr-D.
+
+        ``epochs=None``: ``rl.epochs`` is the phase total. At the handoff
+        (no RL step taken yet) the optimizer starts fresh at ``rl.lr``
+        with step 0; a mid-RL resume keeps the restored Adam moments and
+        checks that their structure fits the RL optimizer. A SIGTERM
+        stops the epoch at a batch boundary and the pipeline drains in
+        schedule order; the save records the batch index and, pipelined,
+        the seam's tokens, so both modes resume to the uninterrupted run.
+        """
+        cfg = self.cfg
+        if epochs is None:
+            epochs = max(0, cfg.rl.epochs - self.rl_epochs)
+        if epochs == 0:
+            return None
+        tx = make_optimizer(cfg.train, self.steps_per_epoch,
+                            lr_override=cfg.rl.lr)
+        fresh = tx.init([p.detach() for p in self.state.params])
+        # the handoff: no RL step taken yet. The JAX trainer tests
+        # rl_epochs alone, which also resets a resume from inside the
+        # first RL epoch
+        if self.rl_epochs == 0 and not self._resume_rl_batch:
+            self.state.step = 0
+            self.state.opt_state = fresh
+        else:
+            got = self.state.opt_state
+            if set(fresh) != set(got) or any(
+                    [tuple(t.shape) for t in fresh[k]]
+                    != [tuple(t.shape) for t in got[k]]
+                    for k in fresh if k != "count"):
+                raise RuntimeError(
+                    "mid-RL resume: the checkpoint's optimizer state does "
+                    "not match the RL optimizer built from this config - "
+                    "the restored Adam moments would be misread. Did the "
+                    "optimizer definition change between runs?")
+        self.state.tx = tx
+
+        df = CorpusDF.load(cfg.data.cider_df) if cfg.data.cider_df else None
+        self.reward = RewardComputer(
+            self.train_ds.vocab, self.train_ds.gts_pool(), df=df,
+            cider_weight=cfg.rl.reward_cider_weight,
+            bleu_weight=cfg.rl.reward_bleu4_weight,
+            bleu_scale=cfg.rl.reward_bleu4_scale,
+            num_threads=cfg.rl.reward_threads)
+        scst = SCSTTrainer(self.model, self.reward, cfg.rl,
+                           max_len=cfg.model.max_len, guard=self.guard)
+        rl_batcher = Batcher(
+            self.train_ds, batch_size=cfg.data.batch_size,
+            max_len=cfg.model.max_len, mode="video",
+            seed=cfg.data.shuffle_seed)
+        rl_batcher.salt = self.batcher.salt
+        self._rl_batcher = rl_batcher
+        target = self.rl_epochs + epochs
+        sentinel = self._make_sentinel("rl")
+        last_val = None
+        try:
+            with PreemptionHandler() as pre:
+                while self.rl_epochs < target:
+                    try:
+                        last_val = self._rl_epoch(scst, rl_batcher,
+                                                  sentinel, pre)
+                    except RollbackRequested as e:
+                        self._apply_rollback("rl", e, sentinel)
+        finally:
+            self._rl_batcher = None
+        return last_val
+
+    def _rl_epoch(self, scst, rl_batcher, sentinel, pre) -> float | None:
+        """One RL epoch (or the rest of one)."""
+        cfg = self.cfg
+        log_every = cfg.train.log_every_steps
+        # keyed by the global epoch, so a resumed RL phase replays the
+        # uninterrupted run's order
+        rl_batcher.epoch_index = self.epoch
+        skip = self._resume_rl_batch
+        self._resume_rl_batch = 0
+        seam = None
+        if skip and self._pending_seam is not None:
+            cand, self._pending_seam = self._pending_seam, None
+            if cfg.rl.pipelined and cand["epoch"] == self.epoch \
+                    and cand["batch_index"] == skip:
+                seam = cand
+            else:
+                self.log.log("seam_discarded", epoch=self.epoch,
+                             batch_index=skip, seam_epoch=cand["epoch"],
+                             seam_batch_index=cand["batch_index"])
+        epoch, salt, base = self.epoch, self.batcher.salt, cfg.train.seed + 1
+
+        def seeds(j):
+            return rollout_seed(base, salt, epoch, skip + j)
+
+        counter = {"step": int(self.state.step), "n": skip}
+        rewards, valid_rows, times = [], [], []
+        t_prev = [time.perf_counter()]
+
+        def on_step(m):
+            rewards.append(m["reward_mean"])
+            valid_rows.append(m["valid_rows"])
+            counter["step"] += 1
+            counter["n"] += 1
+            now = time.perf_counter()
+            times.append(now - t_prev[0])
+            t_prev[0] = now
+            sentinel.push(counter["step"], m["rl_loss"], m.get("nonfinite"))
+            if log_every and counter["step"] % log_every == 0:
+                self.log.log("rl_step", phase="rl", step=counter["step"],
+                             epoch=self.epoch + 1, reward=m["reward_mean"],
+                             rl_loss=m["rl_loss"], grad_norm=m["grad_norm"],
+                             decode_steps=m["decode_steps"])
+
+        stop = threading.Event()
+        seam_sink: dict = {}
+        try:
+            self.state, _ = scst.train_epoch(
+                self.state,
+                self._rl_device_batches(rl_batcher, skip=skip,
+                                        stop_event=stop),
+                seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
+                should_stop=lambda: pre.requested, seam=seam,
+                seam_sink=seam_sink if cfg.rl.pipelined else None)
+        finally:
+            stop.set()
+        if pre.requested:
+            self._preempt_save("rl", counter["step"], counter["n"],
+                               sentinel, seam=seam_sink or None)
+        sentinel.flush()
+        self.epoch += 1
+        self.rl_epochs += 1
+        n_valid = float(np.sum(valid_rows)) if valid_rows else 0.0
+        clips_s, step_ms = _rate(cfg.data.batch_size, times)
+        self.log.log(
+            "rl_epoch", epoch=self.epoch,
+            reward=(float(np.dot(rewards, valid_rows)) / n_valid
+                    if n_valid else 0.0),
+            steps=len(times), clips_per_s=clips_s, step_ms_median=step_ms)
+        return self._validate_and_checkpoint(counter["step"])
+
+    # ---- validation ----------------------------------------------------------------
+
+    def _validate_and_checkpoint(self, step_no: int | None = None
+                                 ) -> float | None:
+        value = None
+        if self.validator is not None and (
+                self.epoch % self.cfg.train.eval_every_epochs == 0):
+            t0 = time.perf_counter()
+            result = self.validator.evaluate()
+            value = result["metrics"].get("CIDEr-D")
+            self.log.log("validate", epoch=self.epoch, cider_d=value,
+                         ms=(time.perf_counter() - t0) * 1e3)
+        is_best = self.ckpt.save(self.state, value,
+                                 infos=self._ckpt_infos(step_no=step_no))
+        self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
+                     **self.ckpt.last_save)
+        if is_best:
+            self.log.log("new_best", epoch=self.epoch, cider_d=value)
+        return value

@@ -12,7 +12,10 @@ shape; rows that are not a multiple of its tiles, k segments that do not
 fill a split-K slice, a row's results bit-equal whichever rows share its
 tiles) and the beam-step kernel (finished lanes, EOS blocked while
 t < min_len, beams of 1 and 16), the workspace sizes against the
-kernels' own, and the wrappers' refusals.
+kernels' own, and the wrappers' refusals. For the trainer: the attention
+kernel at one memory slot a row (the mean-pool encoder's bank), the
+prefetch thread's side-stream copies against blocking copies, and an XE
+and a CST epoch of the Trainer with the kernels on.
 Marked ``gpu``: these skip without a CUDA device and run on the H100
 (which has no jax, hence no conftest) with
 
@@ -23,6 +26,7 @@ shapes)."""
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch  # graftlint: disable=GL006
 
@@ -776,3 +780,86 @@ def test_beam_step_wrapper_refuses(dev):
                         proj.double(), mask, t=0)
     with pytest.raises(ValueError, match="scores"):
         fused_beam_step(model.cell, c, tok, f, sc[:1], *bank, t=0)
+
+
+# ---- the trainer's data path and kernel 1 at one memory slot -------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [1, 64, 320])
+def test_attention_kernel_at_one_slot(dev, dtype, rows):
+    """The mean-pool encoder's bank: one memory slot a row (M=1)."""
+    g = torch.Generator().manual_seed(rows)
+    q = torch.randn(rows, A, generator=g)
+    v = torch.randn(A, generator=g) / A ** 0.5
+    mem = torch.tanh(torch.randn(rows, 1, E, generator=g))
+    proj = torch.randn(rows, 1, A, generator=g)
+    mask = torch.ones(rows, 1)
+    mask[rows // 2] = 0.0                 # a masked slot: the uniform softmax
+    ins = [x.to(dev, dtype) for x in (q, v, mem, proj)]
+    _attention_close(_attention_launch(ins, mask.to(dev)), ins,
+                     mask.to(dev))
+
+
+def test_prefetch_side_stream_matches_a_blocking_copy(dev):
+    from cst_captioning_tpu_torch.data.prefetch import (
+        place_blocking,
+        prefetch_to_device,
+    )
+
+    g = np.random.default_rng(0)
+    items = [({"a": g.normal(size=(64, 28, 512)).astype(np.float32)},
+              g.integers(0, 9000, size=(64, 30)), ["v"] * 3)
+             for _ in range(12)]
+    for out, item in zip(prefetch_to_device(iter(items), size=3, device=dev),
+                         items):
+        # work queued on the consumer's stream first, as a step would
+        torch.matmul(out[0]["a"][0], out[0]["a"][0].T)
+        want = place_blocking(item, dev)
+        assert torch.equal(out[0]["a"], want[0]["a"])
+        assert torch.equal(out[1], want[1]) and out[2] == item[2]
+
+
+def test_trainer_epoch_with_the_kernels(dev, tmp_path):
+    """One XE and one pipelined CST epoch of the Trainer with
+    attention_impl and decode_impl "pallas": kernels 1 and 2 launched,
+    finite losses and a validation score."""
+    import json
+
+    from cst_captioning_tpu_torch import ops
+    from cst_captioning_tpu_torch.data import (
+        CaptionDataset,
+        make_synthetic_dataset,
+    )
+    from cst_captioning_tpu_torch.presets import get_experiment
+    from cst_captioning_tpu_torch.train.trainer import Trainer
+
+    mods = {"resnet": 40, "c3d": 24}
+    paths = make_synthetic_dataset(str(tmp_path / "data"), num_videos=40,
+                                   modalities=mods, max_frames=6, seed=2,
+                                   caption_style="template")
+    V = len(json.load(open(paths["info_json"]))["vocab"])
+    cfg = get_experiment("msrvtt_cst_consensus").override(
+        model__vocab_size=V, model__modalities=tuple(mods.items()),
+        model__d_embed=32, model__d_hidden=32, model__d_att=16,
+        model__max_len=10, model__max_frames=6,
+        model__attention_impl="pallas", model__decode_impl="pallas",
+        data__batch_size=8, train__epochs=1, rl__epochs=1,
+        rl__num_rollouts=3, train__ckpt_dir=str(tmp_path / "ck"),
+        train__log_every_steps=1)
+    files = {n: paths[n] for n in mods}
+    ds = {s: CaptionDataset(paths["info_json"], files, s, 6)
+          for s in ("train", "val")}
+    log = tmp_path / "log.jsonl"
+    tr = Trainer(cfg, ds["train"], ds["val"], log_path=str(log), device=dev)
+    ops.reset_launches()
+    tr.train_xe()
+    assert fused_additive_attention.launches == \
+        cfg.model.max_len * tr.steps_per_epoch
+    val = tr.train_rl()
+    assert fused_decode_step.launches > 0 and val is not None
+    events = [json.loads(line) for line in open(log)]
+    for e in events:
+        if e["event"] in ("xe_step", "rl_step"):
+            assert np.isfinite(e.get("loss", e.get("rl_loss")))

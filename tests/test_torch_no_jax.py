@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-cst_captioning_tpu_torch pulls in neither jax nor any module of the JAX
-package. Checked in a fresh interpreter, since this test process has
+cst_captioning_tpu_torch pulls in neither jax, flax, msgpack, h5py nor
+any module of the JAX package (h5py only inside the h5 converter's
+body). Checked in a fresh interpreter, since this test process has
 imported jax already. Also: chip_smoke.py refuses to run without a GPU and
 prints no result."""
 
@@ -23,7 +24,8 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "cst_captioning_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "h5py",
+                                    "cst_captioning_tpu"))
 print(json.dumps({"modules": mods, "bad": bad}))
 """
 
@@ -53,7 +55,12 @@ def test_port_imports_no_jax():
                 "decoding.fused", "decoding.beam", "metrics.ngram",
                 "metrics.cider", "metrics.bleu", "metrics.rouge",
                 "metrics.meteor", "metrics.tokenizer", "metrics.scorer",
-                "metrics.native_cider", "eval.evaluator"):
+                "metrics.native_cider", "eval.evaluator", "utils.logging",
+                "resilience.durable", "resilience.retry",
+                "resilience.sentinel", "resilience.preempt",
+                "data.synthetic", "data.dataset", "data.preprocess",
+                "data.prefetch", "ckpt.checkpoint", "ckpt.msgpack",
+                "train.trainer", "cli.common", "cli.train", "cli.eval"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 
