@@ -54,6 +54,22 @@
    requests must agree on all lanes with the same requests served through
    the plain version on the card. Also reported: how many of the serve's
    counter-noise draws differ in any bit between the CPU and the card.
+3b. serve_lifecycle: on the same model and burst, capacity 32, K=2, S=8,
+   paged. Hot swap: a second version (the model with seeded noise on its
+   output bias) published from the first completion's feedback; both
+   versions serve, paged launches equal the (stride, live version) pairs
+   counted at each stride, every request equals itself served alone by a
+   fresh service under its pinned version (exact), and the old version is
+   retired. Drain: SIGTERM from the feedback after the 16th completion;
+   drained with reason "sigterm", a snapshot written, replayed by
+   ``load_snapshot`` onto a fresh capacity-16 service grown to 32, and
+   drained plus replayed results equal the undrained serve exactly.
+   Grouped admission: ``admit_group=8`` on a float32 copy against solo
+   admission (requests differing in any bit and the largest logprob
+   difference reported; >= 95% with equal tokens on all lanes), and the
+   bfloat16 service's fallback to 1. Policies: ``static_batch_serve`` at
+   capacity 32 beside the continuous engine (requests/s, p50, p99). SLO:
+   ``set_slo`` at twice the median solo latency, ``slo_snapshot``.
 4. train: msrvtt_cst_consensus at full width with attention_impl and
    decode_impl "pallas" (seeded random weights with a unigram prior on the
    corpus words, see ``train_model``), on a seeded in-memory corpus of 64
@@ -113,8 +129,22 @@
    torch.profiler. One ``recipe`` line: clips/s by epoch, validation
    ms, checkpoint save and restore ms and bytes, the idle shares, the
    eval wall and CIDEr-D after XE and after CST.
+8b. import: an MSR-VTT distribution (``videodatainfo.json``, 128 clips:
+   96 train / 16 validate / 16 test, 20 template captions each, a
+   directory of ``<video_id>.npy`` at resnet [28, 2048] and c3d [28, 500]
+   float32) and an MSVD one (``video_corpus.csv`` with a German row a clip
+   and ``youtube_mapping.txt``, 64 clips, resnet only, split 48 / 8 / 8)
+   in a temporary directory; ``cli.import_msrvtt``, ``cli.import_msvd``
+   and ``cli.preprocess`` in process; every output loads through
+   ``CaptionDataset``; ``cli.train`` for one XE epoch at
+   msrvtt_cst_consensus from the imported MSR-VTT directory with the
+   kernels on (30 attention launches a step, one decode-step launch a
+   greedy validation step); the ``best`` checkpoint (``ckpt.load_params``)
+   published into a live ``CaptionService`` mid-serve of the test clips:
+   requests admitted after the swap carry version 1. Wall times by step.
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its paths (the recipe's included), error, times and bound; for the
+   its paths (the recipe's, serve_lifecycle's and import's included),
+   error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
    attention its warm and cold device and event times at B=320, and the
@@ -128,7 +158,9 @@ failed check exits non-zero before it; without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -144,12 +176,17 @@ import numpy as np
 import torch
 
 from cst_captioning_tpu_torch import ops
+from cst_captioning_tpu_torch.ckpt import load_params as ckpt_load_params
 from cst_captioning_tpu_torch.cli import eval as cli_eval
+from cst_captioning_tpu_torch.cli import import_msrvtt as cli_import_msrvtt
+from cst_captioning_tpu_torch.cli import import_msvd as cli_import_msvd
+from cst_captioning_tpu_torch.cli import preprocess as cli_preprocess
 from cst_captioning_tpu_torch.cli import train as cli_train
 from cst_captioning_tpu_torch.config import EOS_ID, PAD_ID
 from cst_captioning_tpu_torch.convert import load_flax_params, random_flax_params
 from cst_captioning_tpu_torch.data import (
     Batcher,
+    CaptionDataset,
     Vocab,
     compute_cider_df,
     compute_consensus_weights,
@@ -165,6 +202,7 @@ from cst_captioning_tpu_torch.decoding import fused as decoding_fused
 from cst_captioning_tpu_torch.decoding.common import decode_depth
 from cst_captioning_tpu_torch.eval import Evaluator
 from cst_captioning_tpu_torch.eval import evaluator as evaluator_mod
+from cst_captioning_tpu_torch.metrics import CorpusDF
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import beam_step as beam_ops
@@ -209,13 +247,16 @@ from cst_captioning_tpu_torch.serving import (
     CaptionService,
     ClipRequest,
     TrafficSpec,
+    load_snapshot,
     make_trace,
+    static_batch_serve,
     synth_request_features,
 )
 from cst_captioning_tpu_torch.serving import engine
 from cst_captioning_tpu_torch.train import trainer as trainer_mod
 
 CAPACITY, K, S, FRAME_BUCKET = 32, 2, 8, 4
+SERVE_DEVICE = "cuda"
 N_REQUESTS = 64
 TOL = 1e-4
 BF16_ROUND = 2.0 ** -8   # one bfloat16 rounding, relative to the value
@@ -517,7 +558,7 @@ def requests(cfg):
 
 def service(model, **kw):
     return CaptionService(model, capacity=CAPACITY, num_rollouts=K, stride=S,
-                          frame_bucket=FRAME_BUCKET, device="cuda", **kw)
+                          frame_bucket=FRAME_BUCKET, device=SERVE_DEVICE, **kw)
 
 
 def plain_paged(cell, carry, token, finished, mem_pool, proj_pool, mask_pool,
@@ -533,10 +574,10 @@ def plain_paged(cell, carry, token, finished, mem_pool, proj_pool, mask_pool,
         mem_lens=mem_lens)
 
 
-def serve_timed(svc, reqs):
+def serve_timed(svc, reqs, **kw):
     torch.cuda.synchronize()
     t = time.perf_counter()
-    rep = svc.serve(reqs)
+    rep = svc.serve(reqs, **kw)
     torch.cuda.synchronize()
     return rep, time.perf_counter() - t
 
@@ -1920,6 +1961,490 @@ def _recipe(root: str, smi: str) -> tuple[dict, dict]:
     return line, total
 
 
+# ---- phase 3b: the serving lifecycle ------------------------------------------
+
+DRAIN_AFTER = 16          # completions before the SIGTERM
+GROUP = 8                 # admit_group of the grouped-admission serve
+
+
+def counted_strides(svc) -> list:
+    """Wraps ``svc._run_stride``: the count of live parameter versions at
+    each stride, read from the service's lanes before the launch."""
+    pairs: list = []
+    run = svc._run_stride
+
+    def counted(report, now):
+        pairs.append(len({t.param_version for t in svc._inflight.values()}))
+        run(report, now)
+
+    svc._run_stride = counted
+    return pairs
+
+
+def same_result(a, b) -> bool:
+    return (np.array_equal(a.tokens, b.tokens)
+            and np.array_equal(a.logprobs, b.logprobs))
+
+
+def perturbed(model, seed: int = 7):
+    """The same model with seeded noise on its output bias: a second
+    parameter version whose captions differ."""
+    m = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        m.cell.out_proj.bias += torch.randn(
+            m.cell.out_proj.bias.shape, generator=g).to(m.device)
+    return m
+
+
+def lifecycle_swap(model, reqs) -> tuple[dict, list]:
+    """A hot swap published from the first completion's feedback."""
+    model2 = perturbed(model)
+    svc = service(model)
+    pub = []
+
+    def feedback(req, result, version):
+        if not pub:
+            pub.append(svc.publish_params(model2, version=1))
+
+    svc._feedback = feedback
+    pairs = counted_strides(svc)
+    ops.reset_launches()
+    rep, wall = serve_timed(svc, reqs)
+    launches = fused_decode_stride_paged.launches
+    check_results(rep, model.cfg)
+    check(pub == [True], f"hot swap: publish {pub}")
+    by_ver = {v: [r for r, res in rep.results.items()
+                  if res.param_version == v] for v in (0, 1)}
+    check(all(by_ver.values()), f"hot swap: requests by version "
+          f"{ {v: len(r) for v, r in by_ver.items()} }")
+    check(launches == sum(pairs), f"hot swap: {launches} paged launches for "
+          f"{sum(pairs)} (stride, live version) pairs")
+    check(svc._old_versions == {} and svc.param_version == 1,
+          "hot swap: the old version was not retired")
+    alone = {}
+    for req in reqs:
+        res = rep.results[req.req_id]
+        alone[req.req_id] = service(
+            (model, model2)[res.param_version]).serve([req]).results[
+                req.req_id]
+        check(same_result(res, alone[req.req_id]),
+              f"hot swap: {req.req_id} differs from itself served alone "
+              f"under version {res.param_version}")
+    differ = sum(not np.array_equal(
+        alone[r].tokens, service(model).serve(
+            [q for q in reqs if q.req_id == r]).results[r].tokens)
+        for r in by_ver[1])
+    check(differ > 0, "hot swap: version 1 captions equal version 0's")
+    line = {"requests_by_version": {str(v): len(r)
+                                    for v, r in by_ver.items()},
+            "strides": rep.strides, "mixed_strides": sum(p > 1 for p in pairs),
+            "launches": launches, "version_pairs": sum(pairs),
+            "v1_captions_changed": differ, "wall_s": wall}
+    return line, [r.latency_s for r in alone.values()]
+
+
+def lifecycle_drain(model, reqs, base, root) -> dict:
+    """SIGTERM from the feedback after DRAIN_AFTER completions, then the
+    snapshot replayed on a capacity-16 service grown to 32."""
+    import signal
+
+    svc = service(model)
+    done = []
+
+    def feedback(req, result, version):
+        done.append(req.req_id)
+        if len(done) == DRAIN_AFTER:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    svc._feedback = feedback
+    snap = os.path.join(root, "drain")
+    ops.reset_launches()
+    drained, wall = serve_timed(svc, reqs, snapshot_dir=snap)
+    check(drained.drained and drained.drain_reason == "sigterm",
+          f"drain: drained={drained.drained} reason={drained.drain_reason!r}")
+    check(os.path.exists(os.path.join(snap, "manifest.json"))
+          and os.path.exists(os.path.join(snap, "queue.npz")),
+          "drain: no snapshot")
+    fresh = CaptionService(model, capacity=CAPACITY // 2, num_rollouts=K,
+                           stride=S, frame_bucket=FRAME_BUCKET, device=SERVE_DEVICE)
+    t = time.perf_counter()
+    restored = load_snapshot(snap, service=fresh, grow_to=CAPACITY)
+    load_s = time.perf_counter() - t
+    check(fresh.B == CAPACITY and len(restored) == N_REQUESTS
+          - drained.completed, f"replay: {len(restored)} requests, B={fresh.B}")
+    replay, replay_wall = serve_timed(fresh, [])
+    union = {**drained.results, **replay.results}
+    check(union.keys() == base.results.keys(), "replay: requests lost")
+    bad = [r for r, res in base.results.items()
+           if not same_result(union[r], res)]
+    check(not bad, f"replay: {len(bad)} requests differ from the undrained "
+          f"serve: {bad[:4]}")
+    return {"completed_before_drain": drained.completed,
+            "replayed": len(restored), "drain_wall_s": wall,
+            "snapshot_bytes": sum(os.path.getsize(os.path.join(snap, f))
+                                  for f in os.listdir(snap)),
+            "load_snapshot_s": load_s, "replay_wall_s": replay_wall,
+            "launches": fused_decode_stride_paged.launches}
+
+
+def lifecycle_grouped(model, reqs) -> dict:
+    """admit_group=GROUP on a float32 copy against solo admission; the
+    bfloat16 service falls back to one request an encoder pass."""
+    m32 = CaptionModel(dataclasses.replace(model.cfg, dtype="float32"),
+                       device=SERVE_DEVICE)
+    m32.load_state_dict(model.state_dict())
+    m32.eval()
+    passes = {}
+    reps = {}
+    for g in (1, GROUP):
+        svc = service(m32, admit_group=g)
+        calls = []
+        enc = svc._encode_batch
+        svc._encode_batch = lambda r, F, enc=enc, calls=calls: (
+            calls.append(len(r)), enc(r, F))[1]
+        reps[g], _ = serve_timed(svc, reqs)
+        passes[g] = calls
+    check(max(passes[GROUP]) > 1, f"grouped: encoder passes {passes[GROUP]}")
+    solo, grouped = reps[1], reps[GROUP]
+    differ = [r for r, res in solo.results.items()
+              if not same_result(res, grouped.results[r])]
+    tok_equal = np.mean([np.array_equal(res.tokens, grouped.results[r].tokens)
+                         for r, res in solo.results.items()])
+    max_lp = max(float(np.abs(res.logprobs - grouped.results[r].logprobs)
+                       .max()) for r, res in solo.results.items())
+    check(tok_equal >= AGREE, f"grouped: {tok_equal:.3f} of requests with "
+          f"solo admission's tokens < {AGREE}")
+    bf = service(model, admit_group=GROUP)
+    check((bf.requested_admit_group, bf.admit_group) == (GROUP, 1),
+          f"grouped: the {model.cfg.dtype} service kept admit_group "
+          f"{bf.admit_group}")
+    return {"admit_group": GROUP, "encoder_passes_solo": len(passes[1]),
+            "encoder_passes_grouped": len(passes[GROUP]),
+            "requests_differing": len(differ),
+            "tokens_equal_share": float(tok_equal),
+            "max_logprob_diff": max_lp,
+            "bf16_admit_group": bf.admit_group}
+
+
+def lifecycle_policies(model, reqs) -> dict:
+    """static_batch_serve beside the continuous engine on the burst."""
+    static_batch_serve(model, reqs[:CAPACITY], capacity=CAPACITY,
+                       num_rollouts=K, device=SERVE_DEVICE)     # warm-up
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st = static_batch_serve(model, reqs, capacity=CAPACITY, num_rollouts=K,
+                            device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    st_wall = time.perf_counter() - t
+    st_launches = fused_decode_stride.launches
+    check(st.completed == N_REQUESTS and st_launches > 0,
+          f"static: {st.completed} completed, {st_launches} launches")
+    for rid, res in st.results.items():
+        check(res.tokens.shape == (1 + K, model.cfg.max_len)
+              and np.isfinite(res.logprobs).all(), f"static: {rid} result")
+    cont, c_wall = serve_timed(service(model), reqs)
+
+    def lat(rep):
+        x = np.array([r.latency_s for r in rep.results.values()])
+        return float(np.percentile(x, 50)), float(np.percentile(x, 99))
+
+    return {"static": {"requests_per_s": N_REQUESTS / st_wall,
+                       "p50_latency_s": lat(st)[0],
+                       "p99_latency_s": lat(st)[1], "wall_s": st_wall,
+                       "dense_launches": st_launches},
+            "continuous": {"requests_per_s": N_REQUESTS / c_wall,
+                           "p50_latency_s": lat(cont)[0],
+                           "p99_latency_s": lat(cont)[1], "wall_s": c_wall}}
+
+
+def serve_lifecycle_phase(model, reqs, smi) -> tuple[dict, dict]:
+    """Phase 3b -> (its line, the stride launches of its serves)."""
+    t0 = time.perf_counter()
+    total = {"fused_decode_stride_paged": 0, "fused_decode_stride": 0}
+
+    def add():
+        total["fused_decode_stride_paged"] += fused_decode_stride_paged.launches
+        total["fused_decode_stride"] += fused_decode_stride.launches
+        ops.reset_launches()
+
+    ops.reset_launches()
+    base, _ = serve_timed(service(model), reqs)
+    add()
+    swap, solo_lat = lifecycle_swap(model, reqs)
+    add()
+    root = tempfile.mkdtemp(prefix="chip_smoke_drain_")
+    try:
+        drain = lifecycle_drain(model, reqs, base, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    add()
+    grouped = lifecycle_grouped(model, reqs)
+    add()
+    policies = lifecycle_policies(model, reqs)
+    add()
+    target = 2 * float(np.median(solo_lat))
+    svc = service(model)
+    svc.set_slo(target)
+    rep, _ = serve_timed(svc, reqs)
+    add()
+    slo = {**svc.slo_snapshot(), "breaches": svc._slo.breaches,
+           "median_solo_latency_s": target / 2,
+           "p50_latency_s": float(np.median([r.latency_s for r in
+                                             rep.results.values()]))}
+    return {"phase": "serve_lifecycle", "preset": "msrvtt_xe_attention",
+            "capacity": CAPACITY, "K": K, "stride": S,
+            "requests": N_REQUESTS, "hot_swap": swap, "drain": drain,
+            "grouped_admission": grouped, "policies": policies, "slo": slo,
+            "launches": dict(total), "wall_s": time.perf_counter() - t0,
+            "nvidia_smi": smi}, total
+
+
+# ---- phase 8b: importing a distribution ------------------------------------------
+
+IMPORT_CLIPS = (96, 16, 16)   # MSR-VTT train / validate / test
+MSVD_CLIPS = (48, 8, 8)
+IMPORT_CAPTIONS = 20
+TOPICS = [("man", "playing", "a guitar"), ("woman", "cooking", "some soup"),
+          ("dog", "running", "across a yard"), ("child", "riding", "a bike"),
+          ("cat", "chasing", "a ball"), ("chef", "slicing", "vegetables"),
+          ("girl", "singing", "on a stage"), ("player", "kicking", "a ball")]
+
+
+def template_captions(rng, topic: int, n: int) -> list:
+    subj, verb, obj = TOPICS[topic]
+    lead = ("a", "the", "one", "a young", "an old")
+    tail = ("", " outside", " indoors", " slowly", " again")
+    return [f"{rng.choice(lead)} {subj} is {verb} {obj}{rng.choice(tail)}"
+            for _ in range(n)]
+
+
+def write_clip_features(root: str, clips: list, topics: list, dims: dict,
+                        rng) -> dict:
+    """<clip>.npy [max_frames, dim] float32 a modality: a topic's centre
+    plus noise, so the features predict the captions."""
+    F = get_preset("msrvtt_xe_attention").max_frames
+    out = {}
+    for name, dim in dims.items():
+        d = os.path.join(root, f"{name}_npy")
+        os.makedirs(d)
+        centres = rng.normal(size=(len(TOPICS), dim)).astype(np.float32)
+        for clip, topic in zip(clips, topics):
+            np.save(os.path.join(d, f"{clip}.npy"), centres[topic]
+                    + 0.05 * rng.normal(size=(F, dim)).astype(np.float32))
+        out[name] = d
+    return out
+
+
+def import_sources(root: str) -> dict:
+    """An MSR-VTT distribution (videodatainfo.json, <video_id>.npy for
+    resnet and c3d) and an MSVD one (video_corpus.csv, youtube_mapping.txt,
+    resnet only) under ``root``."""
+    rng = np.random.default_rng(23)
+    mods = dict(get_preset("msrvtt_xe_attention").modalities)
+    n = sum(IMPORT_CLIPS)
+    vids = [f"video{i}" for i in range(n)]
+    topics = [i % len(TOPICS) for i in range(n)]
+    split = ["train"] * IMPORT_CLIPS[0] + ["validate"] * IMPORT_CLIPS[1] + [
+        "test"] * IMPORT_CLIPS[2]
+    sentences = [{"video_id": v, "caption": c, "sen_id": k}
+                 for v, tp in zip(vids, topics)
+                 for k, c in enumerate(template_captions(rng, tp,
+                                                         IMPORT_CAPTIONS))]
+    info = os.path.join(root, "videodatainfo.json")
+    with open(info, "w") as f:
+        json.dump({"videos": [{"video_id": v, "split": s, "category": tp}
+                              for v, s, tp in zip(vids, split, topics)],
+                   "sentences": sentences}, f)
+    msrvtt_feats = write_clip_features(os.path.join(root, "msrvtt"), vids,
+                                       topics, mods, rng)
+    m = sum(MSVD_CLIPS)
+    clips = [f"yt{i:03d}_{i * 7}_{i * 7 + 5}" for i in range(m)]
+    mtopics = [i % len(TOPICS) for i in range(m)]
+    corpus = os.path.join(root, "video_corpus.csv")
+    with open(corpus, "w") as f:
+        f.write("VideoID,Start,End,WorkerID,Source,AnnotationTime,"
+                "Language,Description\n")
+        for i, (clip, tp) in enumerate(zip(clips, mtopics)):
+            vid, start, end = f"yt{i:03d}", i * 7, i * 7 + 5
+            for j, c in enumerate(template_captions(rng, tp, 10)):
+                f.write(f"{vid},{start},{end},w{j},x,1,English,{c}\n")
+            f.write(f"{vid},{start},{end},w9,x,1,German,eine katze\n")
+    mapping = os.path.join(root, "youtube_mapping.txt")
+    with open(mapping, "w") as f:
+        for i in reversed(range(m)):
+            f.write(f"{clips[i]} vid{i + 1}\n")
+    msvd_feats = write_clip_features(os.path.join(root, "msvd"), clips,
+                                     mtopics, {"resnet": mods["resnet"]}, rng)
+    captions = os.path.join(root, "captions.json")
+    with open(captions, "w") as f:
+        json.dump({"videos": [
+            {"id": v, "split": {"validate": "val"}.get(s, s),
+             "captions": [x["caption"] for x in sentences[
+                 k * IMPORT_CAPTIONS:(k + 1) * IMPORT_CAPTIONS]]}
+            for k, (v, s) in enumerate(zip(vids, split))]}, f)
+    return {"info": info, "msrvtt": msrvtt_feats, "corpus": corpus,
+            "mapping": mapping, "msvd": msvd_feats, "captions": captions,
+            "feature_bytes": sum(
+                os.path.getsize(os.path.join(d, x))
+                for d in (*msrvtt_feats.values(), *msvd_feats.values())
+                for x in os.listdir(d))}
+
+
+def cli_json(main, argv) -> dict:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return json.loads(out.getvalue())
+
+
+def import_phase(smi: str) -> tuple[dict, dict]:
+    """Phase 8b in a temporary directory -> (its line, the launches)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    try:
+        return _import(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _import(root: str, smi: str) -> tuple[dict, dict]:
+    wall = {}
+    t = time.perf_counter()
+    src = import_sources(root)
+    wall["write_sources_s"] = time.perf_counter() - t
+    d = lambda name: os.path.join(root, name)  # noqa: E731
+    t = time.perf_counter()
+    mv = cli_json(cli_import_msrvtt.main, [
+        "--videodatainfo", src["info"], "--out-dir", d("msrvtt_out"),
+        *[a for n, p in src["msrvtt"].items()
+          for a in ("--feature", f"{n}={p}")]])
+    wall["import_msrvtt_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ms = cli_json(cli_import_msvd.main, [
+        "--corpus", src["corpus"], "--mapping", src["mapping"],
+        "--out-dir", d("msvd_out"), "--feature",
+        f"resnet={src['msvd']['resnet']}", "--n-train", str(MSVD_CLIPS[0]),
+        "--n-val", str(MSVD_CLIPS[1])])
+    wall["import_msvd_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_preprocess.main(["--captions", src["captions"], "--out-dir",
+                             d("pre_out")])
+    wall["preprocess_s"] = time.perf_counter() - t
+    # every output loads through CaptionDataset
+    F = get_preset("msrvtt_xe_attention").max_frames
+    t = time.perf_counter()
+    loaded = {}
+    for label, paths, want in (
+            ("msrvtt", mv, IMPORT_CLIPS), ("msvd", ms, MSVD_CLIPS),
+            ("preprocess", {"info_json": d("pre_out/info.json"),
+                            "consensus_weights":
+                                d("pre_out/consensus_weights.npz"),
+                            "feature_files": mv["feature_files"]},
+             IMPORT_CLIPS)):
+        for split, n in zip(("train", "val", "test"), want):
+            ds = CaptionDataset(paths["info_json"], paths["feature_files"],
+                                split, max_frames=F,
+                                consensus_weights=paths["consensus_weights"])
+            check(len(ds) == n, f"import {label} {split}: {len(ds)} clips")
+            feats = ds.features_for(ds.records[0].video_id)
+            check(all(f.shape == (F, dict(
+                get_preset("msrvtt_xe_attention").modalities)[k])
+                and m.sum() == F for k, (f, m) in feats.items()),
+                f"import {label} {split}: feature shapes")
+            loaded[f"{label}_{split}"] = len(ds)
+            ds.close()
+    check(CorpusDF.load(mv["cider_df"]).num_docs == IMPORT_CLIPS[0],
+          "import: the df's documents")
+    wall["load_s"] = time.perf_counter() - t
+    # one XE epoch at msrvtt_cst_consensus from the imported directory
+    T = get_preset("msrvtt_cst_consensus").max_len
+    ck = d("ck")
+    t = time.perf_counter()
+    run = run_train([
+        "--preset", "msrvtt_cst_consensus", "--info-json", mv["info_json"],
+        *[a for n, p in mv["feature_files"].items()
+          for a in ("--feature", f"{n}={p}")],
+        "--device", RECIPE_DEVICE,
+        "--set", "model__attention_impl='pallas'",
+        "--set", "model__decode_impl='pallas'",
+        "--set", "train__epochs=1", "--set", "rl__enabled=False",
+        "--set", "train__log_every_steps=1",
+        "--set", f"data__consensus_weights='{mv['consensus_weights']}'",
+        "--set", f"data__cider_df='{mv['cider_df']}'",
+        "--set", f"train__ckpt_dir='{ck}'"], d("train.jsonl"))
+    wall["train_xe_epoch_s"] = time.perf_counter() - t
+    steps = _ev(run, "xe_step")
+    n = run["launches"]
+    check(n["fused_additive_attention"] == T * len(steps) > 0,
+          f"import train: {n['fused_additive_attention']} attention launches "
+          f"for {len(steps)} XE steps")
+    check(n["fused_decode_step"] == run["val_launches"] == run["val_steps"]
+          > 0, f"import train: {n['fused_decode_step']} decode-step launches, "
+          f"{run['val_steps']} greedy validation steps")
+    vals = _ev(run, "validate")
+    check(len(vals) == 1 and np.isfinite(vals[0]["cider_d"]),
+          f"import train: validations {vals}")
+    # the best checkpoint published into a live service mid-serve
+    t = time.perf_counter()
+    mcfg = dataclasses.replace(run["trainer"].cfg.model, decode_impl="pallas",
+                               decode_stride=S)
+    torch.manual_seed(0)
+    live = CaptionModel(mcfg, device=RECIPE_DEVICE).eval()
+    trained = ckpt_load_params(ck, "best",
+                               CaptionModel(mcfg, device=RECIPE_DEVICE).eval())
+    test = CaptionDataset(mv["info_json"], mv["feature_files"], "test",
+                          max_frames=F)
+    reqs = []
+    for k, rec in enumerate(test.records):
+        fm = test.features_for(rec.video_id)
+        reqs.append(ClipRequest(rec.video_id,
+                                {m: f for m, (f, _) in fm.items()},
+                                {m: mk for m, (_, mk) in fm.items()},
+                                seed=k))
+    test.close()
+    svc = CaptionService(live, test.vocab, capacity=4, num_rollouts=K,
+                         stride=S, frame_bucket=FRAME_BUCKET, device=RECIPE_DEVICE)
+    admitted = []
+    bind = svc._bind_lane
+
+    def record_bind(ticket):
+        admitted.append((ticket.req.req_id, svc.param_version))
+        bind(ticket)
+
+    svc._bind_lane = record_bind
+    pub = []
+
+    def feedback(req, result, version):
+        if not pub:
+            pub.append(svc.publish_params(trained))
+
+    svc._feedback = feedback
+    ops.reset_launches()
+    rep, _ = serve_timed(svc, reqs)
+    serve_launches = fused_decode_stride_paged.launches
+    after = [r for r, v in admitted if v == 1]
+    check(pub == [True] and rep.completed == len(reqs) and after
+          and all(rep.results[r].param_version == 1 for r in after)
+          and all(rep.results[r].param_version == 0
+                  for r, v in admitted if v == 0),
+          f"import serve: versions {[(r, rep.results[r].param_version) for r, _ in admitted]}")
+    wall["publish_serve_s"] = time.perf_counter() - t
+    launches = {k: v for k, v in n.items()}
+    launches["fused_decode_stride_paged"] += serve_launches
+    line = {"phase": "import", "sources": {
+                "msrvtt_clips": IMPORT_CLIPS, "msvd_clips": MSVD_CLIPS,
+                "captions_per_clip": IMPORT_CAPTIONS,
+                "feature_bytes": src["feature_bytes"]},
+            "loaded": loaded, "vocab_words": len(test.vocab) - 4,
+            "xe_steps": len(steps), "validation_cider_d": vals[0]["cider_d"],
+            "served": rep.completed, "admitted_after_swap": len(after),
+            "wall_s_by_step": wall, "launches": launches,
+            "nvidia_smi": smi}
+    return line, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -2110,6 +2635,10 @@ def main() -> int:
           "sample_caption_ids": next(iter(rep.results.values())).caption_ids,
           "nvidia_smi": smi})
 
+    # ---- phase 3b: the serving lifecycle -------------------------------------
+    lifecycle, lifecycle_launches = serve_lifecycle_phase(model, reqs, smi)
+    emit(lifecycle)
+
     # ---- phase 4: training --------------------------------------------------
     state = create_train_state(
         tmodel, make_optimizer(tcfg.train, steps_per_epoch=1),
@@ -2169,6 +2698,8 @@ def main() -> int:
         + sc["launches"]["fused_additive_attention"],
         "fused_decode_step": cst["launches"]["fused_decode_step"],
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
+    for k, v in lifecycle_launches.items():
+        path_launches[k] += v
 
     # ---- phase 7: profiles --------------------------------------------------
     emit({"phase": "profile", "path": "serve",
@@ -2188,6 +2719,10 @@ def main() -> int:
         path_launches[k] += v
     record("fused_additive_attention",
            {"max_abs_err": recipe["meanpool_attention_max_abs_err"]})
+    imported, import_launches = import_phase(smi)
+    emit(imported)
+    for k, v in import_launches.items():
+        path_launches[k] += v
 
     print(smi, flush=True)
     emit({"kernels": [

@@ -6,6 +6,7 @@ from cst_captioning_tpu_torch.data.dataset import (
     convert_h5_features,
     write_features,
 )
+from cst_captioning_tpu_torch.data.importers import import_msrvtt, import_msvd
 from cst_captioning_tpu_torch.data.prefetch import prefetch_to_device
 from cst_captioning_tpu_torch.data.preprocess import (
     build_info_json,
@@ -31,6 +32,8 @@ __all__ = [
     "compute_consensus_weights",
     "convert_h5_features",
     "encode_label_row",
+    "import_msrvtt",
+    "import_msvd",
     "make_synthetic_dataset",
     "prefetch_to_device",
     "tokenize_captions",

@@ -3,6 +3,10 @@ from cst_captioning_tpu_torch.serving.engine import (
     CaptionService,
     ClipRequest,
     ServeReport,
+    SloMonitor,
+    load_snapshot,
+    request_drain,
+    static_batch_serve,
 )
 from cst_captioning_tpu_torch.serving.pages import (
     OutOfPages,
@@ -24,10 +28,14 @@ __all__ = [
     "OutOfPages",
     "PageBank",
     "ServeReport",
+    "SloMonitor",
     "Trace",
     "TraceItem",
     "TrafficSpec",
     "gather_bank",
+    "load_snapshot",
     "make_trace",
+    "request_drain",
+    "static_batch_serve",
     "synth_request_features",
 ]

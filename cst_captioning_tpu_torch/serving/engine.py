@@ -3,28 +3,54 @@
 A fixed pool of ``capacity`` decode lanes steps S-step strides; between
 strides finished requests leave their lanes and queued requests take them.
 Each stride is one launch of the stride kernel
-(``ops/decode_stride.py``): the engine packs the lanes in flight into a
-dense prefix (``perm`` / ``inv`` / ``n_active``) and hands the kernel the
-page pools and the permuted page table (``paged=True``, the default) or a
-dense bank gathered from them (``paged=False``).
+(``ops/decode_stride.py``) per live parameter version: the engine packs the
+lanes in flight into a dense prefix (``perm`` / ``inv`` / ``n_active``)
+and hands the kernel the page pools and the permuted page table
+(``paged=True``, the default) or a dense bank gathered from them
+(``paged=False``).
 
-**Per-request determinism.** A request is encoded alone, its encoder output
-lands in its own pages, and every decode row reads only its own row. The
-sampled lanes' Gumbel noise is a function of the request's seed, the lane,
-the request's local step and the token (``decoding.counter_gumbel_noise``),
-so a request served mid-flight beside others decodes exactly as it would
-alone. ``noise_fn`` replaces that noise (the parity tests feed the JAX
-service's draws through it). Lane 0 is greedy; the answer is the NPAD pick,
-the best-scoring lane.
+**Per-request determinism.** A request's encoder output lands in its own
+pages and every decode row reads only its own row. The sampled lanes'
+Gumbel noise is a function of the request's seed, the lane, the request's
+local step and the token (``decoding.counter_gumbel_noise``), so a request
+served mid-flight beside others decodes exactly as it would alone.
+``noise_fn`` replaces that noise (the parity tests feed the JAX service's
+draws through it). Lane 0 is greedy; the answer is the NPAD pick, the
+best-scoring lane. ``admit_group > 1`` encodes up to that many admissible
+requests of one frame bucket in one pass; a batched float32 encoder GEMM
+may differ from the solo one by a few ulps, so the knob trades that for
+fewer encoder launches, and any other dtype falls back to one request a
+pass.
 
-Not carried from the JAX engine: drain and snapshots, hot parameter swaps,
-the SLO monitor, chaos and health hooks, the feedback hook,
-``grow_capacity``, ``static_batch_serve``, grouped admission encodes,
+**Hot parameter swaps.** :meth:`CaptionService.publish_params` stages a
+new version; it applies at the next stride boundary, before admission.
+Every request decodes under the version active when it was encoded. While
+two versions have lanes in flight a stride launches once per version: the
+other versions' lanes enter the kernel finished and get their carry,
+token and finished back afterwards, their local step unchanged. A retained
+version (its model and packed weights) is dropped once its last request
+completes.
+
+**Drain.** SIGTERM (``resilience.preempt.PreemptionHandler``),
+:meth:`CaptionService.drain` or :func:`request_drain` stop the loop at the
+next stride boundary. The in-flight, staged and queued requests persist to
+``snapshot_dir`` (``queue.npz`` and ``manifest.json``, the JAX package's
+layout, so either package replays the other's) and :func:`load_snapshot`
+replays them from step 0, bit for bit by per-request determinism.
+
+Not carried from the JAX engine: the drain postmortem and ``stride_cost``
+(observability), the peer-loss drain and the chaos seams (resilience), the
+obs gauges and counters (:class:`SloMonitor` keeps its values on itself),
 ``min_len > 0`` and the XLA scan stride.
 """
 
 from __future__ import annotations
 
+import copy
+import io
+import json
+import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -38,13 +64,21 @@ from cst_captioning_tpu_torch.decoding.common import (
     counter_gumbel_noise,
     npad_best_lane_index,
 )
+from cst_captioning_tpu_torch.decoding.fused import fused_decode
 from cst_captioning_tpu_torch.device import resolve_device
 from cst_captioning_tpu_torch.models.captioner import CaptionModel, EncoderOutput
 from cst_captioning_tpu_torch.ops.decode_stride import (
+    StrideWeights,
     fused_decode_stride,
     fused_decode_stride_paged,
     stride_weights,
 )
+from cst_captioning_tpu_torch.resilience.durable import (
+    fsync_dir,
+    write_bytes_durable,
+)
+from cst_captioning_tpu_torch.resilience.preempt import PreemptionHandler
+from cst_captioning_tpu_torch.rl.scst import rollout_seed
 from cst_captioning_tpu_torch.serving.pages import (
     OutOfPages,
     PageBank,
@@ -81,11 +115,15 @@ class CaptionResult:
     caption: str | None       # detokenized when the service has a vocab
     latency_s: float          # arrival -> completion (queue wait included)
     phases: dict[str, float]  # queue_wait / encode / decode / detok seconds
+    param_version: int = 0    # the version the request was encoded under
 
 
 @dataclass
 class ServeReport:
     results: dict[str, CaptionResult] = field(default_factory=dict)
+    drained: bool = False
+    drain_reason: str = ""
+    snapshot_dir: str | None = None
     wall_s: float = 0.0
     submitted: int = 0
     completed: int = 0
@@ -102,6 +140,7 @@ class _Ticket:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_encoded: float = 0.0
+    param_version: int = 0          # pinned at encode
     enc_carry: tuple | None = None  # parked until a lane binds
 
 
@@ -116,6 +155,90 @@ class _Lanes:
     seeds: torch.Tensor      # [B] int64 request seed
 
 
+class SloMonitor:
+    """Rolling-window SLO attainment and multi-window burn-rate alerting.
+
+    ``observe(latency_s, now)`` marks a completion ok iff ``latency_s <=
+    target_s``, then for each window (default 1-min fast, 10-min slow)
+    computes attainment = ok / total and burn rate = (1 - attainment) /
+    (1 - objective), kept in ``attainment`` and ``burn`` by window. An
+    alert trips when the fast window burns at ``fast_burn`` or more AND the
+    slow one at ``slow_burn`` or more, edge-triggered: ``alerts`` counts
+    excursions, ``breaches`` the requests past the target. ``now`` comes
+    from the service's clock."""
+
+    def __init__(
+        self,
+        target_s: float,
+        objective: float = 0.99,
+        windows: tuple[float, float] = (60.0, 600.0),
+        fast_burn: float = 14.4,
+        slow_burn: float = 6.0,
+    ):
+        if target_s <= 0:
+            raise ValueError(f"slo target_s {target_s} must be > 0")
+        if not 0.0 < objective < 1.0:
+            raise ValueError(f"slo objective {objective} must be in (0, 1)")
+        if len(windows) != 2 or windows[0] >= windows[1]:
+            raise ValueError(
+                f"slo windows {windows} must be (fast, slow) with fast < slow"
+            )
+        self.target_s = float(target_s)
+        self.objective = float(objective)
+        self.windows = tuple(float(w) for w in windows)
+        self.fast_burn = float(fast_burn)
+        self.slow_burn = float(slow_burn)
+        self._samples: dict[float, deque] = {w: deque() for w in self.windows}
+        self._alerting = False
+        self.alerts = 0
+        self.breaches = 0
+        self.attainment: dict[float, float] = {}
+        self.burn: dict[float, float] = {}
+
+    def burn_rate(self, window: float, now: float) -> float:
+        """Current burn rate over ``window`` (0.0 when no samples)."""
+        dq = self._samples[window]
+        while dq and dq[0][0] < now - window:
+            dq.popleft()
+        if not dq:
+            return 0.0
+        att = sum(ok for _, ok in dq) / len(dq)
+        return (1.0 - att) / (1.0 - self.objective)
+
+    def observe(self, latency_s: float, now: float) -> None:
+        ok = latency_s <= self.target_s
+        self.breaches += not ok
+        for w in self.windows:
+            dq = self._samples[w]
+            dq.append((now, ok))
+            while dq and dq[0][0] < now - w:
+                dq.popleft()
+            att = sum(o for _, o in dq) / len(dq)
+            self.attainment[w] = att
+            self.burn[w] = (1.0 - att) / (1.0 - self.objective)
+        fast, slow = self.windows
+        firing = (self.burn[fast] >= self.fast_burn
+                  and self.burn[slow] >= self.slow_burn)
+        if firing and not self._alerting:
+            self.alerts += 1    # one alert per excursion
+        self._alerting = firing
+
+
+# the service inside serve(): the target of request_drain()
+_ACTIVE: "CaptionService | None" = None
+_ACTIVE_LOCK = threading.Lock()
+
+
+def request_drain(reason: str = "requested") -> None:
+    """Ask the service that is serving to drain at its next stride
+    boundary."""
+    with _ACTIVE_LOCK:
+        svc = _ACTIVE
+    if svc is None:
+        raise RuntimeError("request_drain() with no CaptionService serving")
+    svc.drain(reason)
+
+
 class CaptionService:
     """Continuous-batching caption service over one model.
 
@@ -124,8 +247,11 @@ class CaptionService:
     ``cfg.decode_stride``). The paged bank holds ``num_pages`` pages of
     ``page_size`` slots; admission backpressures on page exhaustion.
     ``frame_bucket`` pads each clip's frame axis up to a multiple of it, so
-    short clips hold fewer pages. Runs on ``device`` (default the GPU); the
-    model is moved there.
+    short clips hold fewer pages. ``admit_group`` caps the requests of one
+    encoder pass (module docstring). ``slo_target_s > 0`` arms the
+    :class:`SloMonitor`; ``feedback(req, result, param_version)`` is called
+    at each completion. Runs on ``device`` (default the GPU); the model is
+    moved there.
     """
 
     def __init__(
@@ -142,8 +268,15 @@ class CaptionService:
         page_size: int | None = None,
         num_pages: int | None = None,
         frame_bucket: int | None = None,
+        admit_group: int = 1,
         paged: bool = True,
         clock: Callable[[], float] = time.monotonic,
+        slo_target_s: float = 0.0,
+        slo_objective: float = 0.99,
+        slo_fast_burn: float = 14.4,
+        slo_slow_burn: float = 6.0,
+        feedback: Callable[[ClipRequest, CaptionResult, int], None]
+        | None = None,
         noise_fn: NoiseFn | None = None,
         device=None,
     ):
@@ -198,6 +331,11 @@ class CaptionService:
         self.bank = PageBank(num_pages, page, self.device)
         self.table_width = pages_per_row
         self.bank.init_rows(self.B, self.table_width)
+        # a batched bfloat16 encoder GEMM is not row-stable: other dtypes
+        # encode one request a pass
+        self.requested_admit_group = max(int(admit_group), 1)
+        self.admit_group = (self.requested_admit_group
+                            if cfg.dtype == "float32" else 1)
         self.clock = clock
         self._noise_fn = noise_fn or counter_gumbel_noise
         self._queue: deque[ClipRequest] = deque()
@@ -209,8 +347,21 @@ class CaptionService:
         self._staged: deque[str] = deque()
         self._free_slots: deque[int] = deque(range(self.B))
         self._lanes: _Lanes | None = None
-        # the stride kernel's packed float32 weights, packed once per serve
-        self._weights = None
+        self._drain = threading.Event()
+        self._drain_reason = ""
+        self._slo_kw = dict(objective=slo_objective, fast_burn=slo_fast_burn,
+                            slow_burn=slo_slow_burn)
+        self._slo = (SloMonitor(slo_target_s, **self._slo_kw)
+                     if slo_target_s > 0 else None)
+        self._feedback = feedback
+        # hot swaps: the active version is self.model with its packed
+        # float32 stride weights; a version that still has requests in
+        # flight keeps (model, weights) in _old_versions
+        self.param_version = 0
+        self._weights: StrideWeights | None = None
+        self._old_versions: dict[int, tuple[CaptionModel, StrideWeights]] = {}
+        self._pending_publish: tuple[int, CaptionModel] | None = None
+        self._swap_history: list[dict] = []
 
     # ---- public API ---------------------------------------------------------
 
@@ -229,90 +380,284 @@ class CaptionService:
         self._tickets[req.req_id] = _Ticket(req=req)
         self._queue.append(req)
 
+    def drain(self, reason: str = "requested") -> None:
+        """Stop at the next stride boundary, refuse new admissions and
+        snapshot the queue (safe from a signal handler or another
+        thread)."""
+        self._drain_reason = self._drain_reason or reason
+        self._drain.set()
+
+    @property
+    def draining(self) -> bool:
+        return self._drain.is_set()
+
+    def grow_capacity(self, new_capacity: int) -> None:
+        """Grow the lane pool between :meth:`serve` calls: new slots, the
+        bank (``table_width`` pages per new lane) and the table rows grow,
+        and existing lane state pads with lanes born finished (BOS, carry
+        0, step 0, seed 0). Running requests are untouched. Only grows."""
+        new_b = int(new_capacity)
+        if new_b < self.B:
+            raise ValueError(
+                f"grow_capacity({new_capacity}) below current capacity "
+                f"{self.B} — the lane pool only grows (shrink = drain and "
+                "rebuild)"
+            )
+        grown = new_b - self.B
+        if not grown:
+            return
+        self._free_slots.extend(range(self.B, new_b))
+        self.B = new_b
+        self.bank.grow(self.bank.num_pages + grown * self.table_width)
+        self.bank.grow_rows(new_b)
+        lanes = self._lanes
+        if lanes is not None:
+            def pad(x, fill):
+                shape = list(x.shape)
+                axis = 1 if x.ndim >= 2 else 0
+                shape[axis] = grown
+                return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
+                                                device=x.device)], dim=axis)
+
+            lanes.carry = [(pad(c, 0), pad(h, 0)) for c, h in lanes.carry]
+            lanes.token = pad(lanes.token, BOS_ID)
+            lanes.finished = pad(lanes.finished, True)
+            lanes.t_local = pad(lanes.t_local, 0)
+            lanes.seeds = pad(lanes.seeds, 0)
+
+    def set_slo(self, target_s: float) -> None:
+        """(Re)arm the SLO monitor with a latency target; the windows
+        restart. ``target_s <= 0`` disarms."""
+        self._slo = (SloMonitor(target_s, **self._slo_kw)
+                     if target_s > 0 else None)
+
+    def slo_snapshot(self) -> dict | None:
+        """The SLO monitor's target, objective and burn rate by window as
+        of now (None when disarmed)."""
+        mon = self._slo
+        if mon is None:
+            return None
+        now = self.clock()
+        return {
+            "target_s": mon.target_s,
+            "objective": mon.objective,
+            "burn_rate": {f"{int(w)}s": round(mon.burn_rate(w, now), 4)
+                          for w in mon.windows},
+            "breach_alerts": mon.alerts,
+            "param_version": self.param_version,
+        }
+
+    # ---- hot parameter swaps ------------------------------------------------
+
+    def publish_params(self, params, version: int | None = None) -> bool:
+        """Stage a new parameter version: a ``CaptionModel`` or its state
+        dict, loaded into a copy of the served model (a JAX tree goes
+        through ``convert.load_flax_params`` first). It applies at the next
+        stride boundary. ``version`` (default one past the newest known)
+        must be newer than the active and any pending version; a stale or
+        duplicate publish, or one while draining, is refused and returns
+        False. A newer publish supersedes a pending one."""
+        floor = self.param_version
+        if self._pending_publish is not None:
+            floor = max(floor, self._pending_publish[0])
+        version = floor + 1 if version is None else int(version)
+        if version <= floor or self.draining:
+            return False
+        state = (params.state_dict() if isinstance(params, torch.nn.Module)
+                 else params)
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(state)
+        self._pending_publish = (version, model)
+        return True
+
+    def _apply_pending_swap(self) -> bool:
+        """Apply a staged publish: the only place the active version
+        changes, at a stride boundary, so every stride runs whole
+        versions. The outgoing version stays while requests pinned to it
+        are in flight or staged."""
+        if self._pending_publish is None:
+            return False
+        version, model = self._pending_publish
+        self._pending_publish = None
+        if self.draining:
+            return False
+        prev = self.param_version
+        if self._inflight or self._staged:
+            self._old_versions[prev] = (self.model, self._weights)
+        self.model = model
+        self._weights = stride_weights(model.cell)
+        self.param_version = version
+        self._swap_history.append({"version": version, "from": prev,
+                                   "inflight_pinned": len(self._inflight)})
+        return True
+
+    def _version(self, version: int) -> tuple[CaptionModel, StrideWeights]:
+        if version == self.param_version:
+            return self.model, self._weights
+        return self._old_versions[version]
+
+    def _retire_versions(self) -> None:
+        """Drop retained versions no in-flight or staged request pins."""
+        if not self._old_versions:
+            return
+        live = {t.param_version for t in self._inflight.values()}
+        live |= {self._tickets[r].param_version for r in self._staged
+                 if r in self._tickets}
+        for v in [v for v in self._old_versions if v not in live]:
+            del self._old_versions[v]
+
+    # ---- the loop -----------------------------------------------------------
+
     def serve(self, requests: Iterable[ClipRequest] = (), *,
-              realtime: bool = False,
+              snapshot_dir: str | None = None, realtime: bool = False,
               idle_wait_s: float = 0.002) -> ServeReport:
-        """Run the admission/decode loop until the queue is empty.
+        """Run the admission/decode loop until the queue is empty or a
+        drain is requested (then the rest goes to ``snapshot_dir``).
         ``realtime=True`` honors each request's ``arrival_s`` against the
         clock; otherwise every submitted request is admissible at once."""
+        global _ACTIVE
         for req in sorted(requests, key=lambda r: r.arrival_s):
             self.submit(req)
         report = ServeReport(submitted=len(self._tickets))
         t0 = self.clock()
         now = lambda: self.clock() - t0  # noqa: E731
-        with torch.no_grad():
-            self._weights = stride_weights(self.model.cell)
-            while True:
-                self._admit_arrived(now, realtime)
-                if not self._inflight:
-                    if not self._queue:
+        with _ACTIVE_LOCK:
+            prev_active, _ACTIVE = _ACTIVE, self
+        pre = PreemptionHandler().install()
+        try:
+            with torch.no_grad():
+                self._weights = stride_weights(self.model.cell)
+                while True:
+                    if pre.requested:
+                        self.drain("sigterm")
+                    if self.draining:
                         break
-                    if not realtime:
-                        raise OutOfPages(
-                            "queue is non-empty but nothing can be "
-                            "admitted: a single request needs more pages "
-                            "than the whole pool"
-                        )
-                    time.sleep(idle_wait_s)
-                    continue
-                self._run_stride(report, now)
+                    # a staged publish lands before admission, so every
+                    # request admitted now pins the new version
+                    self._apply_pending_swap()
+                    self._admit_arrived(now, realtime)
+                    if not self._inflight:
+                        if not self._queue:
+                            break
+                        if not realtime:
+                            raise OutOfPages(
+                                "queue is non-empty but nothing can be "
+                                "admitted: a single request needs more "
+                                "pages than the whole pool"
+                            )
+                        time.sleep(idle_wait_s)
+                        continue
+                    self._run_stride(report, now)
+            report.drained = self.draining
+            report.drain_reason = self._drain_reason
+            if self.draining:
+                report.snapshot_dir = self._write_snapshot(snapshot_dir)
+                self._release()
+        finally:
+            pre.uninstall()
+            with _ACTIVE_LOCK:
+                _ACTIVE = prev_active
         report.wall_s = now()
         report.completed = len(report.results)
         return report
 
+    def _release(self) -> None:
+        """Free a drained working set (after the snapshot took it)."""
+        for slot in sorted(self._inflight):
+            ticket = self._inflight.pop(slot)
+            self.bank.clear_row(slot)
+            self.bank.free(ticket.req.req_id)
+            self._free_slots.append(slot)
+            self._tickets.pop(ticket.req.req_id, None)
+        for rid in self._staged:
+            self.bank.free(rid)
+            self._tickets.pop(rid, None)
+        self._staged.clear()
+        for req in self._queue:
+            self._tickets.pop(req.req_id, None)
+        self._queue.clear()
+        self._old_versions.clear()
+
     # ---- admission ----------------------------------------------------------
 
-    def _admissible(self, now, realtime: bool) -> bool:
-        req = self._queue[0]
-        if realtime and req.arrival_s > now():
-            return False
-        need = self.bank.pages_for(self.n_mod * self._padded_frames(req))
-        return self.bank.free_pages >= need
+    def _take_admissible(self, now, realtime: bool, lanes: int | None
+                         ) -> dict[int, list[ClipRequest]]:
+        """Pop queue-front requests that have arrived and fit the free
+        pages (and, unless ``lanes`` is None, at most ``lanes`` of them),
+        grouped by padded frame count."""
+        groups: dict[int, list[ClipRequest]] = {}
+        reserved = 0
+        while self._queue and (lanes is None or lanes > 0):
+            req = self._queue[0]
+            if realtime and req.arrival_s > now():
+                break
+            F = self._padded_frames(req)
+            need = self.bank.pages_for(self.n_mod * F)
+            if self.bank.free_pages - reserved < need:
+                break
+            self._queue.popleft()
+            groups.setdefault(F, []).append(req)
+            reserved += need
+            if lanes is not None:
+                lanes -= 1
+        return groups
+
+    def _admit_groups(self, groups, now, stage: bool) -> None:
+        for F, reqs in groups.items():
+            for i in range(0, len(reqs), self.admit_group):
+                self._admit_group(F, reqs[i:i + self.admit_group], now, stage)
 
     def _admit_arrived(self, now, realtime: bool) -> None:
         # staged requests bind freed lanes first (they left the queue
         # earlier, so FIFO holds)
         while self._staged and self._free_slots:
             self._bind_lane(self._tickets[self._staged.popleft()])
-        while self._queue and self._free_slots and self._admissible(
-                now, realtime):
-            self._admit(self._queue.popleft(), now, stage=False)
+        self._admit_groups(
+            self._take_admissible(now, realtime, len(self._free_slots)),
+            now, stage=False)
         # encode ahead while every lane is busy: a freed lane then binds
         # with no encode on its critical path
         if self.paged and not self._free_slots:
-            while self._queue and self._admissible(now, realtime):
-                self._admit(self._queue.popleft(), now, stage=True)
+            self._admit_groups(self._take_admissible(now, realtime, None),
+                               now, stage=True)
 
     def _padded_frames(self, req: ClipRequest) -> int:
         b = self.frame_bucket
         return min(-(-req.num_frames // b) * b, self.model.cfg.max_frames)
 
-    def _admit(self, req: ClipRequest, now, stage: bool) -> None:
-        ticket = self._tickets[req.req_id]
-        ticket.t_submit = ticket.t_submit or req.arrival_s
-        ticket.t_admit = now()
-        enc = self._encode(req, self._padded_frames(req))
-        pages = self.bank.alloc(req.req_id, enc.memory.shape[1])
-        self.bank.store(pages, enc.memory, enc.memory_proj, enc.memory_mask)
-        ticket.t_encoded = now()
-        ticket.enc_carry = enc.carry
-        self._ensure_lanes(enc.carry)
-        if stage:
-            self._staged.append(req.req_id)
-        else:
-            self._bind_lane(ticket)
+    def _admit_group(self, F: int, reqs: list[ClipRequest], now,
+                     stage: bool) -> None:
+        t_admit = now()
+        enc = self._encode_batch(reqs, F)
+        for i, req in enumerate(reqs):
+            ticket = self._tickets[req.req_id]
+            ticket.t_submit = ticket.t_submit or req.arrival_s
+            ticket.t_admit = t_admit
+            ticket.param_version = self.param_version
+            row = slice(i, i + 1)
+            pages = self.bank.alloc(req.req_id, enc.memory.shape[1])
+            self.bank.store(pages, enc.memory[row], enc.memory_proj[row],
+                            enc.memory_mask[row])
+            ticket.t_encoded = now()
+            ticket.enc_carry = tuple((c[row], h[row]) for c, h in enc.carry)
+            self._ensure_lanes(ticket.enc_carry)
+            if stage:
+                self._staged.append(req.req_id)
+            else:
+                self._bind_lane(ticket)
 
-    def _encode(self, req: ClipRequest, F: int) -> EncoderOutput:
-        """One encoder pass for one request, frames padded to ``F``."""
+    def _encode_batch(self, reqs: list[ClipRequest], F: int) -> EncoderOutput:
+        """One encoder pass over ``reqs``, frames padded to ``F``."""
         feats, masks = {}, {}
         for name, _ in self.model.cfg.modalities:
-            x = np.asarray(req.feats[name], np.float32)
-            mk = np.asarray(req.masks[name], np.float32)
-            pad = F - x.shape[0]
-            feats[name] = torch.from_numpy(
-                np.pad(x, ((0, pad), (0, 0)))[None]).to(self.device)
-            masks[name] = torch.from_numpy(
-                np.pad(mk, ((0, pad),))[None]).to(self.device)
+            x = np.stack([
+                np.pad(np.asarray(r.feats[name], np.float32),
+                       ((0, F - r.num_frames), (0, 0))) for r in reqs])
+            mk = np.stack([
+                np.pad(np.asarray(r.masks[name], np.float32),
+                       ((0, F - r.num_frames),)) for r in reqs])
+            feats[name] = torch.from_numpy(x).to(self.device)
+            masks[name] = torch.from_numpy(mk).to(self.device)
         return self.model.encode(feats, masks)
 
     def _ensure_lanes(self, enc_carry) -> None:
@@ -360,61 +705,88 @@ class CaptionService:
         perm = torch.from_numpy(perm_np).to(self.device)
         inv = torch.from_numpy(np.argsort(perm_np, kind="stable")).to(
             self.device)
+        by_ver: dict[int, list[int]] = {}
+        for slot in active:
+            by_ver.setdefault(self._inflight[slot].param_version,
+                              []).append(slot)
+        versions = sorted(by_ver)
         lanes = self._lanes
-        carry = tuple((c[:, perm], h[:, perm]) for c, h in lanes.carry)
-        token, fin = lanes.token[:, perm], lanes.finished[:, perm]
         # compaction permutes table rows, never pages
         table = self.bank.row_table[perm]
         lens = self.bank.row_lens[perm]
         steps = torch.arange(self.S, device=self.device)[:, None]
-        # steps past T clamp to T-1: they only feed discarded emissions
+        # steps past T clamp to T-1: they only feed discarded emissions. A
+        # lane's draws depend on its own step only, so one draw serves
+        # every version's launch
         ts = torch.clamp(lanes.t_local[perm][None, :] + steps, max=self.T - 1)
         noise = self._noise_fn(lanes.seeds[perm], ts, self.K,
                                self.model.cfg.vocab_size)
         pools = (self.bank.mem, self.bank.proj, self.bank.mask)
+        dense = None if self.paged else gather_bank(pools, table)
         kw = dict(steps=self.S, temperature=self.temperature, min_len=0,
-                  num_layers=self.model.cfg.num_layers, mem_lens=lens,
-                  weights=self._weights)
-        cell = self.model.cell
-        if self.paged:
-            carry, toks, lps = fused_decode_stride_paged(
-                cell, carry, token, fin, *pools, table, noise, 0, n_active,
-                **kw)
-        else:
-            mem, proj, mask = gather_bank(pools, table)
-            carry, toks, lps = fused_decode_stride(
-                cell, carry, token, fin, mem, proj, mask, noise, 0, n_active,
-                **kw)
-        fin = fin | (toks == EOS_ID).any(dim=0)
-        lanes.carry = [(c[:, inv], h[:, inv]) for c, h in carry]
-        lanes.token = toks[-1][:, inv].contiguous()
-        lanes.finished = fin[:, inv].contiguous()
-        lanes.t_local += self.S
+                  num_layers=self.model.cfg.num_layers, mem_lens=lens)
+        outs = []
+        for v in versions:
+            model, weights = self._version(v)
+            carry = tuple((c[:, perm], h[:, perm]) for c, h in lanes.carry)
+            token, fin = lanes.token[:, perm], lanes.finished[:, perm]
+            keep = None
+            fin_in = fin
+            if len(versions) > 1:
+                # the other versions' lanes enter finished and get their
+                # pre-stride state back below
+                in_v = torch.zeros(self.B, dtype=torch.bool)
+                in_v[by_ver[v]] = True
+                keep = in_v.to(self.device)[perm]
+                fin_in = fin | ~keep[None, :]
+            if self.paged:
+                new_carry, toks, lps = fused_decode_stride_paged(
+                    model.cell, carry, token, fin_in, *pools, table, noise,
+                    0, n_active, weights=weights, **kw)
+            else:
+                new_carry, toks, lps = fused_decode_stride(
+                    model.cell, carry, token, fin_in, *dense, noise, 0,
+                    n_active, weights=weights, **kw)
+            new_fin = fin_in | (toks == EOS_ID).any(dim=0)
+            new_token = toks[-1]
+            step = self.S
+            if keep is not None:
+                k2 = keep[None, :]
+                k3 = keep[None, :, None]
+                new_carry = [(torch.where(k3, nc, c), torch.where(k3, nh, h))
+                             for (nc, nh), (c, h) in zip(new_carry, carry)]
+                new_token = torch.where(k2, new_token, token)
+                new_fin = torch.where(k2, new_fin, fin)
+                step = self.S * keep[inv].long()
+            lanes.carry = [(c[:, inv], h[:, inv]) for c, h in new_carry]
+            lanes.token = new_token[:, inv].contiguous()
+            lanes.finished = new_fin[:, inv].contiguous()
+            lanes.t_local += step
+            outs.append((toks[:, :, :n_active], lps[:, :, :n_active]))
         # the per-stride sync: the host acts on the emissions
-        toks_np = toks[:, :, :n_active].cpu().numpy()
-        lps_np = lps[:, :, :n_active].cpu().numpy()
-        fin_np = fin[:, :n_active].cpu().numpy()
+        toks_np = torch.stack([t for t, _ in outs]).cpu().numpy()
+        lps_np = torch.stack([lp for _, lp in outs]).cpu().numpy()
+        fin_np = lanes.finished[:, perm[:n_active]].cpu().numpy()
         report.strides += 1
-        for col, slot in enumerate(active):
-            ticket = self._inflight[slot]
-            n = min(self.S, self.T - ticket.t)
-            ticket.tok[:, ticket.t:ticket.t + n] = toks_np[:n, :, col].T
-            ticket.lp[:, ticket.t:ticket.t + n] = lps_np[:n, :, col].T
-            ticket.t += n
-            if fin_np[:, col].all() or ticket.t >= self.T:
-                self._complete(ticket, report, now)
+        col = {slot: i for i, slot in enumerate(active)}
+        for vi, v in enumerate(versions):
+            for slot in by_ver[v]:
+                ticket = self._inflight[slot]
+                c = col[slot]
+                n = min(self.S, self.T - ticket.t)
+                ticket.tok[:, ticket.t:ticket.t + n] = toks_np[vi, :n, :, c].T
+                ticket.lp[:, ticket.t:ticket.t + n] = lps_np[vi, :n, :, c].T
+                ticket.t += n
+                if fin_np[:, c].all() or ticket.t >= self.T:
+                    self._complete(ticket, report, now)
+        self._retire_versions()
 
     def _complete(self, ticket: _Ticket, report: ServeReport, now) -> None:
         t_det0 = time.perf_counter()
         best = int(npad_best_lane_index(ticket.lp))
-        row = ticket.tok[best]
-        ids: list[int] = []
-        for tok in row:
-            tok = int(tok)
-            if tok in (EOS_ID, PAD_ID):
-                break
-            ids.append(tok)
-        caption = self.vocab.decode(row) if self.vocab is not None else None
+        ids = _caption_ids(ticket.tok[best])
+        caption = (self.vocab.decode(ticket.tok[best])
+                   if self.vocab is not None else None)
         detok_s = time.perf_counter() - t_det0
         t_done = now()
         self._inflight.pop(ticket.slot)
@@ -422,18 +794,194 @@ class CaptionService:
         self.bank.clear_row(ticket.slot)
         self.bank.free(ticket.req.req_id)
         self._tickets.pop(ticket.req.req_id, None)
-        report.results[ticket.req.req_id] = CaptionResult(
+        latency = max(t_done - ticket.t_submit, 0.0)
+        result = CaptionResult(
             req_id=ticket.req.req_id,
             tokens=ticket.tok,
             logprobs=ticket.lp,
             best_lane=best,
             caption_ids=ids,
             caption=caption,
-            latency_s=max(t_done - ticket.t_submit, 0.0),
+            latency_s=latency,
             phases={
                 "queue_wait": max(ticket.t_admit - ticket.t_submit, 0.0),
                 "encode": max(ticket.t_encoded - ticket.t_admit, 0.0),
                 "decode": max(t_done - ticket.t_encoded, 0.0),
                 "detok": detok_s,
             },
+            param_version=ticket.param_version,
         )
+        report.results[ticket.req.req_id] = result
+        if self._slo is not None:
+            # the service clock, as slo_snapshot reads it (the JAX engine
+            # records serve-relative times here, so its snapshot's windows
+            # are empty once the clock has run past them)
+            self._slo.observe(latency, self.clock())
+        if self._feedback is not None:
+            self._feedback(ticket.req, result, ticket.param_version)
+
+    # ---- drain snapshots ----------------------------------------------------
+
+    def _write_snapshot(self, snapshot_dir: str | None) -> str | None:
+        """``queue.npz`` (``<i>.feats.<m>`` / ``<i>.masks.<m>``) and
+        ``manifest.json`` under ``snapshot_dir``, fsync'd, the manifest
+        renamed into place last. Order: in flight (by admission), staged,
+        queued."""
+        if snapshot_dir is None:
+            return None
+        os.makedirs(snapshot_dir, exist_ok=True)
+        drained = [
+            self._inflight[s].req for s in sorted(
+                self._inflight, key=lambda s: self._inflight[s].t_admit)
+        ] + [
+            self._tickets[r].req for r in self._staged if r in self._tickets
+        ] + list(self._queue)
+        arrays: dict[str, np.ndarray] = {}
+        manifest = {
+            "requests": [],
+            "page_table": self.bank.snapshot(),
+            "in_flight_steps": {t.req.req_id: t.t
+                                for t in self._inflight.values()},
+            "staged": list(self._staged),
+            "drain_reason": self._drain_reason,
+        }
+        for i, req in enumerate(drained):
+            manifest["requests"].append({
+                "req_id": req.req_id,
+                "seed": req.seed,
+                "arrival_s": req.arrival_s,
+                "modalities": sorted(req.feats),
+            })
+            for name in req.feats:
+                arrays[f"{i}.feats.{name}"] = np.asarray(req.feats[name],
+                                                         np.float32)
+                arrays[f"{i}.masks.{name}"] = np.asarray(req.masks[name],
+                                                         np.float32)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        write_bytes_durable(os.path.join(snapshot_dir, "queue.npz"),
+                            buf.getvalue())
+        tmp = os.path.join(snapshot_dir, ".manifest.json.tmp")
+        write_bytes_durable(tmp, json.dumps(manifest, indent=2).encode())
+        os.replace(tmp, os.path.join(snapshot_dir, "manifest.json"))
+        fsync_dir(snapshot_dir)
+        return snapshot_dir
+
+
+def load_snapshot(snapshot_dir: str, service: CaptionService | None = None,
+                  grow_to: int | None = None) -> list[ClipRequest]:
+    """A drained queue -> its requests, in the order the service would
+    have run them (in-flight ones restart from step 0). With ``service``,
+    they are submitted to it, after ``grow_to`` grows its lane pool."""
+    with open(os.path.join(snapshot_dir, "manifest.json"),
+              encoding="utf-8") as f:
+        manifest = json.load(f)
+    out: list[ClipRequest] = []
+    with np.load(os.path.join(snapshot_dir, "queue.npz")) as data:
+        for i, rec in enumerate(manifest["requests"]):
+            mods = rec["modalities"]
+            out.append(ClipRequest(
+                req_id=rec["req_id"],
+                feats={m: data[f"{i}.feats.{m}"] for m in mods},
+                masks={m: data[f"{i}.masks.{m}"] for m in mods},
+                seed=int(rec["seed"]), arrival_s=float(rec["arrival_s"]),
+            ))
+    if service is not None:
+        if grow_to is not None:
+            service.grow_capacity(grow_to)
+        for req in out:
+            service.submit(req)
+    return out
+
+
+def _caption_ids(row: np.ndarray) -> list[int]:
+    """A lane's tokens up to (excluding) EOS or PAD."""
+    ids: list[int] = []
+    for tok in row:
+        tok = int(tok)
+        if tok in (EOS_ID, PAD_ID):
+            break
+        ids.append(tok)
+    return ids
+
+
+# ---- the static-batching policy ----------------------------------------------
+
+
+def static_batch_serve(
+    model: CaptionModel,
+    requests: list[ClipRequest],
+    *,
+    capacity: int = 8,
+    num_rollouts: int = 2,
+    temperature: float = 1.0,
+    max_len: int | None = None,
+    min_len: int = 0,
+    vocab=None,
+    service_seed: int = 0,
+    realtime: bool = False,
+    clock: Callable[[], float] = time.monotonic,
+    idle_wait_s: float = 0.002,
+    noise_fn: Callable[[int], Callable[[int], torch.Tensor]] | None = None,
+    device=None,
+) -> ServeReport:
+    """The policy continuous batching is measured against: wait until
+    ``capacity`` requests are queued (or no more are coming), decode the
+    batch through ``decoding.fused.fused_decode`` and answer everyone
+    together, with the same K lanes and NPAD pick.
+
+    Batches have a fixed shape: a last partial batch pads with repeats of
+    its first row (their outputs dropped). Batch ``i`` draws its noise from
+    ``fused_decode``'s seed ``rl.rollout_seed(service_seed, 0, 0, i)``, or
+    from ``noise_fn(i)`` (step -> [K, capacity, V]) when given."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    T = int(max_len or model.cfg.max_len)
+    F = model.cfg.max_frames
+    pending = deque(sorted(requests, key=lambda r: r.arrival_s))
+    report = ServeReport(submitted=len(pending))
+    t0 = clock()
+    now = lambda: clock() - t0  # noqa: E731
+    batch_idx = 0
+    while pending:
+        arrived = sum(1 for r in pending if not realtime
+                      or r.arrival_s <= now())
+        if arrived < min(capacity, len(pending)):
+            time.sleep(idle_wait_s)   # wait for a full batch
+            continue
+        batch = [pending.popleft()
+                 for _ in range(min(capacity, len(pending)))]
+        rows = batch + batch[:1] * (capacity - len(batch))
+        feats, masks = {}, {}
+        for name, _ in model.cfg.modalities:
+            feats[name] = torch.from_numpy(np.stack([
+                np.pad(np.asarray(r.feats[name], np.float32),
+                       ((0, F - r.num_frames), (0, 0))) for r in rows])
+            ).to(dev)
+            masks[name] = torch.from_numpy(np.stack([
+                np.pad(np.asarray(r.masks[name], np.float32),
+                       ((0, F - r.num_frames),)) for r in rows])).to(dev)
+        g, gl, s, sl = fused_decode(
+            model, feats, masks, rollout_seed(service_seed, 0, 0, batch_idx),
+            num_rollouts=num_rollouts, temperature=temperature, max_len=T,
+            min_len=min_len,
+            noise_fn=noise_fn(batch_idx) if noise_fn is not None else None)
+        batch_idx += 1
+        tok = torch.cat([g[None], s]).cpu().numpy()     # [1+K, capacity, T]
+        lp = torch.cat([gl[None], sl]).cpu().numpy()
+        t_done = now()
+        for i, req in enumerate(batch):
+            best = int(npad_best_lane_index(lp[:, i]))
+            latency = max(t_done - (req.arrival_s if realtime else 0.0), 0.0)
+            report.results[req.req_id] = CaptionResult(
+                req_id=req.req_id, tokens=tok[:, i], logprobs=lp[:, i],
+                best_lane=best, caption_ids=_caption_ids(tok[best, i]),
+                caption=(vocab.decode(tok[best, i]) if vocab is not None
+                         else None),
+                latency_s=latency,
+                phases={"queue_wait": 0.0, "encode": 0.0,
+                        "decode": latency, "detok": 0.0},
+            )
+    report.wall_s = now()
+    report.completed = len(report.results)
+    return report

@@ -12,6 +12,10 @@ pages than a max-frame one for its whole time in flight:
   pages through it, and :func:`gather_bank` builds the dense bank from it;
 - page 0 is the shared zero page: mask 0 everywhere, so table padding
   reads slots the attention softmax excludes.
+
+The pool and the table grow in place (:meth:`PageBank.grow`,
+:meth:`PageBank.grow_rows`, for ``CaptionService.grow_capacity``); they
+never shrink.
 """
 
 from __future__ import annotations
@@ -77,6 +81,9 @@ class PageBank:
     def pages_for(self, m_len: int) -> int:
         return -(-int(m_len) // self.page_size)
 
+    def can_fit(self, m_len: int) -> bool:
+        return self.pages_for(m_len) <= len(self._free)
+
     def alloc(self, owner: Hashable, m_len: int) -> list[int]:
         """Reserve pages for ``m_len`` memory slots; raises OutOfPages."""
         if owner in self._owned:
@@ -102,6 +109,9 @@ class PageBank:
 
     def owned(self, owner: Hashable) -> list[int]:
         return list(self._owned.get(owner, ()))
+
+    def length(self, owner: Hashable) -> int:
+        return self._lens.get(owner, 0)
 
     def table(self, owners: list[Hashable | None], width: int) -> np.ndarray:
         """Host page-table rows for ``owners`` (None/unknown -> zero pages),
@@ -148,6 +158,43 @@ class PageBank:
         """Reset table row ``row`` to the zero page (lane freed)."""
         self.row_table[row] = 0
         self.row_lens[row] = 0
+
+    def grow_rows(self, rows: int) -> None:
+        """Grow the device table to ``rows`` rows; new rows point at the
+        zero page. Rows only grow."""
+        cur = self.row_table.shape[0]
+        new_r = int(rows)
+        if new_r < cur:
+            raise ValueError(
+                f"grow_rows({rows}) below current row count {cur} — rows "
+                "only grow (shrink = drain and rebuild)"
+            )
+        extra = new_r - cur
+        self.row_table = torch.nn.functional.pad(self.row_table,
+                                                 (0, 0, 0, extra))
+        self.row_lens = torch.nn.functional.pad(self.row_lens, (0, extra))
+
+    def grow(self, num_pages: int) -> None:
+        """Grow the pool to ``num_pages`` usable pages: the free list gains
+        the new ids and the device pools, once allocated, zero-pad along
+        the page axis, so stored pages, the table and the zero page stay
+        as they are. The pool only grows."""
+        new_n = int(num_pages)
+        if new_n < self.num_pages:
+            raise ValueError(
+                f"PageBank.grow({num_pages}) below current pool size "
+                f"{self.num_pages} — the pool only grows (shrink = drain "
+                "and rebuild)"
+            )
+        extra = new_n - self.num_pages
+        self._free.extend(range(self.num_pages + 1, new_n + 1))
+        self.num_pages = new_n
+        if self.mem is not None and extra:
+            grow = lambda x: torch.cat(  # noqa: E731
+                [x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+            self.mem = grow(self.mem)
+            self.proj = grow(self.proj)
+            self.mask = grow(self.mask)
 
     # ---- device pools ------------------------------------------------------
 

@@ -15,7 +15,9 @@ t < min_len, beams of 1 and 16), the workspace sizes against the
 kernels' own, and the wrappers' refusals. For the trainer: the attention
 kernel at one memory slot a row (the mean-pool encoder's bank), the
 prefetch thread's side-stream copies against blocking copies, and an XE
-and a CST epoch of the Trainer with the kernels on.
+and a CST epoch of the Trainer with the kernels on. For serving: a hot
+swap's mixed-version strides and lanes added by grow_capacity, each
+request bit-equal to itself served alone.
 Marked ``gpu``: these skip without a CUDA device and run on the H100
 (which has no jax, hence no conftest) with
 
@@ -863,3 +865,95 @@ def test_trainer_epoch_with_the_kernels(dev, tmp_path):
     for e in events:
         if e["event"] in ("xe_step", "rl_step"):
             assert np.isfinite(e.get("loss", e.get("rl_loss")))
+
+
+def _serving_model(dev, seed):
+    torch.manual_seed(seed)
+    cfg = tcfg.ModelConfig(vocab_size=V, modalities=(("resnet", 20),),
+                           d_embed=E, d_hidden=E, d_att=A,
+                           encoder="temporal_attention", max_frames=F,
+                           max_len=10, dtype="float32", decode_impl="pallas",
+                           decode_stride=S)
+    model = CaptionModel(cfg, device=dev)
+    with torch.no_grad():
+        model.cell.out_proj.bias[EOS_ID] += 2.0
+    return model
+
+
+def _serving_requests(n, seed0):
+    from cst_captioning_tpu_torch.serving import ClipRequest
+
+    g = np.random.default_rng(seed0)
+    out = []
+    for i in range(n):
+        f = int(g.integers(1, F + 1))
+        out.append(ClipRequest(
+            f"q{seed0}_{i}",
+            {"resnet": g.normal(size=(f, 20)).astype(np.float32)},
+            {"resnet": np.ones((f,), np.float32)}, seed=seed0 + i))
+    return out
+
+
+def _alone(model, req, capacity):
+    from cst_captioning_tpu_torch.serving import CaptionService
+
+    svc = CaptionService(model, capacity=capacity, num_rollouts=K,
+                         frame_bucket=2, device="cuda")
+    return svc.serve([req]).results[req.req_id]
+
+
+def test_serving_mixed_version_stride_on_the_card(dev):
+    """A hot swap mid-flight on the card: one paged launch per live version
+    a stride, the other version's lanes frozen and restored, and every
+    request bit-equal to itself served alone under its pinned version."""
+    from cst_captioning_tpu_torch.serving import CaptionService
+
+    models = [_serving_model(dev, 0), _serving_model(dev, 1)]
+    svc = CaptionService(models[0], capacity=3, num_rollouts=K,
+                         frame_bucket=2, device="cuda")
+
+    def feedback(req, result, version):
+        svc.publish_params(models[1], version=1)
+
+    svc._feedback = feedback
+    pairs = []
+    run_stride = svc._run_stride
+
+    def counted(report, now):
+        pairs.append(len({t.param_version for t in svc._inflight.values()}))
+        run_stride(report, now)
+
+    svc._run_stride = counted
+    decode_stride.reset_launches()
+    reqs = _serving_requests(8, 70)
+    rep = svc.serve(reqs)
+    assert fused_decode_stride_paged.launches == sum(pairs)
+    assert max(pairs) == 2 and svc._old_versions == {}
+    assert {r.param_version for r in rep.results.values()} == {0, 1}
+    for req in reqs:
+        res = rep.results[req.req_id]
+        want = _alone(models[res.param_version], req, 3)
+        np.testing.assert_array_equal(res.tokens, want.tokens)
+        np.testing.assert_array_equal(res.logprobs, want.logprobs)
+
+
+def test_serving_grown_lanes_on_the_card(dev):
+    """grow_capacity with lane state on the card: requests served on the
+    grown lanes are bit-equal to themselves served alone at that width."""
+    from cst_captioning_tpu_torch.serving import CaptionService
+
+    model = _serving_model(dev, 2)
+    svc = CaptionService(model, capacity=2, num_rollouts=K, frame_bucket=2,
+                         device="cuda")
+    svc.serve(_serving_requests(3, 80))
+    svc.grow_capacity(5)
+    assert svc._lanes.token.shape == (1 + K, 5)
+    reqs = _serving_requests(7, 90)
+    rep = svc.serve(reqs)
+    assert rep.completed == 7 and svc.bank.pages_in_use == 0
+    for req in reqs:
+        want = _alone(model, req, 5)
+        np.testing.assert_array_equal(rep.results[req.req_id].tokens,
+                                      want.tokens)
+        np.testing.assert_array_equal(rep.results[req.req_id].logprobs,
+                                      want.logprobs)

@@ -60,7 +60,9 @@ def test_port_imports_no_jax():
                 "resilience.sentinel", "resilience.preempt",
                 "data.synthetic", "data.dataset", "data.preprocess",
                 "data.prefetch", "ckpt.checkpoint", "ckpt.msgpack",
-                "train.trainer", "cli.common", "cli.train", "cli.eval"):
+                "train.trainer", "cli.common", "cli.train", "cli.eval",
+                "data.importers", "cli.preprocess", "cli.import_msrvtt",
+                "cli.import_msvd"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 
