@@ -142,6 +142,30 @@
    greedy validation step); the ``best`` checkpoint (``ckpt.load_params``)
    published into a live ``CaptionService`` mid-serve of the test clips:
    requests admitted after the swap carry version 1. Wall times by step.
+8c. obs: the observability subsystem at the recipe's width, on a fresh
+   recipe corpus. ``cli.train`` at msrvtt_cst_consensus (kernels on) for
+   one XE and one CST epoch with ``--obs``, ``--profile``,
+   ``train.recorder_steps=16`` and ``train.anomaly``; ``cli.eval``
+   (beam 5) with ``--obs``; ``cli.obs_report --json`` of each. Gates:
+   coverage >= 0.90 with the setup, xe.step, rl.decode, rl.reward,
+   rl.update, ckpt.save and eval rows; ``device.peak_flops`` the peak
+   table's entry for this card and every MFU row in (0, 1]; the
+   ``device.*`` memory gauges in (0, card memory]; the XE profile trace
+   naming kernel 1 (``additive_attention_kernel``) and the CST one kernel
+   2 (``step_attend``, ``step_logits``); the ring holding every step with
+   finite losses, grad norms and update ratios; ``recorder.postmortem``
+   bundle verified and rendered by ``cli.obs_report --postmortem``. Then
+   eight XE epochs, obs off and obs with the recorder on in turns (off,
+   on, on, off, twice): losses and final params bitwise equal, and the
+   synchronizing CUDA calls of an epoch (``torch.cuda.set_sync_debug_mode
+   ("warn")``) with obs on at most the recorder's flushes above obs off;
+   clips/s of each and the ratio of the medians. The serve phase's
+   64-request burst four times, obs off and on in turns (requests/s and
+   the ratio of the medians), then once more with obs on: the funnel counters 64, ``serving.strides`` the
+   counted paged launches, 64 latencies, the serving and SLO sections;
+   and a drain after 16 completions whose postmortem bundle verifies.
+   Prints the top host rows of the training and the serve reports, and
+   what one span costs the host (``obs_emit_cost``).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's and import's included),
    error, times and bound; for the
@@ -163,6 +187,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -170,16 +195,19 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from unittest import mock
 
 import numpy as np
 import torch
 
+from cst_captioning_tpu_torch import obs as tobs
 from cst_captioning_tpu_torch import ops
 from cst_captioning_tpu_torch.ckpt import load_params as ckpt_load_params
 from cst_captioning_tpu_torch.cli import eval as cli_eval
 from cst_captioning_tpu_torch.cli import import_msrvtt as cli_import_msrvtt
 from cst_captioning_tpu_torch.cli import import_msvd as cli_import_msvd
+from cst_captioning_tpu_torch.cli import obs_report as cli_obs_report
 from cst_captioning_tpu_torch.cli import preprocess as cli_preprocess
 from cst_captioning_tpu_torch.cli import train as cli_train
 from cst_captioning_tpu_torch.config import EOS_ID, PAD_ID
@@ -204,6 +232,9 @@ from cst_captioning_tpu_torch.eval import Evaluator
 from cst_captioning_tpu_torch.eval import evaluator as evaluator_mod
 from cst_captioning_tpu_torch.metrics import CorpusDF
 from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.obs import flops as obs_flops
+from cst_captioning_tpu_torch.obs import recorder as obs_recorder
+from cst_captioning_tpu_torch.obs import report as obs_report
 from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import beam_step as beam_ops
 from cst_captioning_tpu_torch.ops import build
@@ -2445,6 +2476,365 @@ def _import(root: str, smi: str) -> tuple[dict, dict]:
     return line, launches
 
 
+# ---- phase 8c: observability --------------------------------------------------
+
+OBS_RECORDER_STEPS = 16
+OBS_LOG_EVERY = 2         # the recorder's flush cadence
+# the XE epochs of the overhead comparison, obs on or off, in turns
+OBS_TURNS = (False, True, True, False, False, True, True, False)
+ATTENTION_SYMBOL = "additive_attention_kernel"      # csrc/additive_attention.cu
+STEP_SYMBOLS = ("step_attend", "step_logits")       # csrc/step.cuh
+MEMORY_GAUGES = ("bytes_in_use", "peak_bytes_in_use", "reserved_bytes",
+                 "peak_reserved_bytes")
+
+
+def cli_stdout(main_fn, argv) -> tuple[int, str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def trace_kernels(path: str) -> set:
+    """The CUDA kernel names in a torch.profiler Chrome trace."""
+    return {e.get("name", "") for e in json.load(open(path))["traceEvents"]
+            if e.get("cat") == "kernel"}
+
+
+def last_metrics(run_dir: str) -> dict:
+    return [e for e in obs_report.load_events(run_dir)
+            if e["event"] == "metrics"][-1]
+
+
+def host_rows(rep: dict, n: int = 8) -> list:
+    """The report's foreground rows by self time, most first."""
+    rows = sorted(rep["phases"], key=lambda p: -p["self_s"])[:n]
+    return [{k: p[k] for k in ("phase", "count", "self_s", "pct_wall",
+                               "p50_s", "max_s", "mfu")} for p in rows]
+
+
+def span_durations(run_dir: str, name: str) -> list:
+    return [e["dur"] for e in obs_report.load_events(run_dir)
+            if e["event"] == "span" and e["name"] == name]
+
+
+def verified_bundle(path: str) -> dict:
+    """``cli.obs_report --postmortem`` over a bundle -> its summary."""
+    rc, out = cli_stdout(cli_obs_report.main, ["--postmortem", path])
+    check(rc == 0 and "manifest verified (sha256)" in out,
+          f"obs: bundle {path} did not verify:\n{out}")
+    pm = obs_report.load_postmortem(path)
+    return {"reason": pm["meta"]["reason"], "ring_steps": len(pm["ring"]),
+            "verified": pm["verified"]}
+
+
+def obs_emit_cost(root: str, n: int = 2000) -> dict:
+    """Host microseconds of one span with obs on (an empty ``obs.span``:
+    its ``events.jsonl`` line and trace entry), and of writing such a line
+    line-buffered (the stream's mode: a write call a line) and
+    block-buffered, each over ``n`` in a row."""
+    tobs.configure(root, run="emit_cost")
+    t = time.perf_counter()
+    for _ in range(n):
+        with tobs.span("serving.detok", req="r0"):
+            pass
+    out = {"span_us": (time.perf_counter() - t) / n * 1e6}
+    tobs.shutdown()
+    line = open(os.path.join(root, "events.jsonl")).readlines()[1]
+    for name, buffering in (("line_buffered_write_us", 1),
+                            ("block_buffered_write_us", -1)):
+        with open(os.path.join(root, name), "a", buffering=buffering) as f:
+            t = time.perf_counter()
+            for _ in range(n):
+                f.write(line)
+            out[name] = (time.perf_counter() - t) / n * 1e6
+    return out
+
+
+class RingTap:
+    """Stands in for ``Trainer.close``: before the trainer shuts the flight
+    recorder, keep its ring and flush count and dump
+    ``recorder.postmortem("smoke")``."""
+
+    def __init__(self):
+        self.real = trainer_mod.Trainer.close
+        self.ring: list = []
+        self.readbacks = 0
+        self.bundle = None
+
+    def __call__(self, trainer):
+        fr = obs_recorder.active()
+        if fr is not None:
+            fr.flush()
+            self.ring = list(fr.ring)
+            self.readbacks = fr.readbacks
+            self.bundle = obs_recorder.postmortem("smoke")
+        self.real(trainer)
+
+
+def obs_phase(smi: str) -> tuple[dict, dict]:
+    """Phase 8c in a temporary directory -> (its line, the launches)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        return _obs(root, smi)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        obs_recorder.shutdown()
+        tobs.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _obs(root: str, smi: str) -> tuple[dict, dict]:
+    t0 = time.perf_counter()
+    dev = torch.device(RECIPE_DEVICE)
+    data = recipe_corpus(root)
+    d = lambda name: os.path.join(root, name)  # noqa: E731
+    files = ["--info-json", data["info_json"],
+             "--feature", f"resnet={data['resnet']}",
+             "--feature", f"c3d={data['c3d']}"]
+    total = dict.fromkeys(all_launches(), 0)
+
+    def add(n):
+        for k, v in n.items():
+            total[k] += v
+
+    # -- train and eval with obs on ------------------------------------------
+    tobs.REGISTRY.reset()
+    tap = RingTap()
+    with mock.patch.object(trainer_mod.Trainer, "close",
+                           lambda self: tap(self)):
+        run = run_train([
+            "--preset", "msrvtt_cst_consensus", *files,
+            "--device", RECIPE_DEVICE,
+            "--set", "model__attention_impl='pallas'",
+            "--set", "model__decode_impl='pallas'",
+            "--set", f"data__consensus_weights='{data['consensus_weights']}'",
+            "--set", f"data__cider_df='{data['cider_df']}'",
+            "--set", f"train__ckpt_dir='{d('ck')}'",
+            "--set", "train__epochs=1", "--set", "rl__epochs=1",
+            "--set", f"train__log_every_steps={OBS_LOG_EVERY}",
+            "--obs", d("obs"), "--profile", d("prof"),
+            "--set", f"train__recorder_steps={OBS_RECORDER_STEPS}",
+            "--set", "train__anomaly=True",
+            "--set", "train__profile_steps=3"], d("train.jsonl"))
+    add(run["launches"])
+    rc, out = cli_stdout(cli_obs_report.main, [d("obs"), "--json"])
+    check(rc == 0, f"obs_report exited {rc}")
+    rep = json.loads(out)
+    rows = {p["phase"]: p for p in rep["phases"]}
+    need = ("setup", "xe.step", "rl.decode", "rl.reward", "rl.update",
+            "ckpt.save", "eval")
+    check(rep["coverage"] >= 0.90 and all(n in rows for n in need),
+          f"obs: coverage {rep['coverage']:.3f}, rows {sorted(rows)}")
+    met = last_metrics(d("obs"))
+    peak = met["gauges"]["device.peak_flops"]
+    card = torch.cuda.get_device_name(0)
+    check(peak == obs_flops.peak_flops(card) > 0,
+          f"obs: device.peak_flops {peak} for {card!r}")
+    mfu = {p: r["mfu"] for p, r in rows.items() if r["mfu"] is not None}
+    check(mfu and all(math.isfinite(v) and 0 < v <= 1 for v in mfu.values()),
+          f"obs: MFU rows {mfu}")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mem = {g: met["gauges"][f"device.{g}"] for g in MEMORY_GAUGES}
+    check(all(0 < v <= total_mem for v in mem.values())
+          and met["gauges"]["device.bytes_limit"] == total_mem,
+          f"obs: memory gauges {mem} against {total_mem}")
+    xe_kernels = trace_kernels(d("prof/xe/trace.json"))
+    rl_kernels = trace_kernels(d("prof/rl/trace.json"))
+    check(any(ATTENTION_SYMBOL in k for k in xe_kernels),
+          f"obs: no {ATTENTION_SYMBOL} in the XE trace")
+    check(all(any(s in k for k in rl_kernels) for s in STEP_SYMBOLS),
+          f"obs: no {STEP_SYMBOLS} in the CST trace")
+    steps = rows["xe.step"]["count"] + rows["rl.update"]["count"]
+    ring_ok = all(
+        all(math.isfinite(v) for k, v in r.items()
+            if k in ("loss", "rl_loss", "grad_norm")
+            or k.startswith("upd_ratio/"))
+        and ("loss" in r or "rl_loss" in r)
+        and sum(k.startswith("upd_ratio/") for k in r) == 5
+        for r in tap.ring)
+    check(len(tap.ring) == steps <= OBS_RECORDER_STEPS and ring_ok,
+          f"obs: ring {len(tap.ring)} records for {steps} steps")
+    bundle = verified_bundle(tap.bundle)
+    check(bundle["ring_steps"] == steps, f"obs: bundle {bundle}")
+    step_s = {n: span_durations(d("obs"), n)
+              for n in ("xe.step", "rl.decode", "rl.update", "ckpt.save")}
+    steps_b, counting = counted_beam_steps()
+    ops.reset_launches()
+    tobs.REGISTRY.reset()
+    with counting, contextlib.redirect_stdout(io.StringIO()):
+        cli_eval.main(["--preset", "msrvtt_eval_beam5", *files,
+                       "--device", RECIPE_DEVICE,
+                       "--set", "model__decode_impl='pallas'",
+                       "--ckpt-dir", d("ck"), "--ckpt-name", "best",
+                       "--results-json", d("results.json"),
+                       "--obs", d("obs_eval")])
+    add(all_launches())
+    rc, out = cli_stdout(cli_obs_report.main, [d("obs_eval"), "--json"])
+    erep = json.loads(out)
+    check(rc == 0 and "eval" in {p["phase"] for p in erep["phases"]}
+          and erep["eval"]["captions"] == 128,
+          f"obs: eval report {erep['eval']}")
+    train_s = time.perf_counter() - t0
+
+    # -- one XE epoch, obs off and on, in turns -------------------------------
+    t = time.perf_counter()
+    mods = [n for n, _ in get_preset("msrvtt_cst_consensus").modalities]
+    base = get_experiment("msrvtt_cst_consensus").override(
+        model__attention_impl="pallas", model__decode_impl="pallas",
+        train__epochs=1, rl__enabled=False,
+        train__log_every_steps=OBS_LOG_EVERY,
+        data__consensus_weights=data["consensus_weights"])
+    ds = CaptionDataset(data["info_json"], {n: data[n] for n in mods},
+                        "train", max_frames=base.model.max_frames,
+                        consensus_weights=base.data.consensus_weights)
+
+    def xe_epoch(on: bool, k: int) -> dict:
+        extra = (dict(train__obs=True, train__obs_dir=d(f"ovh_obs{k}"),
+                      train__recorder_steps=OBS_RECORDER_STEPS) if on
+                 else {})
+        cfg = base.override(train__ckpt_dir=d(f"ovh{k}"), **extra)
+        tobs.REGISTRY.reset()
+        tr = trainer_mod.Trainer(cfg, ds, None, log_path=d(f"ovh{k}.jsonl"),
+                                 device=RECIPE_DEVICE)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tr.train_xe()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        flushes = obs_recorder.active().readbacks if on else 0
+        n = all_launches()
+        tr.close()
+        tobs.shutdown()
+        ev = [json.loads(line) for line in open(d(f"ovh{k}.jsonl"))]
+        epoch = [e for e in ev if e["event"] == "xe_epoch"][0]
+        out = {"obs": on, "syncs": sum("synchroniz" in str(w.message)
+                                       for w in caught),
+               "flushes": flushes, "clips_per_s": epoch["clips_per_s"],
+               "losses": [e["loss"] for e in ev if e["event"] == "xe_step"]
+               + [epoch["loss"]], "launches": n,
+               "params": [p.detach().clone() for p in tr.model.parameters()]}
+        del tr
+        shutil.rmtree(d(f"ovh{k}"), ignore_errors=True)
+        return out
+
+    turns = [xe_epoch(on, k) for k, on in enumerate(OBS_TURNS)]
+    ds.close()
+    for r in turns:
+        add(r["launches"])
+        check(r["losses"] == turns[0]["losses"] and all(
+            torch.equal(a, b) for a, b in zip(r["params"],
+                                              turns[0]["params"])),
+              f"obs: the XE epoch with obs={r['obs']} is not bitwise equal "
+              "to the first")
+    off = [r for r in turns if not r["obs"]]
+    on = [r for r in turns if r["obs"]]
+    for a, b in zip(on, off):
+        check(a["syncs"] - b["syncs"] <= a["flushes"],
+              f"obs: {a['syncs']} syncs with obs on, {b['syncs']} off, "
+              f"{a['flushes']} recorder flushes")
+    med = lambda rs: float(np.median([r["clips_per_s"] for r in rs]))  # noqa: E731
+    overhead = {"clips_per_s_off": [r["clips_per_s"] for r in off],
+                "clips_per_s_on": [r["clips_per_s"] for r in on],
+                "median_on_over_off": med(on) / med(off),
+                "syncs_off": [r["syncs"] for r in off],
+                "syncs_on": [r["syncs"] for r in on],
+                "recorder_flushes": [r["flushes"] for r in on],
+                "logged_losses": len(turns[0]["losses"]) - 1, "bitwise": True,
+                "wall_s": time.perf_counter() - t}
+    del turns, off, on
+
+    # -- the serve burst with obs on, then one drain -------------------------
+    t = time.perf_counter()
+    model = make_model(dev)
+    reqs = requests(model.cfg)
+    service(model).serve(reqs[:4])      # warm-up, as the serve phase's
+    serve_rps = {"off": [], "on": []}
+    for k, on in enumerate((False, True, True, False)):
+        tobs.REGISTRY.reset()
+        if on:
+            tobs.configure(d(f"obs_turn{k}"), run="serve")
+        ops.reset_launches()
+        _, wall = serve_timed(service(model), reqs)
+        tobs.shutdown()
+        total["fused_decode_stride_paged"] += \
+            fused_decode_stride_paged.launches
+        serve_rps["on" if on else "off"].append(N_REQUESTS / wall)
+    tobs.REGISTRY.reset()
+    tobs.configure(d("obs_serve"), run="serve")
+    svc = service(model)
+    svc.set_slo(1.0)
+    ops.reset_launches()
+    srep, swall = serve_timed(svc, reqs)
+    paged = fused_decode_stride_paged.launches
+    snap = tobs.snapshot()
+    c = snap["counters"]
+    funnel = {k: c.get(f"serving.requests_{k}", 0)
+              for k in ("submitted", "admitted", "completed")}
+    check(all(v == N_REQUESTS for v in funnel.values())
+          and c["serving.strides"] == paged == srep.strides
+          and snap["histograms"]["serving.latency_seconds"]["count"]
+          == N_REQUESTS, f"obs serve: funnel {funnel}, strides "
+          f"{c['serving.strides']}, paged launches {paged}")
+    drain_svc = service(model)
+    seen = []
+
+    def drain_after(req, result, version):
+        seen.append(req.req_id)
+        if len(seen) == DRAIN_AFTER:
+            drain_svc.drain("smoke")
+
+    drain_svc._feedback = drain_after
+    ops.reset_launches()
+    drep = drain_svc.serve(reqs, snapshot_dir=d("snap"))
+    paged += fused_decode_stride_paged.launches
+    tobs.shutdown()
+    total["fused_decode_stride_paged"] += paged
+    bundles = sorted(n for n in os.listdir(d("obs_serve"))
+                     if n.startswith("postmortem"))
+    check(drep.drained and bundles == ["postmortem_01_serving_drain_smoke"],
+          f"obs serve: drained {drep.drained}, bundles {bundles}")
+    drain_bundle = verified_bundle(d(f"obs_serve/{bundles[0]}"))
+    serve_rep = obs_report.report_run(d("obs_serve"))
+    emit_cost = obs_emit_cost(d("obs_cost"))
+    check(serve_rep["serving"] is not None
+          and serve_rep["serving"].get("slo") is not None,
+          "obs serve: no serving or SLO section")
+    line = {
+        "phase": "obs", "preset": "msrvtt_cst_consensus",
+        "coverage": rep["coverage"], "wall_s": rep["wall_s"],
+        "train_rows": host_rows(rep), "span_s": step_s, "mfu": mfu,
+        "device_peak_flops": peak, "memory_gauges": mem,
+        "card_memory": total_mem, "ring_steps": len(tap.ring),
+        "recorder_flushes": tap.readbacks, "postmortem": bundle,
+        "profile_kernels": {
+            "xe": sorted(k[:60] for k in xe_kernels
+                         if ATTENTION_SYMBOL in k),
+            "rl": sorted({s for s in STEP_SYMBOLS
+                          if any(s in k for k in rl_kernels)})},
+        "compile": rep["compile"], "eval_coverage": erep["coverage"],
+        "eval_rows": host_rows(erep, 4), "eval_wall_s": erep["wall_s"],
+        "overhead": overhead,
+        "serve": {"requests_per_s_in_turns": serve_rps,
+                  "median_on_over_off": float(np.median(serve_rps["on"])
+                                              / np.median(serve_rps["off"])),
+                  "funnel": funnel, "strides": srep.strides,
+                  "paged_launches": paged, "wall_s": swall,
+                  "requests_per_s": N_REQUESTS / swall,
+                  "coverage": serve_rep["coverage"],
+                  "rows": host_rows(serve_rep),
+                  "drained_after": len(seen), "drain_postmortem":
+                  drain_bundle},
+        "emit_cost": emit_cost,
+        "train_and_eval_s": train_s, "phase_s": time.perf_counter() - t0,
+        "launches": dict(total), "nvidia_smi": smi}
+    return line, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -2722,6 +3112,10 @@ def main() -> int:
     imported, import_launches = import_phase(smi)
     emit(imported)
     for k, v in import_launches.items():
+        path_launches[k] += v
+    observed, obs_launches = obs_phase(smi)
+    emit(observed)
+    for k, v in obs_launches.items():
         path_launches[k] += v
 
     print(smi, flush=True)

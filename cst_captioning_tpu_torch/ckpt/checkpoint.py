@@ -26,7 +26,9 @@ pure-Python decoder in ``ckpt/msgpack.py``: the params through
 ``convert.py``, the optax chain's Adam moments and count onto the port's
 optimizer state, and the step. :func:`load_state`, :func:`load_params` and
 ``CheckpointManager.restore_latest`` read either format, by the state
-file the directory holds.
+file the directory holds. Saves and restores run in ``ckpt.save`` /
+``ckpt.restore`` obs spans; a full disk and a corrupt candidate count on
+``resilience.ckpt_enospc`` / ``resilience.ckpt_corrupt``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.ckpt import msgpack
 from cst_captioning_tpu_torch.convert import (
     flax_to_state_dict,
@@ -344,14 +347,19 @@ class CheckpointManager:
             except OSError as e:
                 if getattr(e, "errno", None) == errno.ENOSPC:
                     freed = self._reclaim_space(exclude=name)
+                    obs.counter("resilience.ckpt_enospc").inc()
                     self.log("ckpt_enospc", name=name, freed=freed,
                              detail=str(e))
                 raise
 
         t0 = time.perf_counter()
-        path = retry_call(
-            attempt, policy=self.retry,
-            on_retry=lambda info: self.log("ckpt_retry", name=name, **info))
+        # the span covers retries and backoff: its duration is the stall a
+        # save puts on the step loop
+        with obs.span("ckpt.save", ckpt=name):
+            path = retry_call(
+                attempt, policy=self.retry,
+                on_retry=lambda info: self.log("ckpt_retry", name=name,
+                                               **info))
         size = sum(os.path.getsize(os.path.join(path, f))
                    for f in os.listdir(path))
         self.last_save = {"ms": (time.perf_counter() - t0) * 1e3,
@@ -453,17 +461,19 @@ class CheckpointManager:
         (name, error, detail) and the next one is tried. ``prefer`` is
         tried first."""
         t0 = time.perf_counter()
-        cands = self._candidates()
-        if prefer is not None and prefer in cands:
-            cands = [prefer] + [c for c in cands if c != prefer]
-        for name in cands:
-            try:
-                state, infos = load_state(self.ckpt_dir, name, template)
-            except Exception as e:  # noqa: BLE001 - logged, next candidate
-                self.log("ckpt_corrupt", name=name, error=type(e).__name__,
-                         detail=str(e))
-                continue
-            infos.setdefault("ckpt_name", name)
-            self.last_restore = {"ms": (time.perf_counter() - t0) * 1e3}
-            return state, infos
-        return None
+        with obs.span("ckpt.restore"):
+            cands = self._candidates()
+            if prefer is not None and prefer in cands:
+                cands = [prefer] + [c for c in cands if c != prefer]
+            for name in cands:
+                try:
+                    state, infos = load_state(self.ckpt_dir, name, template)
+                except Exception as e:  # noqa: BLE001 - logged, next one
+                    obs.counter("resilience.ckpt_corrupt").inc()
+                    self.log("ckpt_corrupt", name=name,
+                             error=type(e).__name__, detail=str(e))
+                    continue
+                infos.setdefault("ckpt_name", name)
+                self.last_restore = {"ms": (time.perf_counter() - t0) * 1e3}
+                return state, infos
+            return None

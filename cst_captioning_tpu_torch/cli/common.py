@@ -28,12 +28,17 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="structured event log path")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
-    # the JAX CLI's flags; their machinery is not ported, so the config
-    # they set raises
     p.add_argument("--profile", default="", metavar="DIR",
-                   help="step profiler output (not ported: raises)")
+                   help="write torch.profiler Chrome traces of training "
+                        "steps under DIR (sets train.profile_dir)")
     p.add_argument("--obs", default="", metavar="DIR",
-                   help="observability run dir (not ported: raises)")
+                   help="enable the observability subsystem and write the "
+                        "run's events.jsonl / trace.json / metrics.prom to "
+                        "DIR (sets train.obs + train.obs_dir; report with "
+                        "`python -m cst_captioning_tpu_torch.cli.obs_report "
+                        "DIR`)")
+    # the JAX CLI's flag; the sanitizer is not ported, so the config it
+    # sets raises
     p.add_argument("--debug-nans", action="store_true",
                    help="NaN sanitizer (not ported: raises)")
 

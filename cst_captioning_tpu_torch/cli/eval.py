@@ -7,7 +7,8 @@ the COCO-style metric table.
 
 ``--jax-ckpt DIR`` evaluates a checkpoint directory the JAX package wrote
 (its ``state.msgpack``, read without flax or msgpack) instead of
-``--ckpt-dir``.
+``--ckpt-dir``. ``--obs DIR`` writes the eval's observability stream
+(default dir ``obs_eval`` when only ``train.obs`` is set).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import argparse
 import json
 import os
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.ckpt import JAX_STATE_FILE, load_params
 from cst_captioning_tpu_torch.cli.common import (
     add_common_args,
@@ -41,15 +43,33 @@ def main(argv: list[str] | None = None) -> dict:
         raise SystemExit("give one of --ckpt-dir or --jax-ckpt")
     cfg = load_config(args)
     split = args.split or cfg.eval.split
-    ds = open_dataset(args, cfg, split)
-    model = CaptionModel(cfg.model, device=args.device)
-    if args.jax_ckpt:
-        if not os.path.exists(os.path.join(args.jax_ckpt, JAX_STATE_FILE)):
-            raise SystemExit(f"--jax-ckpt {args.jax_ckpt}: no "
-                             f"{JAX_STATE_FILE} (not a JAX checkpoint)")
-        load_params(*os.path.split(os.path.normpath(args.jax_ckpt)), model)
-    else:
-        load_params(args.ckpt_dir, args.ckpt_name, model)
+    if cfg.train.obs:
+        # a standalone eval run gets its own obs stream (the Evaluator's
+        # spans and gauges), reported with cli.obs_report like a training
+        # run
+        obs.configure(cfg.train.obs_dir or "obs_eval",
+                      run=f"{cfg.name}-eval-{split}")
+    try:
+        return _evaluate(args, cfg, split)
+    finally:
+        obs.shutdown()
+
+
+def _evaluate(args, cfg, split: str) -> dict:
+    # the dataset, the model and the checkpoint read: the run's setup, as
+    # the trainer spells it
+    with obs.span("setup"):
+        ds = open_dataset(args, cfg, split)
+        model = CaptionModel(cfg.model, device=args.device)
+        if args.jax_ckpt:
+            if not os.path.exists(os.path.join(args.jax_ckpt,
+                                               JAX_STATE_FILE)):
+                raise SystemExit(f"--jax-ckpt {args.jax_ckpt}: no "
+                                 f"{JAX_STATE_FILE} (not a JAX checkpoint)")
+            load_params(*os.path.split(os.path.normpath(args.jax_ckpt)),
+                        model)
+        else:
+            load_params(args.ckpt_dir, args.ckpt_name, model)
     result = evaluate_split(model, ds, cfg.eval,
                             batch_size=cfg.data.batch_size,
                             results_json=args.results_json)

@@ -9,12 +9,15 @@
         ... --skip-xe --set rl__init_from="'ckpt/xe'"
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions.
+``--obs DIR`` writes the run's observability stream (report it with
+``cli.obs_report DIR``); ``--profile DIR`` writes torch.profiler traces.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.cli.common import (
     add_common_args,
     load_config,
@@ -38,17 +41,23 @@ def main(argv: list[str] | None = None) -> Trainer:
         if "no videos for split" not in str(e):
             raise
         val_ds = None
-    trainer = Trainer(cfg, train_ds, val_ds, log_path=args.log_jsonl,
-                      device=args.device)
+    # the Trainer configures the obs recorder from cfg.train.obs; the CLI
+    # owns finalization, so a failed or finished run still gets its
+    # trace.json and final metrics snapshot (a no-op with obs off)
     try:
-        if not args.skip_xe:
-            trainer.train_xe()
-        if cfg.rl.enabled:
-            if cfg.rl.init_from:
-                trainer.load_params_from(cfg.rl.init_from, "best")
-            trainer.train_rl()
+        trainer = Trainer(cfg, train_ds, val_ds, log_path=args.log_jsonl,
+                          device=args.device)
+        try:
+            if not args.skip_xe:
+                trainer.train_xe()
+            if cfg.rl.enabled:
+                if cfg.rl.init_from:
+                    trainer.load_params_from(cfg.rl.init_from, "best")
+                trainer.train_rl()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        obs.shutdown()
     return trainer
 
 

@@ -129,32 +129,38 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
                 f"{f.default!r})")
 
 
-_NO_OBS = "the observability subsystem (spans, counters, run report)"
-_NO_HEALTH = "the multi-host health monitor and elastic meshes"
-_NO_COMMS = "data-parallel gradient communication"
+# each refused knob names the machinery it needs and the port slice that
+# brings it (ROADMAP.md "Modules still to port")
+_RESILIENCE = "the resilience slice"
+_DATA_PARALLEL = "the data-parallel slice"
+_RL_TOPOLOGIES = "the decoupled and online RL slice"
+_NO_HEALTH = f"the multi-host health monitor and elastic meshes ({_RESILIENCE})"
+_NO_COMMS = f"data-parallel gradient communication ({_DATA_PARALLEL})"
+_NO_ADAPTIVE = f"the adaptive spike bound ({_RESILIENCE})"
 _TRAIN_UNPORTED = {
-    "profile_dir": "the step profiler", "profile_steps": "the step profiler",
-    "debug_nans": "the NaN sanitizer", "obs": _NO_OBS, "obs_dir": _NO_OBS,
-    "recorder_steps": "the flight recorder", "anomaly": "anomaly detection",
-    "spike_mode": "the adaptive spike bound",
-    "spike_factor_min": "the adaptive spike bound",
+    "debug_nans": f"the NaN sanitizer ({_RESILIENCE})",
+    "spike_mode": _NO_ADAPTIVE, "spike_factor_min": _NO_ADAPTIVE,
     "health": _NO_HEALTH, "health_dir": _NO_HEALTH,
     "health_interval_s": _NO_HEALTH, "peer_timeout_s": _NO_HEALTH,
     "health_misses": _NO_HEALTH, "health_sim_hosts": _NO_HEALTH,
     "elastic": _NO_HEALTH, "elastic_regrow": _NO_HEALTH,
     "dcn_stall_s": _NO_HEALTH, "comm_bucket_mb": _NO_COMMS,
     "comm_dtype": _NO_COMMS, "comm_overlap": _NO_COMMS,
-    "rl_topology": "the decoupled actor/learner RL topology",
+    "rl_topology": f"the decoupled actor/learner RL topology "
+                   f"({_RL_TOPOLOGIES})",
 }
-_NO_DECOUPLED = "the decoupled actor/learner RL topology"
-_NO_ONLINE = "online RL from served traffic"
+_NO_DECOUPLED = f"the decoupled actor/learner RL topology ({_RL_TOPOLOGIES})"
+_NO_ONLINE = f"online RL from served traffic ({_RL_TOPOLOGIES})"
 _RL_UNPORTED = {
     "rollout_depth": _NO_DECOUPLED, "staleness_bound": _NO_DECOUPLED,
     "actor_fraction": _NO_DECOUPLED, "online_batch_size": _NO_ONLINE,
     "swap_every": _NO_ONLINE,
 }
 _MESH_UNPORTED = {
-    "seq_devices": "sequence parallelism", "mp_devices": "model parallelism",
+    "seq_devices": "sequence parallelism (the model- and sequence-parallel "
+                   "slice)",
+    "mp_devices": "model parallelism (the model- and sequence-parallel "
+                  "slice)",
 }
 
 
@@ -178,9 +184,12 @@ class TrainConfig:
     eval_every_epochs: int = 1
     ckpt_dir: str = "checkpoints"
     resume: str = ""                    # "", "auto", or a checkpoint dir
+    # torch.profiler Chrome traces of profile_steps steps after the first,
+    # under <profile_dir>/xe and /rl (utils/profiling.py)
     profile_dir: str = ""
     profile_steps: int = 10
     debug_nans: bool = False
+    # spans, metrics and the run report (obs/); obs_dir "" = <ckpt_dir>/obs
     obs: bool = False
     obs_dir: str = ""
     # mid-epoch step_<n> checkpoint interval in steps (0 = epoch ends and
@@ -206,6 +215,8 @@ class TrainConfig:
     comm_bucket_mb: float = 4.0
     comm_dtype: str = "f32"
     comm_overlap: bool = False
+    # flight-recorder ring capacity in steps (0 = off; needs obs) and the
+    # online anomaly detector over its streams (obs/recorder.py, anomaly.py)
     recorder_steps: int = 0
     anomaly: bool = False
     rl_topology: str = "sync"
@@ -229,6 +240,10 @@ class TrainConfig:
         if self.eval_every_epochs < 1:
             raise ValueError(
                 f"eval_every_epochs {self.eval_every_epochs} must be >= 1")
+        if self.recorder_steps < 0:
+            raise ValueError(
+                f"recorder_steps {self.recorder_steps} must be >= 0 "
+                "(0 = flight recorder off)")
         _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 
@@ -337,7 +352,7 @@ class MeshConfig:
             raise ValueError(
                 f"mesh.num_devices={self.num_devices} is not supported by "
                 "the PyTorch port: data parallelism is not ported yet "
-                "(one device; leave it at 0 or 1)")
+                f"({_DATA_PARALLEL}; one device: leave it at 0 or 1)")
         _refuse_unported(self, "mesh", _MESH_UNPORTED)
 
 

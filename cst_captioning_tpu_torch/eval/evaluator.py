@@ -14,8 +14,16 @@ table equals the serial evaluator's. ``timing`` holds the last pipelined
 run's seconds: ``decode_s`` (decode calls and token readback), ``score_s``
 (tokenizer work in the pool), ``wall_s``, ``fill_s`` and ``drain_s``.
 
-Not ported: meshes, multi-host evaluation, sequence parallelism and the
-obs spans and gauges (ROADMAP.md names their slices).
+Observability (the JAX evaluator's): an ``eval`` span per evaluation;
+pipelined, the ``eval.pipeline.fill`` / ``eval.pipeline.drain`` /
+``eval.score`` spans, the ``eval.decode_seconds`` (a batch's decode and
+token readback) and ``eval.score_seconds`` (a tokenizer shard) histograms,
+the ``eval.batches`` / ``eval.captions`` counters and the overlap gauges
+(``eval.overlap_fraction``, ``eval.overlap_efficiency``, the stage totals
+and ``eval.wall_s``) from the same seconds ``timing`` holds.
+
+Not ported: meshes, multi-host evaluation and sequence parallelism
+(ROADMAP.md names their slices).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Any
 
 import torch
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.config import EvalConfig
 from cst_captioning_tpu_torch.data.batcher import Batcher
 from cst_captioning_tpu_torch.decoding.beam import beam_search
@@ -131,6 +140,8 @@ class Evaluator:
         wall0 = time.perf_counter()
         decode_total = 0.0
         score_total = 0.0
+        dec_hist = obs.histogram("eval.decode_seconds")
+        sc_hist = obs.histogram("eval.score_seconds")
         res_futs: list = []
         workers = self.cfg.score_workers
         with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -142,67 +153,96 @@ class Evaluator:
                         for i in range(0, len(gts_items), shard)]
 
             def dispatch(batch, bi):
-                nonlocal decode_total
+                """-> (tokens, batch, seconds of its decode call)."""
                 t0 = time.perf_counter()
                 tokens = self._dispatch(batch, bi)
-                decode_total += time.perf_counter() - t0
-                return tokens
+                return tokens, batch, time.perf_counter() - t0
 
-            def collect(tokens, batch):
+            def collect(tokens, batch, dt_dispatch):
                 nonlocal decode_total
                 t0 = time.perf_counter()
                 tok = tokens.cpu().numpy()
-                decode_total += time.perf_counter() - t0
+                dt = dt_dispatch + time.perf_counter() - t0
+                decode_total += dt
+                dec_hist.observe(dt)
+                obs.counter("eval.batches").inc()
                 items = [(batch.video_ids[i], tok[i])
                          for i, ok in enumerate(batch.valid) if ok]
+                obs.counter("eval.captions").inc(len(items))
                 res_futs.append(pool.submit(self._tok_res_shard, items))
 
+            # fill: batch 0's collate, upload and decode, before any
+            # decode/score overlap can exist
             batches = enumerate(self.batcher.epoch(shuffle=False))
-            t_f0 = time.perf_counter()
-            bi, batch = next(batches, (None, None))
-            pending = ((dispatch(batch, bi), batch) if batch is not None
-                       else None)
-            fill_s = time.perf_counter() - t_f0
+            with obs.span("eval.pipeline.fill"):
+                t_f0 = time.perf_counter()
+                bi, batch = next(batches, (None, None))
+                pending = (dispatch(batch, bi) if batch is not None
+                           else None)
+                fill_s = time.perf_counter() - t_f0
             for bi, batch in batches:
-                tokens = dispatch(batch, bi)
+                nxt = dispatch(batch, bi)
                 collect(*pending)
-                pending = (tokens, batch)
+                pending = nxt
             if pending is not None:
                 collect(*pending)
 
             # drain: the shards in submission order (batch order for the
             # hypotheses, gts_pool order for the references), then the
             # corpus scorers, which need the whole split
-            t_d0 = time.perf_counter()
-            res_items: list = []
-            for fut in res_futs:
-                out, dt = fut.result()
-                score_total += dt
-                res_items.extend(out)
-            gts_t: dict[str, list] = {}
-            for fut in gts_futs:
-                out, dt = fut.result()
-                score_total += dt
-                for vid, toks in out:
-                    gts_t[vid] = toks
-            captions = {vid: text for vid, text, _ in res_items}
-            res_t = {vid: [toks] for vid, _, toks in res_items}
-            metrics = self._scorer_pre.score(gts_t, res_t)
-            drain_s = time.perf_counter() - t_d0
+            with obs.span("eval.pipeline.drain"):
+                t_d0 = time.perf_counter()
+                res_items: list = []
+                for fut in res_futs:
+                    out, dt = fut.result()
+                    score_total += dt
+                    sc_hist.observe(dt)
+                    res_items.extend(out)
+                gts_t: dict[str, list] = {}
+                for fut in gts_futs:
+                    out, dt = fut.result()
+                    score_total += dt
+                    sc_hist.observe(dt)
+                    for vid, toks in out:
+                        gts_t[vid] = toks
+                gather_wait = time.perf_counter() - t_d0
+                captions = {vid: text for vid, text, _ in res_items}
+                res_t = {vid: [toks] for vid, _, toks in res_items}
+                with obs.span("eval.score"):
+                    metrics = self._scorer_pre.score(gts_t, res_t)
+                drain_s = time.perf_counter() - t_d0
+        wall_s = time.perf_counter() - wall0
         self.timing = {"decode_s": decode_total, "score_s": score_total,
-                       "wall_s": time.perf_counter() - wall0,
-                       "fill_s": fill_s, "drain_s": drain_s}
+                       "wall_s": wall_s, "fill_s": fill_s,
+                       "drain_s": drain_s}
+        # the overlap ledger: scoring seconds that did not stall the drain
+        # hid under the decode; efficiency divides by the shorter stage
+        overlap_s = max(0.0, score_total - gather_wait)
+        hideable = min(decode_total, score_total)
+        obs.gauge("eval.overlap_fraction").set(
+            overlap_s / score_total if score_total > 0 else 0.0)
+        obs.gauge("eval.overlap_efficiency").set(
+            min(1.0, overlap_s / hideable) if hideable > 0 else 0.0)
+        obs.gauge("eval.pipeline.fill_s").set(fill_s)
+        obs.gauge("eval.pipeline.drain_s").set(drain_s)
+        obs.gauge("eval.decode_total_s").set(decode_total)
+        obs.gauge("eval.score_total_s").set(score_total)
+        obs.gauge("eval.wall_s").set(wall_s)
         return captions, metrics
 
     def evaluate(self, results_json: str = "") -> dict[str, Any]:
         """Generate and score; write the results json when given a path."""
-        if self.cfg.pipelined:
-            captions, metrics = self._evaluate_pipelined()
-        else:
-            captions = self.generate()
-            gts = {vid: list(caps) for vid, caps in self.ds.gts_pool().items()}
-            res = {vid: [captions[vid]] for vid in captions}
-            metrics = self._scorer.score(gts, res)
+        with obs.span("eval", split=self.ds.split):
+            if self.cfg.pipelined:
+                captions, metrics = self._evaluate_pipelined()
+                obs.snapshot_metrics(split=self.ds.split)
+            else:
+                captions = self.generate()
+                gts = {vid: list(caps)
+                       for vid, caps in self.ds.gts_pool().items()}
+                res = {vid: [captions[vid]] for vid in captions}
+                with obs.span("eval.score"):
+                    metrics = self._scorer.score(gts, res)
         result = {"split": self.ds.split, "metrics": metrics,
                   "captions": captions}
         if results_json:

@@ -1,7 +1,8 @@
 """Budgeted, jittered exponential backoff for host I/O that can fail
 (the JAX package's ``resilience/retry.py``): checkpoint writes retry on
 ``OSError``. The jitter stream is seeded by the policy, so a retried run
-is reproducible."""
+is reproducible. Retries and give-ups count on ``resilience.retry.attempt``
+and ``resilience.retry.give_up`` (the run report's resilience summary)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import random
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
+
+from cst_captioning_tpu_torch.obs import metrics as obs_metrics
 
 
 @dataclass(frozen=True)
@@ -50,11 +53,12 @@ def retry_call(fn: Callable[..., Any], *args: Any,
         try:
             return fn(*args, **kwargs)
         except policy.retry_on as e:
-            if attempt >= len(delays):
+            if attempt >= len(delays) \
+                    or slept + delays[attempt] > policy.budget:
+                obs_metrics.counter("resilience.retry.give_up").inc()
                 raise
             delay = delays[attempt]
-            if slept + delay > policy.budget:
-                raise
+            obs_metrics.counter("resilience.retry.attempt").inc()
             if on_retry is not None:
                 on_retry({"attempt": attempt + 1, "delay": round(delay, 4),
                           "error": type(e).__name__, "detail": str(e)})

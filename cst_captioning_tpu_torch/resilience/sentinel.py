@@ -15,6 +15,12 @@ top. It buffers each step's ``(loss, nonfinite)`` and checks them at
 A loss spike (finite, above ``spike_factor`` times the recent median) is
 found on the same check; its update is applied already, so ``skip_batch``
 only logs it. The adaptive spike bound is not ported.
+
+Every verdict also goes through ``obs.anomaly.record_anomaly`` (the
+``obs.anomaly.<kind>`` counter and an ``anomaly`` event, the spelling the
+online detector uses), counts on ``resilience.divergence.<kind>`` (and a
+skipped non-finite step on ``resilience.nan_skip``), and dumps a flight
+recorder postmortem (``divergence_<kind>``) before any policy action.
 """
 
 from __future__ import annotations
@@ -23,6 +29,10 @@ import math
 import statistics
 from collections import deque
 from typing import Any, Callable
+
+from cst_captioning_tpu_torch.obs import anomaly as obs_anomaly
+from cst_captioning_tpu_torch.obs import metrics as obs_metrics
+from cst_captioning_tpu_torch.obs import recorder as obs_recorder
 
 POLICIES = ("off", "skip_batch", "rollback", "abort")
 
@@ -97,11 +107,19 @@ class DivergenceSentinel:
         if kind == "spike" and self.policy == "skip_batch":
             action = "logged"
         detail = {} if bound is None else {"bound": bound}
+        obs_metrics.counter(f"resilience.divergence.{kind}").inc()
+        obs_anomaly.record_anomaly(kind, phase=self.phase, step=step,
+                                   value=loss, source="sentinel", **detail)
+        # capture the ring around the diverged step before the policy acts
+        obs_recorder.postmortem(f"divergence_{kind}", phase=self.phase,
+                                step=step, loss=loss, action=action,
+                                **detail)
         self.log("divergence", phase=self.phase, step=step, loss=loss,
                  kind=kind, action=action, **detail)
         if self.policy == "skip_batch":
             if kind == "nonfinite":
                 self.skipped += 1
+                obs_metrics.counter("resilience.nan_skip").inc()
             return
         msg = f"{self.phase} step {step}: {kind} loss {loss!r}"
         if self.policy == "rollback":

@@ -26,8 +26,19 @@ continues the stream without replaying a split chain; the draws differ
 from the JAX trainer's by design, and parity tests feed the JAX draws in
 through ``noise_fn``.
 
-Not carried from the JAX trainer: meshes, reward retries and chaos hooks,
-and the obs spans and counters.
+Observability (``obs/``): the ``rl.decode``, ``rl.reward`` and
+``rl.update`` spans, the analytic ``flops.rl.decode`` / ``flops.rl.update``
+counters, the ``rl.decode.depth`` histogram against the ``rl.decode.budget``
+gauge and the ``rl.decode.compaction.*`` counters, all from host values
+(the JAX package's names and integers). ``stats=True`` adds the update
+ratios to the update's metrics and ``sample_entropy`` to the host metrics
+(the flight recorder's streams). In the pipelined loop the scoring runs on
+a worker thread, so its ``rl.reward`` span lands on that thread (the
+report's overlap section); the main thread's wait for the score is a
+``rl.reward`` span of its own, the part of the reward the pipeline did not
+hide.
+
+Not carried from the JAX trainer: meshes, reward retries and chaos hooks.
 """
 
 from __future__ import annotations
@@ -39,8 +50,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cst_captioning_tpu_torch.config import RLConfig
+from cst_captioning_tpu_torch import obs
+from cst_captioning_tpu_torch.config import PAD_ID, RLConfig
 from cst_captioning_tpu_torch.decoding.common import (
+    _exit_stride,
     decode_depth,
     mask_from_tokens,
 )
@@ -49,6 +62,7 @@ from cst_captioning_tpu_torch.decoding.greedy import greedy_decode
 from cst_captioning_tpu_torch.decoding.sample import sample_decode
 from cst_captioning_tpu_torch.losses import reinforce_loss
 from cst_captioning_tpu_torch.models.captioner import EncoderOutput
+from cst_captioning_tpu_torch.obs import flops as _flops
 from cst_captioning_tpu_torch.rl.rewards import scb_baseline
 from cst_captioning_tpu_torch.train.schedule import global_norm
 from cst_captioning_tpu_torch.train.state import TrainState
@@ -73,6 +87,48 @@ def rollout_seed(seed: int, salt: int, epoch: int, batch_index: int) -> int:
     for v in (seed, salt, epoch, batch_index):
         x = _mix64((x + (int(v) & _M64)) & _M64)
     return x & 0x7FFFFFFF
+
+
+def compaction_stats(greedy_np, samples_np, stride: int, budget: int,
+                     compact: bool = True) -> dict:
+    """Host-side decode ledger from already-decoded tokens (no device reads)
+    -> ``{depth, lanes_stepped, lanes_skipped}``: the depth the early-exit
+    loop ran (next ``stride`` multiple of the longest row, capped at the
+    padded budget), and the (lane, batch-column) steps a compacted decode
+    computed vs skipped: a lane stops computing after its own (EOS
+    inclusive) length, so ``sum(min(len, depth))`` of ``G*B*depth`` are
+    stepped; without ``compact`` every lane rides to the early exit. The
+    JAX package's function, the same integers."""
+    lanes = []
+    if greedy_np is not None and np.asarray(greedy_np).size:
+        lanes.append(np.asarray(greedy_np)[None])
+    if samples_np is not None and np.asarray(samples_np).size:
+        lanes.append(np.asarray(samples_np))
+    if not lanes:
+        return {"depth": 0, "lanes_stepped": 0, "lanes_skipped": 0}
+    toks = np.concatenate(lanes, axis=0)                      # [G, B, T]
+    G, B, _ = toks.shape
+    stride = max(int(stride), 1)
+    padded = -(-int(budget) // stride) * stride
+    lens = (toks != PAD_ID).sum(axis=-1)                      # [G, B]
+    depth = min(padded, stride * -(-max(int(lens.max()), 1) // stride))
+    total = G * B * depth
+    stepped = int(np.minimum(lens, depth).sum()) if compact else total
+    return {"depth": int(depth), "lanes_stepped": stepped,
+            "lanes_skipped": int(total - stepped)}
+
+
+def sample_entropy(samples_np) -> float:
+    """Empirical token-distribution entropy (nats) of the sampled lanes,
+    PAD excluded: the flight recorder's entropy-collapse signal (the JAX
+    package's function)."""
+    toks = np.asarray(samples_np).ravel()
+    toks = toks[toks != PAD_ID]
+    if toks.size == 0:
+        return 0.0
+    counts = np.bincount(toks)
+    p = counts[counts > 0] / toks.size
+    return float(-(p * np.log(p)).sum())
 
 
 def _host_copy(t: torch.Tensor | None):
@@ -204,11 +260,13 @@ def _chunked_loss_grads(model, params, feats, masks, samples, advantage,
     return num, den, g_sum
 
 
-def make_rl_update(model, chunks: int = 1, guard: bool = False) -> Callable:
+def make_rl_update(model, chunks: int = 1, guard: bool = False,
+                   stats: bool = False) -> Callable:
     """-> update(state, feats, masks, samples [K, B, T], advantage [K, B],
     valid [B]) -> (state, metrics). ``chunks > 1`` accumulates the gradient
     over slices of the rollout axis (the same total gradient up to float
-    summation order). The state's model is updated in place."""
+    summation order). The state's model is updated in place. ``stats``
+    adds the update ratios (``train.steps.update_ratios``)."""
     del model  # the state carries it; kept for the JAX factory's signature
 
     def update(state: TrainState, feats, masks, samples, advantage, valid):
@@ -230,7 +288,7 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False) -> Callable:
             grads = torch.autograd.grad(loss, params)
             loss = loss.detach()
         return _apply(state, grads, loss, global_norm(grads), guard,
-                      key="rl_loss")
+                      key="rl_loss", stats=stats)
 
     return update
 
@@ -244,15 +302,44 @@ class SCSTTrainer:
     phase times in seconds (``decode_s`` up to the tokens on the host,
     ``reward_s``, ``update_s`` up to the loss on the host) and
     ``decode_steps``, the steps the early-exit loop ran (a multiple of the
-    decode stride on the greedy baseline's strided loop).
+    decode stride on the greedy baseline's strided loop). ``stats=True``
+    adds the flight recorder's update ratios (module docstring).
     """
 
+    # depth buckets sized to caption-length budgets (the JAX package's)
+    _DEPTH_BUCKETS = (2.0, 4.0, 6.0, 8.0, 10.0, 12.0, 16.0, 20.0, 24.0,
+                      28.0, 32.0, 40.0, 48.0, 64.0)
+
     def __init__(self, model, reward, cfg: RLConfig,
-                 max_len: int | None = None, guard: bool = False):
+                 max_len: int | None = None, guard: bool = False,
+                 stats: bool = False):
         self.model = model
         self.reward = reward
         self.cfg = cfg
         self.max_len = max_len or model.cfg.max_len
+        # the obs ledger, host-side constants as the JAX SCSTTrainer sets
+        # them (its exit-check granularity, not the port's launch stride)
+        mc = model.cfg
+        dims = dict(F=mc.max_frames, d_embed=mc.d_embed,
+                    d_hidden=mc.d_hidden, d_att=mc.d_att, V=mc.vocab_size,
+                    feat_dims=tuple(d for _, d in mc.modalities),
+                    num_layers=mc.num_layers)
+        self._depth_budget = self.max_len
+        decode_stride = max(1, min(int(mc.decode_stride), self._depth_budget))
+        self._compact = bool(mc.decode_compact)
+        self._depth_stride = (
+            decode_stride if decode_stride > 1 or self._compact
+            else _exit_stride(self._depth_budget))
+        self._decode_flops_per_clip = _flops.decode_flops_per_clip(
+            K=cfg.num_rollouts, T=self._depth_budget,
+            with_greedy=(cfg.baseline == "greedy"),
+            stride=self._depth_stride, **dims)
+        self._update_flops_per_clip = _flops.update_flops_per_clip(
+            K=cfg.num_rollouts, T=self._depth_budget, **dims)
+        self._update_probed = False
+        obs.gauge("rl.decode.budget").set(float(self._depth_budget))
+        # decode FLOPs are the analytic per-clip model
+        obs.gauge("flops.backend.rl.decode").set(0.0)
         self.decode = make_rl_decode(
             model, cfg.num_rollouts, cfg.temperature, max_len,
             with_greedy=cfg.baseline == "greedy")
@@ -261,7 +348,7 @@ class SCSTTrainer:
         self._stride = stride if cfg.baseline == "greedy" and stride > 1 \
             else None
         self.update = make_rl_update(model, chunks=cfg.update_chunks,
-                                     guard=guard)
+                                     guard=guard, stats=stats)
 
     # ---- reward / advantage (host) ------------------------------------------
 
@@ -314,25 +401,59 @@ class SCSTTrainer:
         """Host half: read the tokens back and compute the advantage ->
         the argument tuple of :meth:`_apply`. ``host`` is a started
         :func:`_host_copy` of (greedy, samples)."""
-        host = host or (_host_copy(greedy), _host_copy(samples))
-        greedy_np, samples_np = (_host_numpy(c) for c in host)
-        t = time.perf_counter()
-        advantage, host_metrics = self._advantage(
-            greedy_np, samples_np, video_ids, valid_np)
-        host_metrics["reward_s"] = time.perf_counter() - t
-        rows = samples_np if greedy_np is None else \
-            np.concatenate([greedy_np[None], samples_np])
-        host_metrics["decode_steps"] = decode_depth(rows, self.max_len,
-                                                    self._stride)
+        # the token readback and the consensus scoring: the host half
+        with obs.span("rl.reward"):
+            host = host or (_host_copy(greedy), _host_copy(samples))
+            greedy_np, samples_np = (_host_numpy(c) for c in host)
+            t = time.perf_counter()
+            entropy = self._observe_decode(greedy_np, samples_np)
+            advantage, host_metrics = self._advantage(
+                greedy_np, samples_np, video_ids, valid_np)
+            if entropy is not None:
+                host_metrics["sample_entropy"] = entropy
+            host_metrics["reward_s"] = time.perf_counter() - t
+            rows = samples_np if greedy_np is None else \
+                np.concatenate([greedy_np[None], samples_np])
+            host_metrics["decode_steps"] = decode_depth(rows, self.max_len,
+                                                        self._stride)
         return advantage, host_metrics, samples, feats, masks, valid_np
+
+    def _observe_decode(self, greedy_np, samples_np) -> float | None:
+        """Decode accounting from the tokens on the host: the analytic
+        ``flops.rl.decode`` counter, the early-exit depth histogram and the
+        compaction counter pair; -> the sampled lanes' entropy for the
+        flight recorder, or None when obs is off."""
+        obs.counter("flops.rl.decode").inc(
+            samples_np.shape[1] * self._decode_flops_per_clip)
+        if not obs.enabled():
+            return None
+        st = compaction_stats(greedy_np, samples_np, self._depth_stride,
+                              self._depth_budget, compact=self._compact)
+        obs.histogram("rl.decode.depth", self._DEPTH_BUCKETS).observe(
+            st["depth"])
+        obs.counter("rl.decode.compaction.lanes_stepped").inc(
+            st["lanes_stepped"])
+        obs.counter("rl.decode.compaction.lanes_skipped").inc(
+            st["lanes_skipped"])
+        return sample_entropy(samples_np)
 
     def _apply(self, state, advantage, host_metrics, samples, feats, masks,
                valid_np):
         """Device half: upload the advantage, run the REINFORCE update."""
-        dev = samples.device
-        adv = torch.from_numpy(np.asarray(advantage, np.float32)).to(dev)
-        valid = torch.from_numpy(np.asarray(valid_np, np.float32)).to(dev)
-        state, metrics = self.update(state, feats, masks, samples, adv, valid)
+        with obs.span("rl.update"):
+            dev = samples.device
+            adv = torch.from_numpy(np.asarray(advantage, np.float32)).to(dev)
+            valid = torch.from_numpy(np.asarray(valid_np, np.float32)).to(dev)
+            if not self._update_probed and obs.enabled():
+                # the JAX trainer probes a compiled cost here; the port's is
+                # the analytic model, and the backend gauge says so
+                self._update_probed = True
+                obs.counter("obs.flops.probes").inc()
+                obs.gauge("flops.backend.rl.update").set(0.0)
+            obs.counter("flops.rl.update").inc(
+                len(valid_np) * self._update_flops_per_clip)
+            state, metrics = self.update(state, feats, masks, samples, adv,
+                                         valid)
         metrics.update(host_metrics)
         return state, metrics
 
@@ -348,8 +469,9 @@ class SCSTTrainer:
         """One CST step on a batch; ``seed`` keys the rollout noise and
         ``noise_fn(t) -> [K, B, V]`` replaces it."""
         t0 = time.perf_counter()
-        greedy, samples = self.decode(state.model, feats, masks, seed,
-                                      noise_fn)
+        with obs.span("rl.decode"):
+            greedy, samples = self.decode(state.model, feats, masks, seed,
+                                          noise_fn)
         valid_np = self._valid_np(valid, len(video_ids))
         scored = self._score(greedy, samples, feats, masks, video_ids,
                              valid_np)
@@ -438,9 +560,16 @@ class SCSTTrainer:
             return state, out
 
         def decode(j, feats, masks):
-            greedy, samples = self.decode(state.model, feats, masks,
-                                          seeds(j), noise(j))
-            return greedy, samples, (_host_copy(greedy), _host_copy(samples))
+            with obs.span("rl.decode"):
+                greedy, samples = self.decode(state.model, feats, masks,
+                                              seeds(j), noise(j))
+                return greedy, samples, (_host_copy(greedy),
+                                         _host_copy(samples))
+
+        def score_result(fut):
+            # the part of the reward the pipeline did not hide
+            with obs.span("rl.reward"):
+                return fut.result()
 
         scored = None     # future: _apply args of batch i-2
         decoded = None    # _score args of batch i-1
@@ -452,7 +581,8 @@ class SCSTTrainer:
                 if should_stop is not None and should_stop():
                     if seam_sink is not None:
                         if scored is not None:
-                            state, m = self._apply(state, *scored.result())
+                            state, m = self._apply(state,
+                                                   *score_result(scored))
                             scored = None
                             emit(m)
                         greedy, samples, _ = decode(j, feats, masks)
@@ -465,7 +595,7 @@ class SCSTTrainer:
                         decoded = None
                     break
                 if scored is not None:
-                    state, m = self._apply(state, *scored.result())
+                    state, m = self._apply(state, *score_result(scored))
                     scored = None
                     emit(m)
                 if decoded is not None:
@@ -481,7 +611,7 @@ class SCSTTrainer:
                            valid_np, host)
             # drain in order: update(n-2), then score and update(n-1)
             if scored is not None:
-                state, m = self._apply(state, *scored.result())
+                state, m = self._apply(state, *score_result(scored))
                 emit(m)
             if decoded is not None:
                 state, m = self._apply(state, *self._score(*decoded))

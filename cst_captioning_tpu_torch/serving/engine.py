@@ -38,10 +38,19 @@ next stride boundary. The in-flight, staged and queued requests persist to
 layout, so either package replays the other's) and :func:`load_snapshot`
 replays them from step 0, bit for bit by per-request determinism.
 
-Not carried from the JAX engine: the drain postmortem and ``stride_cost``
-(observability), the peer-loss drain and the chaos seams (resilience), the
-obs gauges and counters (:class:`SloMonitor` keeps its values on itself),
-``min_len > 0`` and the XLA scan stride.
+**Observability** (the JAX engine's names): the ``serving.admit``,
+``serving.stage``, ``serving.encode``, ``serving.bind_staged``,
+``serving.stride`` and ``serving.detok`` spans; the request funnel
+(``serving.requests_submitted`` / ``_admitted`` / ``_completed``,
+``serving.strides``), the per-request phase and latency histograms, the
+page and lane gauges, the swap counters and the analytic
+``flops.serving.*`` counters; :class:`SloMonitor`'s attainment and burn
+gauges with its alerts through ``obs.anomaly.record_anomaly``; a drain
+dumps a flight-recorder postmortem (:meth:`CaptionService._drain_postmortem`).
+:meth:`CaptionService.stride_cost` gives one stride's analytic cost.
+
+Not carried from the JAX engine: the peer-loss drain and the chaos seams
+(resilience), ``min_len > 0`` and the XLA scan stride.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
 from cst_captioning_tpu_torch.decoding.common import (
     counter_gumbel_noise,
@@ -67,6 +77,13 @@ from cst_captioning_tpu_torch.decoding.common import (
 from cst_captioning_tpu_torch.decoding.fused import fused_decode
 from cst_captioning_tpu_torch.device import resolve_device
 from cst_captioning_tpu_torch.models.captioner import CaptionModel, EncoderOutput
+from cst_captioning_tpu_torch.obs import anomaly as obs_anomaly
+from cst_captioning_tpu_torch.obs import recorder as obs_recorder
+from cst_captioning_tpu_torch.obs.flops import (
+    compiled_cost,
+    enc_and_per_tok_flops,
+    serving_bank_bytes_per_stride,
+)
 from cst_captioning_tpu_torch.ops.decode_stride import (
     StrideWeights,
     fused_decode_stride,
@@ -165,7 +182,10 @@ class SloMonitor:
     alert trips when the fast window burns at ``fast_burn`` or more AND the
     slow one at ``slow_burn`` or more, edge-triggered: ``alerts`` counts
     excursions, ``breaches`` the requests past the target. ``now`` comes
-    from the service's clock."""
+    from the service's clock. The same values go to the obs registry:
+    ``serving.slo.attainment.<w>s`` / ``serving.slo.burn_rate.<w>s``
+    gauges, ``serving.slo.breaches`` / ``serving.slo.alerts`` counters,
+    and each alert through ``record_anomaly("slo_burn", ...)``."""
 
     def __init__(
         self,
@@ -208,6 +228,8 @@ class SloMonitor:
     def observe(self, latency_s: float, now: float) -> None:
         ok = latency_s <= self.target_s
         self.breaches += not ok
+        if not ok:
+            obs.counter("serving.slo.breaches").inc()
         for w in self.windows:
             dq = self._samples[w]
             dq.append((now, ok))
@@ -216,11 +238,17 @@ class SloMonitor:
             att = sum(o for _, o in dq) / len(dq)
             self.attainment[w] = att
             self.burn[w] = (1.0 - att) / (1.0 - self.objective)
+            obs.gauge(f"serving.slo.attainment.{int(w)}s").set(att)
+            obs.gauge(f"serving.slo.burn_rate.{int(w)}s").set(self.burn[w])
         fast, slow = self.windows
         firing = (self.burn[fast] >= self.fast_burn
                   and self.burn[slow] >= self.slow_burn)
         if firing and not self._alerting:
             self.alerts += 1    # one alert per excursion
+            obs.counter("serving.slo.alerts").inc()
+            obs_anomaly.record_anomaly(
+                "slo_burn", target_s=self.target_s,
+                fast_burn=self.burn[fast], slow_burn=self.burn[slow])
         self._alerting = firing
 
 
@@ -336,6 +364,10 @@ class CaptionService:
         self.requested_admit_group = max(int(admit_group), 1)
         self.admit_group = (self.requested_admit_group
                             if cfg.dtype == "float32" else 1)
+        if self.admit_group < self.requested_admit_group:
+            obs.counter("serving.admit_group_bf16_fallback").inc()
+            obs.event("serving_admit_group_fallback",
+                      requested=self.requested_admit_group, dtype=cfg.dtype)
         self.clock = clock
         self._noise_fn = noise_fn or counter_gumbel_noise
         self._queue: deque[ClipRequest] = deque()
@@ -362,6 +394,12 @@ class CaptionService:
         self._old_versions: dict[int, tuple[CaptionModel, StrideWeights]] = {}
         self._pending_publish: tuple[int, CaptionModel] | None = None
         self._swap_history: list[dict] = []
+        obs.gauge("serving.param_version").set(0.0)
+        # analytic encode and per-token FLOPs for the obs MFU counters
+        self._enc_flops, self._tok_flops = enc_and_per_tok_flops(
+            cfg.max_frames, cfg.d_embed, cfg.d_hidden, cfg.d_att,
+            cfg.vocab_size, tuple(d for _, d in cfg.modalities),
+            cfg.num_layers)
 
     # ---- public API ---------------------------------------------------------
 
@@ -379,6 +417,7 @@ class CaptionService:
             )
         self._tickets[req.req_id] = _Ticket(req=req)
         self._queue.append(req)
+        obs.counter("serving.requests_submitted").inc()
 
     def drain(self, reason: str = "requested") -> None:
         """Stop at the next stride boundary, refuse new admissions and
@@ -424,12 +463,16 @@ class CaptionService:
             lanes.finished = pad(lanes.finished, True)
             lanes.t_local = pad(lanes.t_local, 0)
             lanes.seeds = pad(lanes.seeds, 0)
+        obs.counter("serving.lanes_regrown").inc(grown)
+        obs.event("serving_regrow", capacity=new_b, grown=grown)
 
     def set_slo(self, target_s: float) -> None:
         """(Re)arm the SLO monitor with a latency target; the windows
         restart. ``target_s <= 0`` disarms."""
         self._slo = (SloMonitor(target_s, **self._slo_kw)
                      if target_s > 0 else None)
+        if self._slo is not None:
+            obs.gauge("serving.slo.target_s").set(float(target_s))
 
     def slo_snapshot(self) -> dict | None:
         """The SLO monitor's target, objective and burn rate by window as
@@ -462,13 +505,21 @@ class CaptionService:
             floor = max(floor, self._pending_publish[0])
         version = floor + 1 if version is None else int(version)
         if version <= floor or self.draining:
+            self._swap_refused(version, "stale_version" if version <= floor
+                               else "draining")
             return False
         state = (params.state_dict() if isinstance(params, torch.nn.Module)
                  else params)
         model = copy.deepcopy(self.model)
         model.load_state_dict(state)
         self._pending_publish = (version, model)
+        obs.event("serving_param_publish", version=version)
         return True
+
+    def _swap_refused(self, version: int, reason: str) -> None:
+        obs.counter("serving.param_swaps_refused").inc()
+        obs.event("serving_param_swap_refused", version=version,
+                  active=self.param_version, reason=reason)
 
     def _apply_pending_swap(self) -> bool:
         """Apply a staged publish: the only place the active version
@@ -480,6 +531,7 @@ class CaptionService:
         version, model = self._pending_publish
         self._pending_publish = None
         if self.draining:
+            self._swap_refused(version, "draining")
             return False
         prev = self.param_version
         if self._inflight or self._staged:
@@ -489,6 +541,10 @@ class CaptionService:
         self.param_version = version
         self._swap_history.append({"version": version, "from": prev,
                                    "inflight_pinned": len(self._inflight)})
+        obs.counter("serving.param_swaps").inc()
+        obs.gauge("serving.param_version").set(float(version))
+        obs.event("serving_param_swap", version=version, prev=prev,
+                  inflight_pinned=len(self._inflight))
         return True
 
     def _version(self, version: int) -> tuple[CaptionModel, StrideWeights]:
@@ -505,6 +561,7 @@ class CaptionService:
                  if r in self._tickets}
         for v in [v for v in self._old_versions if v not in live]:
             del self._old_versions[v]
+            obs.counter("serving.param_versions_retired").inc()
 
     # ---- the loop -----------------------------------------------------------
 
@@ -552,6 +609,13 @@ class CaptionService:
             report.drain_reason = self._drain_reason
             if self.draining:
                 report.snapshot_dir = self._write_snapshot(snapshot_dir)
+                obs.event("serving_drain", reason=self._drain_reason,
+                          pending=len(self._queue),
+                          inflight=len(self._inflight),
+                          snapshot=report.snapshot_dir)
+                obs.counter("serving.drains").inc()
+                # before the release: the census below is live evidence
+                self._drain_postmortem(report)
                 self._release()
         finally:
             pre.uninstall()
@@ -560,6 +624,63 @@ class CaptionService:
         report.wall_s = now()
         report.completed = len(report.results)
         return report
+
+    def _drain_postmortem(self, report: ServeReport) -> None:
+        """A drained service leaves a flight-recorder postmortem bundle
+        whose ``registry.json`` carries the SLO snapshot and the swap
+        history: through the process-global recorder when one is
+        configured (serving inside a training run), else an ephemeral one
+        dropping the bundle next to the obs event stream, or into the drain
+        snapshot. Best effort: a failed dump never breaks the drain (it
+        counts on ``serving.drain_postmortem_error``)."""
+        extra = {
+            "serving": {
+                "drain_reason": self._drain_reason,
+                "pending": len(self._queue),
+                "inflight": len(self._inflight),
+                "slo": self.slo_snapshot(),
+                "param_version": self.param_version,
+                "param_swaps": len(self._swap_history),
+                "swap_history": self._swap_history[-8:],
+            }
+        }
+        fields = dict(drain_reason=self._drain_reason,
+                      pending=len(self._queue), inflight=len(self._inflight))
+        reason = f"serving_drain_{self._drain_reason or 'request'}"
+        try:
+            fr = obs_recorder.active()
+            if fr is not None:
+                fr.postmortem(reason, registry_extra=extra, **fields)
+                return
+            span_rec = obs.active()
+            out_dir = (span_rec.out_dir if span_rec is not None
+                       else report.snapshot_dir)
+            if not out_dir:
+                return  # no obs, no snapshot: nowhere durable to dump
+            fr = obs_recorder.FlightRecorder(1, out_dir, run="serving",
+                                             max_dumps=1)
+            try:
+                fr.postmortem(reason, registry_extra=extra, **fields)
+            finally:
+                fr.close()
+        except Exception:  # noqa: BLE001 - counted: drains run on unwinds
+            obs.counter("serving.drain_postmortem_error").inc()
+
+    def stride_cost(self) -> dict | None:
+        """The analytic cost of one stride at full occupancy (every lane, G
+        lanes of S steps; ``obs.flops.compiled_cost``, ``backend:
+        "analytic"``: the JAX engine reads XLA's cost analysis here). Bytes
+        are the bank's (``serving_bank_bytes_per_stride``). None until the
+        service has admitted a request (the pools exist then)."""
+        if self._lanes is None or self.bank.mem is None:
+            return None
+        width = self.table_width * self.bank.page_size
+        nbytes = serving_bank_bytes_per_stride(
+            self.B, width, int(self.bank.mem.shape[-1]),
+            int(self.bank.proj.shape[-1]), self.bank.mem.element_size(),
+            paged=self.paged)
+        return compiled_cost(self.B * self.G * self.S * self._tok_flops,
+                             nbytes)
 
     def _release(self) -> None:
         """Free a drained working set (after the snapshot took it)."""
@@ -584,7 +705,8 @@ class CaptionService:
                          ) -> dict[int, list[ClipRequest]]:
         """Pop queue-front requests that have arrived and fit the free
         pages (and, unless ``lanes`` is None, at most ``lanes`` of them),
-        grouped by padded frame count."""
+        grouped by padded frame count. An admission (``lanes`` given) that
+        stops for pages counts on ``serving.admission_blocked_pages``."""
         groups: dict[int, list[ClipRequest]] = {}
         reserved = 0
         while self._queue and (lanes is None or lanes > 0):
@@ -594,6 +716,8 @@ class CaptionService:
             F = self._padded_frames(req)
             need = self.bank.pages_for(self.n_mod * F)
             if self.bank.free_pages - reserved < need:
+                if lanes is not None:
+                    obs.counter("serving.admission_blocked_pages").inc()
                 break
             self._queue.popleft()
             groups.setdefault(F, []).append(req)
@@ -603,23 +727,32 @@ class CaptionService:
         return groups
 
     def _admit_groups(self, groups, now, stage: bool) -> None:
+        name = "serving.stage" if stage else "serving.admit"
         for F, reqs in groups.items():
             for i in range(0, len(reqs), self.admit_group):
-                self._admit_group(F, reqs[i:i + self.admit_group], now, stage)
+                chunk = reqs[i:i + self.admit_group]
+                with obs.span(name, requests=len(chunk)):
+                    self._admit_group(F, chunk, now, stage)
 
     def _admit_arrived(self, now, realtime: bool) -> None:
         # staged requests bind freed lanes first (they left the queue
         # earlier, so FIFO holds)
         while self._staged and self._free_slots:
-            self._bind_lane(self._tickets[self._staged.popleft()])
-        self._admit_groups(
-            self._take_admissible(now, realtime, len(self._free_slots)),
-            now, stage=False)
+            rid = self._staged.popleft()
+            with obs.span("serving.bind_staged", req=rid):
+                self._bind_lane(self._tickets[rid])
+            obs.counter("serving.staged_bound").inc()
+        groups = self._take_admissible(now, realtime, len(self._free_slots))
+        self._admit_groups(groups, now, stage=False)
         # encode ahead while every lane is busy: a freed lane then binds
         # with no encode on its critical path
+        sgroups = {}
         if self.paged and not self._free_slots:
-            self._admit_groups(self._take_admissible(now, realtime, None),
-                               now, stage=True)
+            sgroups = self._take_admissible(now, realtime, None)
+            self._admit_groups(sgroups, now, stage=True)
+            obs.gauge("serving.staged").set(len(self._staged))
+        if groups or sgroups or self._queue:
+            obs.gauge("serving.queue_depth").set(len(self._queue))
 
     def _padded_frames(self, req: ClipRequest) -> int:
         b = self.frame_bucket
@@ -628,7 +761,10 @@ class CaptionService:
     def _admit_group(self, F: int, reqs: list[ClipRequest], now,
                      stage: bool) -> None:
         t_admit = now()
-        enc = self._encode_batch(reqs, F)
+        t_enc0 = time.perf_counter()
+        with obs.span("serving.encode", requests=len(reqs)):
+            enc = self._encode_batch(reqs, F)
+        enc_s = (time.perf_counter() - t_enc0) / len(reqs)
         for i, req in enumerate(reqs):
             ticket = self._tickets[req.req_id]
             ticket.t_submit = ticket.t_submit or req.arrival_s
@@ -643,8 +779,16 @@ class CaptionService:
             self._ensure_lanes(ticket.enc_carry)
             if stage:
                 self._staged.append(req.req_id)
+                obs.counter("serving.requests_staged").inc()
             else:
                 self._bind_lane(ticket)
+            obs.counter("serving.requests_admitted").inc()
+            obs.counter("flops.serving.encode").inc(self._enc_flops)
+            obs.histogram("serving.queue_wait_seconds").observe(
+                max(ticket.t_admit - ticket.t_submit, 0.0))
+            obs.histogram("serving.encode_seconds").observe(enc_s)
+        obs.gauge("serving.slots_in_use").set(len(self._inflight))
+        obs.gauge("serving.pages_in_use").set(self.bank.pages_in_use)
 
     def _encode_batch(self, reqs: list[ClipRequest], F: int) -> EncoderOutput:
         """One encoder pass over ``reqs``, frames padded to ``F``."""
@@ -710,6 +854,45 @@ class CaptionService:
             by_ver.setdefault(self._inflight[slot].param_version,
                               []).append(slot)
         versions = sorted(by_ver)
+        # the span holds the launches and the one readback a stride makes
+        with obs.span("serving.stride", active=n_active,
+                      versions=len(versions)):
+            toks_np, lps_np, fin_np = self._launch(perm, inv, n_active,
+                                                   by_ver, versions)
+        report.strides += 1
+        obs.counter("serving.strides").inc()
+        obs.counter("flops.serving.stride").inc(
+            n_active * self.G * self.S * self._tok_flops)
+        obs.gauge("serving.pages.in_use").set(self.bank.pages_in_use)
+        obs.gauge("serving.pages.free").set(self.bank.free_pages)
+        obs.gauge("serving.pages.table_rows").set(self.B)
+        if self.paged and self.bank.mem is not None:
+            # the dense-gather path moves the bank 3 times a launch (pool
+            # read, bank write, kernel read), the paged kernel once
+            args = (self.B, self.table_width * self.bank.page_size,
+                    int(self.bank.mem.shape[-1]),
+                    int(self.bank.proj.shape[-1]),
+                    self.bank.mem.element_size())
+            obs.counter("serving.gather_bytes_avoided").inc(
+                len(versions) * (serving_bank_bytes_per_stride(*args)
+                                 - serving_bank_bytes_per_stride(
+                                     *args, paged=True)))
+        col = {slot: i for i, slot in enumerate(active)}
+        for vi, v in enumerate(versions):
+            for slot in by_ver[v]:
+                ticket = self._inflight[slot]
+                c = col[slot]
+                n = min(self.S, self.T - ticket.t)
+                ticket.tok[:, ticket.t:ticket.t + n] = toks_np[vi, :n, :, c].T
+                ticket.lp[:, ticket.t:ticket.t + n] = lps_np[vi, :n, :, c].T
+                ticket.t += n
+                if fin_np[:, c].all() or ticket.t >= self.T:
+                    self._complete(ticket, report, now)
+        self._retire_versions()
+
+    def _launch(self, perm, inv, n_active, by_ver, versions):
+        """One stride: a kernel launch per live version, then the one
+        readback -> (tokens [V, S, G, n], logprobs, finished [G, n])."""
         lanes = self._lanes
         # compaction permutes table rows, never pages
         table = self.bank.row_table[perm]
@@ -764,30 +947,18 @@ class CaptionService:
             lanes.t_local += step
             outs.append((toks[:, :, :n_active], lps[:, :, :n_active]))
         # the per-stride sync: the host acts on the emissions
-        toks_np = torch.stack([t for t, _ in outs]).cpu().numpy()
-        lps_np = torch.stack([lp for _, lp in outs]).cpu().numpy()
-        fin_np = lanes.finished[:, perm[:n_active]].cpu().numpy()
-        report.strides += 1
-        col = {slot: i for i, slot in enumerate(active)}
-        for vi, v in enumerate(versions):
-            for slot in by_ver[v]:
-                ticket = self._inflight[slot]
-                c = col[slot]
-                n = min(self.S, self.T - ticket.t)
-                ticket.tok[:, ticket.t:ticket.t + n] = toks_np[vi, :n, :, c].T
-                ticket.lp[:, ticket.t:ticket.t + n] = lps_np[vi, :n, :, c].T
-                ticket.t += n
-                if fin_np[:, c].all() or ticket.t >= self.T:
-                    self._complete(ticket, report, now)
-        self._retire_versions()
+        return (torch.stack([t for t, _ in outs]).cpu().numpy(),
+                torch.stack([lp for _, lp in outs]).cpu().numpy(),
+                lanes.finished[:, perm[:n_active]].cpu().numpy())
 
     def _complete(self, ticket: _Ticket, report: ServeReport, now) -> None:
-        t_det0 = time.perf_counter()
-        best = int(npad_best_lane_index(ticket.lp))
-        ids = _caption_ids(ticket.tok[best])
-        caption = (self.vocab.decode(ticket.tok[best])
-                   if self.vocab is not None else None)
-        detok_s = time.perf_counter() - t_det0
+        with obs.span("serving.detok", req=ticket.req.req_id):
+            t_det0 = time.perf_counter()
+            best = int(npad_best_lane_index(ticket.lp))
+            ids = _caption_ids(ticket.tok[best])
+            caption = (self.vocab.decode(ticket.tok[best])
+                       if self.vocab is not None else None)
+            detok_s = time.perf_counter() - t_det0
         t_done = now()
         self._inflight.pop(ticket.slot)
         self._free_slots.append(ticket.slot)
@@ -812,11 +983,22 @@ class CaptionService:
             param_version=ticket.param_version,
         )
         report.results[ticket.req.req_id] = result
+        obs.counter("serving.requests_completed").inc()
+        obs.gauge("serving.slots_in_use").set(len(self._inflight))
+        obs.gauge("serving.pages_in_use").set(self.bank.pages_in_use)
+        obs.histogram("serving.decode_seconds").observe(
+            result.phases["decode"])
+        obs.histogram("serving.detok_seconds").observe(detok_s)
+        obs.histogram("serving.latency_seconds").observe(latency)
         if self._slo is not None:
             # the service clock, as slo_snapshot reads it (the JAX engine
             # records serve-relative times here, so its snapshot's windows
             # are empty once the clock has run past them)
             self._slo.observe(latency, self.clock())
+        obs.event("serving_request", req=ticket.req.req_id, latency_s=latency,
+                  best_lane=best, steps=ticket.t,
+                  param_version=ticket.param_version,
+                  **{f"{k}_s": v for k, v in result.phases.items()})
         if self._feedback is not None:
             self._feedback(ticket.req, result, ticket.param_version)
 
@@ -891,6 +1073,9 @@ def load_snapshot(snapshot_dir: str, service: CaptionService | None = None,
             service.grow_capacity(grow_to)
         for req in out:
             service.submit(req)
+        obs.counter("serving.requests_replayed").inc(len(out))
+        obs.event("serving_replay", requests=len(out), capacity=service.B,
+                  drain_reason=manifest.get("drain_reason", ""))
     return out
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from cst_captioning_tpu_torch.config import TrainConfig
@@ -83,8 +84,10 @@ class Optimizer:
             mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state["mu"])]
             nu = [(1 - b2) * (g * g) + b2 * v
                   for g, v in zip(grads, state["nu"])]
-            c1 = 1 - b1 ** (count + 1)
-            c2 = 1 - b2 ** (count + 1)
+            # optax's bias corrections, 1 - decay**count, are float32
+            # (computed in float64 they differ by 1e-5 relative at step 1)
+            c1 = float(1 - np.float32(b1) ** np.float32(count + 1))
+            c2 = float(1 - np.float32(b2) ** np.float32(count + 1))
             upd = [(m / c1) / (torch.sqrt(v / c2) + eps)
                    for m, v in zip(mu, nu)]
             if self.name == "adamw":

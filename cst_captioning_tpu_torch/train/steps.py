@@ -2,8 +2,10 @@
 ``make_xe_step``): forward with dropout, masked (weighted) XE, backward,
 global-norm clip and the optimizer update, optionally behind the
 finite-update guard; and the step's row weights for ``TrainConfig.loss``,
-as the JAX trainer's XE epoch picks them. The flight recorder's ``stats``
-outputs come with the observability slice; data parallelism with its slice.
+as the JAX trainer's XE epoch picks them. ``stats=True`` (the flight
+recorder on) adds the per-family update ratios as extra 0-dim tensor
+outputs; the parameter math is the same, bit for bit. Data parallelism
+comes with its slice.
 """
 
 from __future__ import annotations
@@ -18,16 +20,60 @@ from cst_captioning_tpu_torch.train.state import (
 )
 
 
+def param_families(model: torch.nn.Module) -> list[str]:
+    """The JAX parameter tree's top-level family of each parameter, in
+    ``model.parameters()`` order: ``encoder``, ``cell``, ``init_c<l>``,
+    ``init_h<l>`` (``convert.py``'s layout)."""
+    out = []
+    for name, _ in model.named_parameters():
+        head, rest = name.split(".", 1)
+        out.append(head + rest.split(".", 1)[0]
+                   if head in ("init_c", "init_h") else head)
+    return out
+
+
+def update_ratios(old, new, families: list[str]) -> dict[str, torch.Tensor]:
+    """Per-family relative update magnitude, on the device: for each family
+    ``upd_ratio/<fam> = ||new - old|| / max(||old||, 1e-12)`` over its
+    parameters, plus ``upd_ratio/global`` over all (the JAX package's
+    ``train/steps._update_ratios``; a healthy Adam step sits near 1e-3).
+    0-dim float32 tensors: nothing is read back here."""
+    groups: dict[str, list[int]] = {}
+    for i, fam in enumerate(families):
+        groups.setdefault(fam, []).append(i)
+    d2 = [(n.detach().float() - o.float()).pow(2).sum()
+          for o, n in zip(old, new)]
+    o2 = [o.float().pow(2).sum() for o in old]
+
+    def ratio(idx):
+        num = torch.stack([d2[i] for i in idx]).sum().sqrt()
+        den = torch.stack([o2[i] for i in idx]).sum().sqrt()
+        return num / torch.clamp(den, min=1e-12)
+
+    out = {f"upd_ratio/{fam}": ratio(idx) for fam, idx in groups.items()}
+    out["upd_ratio/global"] = ratio(range(len(families)))
+    return out
+
+
 def _apply(state: TrainState, grads, loss, gnorm, guard: bool,
-           key: str = "loss"):
-    """Optionally guarded update -> (state, metrics of Python floats);
-    ``key`` names the loss ("loss" for XE, "rl_loss" for REINFORCE)."""
+           key: str = "loss", stats: bool = False):
+    """Optionally guarded update -> (state, metrics); ``key`` names the
+    loss ("loss" for XE, "rl_loss" for REINFORCE). The loss and grad norm
+    come back as Python floats; ``stats=True`` adds the update ratios
+    (:func:`update_ratios`), from a detached copy of the parameters taken
+    before the update."""
+    old = [p.detach().clone() for p in state.params] if stats else None
     if guard:
         state, nonfinite = guarded_apply_gradients(state, grads, loss, gnorm)
-        return state, {key: float(loss), "grad_norm": float(gnorm),
-                       "nonfinite": nonfinite}
-    state.apply_gradients(grads)
-    return state, {key: float(loss), "grad_norm": float(gnorm)}
+        metrics = {key: float(loss), "grad_norm": float(gnorm),
+                   "nonfinite": nonfinite}
+    else:
+        state.apply_gradients(grads)
+        metrics = {key: float(loss), "grad_norm": float(gnorm)}
+    if stats:
+        metrics.update(update_ratios(old, state.params,
+                                     param_families(state.model)))
+    return state, metrics
 
 
 def xe_loss_and_grads(state: TrainState, feats, masks, labels, mask,
@@ -60,15 +106,17 @@ def xe_row_weights(loss: str, weights: torch.Tensor,
 
 
 def make_xe_step(model=None, label_smoothing: float = 0.0,
-                 guard: bool = False):
+                 guard: bool = False, stats: bool = False):
     """-> step(state, feats, masks, labels, mask, weights) -> (state,
     metrics). The state (over ``model``) is updated in place; ``guard``
-    adds the ``nonfinite`` metric and skips a non-finite update."""
+    adds the ``nonfinite`` metric and skips a non-finite update;
+    ``stats`` adds the update ratios."""
     del model  # the state carries it; kept for the JAX factory's signature
 
     def step(state: TrainState, feats, masks, labels, mask, weights):
         loss, grads = xe_loss_and_grads(state, feats, masks, labels, mask,
                                         weights, label_smoothing)
-        return _apply(state, grads, loss, global_norm(grads), guard)
+        return _apply(state, grads, loss, global_norm(grads), guard,
+                      stats=stats)
 
     return step

@@ -16,10 +16,20 @@ Initial parameters are seeded numpy draws in the JAX layout
 device; ``params=`` starts from a given flax tree instead. Epoch events
 carry clips/s and the median step ms from a host timer.
 
+Observability (``train.obs``, the JAX trainer's wiring): the obs recorder
+at ``train.obs_dir`` or ``<ckpt_dir>/obs`` with the ``device.peak_flops``
+gauge (the datasheet peak of the card, ``obs/flops.py``); the ``setup``,
+``xe.epoch``, ``xe.step``, ``rl.epoch`` and ``ckpt`` spans, the run
+context and cadenced snapshots; ``StepMeter`` and ``StepProfiler``
+(``train.profile_dir``) in both loops; the analytic ``flops.xe.step``
+counter; and with ``train.recorder_steps > 0`` the flight recorder (the
+steps' update ratios, one readback each ``log_every_steps`` and at epoch
+ends) with ``train.anomaly``'s detector, dumping postmortems on sentinel
+trips and SIGTERM saves. With obs off the loops run no extra device work.
+
 Not ported (ROADMAP.md names their slices): meshes and data parallelism,
-peer loss and degraded or regrown meshes, the obs spans and counters, the
-flight recorder, FLOPs counters, the profiler and chaos visits; their
-config fields raise (``config.py``).
+peer loss and degraded or regrown meshes, and chaos visits; their config
+fields raise (``config.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ import threading
 import time
 
 import numpy as np
+import torch
 
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.ckpt import CheckpointManager, load_params
 from cst_captioning_tpu_torch.config import EvalConfig, ExperimentConfig
 from cst_captioning_tpu_torch.convert import (
@@ -45,6 +57,9 @@ from cst_captioning_tpu_torch.device import resolve_device
 from cst_captioning_tpu_torch.eval.evaluator import Evaluator
 from cst_captioning_tpu_torch.metrics.cider import CorpusDF
 from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.obs import anomaly as _anomaly
+from cst_captioning_tpu_torch.obs import flops as _flops
+from cst_captioning_tpu_torch.obs import recorder as flight
 from cst_captioning_tpu_torch.resilience.preempt import (
     Preempted,
     PreemptionHandler,
@@ -60,6 +75,7 @@ from cst_captioning_tpu_torch.train.schedule import make_optimizer
 from cst_captioning_tpu_torch.train.state import create_train_state
 from cst_captioning_tpu_torch.train.steps import make_xe_step, xe_row_weights
 from cst_captioning_tpu_torch.utils.logging import EventLogger
+from cst_captioning_tpu_torch.utils.profiling import StepProfiler
 
 # run plumbing that may differ between a run and its resume; left out of
 # the config-drift check
@@ -108,6 +124,35 @@ class Trainer:
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.device = resolve_device(device)
+        # analytic FLOPs per teacher-forced XE row (obs/flops.py): the
+        # flops.xe.step counter behind the run report's MFU column
+        mc = cfg.model
+        self._xe_flops_per_row = _flops.xe_flops_per_row(
+            T=mc.max_len, F=mc.max_frames, d_embed=mc.d_embed,
+            d_hidden=mc.d_hidden, d_att=mc.d_att, V=mc.vocab_size,
+            feat_dims=tuple(d for _, d in mc.modalities),
+            num_layers=mc.num_layers)
+        self._xe_probed = False
+        obs_dir = cfg.train.obs_dir or os.path.join(cfg.train.ckpt_dir, "obs")
+        if cfg.train.obs:
+            obs.configure(obs_dir, run=cfg.name,
+                          snapshot_every=cfg.train.log_every_steps)
+            # the report's MFU column divides the flops.<phase> counters by
+            # this datasheet peak (0 off the table: no MFU)
+            obs.gauge("device.peak_flops").set(_flops.peak_flops(
+                torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else self.device.type))
+        # the flight recorder: the steps add their update ratios (extra
+        # outputs; the parameters are the same bit for bit)
+        self._stats = bool(cfg.train.obs and cfg.train.recorder_steps > 0)
+        self._detector = (_anomaly.AnomalyDetector()
+                          if self._stats and cfg.train.anomaly else None)
+        if self._stats:
+            flight.configure(cfg.train.recorder_steps, obs_dir, run=cfg.name,
+                             detector=self._detector, config=cfg.to_dict())
+        # everything below (the model, state, resume) is run setup: its
+        # span keeps the report's coverage honest
+        setup_span = obs.span("setup").begin()
         self.model = CaptionModel(cfg.model, device=self.device)
         load_flax_params(self.model, params if params is not None
                          else random_flax_params(cfg.model, cfg.train.seed))
@@ -122,7 +167,7 @@ class Trainer:
         # the finite-update guard rides with any active sentinel policy
         self.guard = cfg.train.on_divergence != "off"
         self.xe_step = make_xe_step(self.model, cfg.train.label_smoothing,
-                                    guard=self.guard)
+                                    guard=self.guard, stats=self._stats)
         self.ckpt = CheckpointManager(
             cfg.train.ckpt_dir, metric="CIDEr-D", keep=cfg.train.keep_ckpts,
             log=self.log.log)
@@ -139,6 +184,7 @@ class Trainer:
         if cfg.train.resume:
             self._resume()
         self._build_validator()
+        setup_span.end()
 
     def _build_validator(self) -> None:
         cfg = self.cfg
@@ -150,7 +196,22 @@ class Trainer:
             if self.val_ds is not None else None)
 
     def close(self) -> None:
+        """Close the event log and the flight recorder (a final flush, no
+        postmortem; a run that dies before this still dumps through the
+        recorder's atexit hook). The obs recorder is the CLI's to shut."""
+        if self._stats:
+            flight.shutdown()
         self.log.close()
+
+    def _xe_flops_inc(self, rows: int) -> float:
+        """FLOPs to count for one XE step: the analytic per-row model (the
+        JAX trainer prefers a compiled program's cost here; a PyTorch step
+        has none, and the backend gauge says "analytic")."""
+        if not self._xe_probed and obs.enabled():
+            self._xe_probed = True
+            obs.counter("obs.flops.probes").inc()
+            obs.gauge("flops.backend.xe.step").set(0.0)
+        return rows * self._xe_flops_per_row
 
     # ---- resume / handoff ----------------------------------------------------
 
@@ -311,9 +372,10 @@ class Trainer:
         if seam:
             extra = {"seam.npz": self._seam_bytes(seam, self.epoch,
                                                   batch_index)}
-        self.ckpt.save_step(self.state, step_no,
-                            self._ckpt_infos(phase, batch_index, step_no),
-                            extra_files=extra)
+        with obs.span("ckpt", kind="step"):
+            self.ckpt.save_step(self.state, step_no,
+                                self._ckpt_infos(phase, batch_index, step_no),
+                                extra_files=extra)
         self.log.log("ckpt_step", phase=phase, step=step_no,
                      batch_index=batch_index, seam=bool(seam),
                      **self.ckpt.last_save)
@@ -324,6 +386,9 @@ class Trainer:
         """SIGTERM: check pending steps (never save an update the sentinel
         would reject), save mid-epoch, flush the log, raise Preempted."""
         sentinel.flush()
+        # the postmortem captures the ring as of the drained step (it
+        # flushes the recorder itself)
+        flight.postmortem("preempt", phase=phase, step=step_no)
         self._save_step_ckpt(phase, step_no, batch_index, seam=seam)
         self.log.log("preempt", phase=phase, step=step_no,
                      batch_index=batch_index)
@@ -338,6 +403,8 @@ class Trainer:
         """Restore the newest verifiable checkpoint and salt the data
         order, within ``train.max_rollbacks``."""
         self._rollbacks += 1
+        # no postmortem here: the sentinel dumped the ring at the divergence
+        obs.counter("resilience.rollback").inc()
         if self._rollbacks > self.cfg.train.max_rollbacks:
             raise TrainingDiverged(
                 f"rollback budget exhausted ({self.cfg.train.max_rollbacks})"
@@ -380,17 +447,27 @@ class Trainer:
         if epochs == 0:
             return None
         target = self.xe_epochs + epochs
+        meter = obs.StepMeter("xe")
+        profiler = self._profiler("xe")
         sentinel = self._make_sentinel("xe")
         last_val = None
+        run = {"first_step": True}   # the meter's first-step exclusion
         with PreemptionHandler() as pre:
             while self.xe_epochs < target:
                 try:
-                    last_val = self._xe_epoch(sentinel, pre)
+                    last_val = self._xe_epoch(meter, profiler, sentinel, pre,
+                                              run)
                 except RollbackRequested as e:
                     self._apply_rollback("xe", e, sentinel)
         return last_val
 
-    def _xe_epoch(self, sentinel, pre) -> float | None:
+    def _profiler(self, phase: str) -> StepProfiler:
+        cfg = self.cfg.train
+        return StepProfiler(
+            os.path.join(cfg.profile_dir, phase) if cfg.profile_dir else "",
+            cfg.profile_steps, log=self.log.log)
+
+    def _xe_epoch(self, meter, profiler, sentinel, pre, run) -> float | None:
         """One XE epoch (or the rest of one): steps, sentinel, mid-epoch
         saves, then validation and the epoch checkpoint."""
         cfg = self.cfg
@@ -402,38 +479,66 @@ class Trainer:
         batch_no = skip
         step_no = int(self.state.step)
         losses, times = [], []
+        if obs.enabled():
+            obs.set_context(phase="xe", epoch=self.epoch + 1)
+        meter.begin_epoch()
         stop = threading.Event()
-        try:
-            t_prev = time.perf_counter()
-            for arrays in self._device_batches(self.batcher, skip=skip,
-                                               stop_event=stop):
-                feats, masks, labels, mask, weights, valid = arrays
-                w = xe_row_weights(cfg.train.loss, weights, valid)
-                self.state, m = self.xe_step(self.state, feats, masks,
-                                             labels, mask, w)
-                losses.append(m["loss"])
-                sentinel.push(step_no + 1, m["loss"], m.get("nonfinite"))
-                step_no += 1
-                batch_no += 1
-                now = time.perf_counter()
-                times.append(now - t_prev)
-                t_prev = now
-                if log_every and step_no % log_every == 0:
-                    self.log.log("xe_step", phase="xe", step=step_no,
-                                 epoch=self.epoch + 1, loss=m["loss"],
-                                 grad_norm=m["grad_norm"])
-                if pre.requested:
-                    self._preempt_save("xe", step_no, batch_no, sentinel)
-                if ckpt_every and step_no % ckpt_every == 0:
-                    sentinel.flush()   # never save a rejected update
-                    self._save_step_ckpt("xe", step_no, batch_no)
-        finally:
-            stop.set()
-        # a SIGTERM between the last step and here must not let the
-        # counters pass the saved state
-        if pre.requested:
-            self._preempt_save("xe", step_no, batch_no, sentinel)
-        sentinel.flush()
+        # xe.step spans cover the loop body; the xe.epoch span's self time
+        # is the wait on the input pipeline
+        with obs.span("xe.epoch"):
+            try:
+                t_prev = time.perf_counter()
+                for arrays in self._device_batches(self.batcher, skip=skip,
+                                                   stop_event=stop):
+                    with obs.span("xe.step"):
+                        feats, masks, labels, mask, weights, valid = arrays
+                        w = xe_row_weights(cfg.train.loss, weights, valid)
+                        self.state, m = self.xe_step(
+                            self.state, feats, masks, labels, mask, w)
+                        losses.append(m["loss"])
+                        # record before push: a sentinel trip's postmortem
+                        # flushes, so the ring holds the diverged step
+                        flight.record(step_no + 1, "xe", m)
+                        sentinel.push(step_no + 1, m["loss"],
+                                      m.get("nonfinite"))
+                        step_no += 1
+                        batch_no += 1
+                        now = time.perf_counter()
+                        times.append(now - t_prev)
+                        t_prev = now
+                        if obs.enabled():
+                            obs.set_context(step=step_no)
+                        if log_every and step_no % log_every == 0:
+                            self.log.log("xe_step", phase="xe", step=step_no,
+                                         epoch=self.epoch + 1,
+                                         loss=m["loss"],
+                                         grad_norm=m["grad_norm"])
+                            # the same cadence: one readback drains the
+                            # recorder
+                            flight.flush()
+                        obs.maybe_snapshot(step_no)
+                        profiler.tick()
+                        meter.tick(cfg.data.batch_size,
+                                   first=run["first_step"])
+                        run["first_step"] = False
+                        obs.counter("flops.xe.step").inc(
+                            self._xe_flops_inc(cfg.data.batch_size))
+                        if pre.requested:
+                            self._preempt_save("xe", step_no, batch_no,
+                                               sentinel)
+                        if ckpt_every and step_no % ckpt_every == 0:
+                            flight.flush()
+                            sentinel.flush()   # never save a rejected update
+                            self._save_step_ckpt("xe", step_no, batch_no)
+            finally:
+                stop.set()
+            profiler.stop()
+            # a SIGTERM between the last step and here must not let the
+            # counters pass the saved state
+            if pre.requested:
+                self._preempt_save("xe", step_no, batch_no, sentinel)
+            flight.flush()
+            sentinel.flush()
         self.epoch += 1
         self.xe_epochs += 1
         vals = np.asarray(losses, np.float64)
@@ -443,6 +548,7 @@ class Trainer:
                      loss=float(vals.mean()) if vals.size else float("nan"),
                      steps=len(times), clips_per_s=clips_s,
                      step_ms_median=step_ms)
+        obs.snapshot_metrics(epoch=self.epoch)
         return self._validate_and_checkpoint(step_no)
 
     # ---- RL ----------------------------------------------------------------------
@@ -463,6 +569,7 @@ class Trainer:
             epochs = max(0, cfg.rl.epochs - self.rl_epochs)
         if epochs == 0:
             return None
+        rl_setup = obs.span("setup", phase="rl").begin()
         tx = make_optimizer(cfg.train, self.steps_per_epoch,
                             lr_override=cfg.rl.lr)
         fresh = tx.init([p.detach() for p in self.state.params])
@@ -493,7 +600,8 @@ class Trainer:
             bleu_scale=cfg.rl.reward_bleu4_scale,
             num_threads=cfg.rl.reward_threads)
         scst = SCSTTrainer(self.model, self.reward, cfg.rl,
-                           max_len=cfg.model.max_len, guard=self.guard)
+                           max_len=cfg.model.max_len, guard=self.guard,
+                           stats=self._stats)
         rl_batcher = Batcher(
             self.train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="video",
@@ -501,21 +609,27 @@ class Trainer:
         rl_batcher.salt = self.batcher.salt
         self._rl_batcher = rl_batcher
         target = self.rl_epochs + epochs
+        meter = obs.StepMeter("rl")
+        profiler = self._profiler("rl")
         sentinel = self._make_sentinel("rl")
         last_val = None
+        run = {"first_step": True}
+        rl_setup.end()
         try:
             with PreemptionHandler() as pre:
                 while self.rl_epochs < target:
                     try:
-                        last_val = self._rl_epoch(scst, rl_batcher,
-                                                  sentinel, pre)
+                        last_val = self._rl_epoch(scst, rl_batcher, meter,
+                                                  profiler, sentinel, pre,
+                                                  run)
                     except RollbackRequested as e:
                         self._apply_rollback("rl", e, sentinel)
         finally:
             self._rl_batcher = None
         return last_val
 
-    def _rl_epoch(self, scst, rl_batcher, sentinel, pre) -> float | None:
+    def _rl_epoch(self, scst, rl_batcher, meter, profiler, sentinel, pre,
+                  run) -> float | None:
         """One RL epoch (or the rest of one)."""
         cfg = self.cfg
         log_every = cfg.train.log_every_steps
@@ -542,6 +656,9 @@ class Trainer:
         counter = {"step": int(self.state.step), "n": skip}
         rewards, valid_rows, times = [], [], []
         t_prev = [time.perf_counter()]
+        if obs.enabled():
+            obs.set_context(phase="rl", epoch=self.epoch + 1)
+        meter.begin_epoch()
 
         def on_step(m):
             rewards.append(m["reward_mean"])
@@ -551,29 +668,43 @@ class Trainer:
             now = time.perf_counter()
             times.append(now - t_prev[0])
             t_prev[0] = now
+            # record before push (see _xe_epoch)
+            flight.record(counter["step"], "rl", m)
             sentinel.push(counter["step"], m["rl_loss"], m.get("nonfinite"))
+            if obs.enabled():
+                obs.set_context(step=counter["step"])
             if log_every and counter["step"] % log_every == 0:
                 self.log.log("rl_step", phase="rl", step=counter["step"],
                              epoch=self.epoch + 1, reward=m["reward_mean"],
                              rl_loss=m["rl_loss"], grad_norm=m["grad_norm"],
                              decode_steps=m["decode_steps"])
+                flight.flush()
+            obs.maybe_snapshot(counter["step"])
+            profiler.tick()
+            meter.tick(cfg.data.batch_size, first=run["first_step"])
+            run["first_step"] = False
 
         stop = threading.Event()
         seam_sink: dict = {}
-        try:
-            self.state, _ = scst.train_epoch(
-                self.state,
-                self._rl_device_batches(rl_batcher, skip=skip,
-                                        stop_event=stop),
-                seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
-                should_stop=lambda: pre.requested, seam=seam,
-                seam_sink=seam_sink if cfg.rl.pipelined else None)
-        finally:
-            stop.set()
-        if pre.requested:
-            self._preempt_save("rl", counter["step"], counter["n"],
-                               sentinel, seam=seam_sink or None)
-        sentinel.flush()
+        # the rl.epoch span's self time is what the decode, reward and
+        # update spans inside train_epoch do not claim: input waits, drains
+        with obs.span("rl.epoch"):
+            try:
+                self.state, _ = scst.train_epoch(
+                    self.state,
+                    self._rl_device_batches(rl_batcher, skip=skip,
+                                            stop_event=stop),
+                    seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
+                    should_stop=lambda: pre.requested, seam=seam,
+                    seam_sink=seam_sink if cfg.rl.pipelined else None)
+            finally:
+                stop.set()
+            profiler.stop()
+            if pre.requested:
+                self._preempt_save("rl", counter["step"], counter["n"],
+                                   sentinel, seam=seam_sink or None)
+            flight.flush()
+            sentinel.flush()
         self.epoch += 1
         self.rl_epochs += 1
         n_valid = float(np.sum(valid_rows)) if valid_rows else 0.0
@@ -583,6 +714,7 @@ class Trainer:
             reward=(float(np.dot(rewards, valid_rows)) / n_valid
                     if n_valid else 0.0),
             steps=len(times), clips_per_s=clips_s, step_ms_median=step_ms)
+        obs.snapshot_metrics(epoch=self.epoch)
         return self._validate_and_checkpoint(counter["step"])
 
     # ---- validation ----------------------------------------------------------------
@@ -597,8 +729,9 @@ class Trainer:
             value = result["metrics"].get("CIDEr-D")
             self.log.log("validate", epoch=self.epoch, cider_d=value,
                          ms=(time.perf_counter() - t0) * 1e3)
-        is_best = self.ckpt.save(self.state, value,
-                                 infos=self._ckpt_infos(step_no=step_no))
+        with obs.span("ckpt", kind="epoch"):
+            is_best = self.ckpt.save(self.state, value,
+                                     infos=self._ckpt_infos(step_no=step_no))
         self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
                      **self.ckpt.last_save)
         if is_best:

@@ -160,9 +160,8 @@ def _h5(paths, tmp_path):
     return out
 
 
-@pytest.mark.parametrize("flag", [["--profile", "prof"], ["--obs", "obs"],
-                                  ["--debug-nans"]],
-                         ids=["profile", "obs", "debug_nans"])
+# --obs and --profile are ported (tests/test_torch_obs.py)
+@pytest.mark.parametrize("flag", [["--debug-nans"]], ids=["debug_nans"])
 def test_unported_cli_flags_raise(recipe_data, tmp_path, flag):
     with pytest.raises(ValueError, match="not ported"):
         train_main(["--preset", "msrvtt_xe_attention",

@@ -20,7 +20,8 @@ clips), the composite attention and decode on both sides:
   replay (bitwise);
 - the XE -> RL handoff (a fresh optimizer, step 0, a constant ``rl.lr``);
 - ``rl.reward_threads`` reaching ``RewardComputer``;
-- every config value whose machinery is not ported raising;
+- every config value whose machinery is not ported raising (the
+  observability knobs are ported: ``test_torch_obs.py``);
 - the divergence sentinel's policies, and a rollback that restores the
   last checkpoint and salts the data order."""
 
@@ -507,12 +508,12 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
     assert seen["reward"].num_threads == (threads or os.cpu_count())
 
 
+# the observability knobs are ported (tests/test_torch_obs.py)
 UNPORTED = [
     ("mesh", "num_devices", 2), ("mesh", "seq_devices", 2),
     ("mesh", "mp_devices", 2), ("train", "health", True),
-    ("train", "elastic", "degraded"), ("train", "obs", True),
-    ("train", "recorder_steps", 8), ("train", "anomaly", True),
-    ("train", "spike_mode", "adaptive"), ("train", "profile_dir", "prof"),
+    ("train", "elastic", "degraded"),
+    ("train", "spike_mode", "adaptive"),
     ("train", "debug_nans", True), ("train", "rl_topology", "decoupled"),
     ("train", "comm_dtype", "bf16"), ("rl", "rollout_depth", 3),
     ("rl", "online_batch_size", 8),
