@@ -102,6 +102,46 @@
    plain version round at different places (the plain version rounds the
    scores and weights to bfloat16), which a fitted model's sharp logits
    carry into the logprobs.
+6b. rl_decoupled: the decoupled actor/learner trainer
+   (``rl.AsyncSCSTTrainer``) at msrvtt_cst_consensus width with
+   attention_impl and decode_impl "pallas" (K=5, self-consensus baseline,
+   CIDEr-D + 0.5 BLEU4), from the scst phase's fitted weights, over 6
+   video-mode batches of 64 (60 train-corpus clips, 4 wrap-padded rows a
+   batch). Gates: strict mode bitwise equal to the sync
+   ``SCSTTrainer.train_epoch`` (params, every step's rl_loss and
+   reward_mean), pipelined (sync, strict, strict, sync in turns, also
+   each against its twin) and sequential, and depth 1 with bound 0
+   strict without the flag; depth 3 with bound 1 (the counted run):
+   the staleness ledger and drop count the JAX trainer gives for this
+   schedule, one decode-step launch per decode step, recounts included
+   (the sampler's steps counted at its loop), 30 attention launches per
+   update, and a second run bitwise equal; a drain after 3 batches
+   persists the ring through ``Trainer._seam_bytes`` / ``_load_seam``,
+   the resume replays its tokens and equals the uninterrupted strict run
+   bitwise. Reported: clips/s of strict-decoupled and sync epochs in
+   turns, the depth-3 epoch's, the host-observed actor and learner
+   occupancy, the wall.
+6c. rl_online: online SCST from served traffic
+   (``rl.OnlineSCSTTrainer``). The serve model (msrvtt_xe_attention
+   width, decode_impl "pallas", S=8, paged, capacity 32, K=1) and a
+   learner copy with attention_impl "pallas", both from the fitted
+   weights; msrvtt_scst's RL config (greedy baseline, CIDEr-D, lr 2e-5)
+   with online_batch_size 16, rollout_depth 2, staleness_bound 4,
+   swap_every 1; 256 requests of a seeded Poisson trace (its seeds and
+   order, served as a burst so that admission does not depend on the
+   clock), each named after a train-corpus clip and carrying its frames.
+   In turns: frozen, online (the counted run), online, frozen. Gates:
+   requests in flight straddle at least 2 versions; every request
+   replayed by a fresh service under its pinned version is bitwise
+   equal; each request decoded offline alone through ``fused_decode``
+   (the dense stride kernel, one launch per stride) under that version
+   gives equal tokens on >= 95% of rows and logprobs within 1e-4 where
+   equal; the second online run ends with bitwise-equal learner params
+   and the same staleness ledger; updates, batches, drops, publishes and
+   swaps agree with the counters; paged launches equal the (stride, live
+   version) pairs and there are 30 attention launches per update.
+   Reported: requests/s and p99, frozen and online; updates, publishes,
+   swaps, the staleness histogram and the reward trend.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -167,7 +207,8 @@
    Prints the top host rows of the training and the serve reports, and
    what one span costs the host (``obs_emit_cost``).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its paths (the recipe's, serve_lifecycle's and import's included),
+   its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
+   rl_online's and import's included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -227,6 +268,7 @@ from cst_captioning_tpu_torch.decoding import beam_search
 from cst_captioning_tpu_torch.decoding import common as decoding_common
 from cst_captioning_tpu_torch.decoding import counter_gumbel_noise
 from cst_captioning_tpu_torch.decoding import fused as decoding_fused
+from cst_captioning_tpu_torch.decoding import sample as decoding_sample
 from cst_captioning_tpu_torch.decoding.common import decode_depth
 from cst_captioning_tpu_torch.eval import Evaluator
 from cst_captioning_tpu_torch.eval import evaluator as evaluator_mod
@@ -266,8 +308,13 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
     stride_weights,
 )
 from cst_captioning_tpu_torch.presets import get_experiment, get_preset
-from cst_captioning_tpu_torch.rl import RewardComputer, SCSTTrainer
-from cst_captioning_tpu_torch.rl import rollout_seed
+from cst_captioning_tpu_torch.rl import (
+    AsyncSCSTTrainer,
+    OnlineSCSTTrainer,
+    RewardComputer,
+    SCSTTrainer,
+    rollout_seed,
+)
 from cst_captioning_tpu_torch.train import (
     create_train_state,
     make_optimizer,
@@ -1511,6 +1558,451 @@ def scst_phase(cfg, corpus, trainer, state) -> dict:
             "reward_mean": [m["reward_mean"] for m in steps],
             "baseline_mean": [m["baseline_mean"] for m in steps],
             "rl_loss": [m["rl_loss"] for m in steps], **agreement}
+
+
+# ---- phase 6b: decoupled actor/learner SCST ---------------------------------
+
+RL_DEVICE = "cuda"
+RL_CLIPS, RL_BATCHES = 60, 6   # 4 wrap-padded rows a batch of 64
+DRAIN_AFTER_BATCHES = 3
+# depth 3, bound 1 over 6 batches: the staleness ledger and drop count of
+# the JAX AsyncSCSTTrainer(mesh=None) on the same schedule (they depend on
+# the schedule alone; tests/test_torch_async_scst.py holds the port to it)
+D3B1_STALENESS, D3B1_DROPPED = {0: 5, 1: 1}, 4
+
+
+def host_clips(c: dict, n: int) -> dict:
+    """The first ``n`` clips of a host corpus (``make_corpus``)."""
+    vids = c["vids"][:n]
+    return {**c, "feats": {k: x[:n] for k, x in c["feats"].items()},
+            "mask": c["mask"][:n], "vids": vids,
+            "caption_ids": c["caption_ids"][:n],
+            "gts": {v: c["gts"][v] for v in vids}}
+
+
+def decoupled_batches(cfg, host: dict, dev) -> list:
+    """RL_BATCHES video-mode batches of TRAIN_B over RL_CLIPS clips of the
+    train corpus (each shuffled epoch one batch, its last rows
+    wrap-padded and invalid), staged on the card once."""
+    mc = cfg.model
+    batcher = Batcher(MemoryDataset(host_clips(host, RL_CLIPS), mc, "train"),
+                      batch_size=TRAIN_B, max_len=mc.max_len, mode="video",
+                      seed=cfg.data.shuffle_seed)
+    out = []
+    for e in range(RL_BATCHES):
+        batcher.epoch_index = e
+        (b,) = list(batcher.epoch(shuffle=True))
+        out.append(({k: torch.from_numpy(x).to(dev)
+                     for k, x in b.feats.items()},
+                    {k: torch.from_numpy(x).to(dev)
+                     for k, x in b.feat_masks.items()},
+                    list(b.video_ids), [bool(v) for v in b.valid]))
+    return out
+
+
+def counted_sample_steps():
+    """Count the sampler's decode steps apart from any kernel counter:
+    wrap its early-exit loop's step function (recounts included)."""
+    n = [0]
+    real = decoding_sample.scan_until_finished
+
+    def scan(step, init, length, get_finished, y_fills):
+        def counted(state, t):
+            n[0] += 1
+            return step(state, t)
+        return real(counted, init, length, get_finished, y_fills)
+
+    return n, mock.patch.object(decoding_sample, "scan_until_finished", scan)
+
+
+class RecordingReward:
+    """A reward computer that keeps every row batch it scores."""
+
+    def __init__(self, reward):
+        self.reward = reward
+        self.calls: list = []
+
+    def __call__(self, video_ids, rows):
+        self.calls.append(np.asarray(rows).copy())
+        return self.reward(video_ids, rows)
+
+
+def rl_decoupled_phase(cfg, host: dict, fit_sd: dict, smi: str
+                       ) -> tuple[dict, dict]:
+    """The decoupled trainer at msrvtt_cst_consensus width (module
+    docstring, 6b) -> (its line, the counted run's launches)."""
+    dev = torch.device(RL_DEVICE)
+    t_phase = time.perf_counter()
+    rl, T = cfg.rl, cfg.model.max_len
+    reward = RewardComputer(
+        host["vocab"], host["gts"], cider_weight=rl.reward_cider_weight,
+        bleu_weight=rl.reward_bleu4_weight, bleu_scale=rl.reward_bleu4_scale,
+        num_threads=rl.reward_threads)
+    batches = decoupled_batches(cfg, host, dev)
+    base = cfg.train.seed + 1
+
+    def seeds(offset=0):
+        return lambda j: rollout_seed(base, 0, 0, offset + j)
+
+    def fresh():
+        model = CaptionModel(cfg.model, device=dev)
+        model.load_state_dict(fit_sd)
+        return create_train_state(
+            model, make_optimizer(cfg.train, 1, lr_override=rl.lr),
+            seed=cfg.train.seed)
+
+    def run(kind, rl_cfg, rew=reward, state=None, data=batches, offset=0,
+            **kw):
+        state = state or fresh()
+        if kind == "sync":
+            tr = SCSTTrainer(state.model, rew, rl_cfg, guard=True)
+        else:
+            tr = AsyncSCSTTrainer(state.model, rew, rl_cfg, guard=True,
+                                  strict=kind == "strict",
+                                  batch_size=TRAIN_B)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, ms = tr.train_epoch(state, data, seeds(offset),
+                                   pipelined=rl_cfg.pipelined, **kw)
+        torch.cuda.synchronize()
+        for m in ms:
+            check(m["nonfinite"] == 0.0 and np.isfinite(m["rl_loss"]),
+                  f"rl_decoupled: a {kind} step is not finite: {m}")
+        return {"trainer": tr, "state": state, "metrics": ms,
+                "wall": time.perf_counter() - t}
+
+    def same(a, b, what):
+        check([m["rl_loss"] for m in a["metrics"]]
+              == [m["rl_loss"] for m in b["metrics"]]
+              and [m["reward_mean"] for m in a["metrics"]]
+              == [m["reward_mean"] for m in b["metrics"]]
+              and all(torch.equal(x, y) for x, y in zip(
+                  a["state"].model.parameters(),
+                  b["state"].model.parameters())),
+              f"rl_decoupled: {what} differ")
+
+    # strict, pipelined: the sync loop's pipeline, in turns with it (sync,
+    # strict, strict, sync, twice)
+    rl_p = dataclasses.replace(rl, pipelined=True)
+    order = ("sync", "strict", "strict", "sync") * 2
+    turns = [run(kind, rl_p) for kind in order]
+    sync_runs = [r for k, r in zip(order, turns) if k == "sync"]
+    strict_runs = [r for k, r in zip(order, turns) if k == "strict"]
+    same(sync_runs[0], strict_runs[0], "strict pipelined and sync pipelined")
+    for r in strict_runs[1:]:
+        same(strict_runs[0], r, "strict runs")
+    for r in sync_runs[1:]:
+        same(sync_runs[0], r, "sync runs")
+    # strict, sequential; depth 1 with bound 0 is strict without the flag
+    rl_s = dataclasses.replace(rl, pipelined=False)
+    seq = run("sync", rl_s)
+    same(seq, run("strict", rl_s), "strict sequential and sync sequential")
+    implicit = run("async", dataclasses.replace(
+        rl_s, rollout_depth=1, staleness_bound=0))
+    check(implicit["trainer"]._strict, "depth 1 bound 0 is not strict")
+    same(seq, implicit, "depth 1 bound 0 and sync sequential")
+    del seq, implicit
+    # depth 3, bound 1: drops and recounts. The counted run of the path
+    rl_d = dataclasses.replace(rl, rollout_depth=3, staleness_bound=1)
+    steps, counting = counted_sample_steps()
+    ops.reset_launches()
+    with counting:
+        d3 = run("async", rl_d)
+    n = all_launches()
+    tr3 = d3["trainer"]
+    check(tr3.last_staleness == D3B1_STALENESS
+          and tr3.last_dropped == D3B1_DROPPED,
+          f"rl_decoupled: depth 3 bound 1 staleness {tr3.last_staleness}, "
+          f"dropped {tr3.last_dropped}; the JAX trainer's: "
+          f"{D3B1_STALENESS}, {D3B1_DROPPED}")
+    check(n["fused_decode_step"] == steps[0] > 0,
+          f"rl_decoupled: {n['fused_decode_step']} decode-step launches for "
+          f"{steps[0]} decode steps (recounts included)")
+    check(n["fused_additive_attention"] == T * RL_BATCHES,
+          f"rl_decoupled: {n['fused_additive_attention']} attention "
+          f"launches, expected {T} per update")
+    check(n["fused_decode_stride"] == n["fused_decode_stride_paged"]
+          == n["fused_beam_step"] == 0,
+          f"rl_decoupled launched other kernels: {n}")
+    d3b = run("async", rl_d)
+    same(d3, d3b, "two depth-3 runs")
+    # a drain after batch 3 persists the ring through seam.npz; the
+    # strict resume replays it and equals the uninterrupted run
+    calls = [0]
+
+    def stop():
+        calls[0] += 1
+        return calls[0] > DRAIN_AFTER_BATCHES
+
+    sink: dict = {}
+    part = run("strict", rl_p, should_stop=stop, seam_sink=sink)
+    done = len(part["metrics"])
+    ring = sink.get("ring", [])
+    check(len(ring) == DRAIN_AFTER_BATCHES - done > 0,
+          f"rl_decoupled: drain persisted {len(ring)} ring entries after "
+          f"{done} updates")
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "step_00000001"))
+        with open(os.path.join(root, "step_00000001", "seam.npz"),
+                  "wb") as f:
+            f.write(trainer_mod.Trainer._seam_bytes(sink, 0, done))
+        quiet = types.SimpleNamespace(
+            log=types.SimpleNamespace(log=lambda *a, **k: None))
+        seam = trainer_mod.Trainer._load_seam(
+            quiet, root, {"ckpt_name": "step_00000001", "phase": "rl",
+                          "batch_index": done})
+    check(seam is not None and len(seam["ring"]) == len(ring),
+          "rl_decoupled: the ring seam did not load")
+    rec = RecordingReward(reward)
+    resumed = run("strict", rl_p, rew=rec, state=part["state"],
+                  data=batches[done:], offset=done, seam=seam)
+    check(np.array_equal(rec.calls[0], ring[0]["samples"].reshape(-1, T)),
+          "rl_decoupled: the resume did not replay the persisted tokens")
+    same(strict_runs[0], {"state": resumed["state"],
+                    "metrics": part["metrics"] + resumed["metrics"]},
+         "the drained and resumed run and the uninterrupted one")
+    rate = lambda r: RL_BATCHES * TRAIN_B / r["wall"]  # noqa: E731
+    return {"phase": "rl_decoupled", "preset": cfg.name, "batch": TRAIN_B,
+            "batches": RL_BATCHES, "valid_rows_per_batch": RL_CLIPS,
+            "rollouts": rl.num_rollouts, "baseline": rl.baseline,
+            "launches": n, "decode_steps": steps[0],
+            "d3b1_staleness": {str(k): v
+                               for k, v in tr3.last_staleness.items()},
+            "d3b1_dropped": tr3.last_dropped,
+            "sync_clips_per_s": [rate(r) for r in sync_runs],
+            "strict_clips_per_s": [rate(r) for r in strict_runs],
+            "d3b1_clips_per_s": [rate(d3), rate(d3b)],
+            "strict_over_sync": (
+                float(np.median([rate(r) for r in strict_runs]))
+                / float(np.median([rate(r) for r in sync_runs]))),
+            "occupancy_strict": [r["trainer"].last_occupancy
+                                 for r in strict_runs],
+            "occupancy_d3b1": tr3.last_occupancy,
+            "reward_mean": [m["reward_mean"]
+                            for m in strict_runs[0]["metrics"]],
+            "drain": {"updates_before": done, "ring_entries": len(ring)},
+            "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}, n
+
+
+# ---- phase 6c: online SCST from served traffic -------------------------------
+
+ONLINE_REQUESTS = 256
+ONLINE_RL = dict(online_batch_size=16, rollout_depth=2, staleness_bound=4,
+                 swap_every=1)
+
+
+def online_requests(host: dict, mc) -> list:
+    """ONLINE_REQUESTS requests of a seeded Poisson trace (its seeds and
+    order), each named after a train-corpus clip (``<clip>#<i>``) and
+    carrying that clip's frames. Served as a burst: admission, and with it
+    the learner, does not depend on the clock."""
+    trace = make_trace(TrafficSpec(num_requests=ONLINE_REQUESTS, seed=11))
+    n = len(host["vids"])
+    out = []
+    for i, item in enumerate(trace.items):
+        c = i % n
+        F = int(host["mask"][c].sum())
+        out.append(ClipRequest(
+            f"{host['vids'][c]}#{i:04d}",
+            {k: x[c, :F] for k, x in host["feats"].items()},
+            {k: np.ones((F,), np.float32) for k, _ in mc.modalities},
+            seed=item.seed))
+    return out
+
+
+def rl_online_phase(host: dict, fit_sd: dict, smi: str) -> tuple[dict, dict]:
+    """Online SCST against the serve model (module docstring, 6c) ->
+    (its line, the counted run's launches)."""
+    dev = torch.device(RL_DEVICE)
+    t_phase = time.perf_counter()
+    scfg = scst_config()
+    rl = dataclasses.replace(scfg.rl, **ONLINE_RL)
+    Kr, T = rl.num_rollouts, scfg.model.max_len
+    serve_cfg = model_config()
+    learn_cfg = dataclasses.replace(serve_cfg, attention_impl="pallas")
+    reqs = online_requests(host, serve_cfg)
+    by_id = {r.req_id: r for r in reqs}
+    reward = RewardComputer(
+        host["vocab"], host["gts"], cider_weight=rl.reward_cider_weight,
+        bleu_weight=rl.reward_bleu4_weight, bleu_scale=rl.reward_bleu4_scale,
+        num_threads=rl.reward_threads)
+
+    def model_of(cfg, sd):
+        m = CaptionModel(cfg, device=dev)
+        m.load_state_dict(sd)
+        return m.eval()
+
+    def svc_of(model):
+        return CaptionService(model, capacity=CAPACITY, num_rollouts=Kr,
+                              stride=S, frame_bucket=FRAME_BUCKET,
+                              device=SERVE_DEVICE)
+
+    def frozen():
+        rep, wall = serve_timed(svc_of(model_of(serve_cfg, fit_sd)), reqs)
+        check(rep.completed == ONLINE_REQUESTS,
+              f"rl_online: frozen serve completed {rep.completed}")
+        return {"report": rep, "wall": wall}
+
+    def online():
+        learner = model_of(learn_cfg, fit_sd)
+        state = create_train_state(
+            learner, make_optimizer(scfg.train, 1, lr_override=rl.lr),
+            seed=scfg.train.seed)
+        trainer = OnlineSCSTTrainer(learner, reward, rl, state, guard=True,
+                                    ref_id=lambda r: r.req_id.split("#")[0])
+        svc = svc_of(model_of(serve_cfg, fit_sd))
+        trainer.attach(svc)
+        published = {0: {k: v.clone() for k, v in fit_sd.items()}}
+        publish = svc.publish_params
+
+        def recorded(params, version=None):
+            published[version] = {k: v.detach().clone()
+                                  for k, v in params.state_dict().items()}
+            return publish(params, version=version)
+
+        svc.publish_params = recorded
+        pairs = counted_strides(svc)
+        names = ("rl.online.steps", "rl.online.batches",
+                 "rl.online.dropped_stale", "serving.param_swaps")
+        before = {k: tobs.counter(k).value for k in names}
+        rep, wall = serve_timed(svc, reqs)
+        trainer.flush()
+        counters = {k: tobs.counter(k).value - before[k] for k in names}
+        check(rep.completed == ONLINE_REQUESTS,
+              f"rl_online: online serve completed {rep.completed}")
+        return {"report": rep, "wall": wall, "trainer": trainer, "svc": svc,
+                "published": published, "pairs": pairs,
+                "counters": counters}
+
+    # in turns: frozen, online, online, frozen, twice; the first online
+    # run is the path's counted run
+    f1 = frozen()
+    ops.reset_launches()
+    o1 = online()
+    n = all_launches()
+    onl, frz = [o1], [f1]
+    for kind in ("online", "frozen", "frozen", "online", "online", "frozen"):
+        if kind == "online":
+            onl.append(online())
+        else:
+            frz.append(frozen())
+    tr, rep, svc = o1["trainer"], o1["report"], o1["svc"]
+    batches = ONLINE_REQUESTS // rl.online_batch_size
+    pending = svc._pending_publish is not None
+    c = o1["counters"]
+    check(tr.last_applied + tr.last_dropped == batches
+          and c["rl.online.batches"] == batches
+          and c["rl.online.steps"] == tr.last_applied == tr.version
+          and c["rl.online.dropped_stale"] == tr.last_dropped,
+          f"rl_online: applied {tr.last_applied}, dropped "
+          f"{tr.last_dropped}, counters {c}, {batches} batches")
+    # every update publishes (swap_every 1); a publish staged while a
+    # newer one lands before the next stride boundary is superseded
+    publishes = len(o1["published"]) - 1
+    swaps = len(svc._swap_history)
+    check(tr.last_applied >= 2 and publishes == tr.last_applied
+          and 1 <= swaps <= publishes - pending
+          and c["serving.param_swaps"] == swaps,
+          f"rl_online: {tr.last_applied} updates, {publishes} publishes, "
+          f"{swaps} swaps (+{int(pending)} pending), counter "
+          f"{c['serving.param_swaps']}")
+    check(n["fused_decode_stride_paged"] == sum(o1["pairs"])
+          and n["fused_additive_attention"] == T * tr.last_applied
+          and n["fused_decode_stride"] == n["fused_decode_step"]
+          == n["fused_beam_step"] == 0,
+          f"rl_online launches {n}: expected {sum(o1['pairs'])} paged "
+          f"(stride, live version) pairs and {T} attention launches for "
+          f"each of {tr.last_applied} updates")
+    by_ver: dict = {}
+    for rid, res in rep.results.items():
+        by_ver.setdefault(res.param_version, []).append(rid)
+    check(len(by_ver) >= 2 and max(o1["pairs"]) >= 2,
+          f"rl_online: requests pinned {sorted(by_ver)}, at most "
+          f"{max(o1['pairs'])} live versions a stride")
+    # each version's requests, replayed by a fresh service under it
+    # (bitwise), and decoded offline through fused_decode (kernel 3)
+    ops.reset_launches()
+    strides = 0
+    rows_equal, rows, lp_err = 0, 0, 0.0
+    for v, rids in sorted(by_ver.items()):
+        model = model_of(serve_cfg, o1["published"][v])
+        again = svc_of(model).serve([by_id[r] for r in rids])
+        for r in rids:
+            check(same_result(again.results[r], rep.results[r]),
+                  f"rl_online: {r} differs from itself replayed under "
+                  f"version {v}")
+        for r in rids:
+            # one request a decode, its frames padded as the service pads
+            # them: the encoder runs the service's shapes, and the dense
+            # stride kernel is the only difference
+            q, res = by_id[r], rep.results[r]
+            F = q.num_frames
+            Fp = min(-(-F // FRAME_BUCKET) * FRAME_BUCKET,
+                     serve_cfg.max_frames)
+            feats = {k: torch.from_numpy(np.pad(
+                x, ((0, Fp - F), (0, 0))))[None].to(dev)
+                for k, x in q.feats.items()}
+            masks = {k: torch.from_numpy(np.pad(
+                x, ((0, Fp - F),)))[None].to(dev) for k, x in q.masks.items()}
+            seed_t = torch.tensor([q.seed], dtype=torch.int64, device=dev)
+            noise = lambda t, s=seed_t: counter_gumbel_noise(  # noqa: E731
+                s, torch.full((1, 1), t, dtype=torch.int64, device=dev), Kr,
+                serve_cfg.vocab_size)[0]
+            g, glp, smp, slp = decoding_fused.fused_decode(
+                model, feats, masks, num_rollouts=Kr, max_len=T,
+                noise_fn=noise)
+            toks = torch.cat([g[None], smp])[:, 0].cpu().numpy()  # [G, T]
+            lps = torch.cat([glp[None], slp])[:, 0].cpu().numpy()
+            strides += -(-decode_depth(toks, T, S) // S)
+            eq = (toks == res.tokens).all(axis=-1)
+            rows_equal += int(eq.sum())
+            rows += eq.size
+            if eq.any():
+                lp_err = max(lp_err, float(np.abs(
+                    lps[eq] - res.logprobs[eq]).max()))
+    dense = fused_decode_stride.launches
+    check(dense == strides, f"rl_online: {dense} dense stride launches for "
+          f"{strides} strides of the offline decode")
+    share = rows_equal / rows
+    check(share >= AGREE and lp_err <= TOL,
+          f"rl_online: offline fused_decode rows equal {share:.3f} "
+          f"(>= {AGREE}), logprob error {lp_err:.3e} (<= {TOL})")
+    # the other online runs on the same trace
+    for o in onl[1:]:
+        t2 = o["trainer"]
+        check(t2.last_staleness == tr.last_staleness
+              and [m["rl_loss"] for m in t2.history]
+              == [m["rl_loss"] for m in tr.history]
+              and all(torch.equal(x, y) for x, y in zip(
+                  tr.state.model.parameters(),
+                  t2.state.model.parameters())),
+              "rl_online: two online runs on one trace differ")
+    lat = lambda r: float(np.percentile(  # noqa: E731
+        [x.latency_s for x in r["report"].results.values()], 99))
+    rps = lambda r: ONLINE_REQUESTS / r["wall"]  # noqa: E731
+    n["fused_decode_stride"] = dense
+    return {"phase": "rl_online", "preset": scfg.name,
+            "serve": {"capacity": CAPACITY, "K": Kr, "stride": S,
+                      "paged": True},
+            "requests": ONLINE_REQUESTS, **ONLINE_RL,
+            "launches": n, "version_pairs": sum(o1["pairs"]),
+            "mixed_strides": sum(p > 1 for p in o1["pairs"]),
+            "requests_by_version": {str(v): len(r)
+                                    for v, r in sorted(by_ver.items())},
+            "updates": tr.last_applied, "dropped": tr.last_dropped,
+            "publishes": publishes, "swaps": swaps,
+            "staleness": {str(k): v for k, v in
+                          sorted(tr.last_staleness.items())},
+            "reward_trend": [m["reward_mean"] for m in tr.history],
+            "offline_rows_equal": share, "offline_logprob_max_err": lp_err,
+            "frozen_requests_per_s": [rps(r) for r in frz],
+            "online_requests_per_s": [rps(r) for r in onl],
+            "frozen_p99_s": [lat(r) for r in frz],
+            "online_p99_s": [lat(r) for r in onl],
+            "online_over_frozen": (
+                float(np.median([rps(r) for r in onl]))
+                / float(np.median([rps(r) for r in frz]))),
+            "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}, n
 
 
 def device_breakdown(prof, wall_ms: float) -> dict:
@@ -3063,6 +3555,9 @@ def main() -> int:
     smodel, fit_loss = fitted_model(scfg, corpus, dev)
     emit({"phase": "model_fit", "for": "scst", "steps": FIT_STEPS,
           "lr": FIT_LR, "last_loss": fit_loss, "s": time.perf_counter() - t})
+    # the fitted weights, before SCST moves them: the decoupled and online
+    # phases start from them
+    fit_sd = {k: v.detach().clone() for k, v in smodel.state_dict().items()}
     s_reward = RewardComputer(
         corpus["vocab"], corpus["gts"], cider_weight=srl.reward_cider_weight,
         bleu_weight=srl.reward_bleu4_weight, bleu_scale=srl.reward_bleu4_scale,
@@ -3076,6 +3571,15 @@ def main() -> int:
           "rollouts": srl.num_rollouts, "baseline": srl.baseline,
           "stride": scfg.model.decode_stride, **sc, "nvidia_smi": smi})
 
+    # ---- phases 6b, 6c: decoupled and online RL ------------------------------
+    host = make_corpus(tcfg.model, TRAIN_B, 5, seed=0)   # the train corpus
+    decoupled, decoupled_launches = rl_decoupled_phase(tcfg, host, fit_sd,
+                                                       smi)
+    emit(decoupled)
+    online, online_launches = rl_online_phase(host, fit_sd, smi)
+    emit(online)
+    del host, fit_sd
+
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it
     path_launches = {
@@ -3088,8 +3592,10 @@ def main() -> int:
         + sc["launches"]["fused_additive_attention"],
         "fused_decode_step": cst["launches"]["fused_decode_step"],
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
-    for k, v in lifecycle_launches.items():
-        path_launches[k] += v
+    for launched in (lifecycle_launches, decoupled_launches,
+                     online_launches):
+        for k, v in launched.items():
+            path_launches[k] += v
 
     # ---- phase 7: profiles --------------------------------------------------
     emit({"phase": "profile", "path": "serve",

@@ -9,9 +9,8 @@ package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
 A field whose machinery the port does not have yet (meshes, the health
-monitor and elastic meshes, the observability spans and flight recorder,
-the adaptive spike bound, the profiler, the NaN sanitizer, the decoupled
-and online RL topologies, gradient-communication knobs) raises
+monitor and elastic meshes, the adaptive spike bound, the NaN sanitizer,
+gradient-communication knobs) raises
 ``ValueError`` when it is set to anything but its default, naming what is
 missing: nothing is accepted and then ignored.
 """
@@ -133,7 +132,6 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 # brings it (ROADMAP.md "Modules still to port")
 _RESILIENCE = "the resilience slice"
 _DATA_PARALLEL = "the data-parallel slice"
-_RL_TOPOLOGIES = "the decoupled and online RL slice"
 _NO_HEALTH = f"the multi-host health monitor and elastic meshes ({_RESILIENCE})"
 _NO_COMMS = f"data-parallel gradient communication ({_DATA_PARALLEL})"
 _NO_ADAPTIVE = f"the adaptive spike bound ({_RESILIENCE})"
@@ -146,15 +144,6 @@ _TRAIN_UNPORTED = {
     "elastic": _NO_HEALTH, "elastic_regrow": _NO_HEALTH,
     "dcn_stall_s": _NO_HEALTH, "comm_bucket_mb": _NO_COMMS,
     "comm_dtype": _NO_COMMS, "comm_overlap": _NO_COMMS,
-    "rl_topology": f"the decoupled actor/learner RL topology "
-                   f"({_RL_TOPOLOGIES})",
-}
-_NO_DECOUPLED = f"the decoupled actor/learner RL topology ({_RL_TOPOLOGIES})"
-_NO_ONLINE = f"online RL from served traffic ({_RL_TOPOLOGIES})"
-_RL_UNPORTED = {
-    "rollout_depth": _NO_DECOUPLED, "staleness_bound": _NO_DECOUPLED,
-    "actor_fraction": _NO_DECOUPLED, "online_batch_size": _NO_ONLINE,
-    "swap_every": _NO_ONLINE,
 }
 _MESH_UNPORTED = {
     "seq_devices": "sequence parallelism (the model- and sequence-parallel "
@@ -244,6 +233,10 @@ class TrainConfig:
             raise ValueError(
                 f"recorder_steps {self.recorder_steps} must be >= 0 "
                 "(0 = flight recorder off)")
+        if self.rl_topology not in ("sync", "decoupled"):
+            raise ValueError(
+                f"unknown rl_topology {self.rl_topology!r} "
+                "(expected 'sync' or 'decoupled')")
         _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 
@@ -271,9 +264,17 @@ class RLConfig:
     # gradient accumulation over C slices of the K rollout axis in the
     # REINFORCE update (C divides K; 1 = one pass over all K*B rows)
     update_chunks: int = 1
+    # train.rl_topology="decoupled" (rl/async_scst.py): rollout batches in
+    # flight between actor and learner, and the learner updates a rollout
+    # may lag at consumption before it is dropped and decoded again
+    # (depth 1 with bound 0 is the strict sequential schedule)
     rollout_depth: int = 2
     staleness_bound: int = 1
+    # the actor submesh's share of the devices (a split needs more than
+    # one device: the data-parallel slice)
     actor_fraction: float = 0.5
+    # online SCST from served traffic (rl/online.py): served requests per
+    # learner batch, and learner updates between publishes into the service
     online_batch_size: int = 4
     swap_every: int = 1
 
@@ -290,7 +291,6 @@ class RLConfig:
                 f"reward_threads {self.reward_threads} must be >= 0 "
                 "(0 = all cores)"
             )
-        _refuse_unported(self, "rl", _RL_UNPORTED)
 
 
 @dataclass(frozen=True)
@@ -367,6 +367,31 @@ class ExperimentConfig:
     rl: RLConfig = field(default_factory=RLConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def __post_init__(self):
+        # the JAX package's cross-section checks, with its messages
+        if self.train.rl_topology == "decoupled":
+            if self.rl.rollout_depth < 1:
+                raise ValueError(
+                    f"rl.rollout_depth {self.rl.rollout_depth} must be >= 1 "
+                    "for train.rl_topology='decoupled'")
+            if self.rl.staleness_bound < 0:
+                raise ValueError(
+                    f"rl.staleness_bound {self.rl.staleness_bound} must be "
+                    ">= 0 (0 = strict on-policy consumption)")
+            if not 0.0 < self.rl.actor_fraction < 1.0:
+                raise ValueError(
+                    f"rl.actor_fraction {self.rl.actor_fraction} must be in "
+                    "(0, 1) — both submeshes need at least one device's "
+                    "share")
+        if self.rl.online_batch_size < 1:
+            raise ValueError(
+                f"rl.online_batch_size {self.rl.online_batch_size} must be "
+                ">= 1 (served requests per online learner batch)")
+        if self.rl.swap_every < 1:
+            raise ValueError(
+                f"rl.swap_every {self.rl.swap_every} must be >= 1 (learner "
+                "updates between param publishes into the serving engine)")
 
     # ---- serialization ----------------------------------------------------
 

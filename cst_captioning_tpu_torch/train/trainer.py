@@ -27,6 +27,10 @@ steps' update ratios, one readback each ``log_every_steps`` and at epoch
 ends) with ``train.anomaly``'s detector, dumping postmortems on sentinel
 trips and SIGTERM saves. With obs off the loops run no extra device work.
 
+``train.rl_topology="decoupled"`` runs the RL epochs through
+``rl.async_scst.AsyncSCSTTrainer`` (the actor/learner ring on one device);
+its drain persists the in-flight ring in ``seam.npz``.
+
 Not ported (ROADMAP.md names their slices): meshes and data parallelism,
 peer loss and degraded or regrown meshes, and chaos visits; their config
 fields raise (``config.py``).
@@ -69,7 +73,11 @@ from cst_captioning_tpu_torch.resilience.sentinel import (
     RollbackRequested,
     TrainingDiverged,
 )
-from cst_captioning_tpu_torch.rl import RewardComputer, SCSTTrainer
+from cst_captioning_tpu_torch.rl import (
+    AsyncSCSTTrainer,
+    RewardComputer,
+    SCSTTrainer,
+)
 from cst_captioning_tpu_torch.rl.scst import rollout_seed
 from cst_captioning_tpu_torch.train.schedule import make_optimizer
 from cst_captioning_tpu_torch.train.state import create_train_state
@@ -265,21 +273,58 @@ class Trainer:
 
     @staticmethod
     def _seam_bytes(seam: dict, epoch: int, batch_index: int) -> bytes:
-        """A captured seam and its position as ``seam.npz`` bytes."""
+        """A captured seam and its position as ``seam.npz`` bytes: the
+        pipelined loop's tokens, or the decoupled loop's in-flight ring
+        flattened as ``ring{i}_*`` (the JAX package's layout; the port
+        writes ``ring{i}_seed`` where the JAX package writes the key data
+        ``ring{i}_rng``)."""
         arrays = {"epoch": np.asarray(int(epoch)),
-                  "batch_index": np.asarray(int(batch_index)),
-                  "samples": np.asarray(seam["samples"]),
-                  "video_ids": np.asarray([str(v) for v in
-                                           seam["video_ids"]])}
-        if seam.get("greedy") is not None:
-            arrays["greedy"] = np.asarray(seam["greedy"])
+                  "batch_index": np.asarray(int(batch_index))}
+        if "ring" in seam:
+            arrays["ring_n"] = np.asarray(len(seam["ring"]))
+            for i, e in enumerate(seam["ring"]):
+                arrays[f"ring{i}_samples"] = np.asarray(e["samples"])
+                arrays[f"ring{i}_lps"] = np.asarray(e["lps"])
+                arrays[f"ring{i}_video_ids"] = np.asarray(
+                    [str(v) for v in e["video_ids"]])
+                arrays[f"ring{i}_valid"] = np.asarray(e["valid"])
+                arrays[f"ring{i}_seed"] = np.asarray(int(e["seed"]))
+                arrays[f"ring{i}_batch_index"] = np.asarray(
+                    int(e["batch_index"]))
+                if e.get("greedy") is not None:
+                    arrays[f"ring{i}_greedy"] = np.asarray(e["greedy"])
+        else:
+            arrays["samples"] = np.asarray(seam["samples"])
+            arrays["video_ids"] = np.asarray([str(v) for v in
+                                              seam["video_ids"]])
+            if seam.get("greedy") is not None:
+                arrays["greedy"] = np.asarray(seam["greedy"])
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         return buf.getvalue()
 
+    @staticmethod
+    def _ring_entry(z, i: int) -> dict:
+        """Ring entry ``i`` of a loaded ``seam.npz``. An entry the JAX
+        package wrote carries its key data (``ring{i}_rng``), which is not
+        a port seed: it has no ``seed``, so the resumed epoch replays its
+        tokens and a later recount decodes from the port's
+        ``rollout_seed`` of that batch."""
+        p = f"ring{i}_"
+        e = {"samples": np.asarray(z[p + "samples"]),
+             "lps": np.asarray(z[p + "lps"]),
+             "video_ids": [str(v) for v in z[p + "video_ids"]],
+             "valid": np.asarray(z[p + "valid"]),
+             "batch_index": int(z[p + "batch_index"])}
+        if p + "seed" in z.files:
+            e["seed"] = int(z[p + "seed"])
+        if p + "greedy" in z.files:
+            e["greedy"] = np.asarray(z[p + "greedy"])
+        return e
+
     def _load_seam(self, src_dir: str, infos: dict) -> dict | None:
         """The seam of the checkpoint just restored, when its save drained
-        a pipelined RL epoch."""
+        a pipelined or decoupled RL epoch."""
         name = infos.get("ckpt_name", "")
         if not name or infos.get("phase") != "rl" \
                 or not infos.get("batch_index"):
@@ -289,14 +334,17 @@ class Trainer:
             return None
         try:
             with np.load(path, allow_pickle=False) as z:
-                seam = {
-                    "samples": np.asarray(z["samples"]),
-                    "greedy": (np.asarray(z["greedy"])
-                               if "greedy" in z.files else None),
-                    "video_ids": [str(v) for v in z["video_ids"]],
-                    "epoch": int(z["epoch"]),
-                    "batch_index": int(z["batch_index"]),
-                }
+                seam = {"epoch": int(z["epoch"]),
+                        "batch_index": int(z["batch_index"])}
+                if "ring_n" in z.files:
+                    seam["ring"] = [Trainer._ring_entry(z, i)
+                                    for i in range(int(z["ring_n"]))]
+                else:
+                    seam.update(
+                        samples=np.asarray(z["samples"]),
+                        greedy=(np.asarray(z["greedy"])
+                                if "greedy" in z.files else None),
+                        video_ids=[str(v) for v in z["video_ids"]])
         except (OSError, ValueError, KeyError) as e:
             # a torn seam falls back to decoding the batch again
             self.log.log("seam_unreadable", path=path,
@@ -599,9 +647,16 @@ class Trainer:
             bleu_weight=cfg.rl.reward_bleu4_weight,
             bleu_scale=cfg.rl.reward_bleu4_scale,
             num_threads=cfg.rl.reward_threads)
-        scst = SCSTTrainer(self.model, self.reward, cfg.rl,
-                           max_len=cfg.model.max_len, guard=self.guard,
-                           stats=self._stats)
+        if cfg.train.rl_topology == "decoupled":
+            # the actor/learner ring schedule (rl/async_scst.py)
+            scst = AsyncSCSTTrainer(
+                self.model, self.reward, cfg.rl, max_len=cfg.model.max_len,
+                guard=self.guard, stats=self._stats,
+                batch_size=cfg.data.batch_size, on_event=self.log.log)
+        else:
+            scst = SCSTTrainer(self.model, self.reward, cfg.rl,
+                               max_len=cfg.model.max_len, guard=self.guard,
+                               stats=self._stats)
         rl_batcher = Batcher(
             self.train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="video",
@@ -639,9 +694,11 @@ class Trainer:
         skip = self._resume_rl_batch
         self._resume_rl_batch = 0
         seam = None
+        seam_capable = (cfg.rl.pipelined
+                        or cfg.train.rl_topology == "decoupled")
         if skip and self._pending_seam is not None:
             cand, self._pending_seam = self._pending_seam, None
-            if cfg.rl.pipelined and cand["epoch"] == self.epoch \
+            if seam_capable and cand["epoch"] == self.epoch \
                     and cand["batch_index"] == skip:
                 seam = cand
             else:
@@ -696,7 +753,7 @@ class Trainer:
                                             stop_event=stop),
                     seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
                     should_stop=lambda: pre.requested, seam=seam,
-                    seam_sink=seam_sink if cfg.rl.pipelined else None)
+                    seam_sink=seam_sink if seam_capable else None)
             finally:
                 stop.set()
             profiler.stop()

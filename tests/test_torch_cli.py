@@ -7,8 +7,9 @@
              checkpoint the JAX package wrote (``--jax-ckpt``), whose
              metric table equals the JAX evaluator's on the same params.
 
-Also: the JAX CLI's flags whose machinery is not ported raise, and the
-default device is the GPU."""
+Also: the decoupled RL topology through ``--set``, the JAX CLI's flags
+whose machinery is not ported raise, and the default device is the
+GPU."""
 
 import json
 import os
@@ -110,6 +111,33 @@ def test_two_stage_recipe_via_clis(recipe_data, tmp_path):
     saved = json.load(open(res))
     assert saved["captions"] == result["captions"] and saved["captions"]
     assert all(np.isfinite(v) for v in saved["metrics"].values())
+
+
+def test_decoupled_topology_via_the_train_cli(recipe_data, tmp_path):
+    """``train.rl_topology="decoupled"`` and its ring knobs pass through
+    ``--set`` as in the JAX CLI: the RL epoch runs the actor/learner ring
+    (depth 3 / bound 1 drops and recounts) and checkpoints."""
+    from cst_captioning_tpu_torch import obs
+
+    log = str(tmp_path / "rl.jsonl")
+    steps = obs.counter("rl.learner.steps").value
+    trainer = train_main([
+        "--preset", "msrvtt_cst_consensus", *_common(recipe_data),
+        "--skip-xe", "--set", "rl__epochs=1", "--set", "rl__num_rollouts=3",
+        "--set", "train__rl_topology='decoupled'",
+        "--set", "rl__rollout_depth=3", "--set", "rl__staleness_bound=1",
+        "--log-jsonl", log, "--set", f"train__ckpt_dir='{tmp_path / 'ck'}'",
+    ])
+    assert trainer.cfg.train.rl_topology == "decoupled"
+    assert (trainer.cfg.rl.rollout_depth, trainer.cfg.rl.staleness_bound) \
+        == (3, 1)
+    ev = [json.loads(line) for line in open(log)]
+    rl = [e for e in ev if e["event"] == "rl_epoch"]
+    assert len(rl) == 1 and np.isfinite(rl[0]["reward"])
+    # every step went through the ring's learner
+    assert obs.counter("rl.learner.steps").value - steps == rl[0]["steps"]
+    assert trainer.rl_epochs == 1
+    assert os.path.exists(str(tmp_path / "ck" / "latest" / "state.npz"))
 
 
 def test_eval_of_a_jax_checkpoint_matches_the_jax_evaluator(recipe_data,

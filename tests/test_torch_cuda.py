@@ -17,7 +17,9 @@ kernel at one memory slot a row (the mean-pool encoder's bank), the
 prefetch thread's side-stream copies against blocking copies, and an XE
 and a CST epoch of the Trainer with the kernels on. For serving: a hot
 swap's mixed-version strides and lanes added by grow_capacity, each
-request bit-equal to itself served alone.
+request bit-equal to itself served alone. For RL: the strict decoupled
+trainer bitwise equal to the sync loop, and the online learner updating
+and publishing into a live service.
 Marked ``gpu``: these skip without a CUDA device and run on the H100
 (which has no jax, hence no conftest) with
 
@@ -957,3 +959,98 @@ def test_serving_grown_lanes_on_the_card(dev):
                                       want.tokens)
         np.testing.assert_array_equal(rep.results[req.req_id].logprobs,
                                       want.logprobs)
+
+
+def _rl_pieces(dev, seed):
+    """A small model with the attention and decode-step kernels on, a
+    consensus reward over the clips and requests these tests name, and a
+    state factory, for the decoupled and online learners."""
+    from cst_captioning_tpu_torch import train as ttrain
+    from cst_captioning_tpu_torch.data import Vocab
+    from cst_captioning_tpu_torch.rl import RewardComputer
+
+    torch.manual_seed(seed)
+    cfg = tcfg.ModelConfig(vocab_size=V, modalities=(("resnet", 20),),
+                           d_embed=E, d_hidden=E, d_att=A,
+                           encoder="temporal_attention", max_frames=F,
+                           max_len=10, dtype="float32",
+                           attention_impl="pallas", decode_impl="pallas",
+                           decode_stride=S)
+    model = CaptionModel(cfg, device=dev)
+    with torch.no_grad():
+        model.cell.out_proj.bias[EOS_ID] += 2.0
+    words = [f"w{i}" for i in range(V - 4)]
+    g = np.random.default_rng(seed)
+    ids = [f"q{i}" for i in range(B)] + [f"q100_{i}" for i in range(8)]
+    gts = {v: [" ".join(g.choice(words[:20], 4)) for _ in range(3)]
+           for v in ids}
+    reward = RewardComputer(Vocab.from_corpus_words(words), gts)
+
+    def state_of(m):
+        tx = ttrain.make_optimizer(tcfg.TrainConfig(lr_decay_every=0), 10,
+                                   lr_override=1e-3)
+        return ttrain.create_train_state(m, tx)
+
+    return model, reward, state_of
+
+
+def test_decoupled_strict_equals_sync_on_the_card(dev):
+    """AsyncSCSTTrainer(strict=True) on the card, pipelined and
+    sequential, self-consensus baseline: the losses and params equal the
+    sync SCSTTrainer's bitwise, with one decode-step launch per decode
+    step."""
+    import copy
+
+    from cst_captioning_tpu_torch import ops
+    from cst_captioning_tpu_torch import rl as trl
+
+    model, reward, state_of = _rl_pieces(dev, 5)
+    g = np.random.default_rng(6)
+    batches = [({"resnet": torch.from_numpy(
+        g.normal(size=(B, F, 20)).astype(np.float32)).to(dev)},
+        {"resnet": torch.ones((B, F), device=dev)},
+        [f"q{i}" for i in range(B)], None) for _ in range(4)]
+    seeds = lambda j: 40 + j  # noqa: E731
+    for pipelined in (True, False):
+        rl = tcfg.RLConfig(num_rollouts=3, baseline="scb",
+                           pipelined=pipelined)
+        s_state = state_of(copy.deepcopy(model))
+        s_state, sm = trl.SCSTTrainer(s_state.model, reward, rl).train_epoch(
+            s_state, batches, seeds, pipelined=pipelined)
+        a_state = state_of(copy.deepcopy(model))
+        a = trl.AsyncSCSTTrainer(a_state.model, reward, rl, strict=True)
+        ops.reset_launches()
+        a_state, am = a.train_epoch(a_state, batches, seeds)
+        if dev.type == "cuda":
+            assert fused_decode_step.launches == sum(m["decode_steps"]
+                                                     for m in am)
+        assert [m["rl_loss"] for m in am] == [m["rl_loss"] for m in sm]
+        for x, y in zip(s_state.model.parameters(),
+                        a_state.model.parameters()):
+            assert torch.equal(x, y)
+
+
+def test_online_loop_on_the_card(dev):
+    """The online learner attached to a service on the card: updates,
+    version-stamped publishes applied at stride boundaries."""
+    import copy
+
+    from cst_captioning_tpu_torch import rl as trl
+    from cst_captioning_tpu_torch.serving import CaptionService
+
+    served, reward, state_of = _rl_pieces(dev, 7)
+    learner = state_of(copy.deepcopy(served))
+    rl = tcfg.RLConfig(num_rollouts=K, baseline="greedy", rollout_depth=2,
+                       staleness_bound=4, online_batch_size=2, swap_every=1)
+    trainer = trl.OnlineSCSTTrainer(learner.model, reward, rl, learner)
+    svc = CaptionService(served, capacity=3, num_rollouts=K, frame_bucket=2,
+                         device=dev)
+    trainer.attach(svc)
+    rep = svc.serve(_serving_requests(8, 100))
+    trainer.flush()
+    assert rep.completed == 8
+    assert trainer.last_applied + trainer.last_dropped == 4
+    assert trainer.version == trainer.last_applied >= 2
+    # the publish after the flush waits for the service's next stride
+    assert 1 <= svc.param_version <= trainer.version
+    assert all(np.isfinite(m["rl_loss"]) for m in trainer.history)

@@ -348,6 +348,23 @@ def test_observability_knobs_are_accepted(name, value):
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
 
 
+# the decoupled and online RL knobs are ported (tests/test_torch_trainer.py
+# holds their bad values to the JAX messages)
+RL_TOPOLOGY_KNOBS = [("train", "rl_topology", "decoupled"),
+                     ("rl", "rollout_depth", 3), ("rl", "staleness_bound", 0),
+                     ("rl", "actor_fraction", 0.25),
+                     ("rl", "online_batch_size", 8), ("rl", "swap_every", 2)]
+
+
+@pytest.mark.parametrize("section,name,value", RL_TOPOLOGY_KNOBS,
+                         ids=[f"{s}.{n}" for s, n, _ in RL_TOPOLOGY_KNOBS])
+def test_rl_topology_knobs_are_accepted(section, name, value):
+    cfg = get_experiment("msrvtt_cst_consensus").override(
+        **{f"{section}__{name}": value})
+    assert getattr(getattr(cfg, section), name) == value
+    assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
 STILL_UNPORTED = [
     ("train", "debug_nans", True, "resilience"),
     ("train", "spike_mode", "adaptive", "resilience"),
@@ -358,9 +375,6 @@ STILL_UNPORTED = [
     ("train", "comm_bucket_mb", 8.0, "data-parallel"),
     ("train", "comm_dtype", "bf16", "data-parallel"),
     ("train", "comm_overlap", True, "data-parallel"),
-    ("train", "rl_topology", "decoupled", "decoupled and online RL"),
-    ("rl", "rollout_depth", 3, "decoupled and online RL"),
-    ("rl", "online_batch_size", 8, "decoupled and online RL"),
     ("mesh", "num_devices", 2, "data-parallel"),
     ("mesh", "seq_devices", 2, "sequence-parallel"),
     ("mesh", "mp_devices", 2, "sequence-parallel"),

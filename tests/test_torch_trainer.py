@@ -21,7 +21,11 @@ clips), the composite attention and decode on both sides:
 - the XE -> RL handoff (a fresh optimizer, step 0, a constant ``rl.lr``);
 - ``rl.reward_threads`` reaching ``RewardComputer``;
 - every config value whose machinery is not ported raising (the
-  observability knobs are ported: ``test_torch_obs.py``);
+  observability knobs are ported: ``test_torch_obs.py``), and the
+  decoupled and online RL knobs validated with the JAX messages;
+- ``train.rl_topology="decoupled"`` through ``train_rl`` against the sync
+  trainer (bitwise), and a SIGTERM during a decoupled RL epoch resumed
+  from its persisted ring to the uninterrupted run;
 - the divergence sentinel's policies, and a rollback that restores the
   last checkpoint and salts the data order."""
 
@@ -514,9 +518,7 @@ UNPORTED = [
     ("mesh", "mp_devices", 2), ("train", "health", True),
     ("train", "elastic", "degraded"),
     ("train", "spike_mode", "adaptive"),
-    ("train", "debug_nans", True), ("train", "rl_topology", "decoupled"),
-    ("train", "comm_dtype", "bf16"), ("rl", "rollout_depth", 3),
-    ("rl", "online_batch_size", 8),
+    ("train", "debug_nans", True), ("train", "comm_dtype", "bf16"),
 ]
 
 
@@ -528,6 +530,107 @@ def test_unported_config_values_raise(section, name, value):
         cfg.override(**{f"{section}__{name}": value})
     # the default is accepted, and a round trip through JSON keeps it
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
+# the decoupled and online RL knobs are ported: a bad value raises the JAX
+# package's message, and a good one round-trips
+BAD_RL_VALUES = [
+    ("train", "rl_topology", "ring", "unknown rl_topology"),
+    ("rl", "rollout_depth", 0, "rl.rollout_depth 0 must be >= 1"),
+    ("rl", "staleness_bound", -1, "rl.staleness_bound -1 must be >= 0"),
+    ("rl", "actor_fraction", 0.0, r"rl.actor_fraction 0.0 must be in \(0, 1\)"),
+    ("rl", "actor_fraction", 1.0, r"rl.actor_fraction 1.0 must be in \(0, 1\)"),
+    ("rl", "online_batch_size", 0, "rl.online_batch_size 0 must be >= 1"),
+    ("rl", "swap_every", 0, "rl.swap_every 0 must be >= 1"),
+]
+
+
+@pytest.mark.parametrize(
+    "section,name,value,message", BAD_RL_VALUES,
+    ids=[f"{s}.{n}={v}" for s, n, v, _ in BAD_RL_VALUES])
+def test_rl_topology_values_are_validated(section, name, value, message):
+    cfg = get_experiment("msrvtt_cst_consensus")
+    with pytest.raises(ValueError, match=message):
+        cfg.override(**{"train__rl_topology": "decoupled",
+                        f"{section}__{name}": value})
+    good = cfg.override(train__rl_topology="decoupled", rl__rollout_depth=3,
+                        rl__staleness_bound=0, rl__actor_fraction=0.25,
+                        rl__online_batch_size=8, rl__swap_every=2)
+    assert tcfg.ExperimentConfig.from_json(good.to_json()) == good
+
+
+# ---- the decoupled topology through the Trainer ---------------------------
+
+
+@pytest.mark.parametrize("depth,bound,pipelined", [(2, 1, True),
+                                                   (1, 0, False)],
+                         ids=["d2b1_vs_pipelined", "d1b0_vs_sequential"])
+def test_decoupled_train_rl_matches_sync(corpus, tmp_path, depth, bound,
+                                         pipelined):
+    """``train.rl_topology="decoupled"`` builds the AsyncSCSTTrainer; at
+    depth 2 / bound 1 its ring replays the pipelined sync schedule and at
+    depth 1 / bound 0 (strict) the sequential one: the parameters and the
+    rewards of every step equal the sync trainer's."""
+    runs = {}
+    for topo in ("sync", "decoupled"):
+        extra = (dict(rl__rollout_depth=depth, rl__staleness_bound=bound)
+                 if topo == "decoupled" else {})
+        cfg = _port_cfg(corpus, tmp_path / topo, train__epochs=1,
+                        rl__pipelined=pipelined, train__rl_topology=topo,
+                        **extra)
+        tr = _port_trainer(corpus, cfg, tmp_path / f"{topo}.jsonl")
+        tr.train_xe()
+        tr.train_rl()
+        runs[topo] = tr
+    _equal_params(runs["sync"].state, runs["decoupled"].state)
+    want = [e["reward"] for e in _events(tmp_path / "sync.jsonl", "rl_step")]
+    got = [e["reward"] for e in _events(tmp_path / "decoupled.jsonl",
+                                         "rl_step")]
+    assert got == want and len(got) > 2
+    assert _infos(tmp_path / "decoupled") == _infos(tmp_path / "sync")
+
+
+def test_sigterm_during_decoupled_rl_then_resume_is_bitwise(
+        corpus, reference_run, tmp_path):
+    """A decoupled RL epoch (depth 2, bound 1: the pipelined schedule)
+    preempted at a batch boundary persists its in-flight ring in
+    ``seam.npz``; the resumed run replays it and ends equal to the
+    uninterrupted pipelined run."""
+    ref = reference_run
+    cfg = _port_cfg(corpus, tmp_path / "ck", train__epochs=2,
+                    train__rl_topology="decoupled")
+    tr = _port_trainer(corpus, cfg, tmp_path / "log.jsonl")
+    tr.train_xe()
+    real = trl.SCSTTrainer._apply
+    calls = {"n": 0}
+
+    def apply(self, *a):
+        calls["n"] += 1
+        if calls["n"] == 1:       # update(0), while batch 1 is consumed
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(self, *a)
+
+    trl.SCSTTrainer._apply = apply
+    try:
+        with pytest.raises(Preempted):
+            tr.train_rl()
+    finally:
+        trl.SCSTTrainer._apply = real
+    ev = _events(tmp_path / "log.jsonl", "ckpt_step")[-1]
+    # the stop came before batch 2: batch 1's rollouts are the ring
+    assert ev["phase"] == "rl" and ev["seam"] and ev["batch_index"] == 1
+    cfg2 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, resume="auto"))
+    again = _port_trainer(corpus, cfg2, tmp_path / "log2.jsonl")
+    assert _events(tmp_path / "log2.jsonl", "seam_loaded")
+    assert len(again._pending_seam["ring"]) == 1
+    again.train_rl()
+    _equal_params(again.state, ref["trainer"].state)
+    assert _infos(tmp_path / "ck") == _infos(ref["ckpt"])
+    want = [e["reward"] for e in _events(ref["log"], "rl_step")]
+    got = [e["reward"] for e in _events(tmp_path / "log.jsonl", "rl_step")
+           + _events(tmp_path / "log2.jsonl", "rl_step")]
+    assert got == want
 
 
 # ---- the divergence sentinel ------------------------------------------------
