@@ -142,6 +142,40 @@
    version) pairs and there are 30 attention launches per update.
    Reported: requests/s and p99, frozen and online; updates, publishes,
    swaps, the staleness histogram and the reward trend.
+6d. resilience: one seeded ``resilience.chaos.FaultPlan`` an arm, each
+   held to the JAX chaos test's gate, through the port's entry points at
+   msrvtt_cst_consensus width with attention_impl and decode_impl
+   "pallas", B=64, over the recipe corpus's 384 train clips in the
+   port's files (6 batches an epoch; no validation):
+   (1) ``preempt`` at ``xe.step`` visit 3: the trainer's SIGTERM handler
+   saves mid-epoch, the ``resume="auto"`` run ends with params and every
+   step's loss bitwise equal to the uninterrupted epoch, and the previous
+   SIGTERM handler is back; (2) ``nan`` at ``xe.batch`` visit 2 under
+   ``skip_batch``: the epoch completes 5 steps, the poisoned step leaves
+   the params bitwise as they were, all finite; the same batch under
+   ``train.debug_nans`` raises ``FloatingPointError`` naming a module, and
+   a healthy ``debug_nans`` epoch equals the uninterrupted one bitwise;
+   (3) ``io_error`` at ``reward.call`` visit 0 in an SCST epoch
+   (msrvtt_scst's greedy baseline, the dense stride kernel): one
+   ``reward_retry`` (``TransientIOError``), params bitwise those of the
+   clean epoch; (4) ``partial_h2d`` at ``prefetch.h2d`` visit 1 and
+   ``wedged_prefetch`` (0.3 s) at ``prefetch.stage`` visit 2 with a
+   0.05 s stall watchdog: every batch staged on the card bitwise equal to
+   a clean prefetch's, one H2D retry, one stall; (5) ``enospc_rotation``
+   at ``ckpt.state_written`` on the trained state's third ``step_*``
+   save: the oldest generation is reclaimed and the save lands; then a
+   ``kill`` at ``ckpt.pre_replace``: the previous generation verifies and
+   restores; (6) ``param_swap`` at ``serving.param_swap`` visit 0 on the
+   serve phase's model and burst (capacity 32, paged): the publish from
+   the first completion is refused, version 0 throughout, and the drained
+   snapshot replayed on a fresh service plus the served requests equal a
+   serve without the fault bitwise; (7) ``actor_preempt`` at
+   ``rl.actor.step`` visit 1 of a decoupled CST epoch (depth 3, bound 1):
+   one ``rl_actor_fallback_sync``, one finite step for every batch.
+   Reported: each arm's wall time, ``plan.fired`` and launches; the
+   resume's restore ms, a step save's ms and bytes with and without the
+   ENOSPC reclaim, the restore after the kill, the drain, snapshot load
+   and replay times.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -208,7 +242,7 @@
    what one span costs the host (``obs_emit_cost``).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
-   rl_online's and import's included),
+   rl_online's, resilience's and import's included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -383,7 +417,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def model_config():
-    return dataclasses.replace(get_preset("msrvtt_xe_attention"),
+    return dataclasses.replace(get_preset("msrvtt_xe_attention").model,
                                decode_impl="pallas", decode_stride=S)
 
 
@@ -2005,6 +2039,387 @@ def rl_online_phase(host: dict, fit_sd: dict, smi: str) -> tuple[dict, dict]:
             "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}, n
 
 
+# ---- phase 6d: one-device resilience ------------------------------------------
+
+RES_DEVICE = "cuda"
+RES_PREEMPT_AT = 3        # the xe.step visit the SIGTERM lands on
+RES_NAN_AT = 2            # the xe.batch visit the NaN poisons
+RES_STALL_S = 0.05        # the prefetch arm's stall watchdog
+RES_WEDGE_S = 0.3         # and the wedge it catches
+RES_RL = dict(rollout_depth=3, staleness_bound=1)   # the actor arm's ring
+
+
+def res_config(ckpt_dir: str, rl=None, **train):
+    """msrvtt_cst_consensus at full width with the kernels, one XE and one
+    RL epoch of B=64 over the recipe corpus's 384 train clips; ``rl``
+    replaces the RL section."""
+    cfg = get_preset("msrvtt_cst_consensus").override(
+        model__attention_impl="pallas", model__decode_impl="pallas",
+        train__epochs=1, train__log_every_steps=1, train__ckpt_dir=ckpt_dir,
+        rl__epochs=1, **{f"train__{k}": v for k, v in train.items()})
+    return cfg if rl is None else dataclasses.replace(cfg, rl=rl)
+
+
+class XeStepTap:
+    """Wraps a trainer's XE step: the params before and after each, and
+    its non-finite flag."""
+
+    def __init__(self, tr):
+        self.real, self.steps = tr.xe_step, []
+        tr.xe_step = self
+
+    def __call__(self, state, *args):
+        before = [p.detach().clone() for p in state.params]
+        state, m = self.real(state, *args)
+        self.steps.append((before, [p.detach().clone() for p in state.params],
+                           float(m.get("nonfinite", 0.0))))
+        return state, m
+
+
+def _params_equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _res_events(path: str, name: str) -> list:
+    return [e for e in map(json.loads, open(path)) if e["event"] == name]
+
+
+def _res_raises(exc, fn):
+    """-> the ``exc`` that ``fn()`` raised; fails if it raised none."""
+    try:
+        fn()
+    except exc as e:
+        return e
+    check(False, f"resilience: expected {exc.__name__}")
+
+
+def resilience_phase(model, reqs, smi: str) -> tuple[dict, dict]:
+    """One seeded fault plan per arm through the port's trainer,
+    prefetch, checkpoints, decoupled RL and serving at full width
+    (module docstring, 6d) -> (its line, the launches of its runs)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        return _resilience(root, model, reqs, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _resilience(root: str, model, reqs, smi: str) -> tuple[dict, dict]:
+    import signal
+
+    from cst_captioning_tpu_torch.ckpt import CheckpointManager
+    from cst_captioning_tpu_torch.resilience import (
+        Fault, FaultPlan, Preempted, SimulatedKill, verify_manifest)
+
+    t_phase = time.perf_counter()
+    data = recipe_corpus(root)
+    mc = get_preset("msrvtt_cst_consensus").model
+    ds = CaptionDataset(data["info_json"],
+                        {n: data[n] for n, _ in mc.modalities}, "train",
+                        mc.max_frames)
+    d = lambda name: os.path.join(root, name)  # noqa: E731
+    total = dict.fromkeys(all_launches(), 0)
+    arms: dict = {}
+    recovery: dict = {}
+
+    def trainer(cfg, log):
+        return trainer_mod.Trainer(cfg, ds, None, log_path=log,
+                                   device=RES_DEVICE)
+
+    def arm(name, fn):
+        """Run one arm with the launch counts set to 0 just before and read
+        just after; -> the arm's own result."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        line, plan, out = fn()
+        torch.cuda.synchronize()
+        n = all_launches()
+        for k, v in n.items():
+            total[k] += v
+        arms[name] = {**line, "fired": plan.fired, "launches": n,
+                      "wall_s": time.perf_counter() - t}
+        return out
+
+    # 1. SIGTERM at xe.step: the mid-epoch save and resume equal the
+    #    uninterrupted run (params and every step's loss)
+    def preempt():
+        cfg = res_config(d("straight"))
+        straight = trainer(cfg, d("straight.jsonl"))
+        straight.train_xe()
+        straight.close()
+        cfg2 = res_config(d("preempt"))
+        tr = trainer(cfg2, d("preempt.jsonl"))
+        prev = signal.getsignal(signal.SIGTERM)
+        plan = FaultPlan([Fault("xe.step", "preempt", at=RES_PREEMPT_AT)])
+        with plan.activate():
+            _res_raises(Preempted, tr.train_xe)
+        tr.close()
+        check(signal.getsignal(signal.SIGTERM) == prev,
+              "resilience: the trainer left its SIGTERM handler installed")
+        (ev,) = _res_events(d("preempt.jsonl"), "preempt")
+        check(ev["batch_index"] == RES_PREEMPT_AT + 1,
+              f"resilience: preempted at batch {ev['batch_index']}")
+        again = trainer(dataclasses.replace(cfg2, train=dataclasses.replace(
+            cfg2.train, resume="auto")), d("resume.jsonl"))
+        check(again._resume_batch == RES_PREEMPT_AT + 1,
+              f"resilience: resumed at batch {again._resume_batch}")
+        restore_ms = again.ckpt.last_restore.get("ms")
+        again.train_xe()
+        again.close()
+        check(again.state.step == straight.state.step
+              and _params_equal(again.state.params, straight.state.params),
+              "resilience: the resumed run's params differ from the "
+              "uninterrupted run's")
+        want = {e["step"]: e["loss"]
+                for e in _res_events(d("straight.jsonl"), "xe_step")}
+        got = {e["step"]: e["loss"] for p in ("preempt", "resume")
+               for e in _res_events(d(p + ".jsonl"), "xe_step")}
+        check(got == want, "resilience: per-step losses differ across the "
+              "preempt and resume")
+        recovery["resume_restore_ms"] = restore_ms
+        return ({"batch_index": ev["batch_index"], "steps": len(want),
+                 "restore_ms": restore_ms, "bitwise": True}, plan, straight)
+
+    straight = arm("preempt_xe_step", preempt)
+    ref = [p.detach().clone() for p in straight.state.params]
+    steps = straight.steps_per_epoch
+
+    # 2. NaN at xe.batch under skip_batch; then debug_nans on the same
+    #    batch, and a healthy debug_nans epoch against the straight run
+    def nan_batch():
+        tr = trainer(res_config(d("nan")), d("nan.jsonl"))
+        tap = XeStepTap(tr)
+        plan = FaultPlan([Fault("xe.batch", "nan", at=RES_NAN_AT)])
+        with plan.activate():
+            tr.train_xe()
+        tr.close()
+        flags = [s[2] for s in tap.steps]
+        check(tr.xe_epochs == 1 and tr.state.step == steps - 1
+              and flags == [float(i == RES_NAN_AT) for i in range(steps)],
+              f"resilience: NaN epoch steps {tr.state.step}, flags {flags}")
+        before, after, _ = tap.steps[RES_NAN_AT]
+        check(_params_equal(before, after), "resilience: the poisoned step "
+              "changed the params")
+        check(all(bool(torch.isfinite(p).all()) for p in tr.state.params),
+              "resilience: a param is not finite after the NaN batch")
+        (div,) = _res_events(d("nan.jsonl"), "divergence")
+        check(div["kind"] == "nonfinite" and div["action"] == "skip_batch",
+              f"resilience: divergence event {div}")
+        dbg = trainer(res_config(d("dbg_nan"), debug_nans=True),
+                      d("dbg_nan.jsonl"))
+        check(torch.is_anomaly_enabled(), "resilience: anomaly mode is off "
+              "under debug_nans")
+        plan2 = FaultPlan([Fault("xe.batch", "nan", at=RES_NAN_AT)])
+        try:
+            with plan2.activate():
+                err = _res_raises(FloatingPointError, dbg.train_xe)
+        finally:
+            dbg.close()
+        check("module '" in str(err) and not torch.is_anomaly_enabled(),
+              f"resilience: debug_nans raised {err!r}")
+        t = time.perf_counter()
+        on = trainer(res_config(d("dbg_on"), debug_nans=True),
+                     d("dbg_on.jsonl"))
+        on.train_xe()
+        on.close()
+        dbg_s = time.perf_counter() - t
+        check(_params_equal(on.state.params, ref),
+              "resilience: a healthy epoch with debug_nans differs from one "
+              "without")
+        return ({"skipped_step": RES_NAN_AT, "steps": int(tr.state.step),
+                 "debug_nans_error": str(err), "debug_nans_epoch_s": dbg_s,
+                 "debug_nans_bitwise": True}, plan, None)
+
+    arm("nan_xe_batch", nan_batch)
+
+    # 3. a transient reward failure in the SCST epoch (greedy baseline, the
+    #    dense stride kernel): one retry, params equal to the clean epoch
+    scst_rl = dataclasses.replace(get_preset("msrvtt_scst").rl, epochs=1)
+
+    def rl_run(name, plan, rl, **train):
+        tr = trainer(res_config(d(name), rl=rl, **train), d(name + ".jsonl"))
+        tr.load_params_from(d("straight"), "latest")
+        with plan.activate():
+            tr.train_rl()
+        tr.close()
+        return tr
+
+    def reward_retry():
+        clean = rl_run("rl_clean", FaultPlan([]), scst_rl)
+        plan = FaultPlan([Fault("reward.call", "io_error", at=0)])
+        tr = rl_run("rl_retry", plan, scst_rl)
+        (ev,) = _res_events(d("rl_retry.jsonl"), "reward_retry")
+        check(ev["error"] == "TransientIOError",
+              f"resilience: reward_retry {ev}")
+        check(_params_equal(tr.state.params, clean.state.params),
+              "resilience: the retried SCST epoch differs from the clean one")
+        return ({"retry": {k: ev[k] for k in ("attempt", "delay", "error")},
+                 "rl_steps": len(_res_events(d("rl_retry.jsonl"), "rl_step")),
+                 "bitwise": True}, plan, None)
+
+    arm("io_error_reward_call", reward_retry)
+
+    # 4. a torn H2D copy and a wedged worker: every batch arrives equal to a
+    #    clean prefetch's, one retry, one stall
+    def prefetch():
+        batcher = Batcher(ds, batch_size=TRAIN_B, max_len=mc.max_len,
+                          mode="caption")
+
+        def transform(b):
+            return (b.feats, b.feat_masks, b.labels.astype(np.int64), b.mask,
+                    b.weights, np.asarray(b.valid, np.float32))
+
+        def staged(plan):
+            batcher.epoch_index = 0     # the same order each time
+            with plan.activate():
+                out = list(prefetch_mod.prefetch_to_device(
+                    batcher.epoch(), size=2, transform=transform,
+                    device=RES_DEVICE, stall_warn_s=RES_STALL_S))
+            torch.cuda.synchronize()
+            return out
+
+        clean = staged(FaultPlan([]))
+        count = lambda n: tobs.counter(n).snapshot()  # noqa: E731
+        before = (count("resilience.h2d_retry"),
+                  count("resilience.prefetch_stall"))
+        plan = FaultPlan([Fault("prefetch.h2d", "partial_h2d", at=1),
+                          Fault("prefetch.stage", "wedged_prefetch", at=2,
+                                delay=RES_WEDGE_S)])
+        got = staged(plan)
+        after = (count("resilience.h2d_retry"),
+                 count("resilience.prefetch_stall"))
+        check(len(got) == len(clean) == steps
+              and all(_same(a, b) for a, b in zip(got, clean)),
+              "resilience: a prefetched batch differs from the clean run's")
+        check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
+              f"resilience: h2d retries and stalls {before} -> {after}")
+        return ({"batches": len(got), "h2d_retries": after[0] - before[0],
+                 "stalls": after[1] - before[1], "bitwise": True}, plan, None)
+
+    arm("partial_h2d_wedged_prefetch", prefetch)
+
+    # 5. ENOSPC mid-rotation, then a kill before the swap, on the trained
+    #    state: the oldest generation pays, the previous one survives
+    def checkpoints():
+        state = straight.state
+        sink = []
+        mgr = CheckpointManager(d("rotation"), keep=3,
+                                log=lambda e, **f: sink.append((e, f)))
+        mgr.save_step(state, 100, {"epoch": 1})
+        clean_ms, size = mgr.last_save["ms"], mgr.last_save["bytes"]
+        mgr.save_step(state, 200, {"epoch": 1})
+        plan = FaultPlan([Fault("ckpt.state_written", "enospc_rotation",
+                                at=0)])
+        with plan.activate():
+            mgr.save_step(state, 300, {"epoch": 1})
+        enospc_ms = mgr.last_save["ms"]
+        freed = [f["freed"] for e, f in sink if e == "ckpt_enospc"]
+        check(freed == [["step_00000100"]]
+              and [s for s, _ in mgr.step_checkpoints()] == [200, 300],
+              f"resilience: ENOSPC freed {freed}, left "
+              f"{mgr.step_checkpoints()}")
+        kill = FaultPlan([Fault("ckpt.pre_replace", "kill", at=0)])
+        with kill.activate():
+            _res_raises(SimulatedKill,
+                        lambda: mgr.save_step(state, 400, {"epoch": 1}))
+        check(verify_manifest(d("rotation/step_00000300")),
+              "resilience: the previous generation does not verify")
+        restored = mgr.restore_latest(state)
+        check(restored is not None
+              and restored[1]["global_step"] == 300
+              and _params_equal(state.params, ref),
+              "resilience: the previous generation did not restore")
+        recovery.update(save_ms=clean_ms, save_bytes=size,
+                        enospc_save_ms=enospc_ms,
+                        restore_ms=mgr.last_restore.get("ms"))
+        return ({"freed": freed[0], "save_ms": clean_ms, "bytes": size,
+                 "enospc_save_ms": enospc_ms,
+                 "restore_ms": mgr.last_restore.get("ms"),
+                 "killed_fired": kill.fired}, plan, None)
+
+    arm("enospc_then_kill_ckpt", checkpoints)
+
+    # 6. a drain landing at the hot swap (paged stride kernel): refused,
+    #    and drained + replayed equal a serve without the fault
+    def param_swap():
+        base, _ = serve_timed(service(model), reqs)
+        model2 = perturbed(model)
+        svc = service(model)
+        pub = []
+
+        def feedback(req, result, version):
+            if not pub:
+                pub.append(svc.publish_params(model2, version=1))
+
+        svc._feedback = feedback
+        snap = d("swapdrain")
+        plan = FaultPlan([Fault("serving.param_swap", "param_swap", at=0)])
+        with plan.activate():
+            drained, drain_s = serve_timed(svc, reqs, snapshot_dir=snap)
+        check(pub == [True] and drained.drained
+              and drained.drain_reason == "chaos_param_swap",
+              f"resilience: swap drain {drained.drain_reason!r}, publish "
+              f"{pub}")
+        check(svc.param_version == 0 and svc._pending_publish is None
+              and svc._swap_history == [] and svc._old_versions == {}
+              and all(r.param_version == 0
+                      for r in drained.results.values()),
+              "resilience: the swap was not refused whole")
+        fresh = service(model)
+        t = time.perf_counter()
+        restored = load_snapshot(snap, service=fresh)
+        load_s = time.perf_counter() - t
+        replay, replay_s = serve_timed(fresh, [])
+        union = {**drained.results, **replay.results}
+        bad = [r for r, res in base.results.items()
+               if r not in union or not same_result(union[r], res)]
+        check(not bad and union.keys() == base.results.keys(),
+              f"resilience: {len(bad)} requests differ after the swap "
+              "drain and replay")
+        recovery.update(drain_s=drain_s, replay_s=replay_s,
+                        load_snapshot_s=load_s)
+        return ({"served": drained.completed, "replayed": len(restored),
+                 "drain_s": drain_s, "load_snapshot_s": load_s,
+                 "replay_s": replay_s, "bitwise": True}, plan, None)
+
+    arm("param_swap_serving", param_swap)
+
+    # 7. actor_preempt at depth 3 bound 1: the fallback to the sync
+    #    schedule, one step for every batch
+    def actor_preempt():
+        rl = dataclasses.replace(get_preset("msrvtt_cst_consensus").rl,
+                                 epochs=1, **RES_RL)
+        plan = FaultPlan([Fault("rl.actor.step", "actor_preempt", at=1)])
+        tr = rl_run("actor", plan, rl, rl_topology="decoupled")
+        fell = _res_events(d("actor.jsonl"), "rl_actor_fallback_sync")
+        rl_steps = _res_events(d("actor.jsonl"), "rl_step")
+        n_batches = Batcher(ds, batch_size=TRAIN_B, max_len=mc.max_len,
+                            mode="video").num_batches()
+        check(len(fell) == 1 and len(rl_steps) == n_batches
+              and all(np.isfinite(e["reward"]) for e in rl_steps),
+              f"resilience: actor preempt fell back {len(fell)} times, "
+              f"{len(rl_steps)} steps for {n_batches} batches")
+        check(all(bool(torch.isfinite(p).all()) for p in tr.state.params),
+              "resilience: a param is not finite after the actor preempt")
+        return ({"fallback_recount": fell[0].get("recount"),
+                 "rl_steps": len(rl_steps), "batches": n_batches}, plan, None)
+
+    arm("actor_preempt_rl", actor_preempt)
+
+    # every kernel of the arms ran on their paths
+    check(total["fused_additive_attention"] > 0
+          and total["fused_decode_step"] > 0
+          and total["fused_decode_stride"] > 0
+          and total["fused_decode_stride_paged"] > 0,
+          f"resilience: a kernel of the phase never launched: {total}")
+    return {"phase": "resilience", "preset": "msrvtt_cst_consensus",
+            "batch": TRAIN_B, "steps_per_epoch": steps,
+            "corpus_clips": data["meta"]["clips"]["train"], "arms": arms, "recovery": recovery,
+            "launches": total, "wall_s": time.perf_counter() - t_phase,
+            "nvidia_smi": smi}, total
+
+
 def device_breakdown(prof, wall_ms: float) -> dict:
     rows = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
@@ -2121,7 +2536,7 @@ INFO_KEYS = ("epoch", "xe_epochs", "phase", "batch_index", "global_step")
 def recipe_corpus(root: str) -> dict:
     """The corpus through ``data.synthetic``, then its WXE weights and
     CIDEr df through ``data.preprocess``."""
-    mods = dict(get_preset("msrvtt_xe_attention").modalities)
+    mods = dict(get_preset("msrvtt_xe_attention").model.modalities)
     t = time.perf_counter()
     paths = make_synthetic_dataset(os.path.join(root, "data"),
                                    modalities=mods, **RECIPE_CORPUS)
@@ -2323,7 +2738,7 @@ def _recipe(root: str, smi: str) -> tuple[dict, dict]:
         "--set", "train__log_every_steps=1",
         "--set", f"data__consensus_weights='{data['consensus_weights']}'",
         "--set", f"data__cider_df='{data['cider_df']}'"]
-    T = get_preset("msrvtt_cst_consensus").max_len
+    T = get_preset("msrvtt_cst_consensus").model.max_len
     total = dict.fromkeys(all_launches(), 0)
 
     def add(n):
@@ -2398,7 +2813,7 @@ def _recipe(root: str, smi: str) -> tuple[dict, dict]:
     # -- SCST: greedy baseline from the XE best ------------------------------
     sd = train("msrvtt_scst", "ck_d", "d.jsonl", "--skip-xe",
                "--set", f"rl__init_from='{d('ck_a')}'", "--set", "rl__epochs=1")
-    S = get_preset("msrvtt_scst").decode_stride
+    S = get_preset("msrvtt_scst").model.decode_stride
     s_steps = _ev(sd, "rl_step")
     strides = sum(-(-e["decode_steps"] // S) for e in s_steps)
     n = sd["launches"]
@@ -2747,7 +3162,7 @@ def write_clip_features(root: str, clips: list, topics: list, dims: dict,
                         rng) -> dict:
     """<clip>.npy [max_frames, dim] float32 a modality: a topic's centre
     plus noise, so the features predict the captions."""
-    F = get_preset("msrvtt_xe_attention").max_frames
+    F = get_preset("msrvtt_xe_attention").model.max_frames
     out = {}
     for name, dim in dims.items():
         d = os.path.join(root, f"{name}_npy")
@@ -2765,7 +3180,7 @@ def import_sources(root: str) -> dict:
     resnet and c3d) and an MSVD one (video_corpus.csv, youtube_mapping.txt,
     resnet only) under ``root``."""
     rng = np.random.default_rng(23)
-    mods = dict(get_preset("msrvtt_xe_attention").modalities)
+    mods = dict(get_preset("msrvtt_xe_attention").model.modalities)
     n = sum(IMPORT_CLIPS)
     vids = [f"video{i}" for i in range(n)]
     topics = [i % len(TOPICS) for i in range(n)]
@@ -2856,7 +3271,7 @@ def _import(root: str, smi: str) -> tuple[dict, dict]:
                              d("pre_out")])
     wall["preprocess_s"] = time.perf_counter() - t
     # every output loads through CaptionDataset
-    F = get_preset("msrvtt_xe_attention").max_frames
+    F = get_preset("msrvtt_xe_attention").model.max_frames
     t = time.perf_counter()
     loaded = {}
     for label, paths, want in (
@@ -2873,7 +3288,7 @@ def _import(root: str, smi: str) -> tuple[dict, dict]:
             check(len(ds) == n, f"import {label} {split}: {len(ds)} clips")
             feats = ds.features_for(ds.records[0].video_id)
             check(all(f.shape == (F, dict(
-                get_preset("msrvtt_xe_attention").modalities)[k])
+                get_preset("msrvtt_xe_attention").model.modalities)[k])
                 and m.sum() == F for k, (f, m) in feats.items()),
                 f"import {label} {split}: feature shapes")
             loaded[f"{label}_{split}"] = len(ds)
@@ -2882,7 +3297,7 @@ def _import(root: str, smi: str) -> tuple[dict, dict]:
           "import: the df's documents")
     wall["load_s"] = time.perf_counter() - t
     # one XE epoch at msrvtt_cst_consensus from the imported directory
-    T = get_preset("msrvtt_cst_consensus").max_len
+    T = get_preset("msrvtt_cst_consensus").model.max_len
     ck = d("ck")
     t = time.perf_counter()
     run = run_train([
@@ -3171,7 +3586,7 @@ def _obs(root: str, smi: str) -> tuple[dict, dict]:
 
     # -- one XE epoch, obs off and on, in turns -------------------------------
     t = time.perf_counter()
-    mods = [n for n, _ in get_preset("msrvtt_cst_consensus").modalities]
+    mods = [n for n, _ in get_preset("msrvtt_cst_consensus").model.modalities]
     base = get_experiment("msrvtt_cst_consensus").override(
         model__attention_impl="pallas", model__decode_impl="pallas",
         train__epochs=1, rl__enabled=False,
@@ -3580,6 +3995,10 @@ def main() -> int:
     emit(online)
     del host, fit_sd
 
+    # ---- phase 6d: one-device resilience --------------------------------------
+    resil, resil_launches = resilience_phase(model, reqs, smi)
+    emit(resil)
+
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it
     path_launches = {
@@ -3593,7 +4012,7 @@ def main() -> int:
         "fused_decode_step": cst["launches"]["fused_decode_step"],
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
     for launched in (lifecycle_launches, decoupled_launches,
-                     online_launches):
+                     online_launches, resil_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

@@ -28,7 +28,9 @@ optimizer state, and the step. :func:`load_state`, :func:`load_params` and
 ``CheckpointManager.restore_latest`` read either format, by the state
 file the directory holds. Saves and restores run in ``ckpt.save`` /
 ``ckpt.restore`` obs spans; a full disk and a corrupt candidate count on
-``resilience.ckpt_enospc`` / ``resilience.ckpt_corrupt``.
+``resilience.ckpt_enospc`` / ``resilience.ckpt_corrupt``. A save visits the
+chaos points ``ckpt.save`` (entry), ``ckpt.state_written`` and
+``ckpt.pre_replace`` (``resilience/chaos.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from cst_captioning_tpu_torch.convert import (
     flax_to_state_dict,
     state_dict_to_flax,
 )
+from cst_captioning_tpu_torch.resilience import chaos
 from cst_captioning_tpu_torch.resilience.durable import (
     CorruptCheckpointError,
     fsync_dir,
@@ -240,6 +243,7 @@ def save_state(ckpt_dir: str, name: str, state: TrainState,
     a time: crash-atomic, not concurrency-atomic."""
     final = os.path.join(ckpt_dir, name)
     tmp = final + ".tmp"
+    chaos.visit("ckpt.save")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
@@ -248,6 +252,7 @@ def save_state(ckpt_dir: str, name: str, state: TrainState,
     state_bytes = buf.getvalue()
     infos_bytes = json.dumps(infos or {}, indent=2, default=float).encode()
     write_bytes_durable(os.path.join(tmp, STATE_FILE), state_bytes)
+    chaos.visit("ckpt.state_written")
     write_bytes_durable(os.path.join(tmp, INFOS_FILE), infos_bytes)
     blobs = {STATE_FILE: state_bytes, INFOS_FILE: infos_bytes}
     for extra_name, blob in (extra_files or {}).items():
@@ -257,6 +262,7 @@ def save_state(ckpt_dir: str, name: str, state: TrainState,
         blobs[extra_name] = blob
     write_manifest(tmp, blobs)
     fsync_dir(tmp)
+    chaos.visit("ckpt.pre_replace")
     if os.path.exists(final):
         # demote, don't delete: the previous generation survives a crash
         # in the swap and a torn write in the new files

@@ -8,9 +8,9 @@ and ``section__field`` overrides. Field names and defaults match the JAX
 package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
-A field whose machinery the port does not have yet (meshes, the health
-monitor and elastic meshes, the adaptive spike bound, the NaN sanitizer,
-gradient-communication knobs) raises
+A field whose machinery the port does not have yet (meshes, sequence
+parallelism, the health monitor and elastic meshes, gradient-communication
+knobs) raises
 ``ValueError`` when it is set to anything but its default, naming what is
 missing: nothing is accepted and then ignored.
 """
@@ -46,6 +46,9 @@ class ModelConfig:
     max_frames: int = 60        # frame-axis padding length
     dtype: str = "bfloat16"     # compute dtype
     param_dtype: str = "float32"
+    # the mesh axis a frame-sharded memory bank runs over ("" = one
+    # device's frame axis)
+    seq_axis: str = ""
     # "pallas" routes the teacher-forced attention context through the
     # additive-attention kernel (ops/attention.py, a CUDA kernel on the
     # GPU); "xla" keeps the plain PyTorch composite
@@ -86,6 +89,7 @@ class ModelConfig:
             raise ValueError(
                 f"unsupported param dtype {self.param_dtype!r} (float32 only)"
             )
+        _refuse_unported(self, "model", _MODEL_UNPORTED)
 
 
 @dataclass(frozen=True)
@@ -130,14 +134,11 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 
 # each refused knob names the machinery it needs and the port slice that
 # brings it (ROADMAP.md "Modules still to port")
-_RESILIENCE = "the resilience slice"
+_HEALTH = "the health slice"
 _DATA_PARALLEL = "the data-parallel slice"
-_NO_HEALTH = f"the multi-host health monitor and elastic meshes ({_RESILIENCE})"
+_NO_HEALTH = f"the multi-host health monitor and elastic meshes ({_HEALTH})"
 _NO_COMMS = f"data-parallel gradient communication ({_DATA_PARALLEL})"
-_NO_ADAPTIVE = f"the adaptive spike bound ({_RESILIENCE})"
 _TRAIN_UNPORTED = {
-    "debug_nans": f"the NaN sanitizer ({_RESILIENCE})",
-    "spike_mode": _NO_ADAPTIVE, "spike_factor_min": _NO_ADAPTIVE,
     "health": _NO_HEALTH, "health_dir": _NO_HEALTH,
     "health_interval_s": _NO_HEALTH, "peer_timeout_s": _NO_HEALTH,
     "health_misses": _NO_HEALTH, "health_sim_hosts": _NO_HEALTH,
@@ -145,11 +146,13 @@ _TRAIN_UNPORTED = {
     "dcn_stall_s": _NO_HEALTH, "comm_bucket_mb": _NO_COMMS,
     "comm_dtype": _NO_COMMS, "comm_overlap": _NO_COMMS,
 }
+_MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 _MESH_UNPORTED = {
-    "seq_devices": "sequence parallelism (the model- and sequence-parallel "
-                   "slice)",
-    "mp_devices": "model parallelism (the model- and sequence-parallel "
-                  "slice)",
+    "seq_devices": f"sequence parallelism ({_MODEL_SEQUENCE})",
+    "mp_devices": f"model parallelism ({_MODEL_SEQUENCE})",
+}
+_MODEL_UNPORTED = {
+    "seq_axis": f"a frame-sharded memory bank ({_MODEL_SEQUENCE})",
 }
 
 
@@ -177,6 +180,8 @@ class TrainConfig:
     # under <profile_dir>/xe and /rl (utils/profiling.py)
     profile_dir: str = ""
     profile_steps: int = 10
+    # raise FloatingPointError at the first module whose output is not
+    # finite, with autograd's anomaly mode on (train/trainer.py)
     debug_nans: bool = False
     # spans, metrics and the run report (obs/); obs_dir "" = <ckpt_dir>/obs
     obs: bool = False
@@ -189,6 +194,8 @@ class TrainConfig:
     on_divergence: str = "skip_batch"
     # flag a finite loss > factor * median(recent window); 0 = off
     spike_factor: float = 0.0
+    # "adaptive": the bound follows the loss EWMA's moments, clamped to
+    # [spike_factor_min, spike_factor] x median (resilience/adaptive.py)
     spike_mode: str = "fixed"
     spike_factor_min: float = 1.5
     max_rollbacks: int = 2              # rollback budget per run
@@ -233,6 +240,19 @@ class TrainConfig:
             raise ValueError(
                 f"recorder_steps {self.recorder_steps} must be >= 0 "
                 "(0 = flight recorder off)")
+        if self.spike_mode not in ("fixed", "adaptive"):
+            raise ValueError(
+                f"unknown spike_mode {self.spike_mode!r} "
+                "(expected 'fixed' or 'adaptive')")
+        if self.spike_mode == "adaptive":
+            if self.spike_factor <= 0:
+                raise ValueError(
+                    "spike_mode='adaptive' needs spike_factor > 0 — the "
+                    "factor is the adaptive bound's ceiling clamp")
+            if not 0 < self.spike_factor_min <= self.spike_factor:
+                raise ValueError(
+                    f"spike_factor_min {self.spike_factor_min} must be in "
+                    f"(0, spike_factor={self.spike_factor}]")
         if self.rl_topology not in ("sync", "decoupled"):
             raise ValueError(
                 f"unknown rl_topology {self.rl_topology!r} "

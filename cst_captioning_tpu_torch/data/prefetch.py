@@ -18,6 +18,17 @@ Observability: each item's collate and copy issue run in a
 it under overlapped work), observed into the ``prefetch.stage_seconds``
 histogram and counted on ``prefetch.batches``; ``prefetch.queue_depth`` is
 the depth the consumer sees (pinned at 0 means an input-bound loop).
+
+Resilience (the JAX package's): the worker visits the chaos points
+``prefetch.stage`` (with the item, before ``transform``) and
+``prefetch.h2d`` (inside the placement). A transient placement failure
+(``TransientIOError``, e.g. a torn copy) redoes the whole placement under a
+small retry budget, counted on ``resilience.h2d_retry`` with an
+``h2d_retry`` event; the fault is raised before any copy is issued, so a
+retry never leaves a half-issued copy or a recorded event behind. A
+consumer that waits more than ``stall_warn_s`` on an empty queue (a wedged
+worker, a stalled read) logs one ``prefetch_stall`` event and counts
+``resilience.prefetch_stall`` once per stall, and keeps waiting.
 """
 
 from __future__ import annotations
@@ -32,6 +43,14 @@ import torch
 
 from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.device import resolve_device
+from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience.chaos import TransientIOError
+from cst_captioning_tpu_torch.resilience.retry import RetryPolicy, retry_call
+
+# a transient placement failure is redone in place under a tight budget:
+# the host item is still there, so placing it again is always safe
+_H2D_RETRY = RetryPolicy(max_attempts=3, base_delay=0.01, max_delay=0.1,
+                         budget=1.0, retry_on=(TransientIOError,))
 
 
 def tree_map(fn: Callable[[Any], Any], x: Any) -> Any:
@@ -74,6 +93,7 @@ def prefetch_to_device(
     place: bool = True,
     stop_event: threading.Event | None = None,
     device=None,
+    stall_warn_s: float = 5.0,
 ) -> Iterator[Any]:
     """Iterate ``it`` with ``size`` items staged ahead on ``device``
     (default the GPU).
@@ -84,6 +104,7 @@ def prefetch_to_device(
     makes the worker stop before its next item (the preemption path); what
     is staged already is still yielded. An error in the worker is raised
     in the consumer; a consumer that stops early retires the worker.
+    ``stall_warn_s`` is the stall watchdog's wait (0 turns it off).
     """
     dev = resolve_device(device)
     cuda = place and dev.type == "cuda"
@@ -95,13 +116,23 @@ def prefetch_to_device(
     def _stage(x):
         t0 = time.perf_counter()
         with obs.span("prefetch.stage"):
-            x = _place(x)
+            x = chaos.visit("prefetch.stage", x)
+            x = transform(x) if transform is not None else x
+            x = retry_call(_h2d, x, policy=_H2D_RETRY, on_retry=_h2d_retry)
         stage_hist.observe(time.perf_counter() - t0)
         staged.inc()
         return x
 
+    def _h2d_retry(info):
+        obs.counter("resilience.h2d_retry").inc()
+        obs.event("h2d_retry", **info)
+
+    def _h2d(x):
+        # before any copy is issued: a failure leaves nothing in flight
+        chaos.visit("prefetch.h2d")
+        return _place(x)
+
     def _place(x):
-        x = transform(x) if transform is not None else x
         if not place:
             return x
         if not cuda:
@@ -161,11 +192,30 @@ def prefetch_to_device(
         finally:
             _put(_END)
 
+    def _get():
+        """``q.get`` that reports, once per stall, a worker that starves
+        the consumer past ``stall_warn_s``."""
+        if stall_warn_s <= 0:
+            return q.get()
+        reported = False
+        waited = 0.0
+        while True:
+            try:
+                return q.get(timeout=stall_warn_s)
+            except queue.Empty:
+                waited += stall_warn_s
+                if not reported:
+                    reported = True
+                    obs.counter("resilience.prefetch_stall").inc()
+                    obs.event("prefetch_stall", waited_s=round(waited, 3),
+                              queue_depth=q.qsize(),
+                              worker_alive=t.is_alive())
+
     t = threading.Thread(target=worker, daemon=True, name="prefetch")
     t.start()
     try:
         while True:
-            x = q.get()
+            x = _get()
             # as the consumer sees it: 0 while the worker stages means the
             # loop waits on its input
             depth.set(q.qsize())

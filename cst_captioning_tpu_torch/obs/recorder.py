@@ -423,11 +423,21 @@ def postmortem(reason: str, *, registry_extra: dict | None = None,
 
 
 def note_fault(point: str, kind: str, visit: int, **fields: Any) -> None:
-    """Chaos-harness hook (its callers come with the port's resilience
-    slice): an injected fault is a trip — capture the ring as it was when the fault
-    fired, before its consequences land. Extra ``fields`` (e.g. the victim
-    ``host`` of a ``partial_preempt``) ride into the bundle's meta so the
-    fleet merge can name the victim."""
+    """Chaos-harness hook (``resilience/chaos.py`` calls it as a fault
+    fires): an injected fault is a trip — capture the ring as it was when
+    the fault fired, before its consequences land. Extra ``fields`` (e.g.
+    the victim ``host`` of a ``partial_preempt``) ride into the bundle's
+    meta so the fleet merge can name the victim.
+
+    A fault can fire on the prefetch worker or the reward thread, whose
+    current stream is not the step loop's: the device is synchronized
+    first, so the readback of the buffered tensors waits for the steps
+    that wrote them."""
     fr = _FLIGHT
     if fr is not None:
+        if threading.current_thread() is not threading.main_thread():
+            import torch  # lazy, as in _read_back
+
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
         fr.postmortem(f"chaos_{kind}", point=point, visit=visit, **fields)

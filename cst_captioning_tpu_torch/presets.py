@@ -72,7 +72,7 @@ EXPERIMENTS: dict[str, ExperimentConfig] = {
 PRESETS: dict[str, ModelConfig] = {k: v.model for k, v in EXPERIMENTS.items()}
 
 
-def get_experiment(name: str) -> ExperimentConfig:
+def get_preset(name: str) -> ExperimentConfig:
     try:
         return EXPERIMENTS[name]
     except KeyError:
@@ -81,5 +81,4 @@ def get_experiment(name: str) -> ExperimentConfig:
         ) from None
 
 
-def get_preset(name: str) -> ModelConfig:
-    return get_experiment(name).model
+get_experiment = get_preset

@@ -1,8 +1,33 @@
-"""Checkpoint durability, retries, the divergence sentinel and SIGTERM
-handling (the part of the JAX package's ``resilience/`` that the trainer
-runs on one device). The health monitor, elastic meshes, chaos injection
-and the adaptive spike bound are not ported."""
+"""The fault-tolerance layer (the JAX package's ``resilience/``) on one
+device:
 
+- :mod:`durable`: fsync'd atomic checkpoint writes and a checksum manifest
+  verified on load.
+- :mod:`sentinel`: NaN/inf and loss-spike checks over the step loops under
+  ``skip_batch``, ``rollback`` or ``abort``; :mod:`adaptive` sets its spike
+  bound from the loss EWMA (``train.spike_mode="adaptive"``).
+- :mod:`retry`: budgeted, jittered exponential backoff for host I/O
+  (checkpoint writes, the RL reward, the prefetch placement).
+- :mod:`preempt`: SIGTERM sets a flag; the step loop saves mid-epoch and
+  exits.
+- :mod:`chaos`: seeded fault plans (NaN batches, kills mid-save, transient
+  I/O errors, slow or failing reward calls, SIGTERM, slow or partial
+  host-to-device copies, wedged prefetch, ENOSPC mid-rotation, serving and
+  actor preemption) fired at named points in the hot paths.
+
+The finite-update guard is ``train.state.guarded_apply_gradients``. The
+multi-host health monitor (heartbeats, rendezvous, rejoin) is the health
+slice's.
+"""
+
+from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
+from cst_captioning_tpu_torch.resilience.chaos import (
+    Fault,
+    FaultPlan,
+    PartialTransferError,
+    SimulatedKill,
+    TransientIOError,
+)
 from cst_captioning_tpu_torch.resilience.durable import (
     MANIFEST_FILE,
     CorruptCheckpointError,
@@ -24,13 +49,19 @@ from cst_captioning_tpu_torch.resilience.sentinel import (
 
 __all__ = [
     "MANIFEST_FILE",
+    "AdaptiveThresholds",
     "CorruptCheckpointError",
     "DivergenceSentinel",
+    "Fault",
+    "FaultPlan",
+    "PartialTransferError",
     "Preempted",
     "PreemptionHandler",
     "RetryPolicy",
     "RollbackRequested",
+    "SimulatedKill",
     "TrainingDiverged",
+    "TransientIOError",
     "fsync_dir",
     "retry_call",
     "verify_manifest",

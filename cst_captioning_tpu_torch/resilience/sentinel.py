@@ -14,7 +14,10 @@ top. It buffers each step's ``(loss, nonfinite)`` and checks them at
 
 A loss spike (finite, above ``spike_factor`` times the recent median) is
 found on the same check; its update is applied already, so ``skip_batch``
-only logs it. The adaptive spike bound is not ported.
+only logs it. ``adaptive=`` (``train.spike_mode="adaptive"``) takes the
+bound from an :class:`~cst_captioning_tpu_torch.resilience.adaptive.AdaptiveThresholds`
+instead (``resilience/adaptive.py``); without it the fixed policy runs as
+it is.
 
 Every verdict also goes through ``obs.anomaly.record_anomaly`` (the
 ``obs.anomaly.<kind>`` counter and an ``anomaly`` event, the spelling the
@@ -54,7 +57,8 @@ class DivergenceSentinel:
     def __init__(self, policy: str = "skip_batch", phase: str = "xe",
                  log: Callable[..., None] | None = None,
                  spike_factor: float = 0.0, window: int = 32,
-                 warmup: int = 8, check_every: int | None = None):
+                 warmup: int = 8, check_every: int | None = None,
+                 adaptive: Any = None):
         if policy not in POLICIES:
             raise ValueError(f"unknown divergence policy {policy!r}")
         self.policy = policy
@@ -63,6 +67,7 @@ class DivergenceSentinel:
         self.spike_factor = spike_factor
         self.warmup = warmup
         self.check_every = check_every
+        self.adaptive = adaptive
         self._recent: deque[float] = deque(maxlen=window)
         self._buf: list[tuple[int, Any, Any]] = []
         self.skipped = 0
@@ -94,11 +99,16 @@ class DivergenceSentinel:
             self._diverged(step, loss, "nonfinite")
             return
         if self.spike_factor and len(self._recent) >= self.warmup:
-            bound = self.spike_factor * statistics.median(self._recent)
+            med = statistics.median(self._recent)
+            bound = self.spike_factor * med
+            if self.adaptive is not None:
+                bound = self.adaptive.bound(med, bound)
             if loss > bound:
                 self._diverged(step, loss, "spike", bound=bound)
                 return
         self._recent.append(loss)
+        if self.adaptive is not None:
+            self.adaptive.observe(loss)
 
     def _diverged(self, step: int, loss: float, kind: str,
                   bound: float | None = None) -> None:

@@ -46,8 +46,10 @@ Observability (the JAX names): the ``rl.actor.broadcast``,
 ``rl.staleness`` histogram and the host-observed ``rl.actor.occupancy``
 and ``rl.learner.occupancy`` gauges.
 
-Not carried from the JAX trainer: the ``rl.actor.step`` chaos visit (the
-resilience slice).
+Chaos: the loop visits ``rl.actor.step`` once a batch while it has not
+fallen back to the sync schedule, before it services rejoins and
+preemptions, so a fault plan's ``actor_preempt`` lands at that batch's
+boundary (``resilience/chaos.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.config import RLConfig
 from cst_captioning_tpu_torch.decoding.fused import fused_decode
 from cst_captioning_tpu_torch.decoding.sample import sample_decode
+from cst_captioning_tpu_torch.resilience import chaos
 from cst_captioning_tpu_torch.rl.scst import SCSTTrainer, _host_copy
 from cst_captioning_tpu_torch.train.state import TrainState
 
@@ -209,7 +212,8 @@ class AsyncSCSTTrainer(SCSTTrainer):
     def __init__(self, model, reward, cfg: RLConfig,
                  max_len: int | None = None, guard: bool = False,
                  stats: bool = False, strict: bool = False,
-                 batch_size: int = 0, devices=None, on_event=None):
+                 batch_size: int = 0, devices=None, on_event=None,
+                 retry=None):
         if devices is not None and len({str(d) for d in devices}) > 1:
             raise ValueError(
                 f"AsyncSCSTTrainer got {len(devices)} devices: the "
@@ -230,8 +234,7 @@ class AsyncSCSTTrainer(SCSTTrainer):
         elif implicit:
             depth, bound = 1, 0
         super().__init__(model, reward, cfg, max_len=max_len, guard=guard,
-                         stats=stats)
-        self.on_event = on_event or (lambda event, **fields: None)
+                         stats=stats, retry=retry, on_event=on_event)
         self._batch_size = int(batch_size)
         self._wg = cfg.baseline == "greedy"
         self._depth = depth
@@ -431,6 +434,8 @@ class AsyncSCSTTrainer(SCSTTrainer):
             if should_stop is not None and should_stop():
                 stopped = True
                 break
+            if not self._fallback_sync:
+                chaos.visit("rl.actor.step")
             lost = self._service_rejoins() + self._service_preemptions()
             for meta in lost:
                 # the orphaned in-flight rollouts, in order, under the

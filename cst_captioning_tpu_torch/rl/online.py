@@ -81,9 +81,8 @@ class OnlineSCSTTrainer(SCSTTrainer):
                  max_len: int | None = None, ref_id: Callable | None = None,
                  guard: bool = False, stats: bool = False, on_event=None):
         super().__init__(model, reward, cfg, max_len=max_len, guard=guard,
-                         stats=stats)
+                         stats=stats, on_event=on_event)
         self.state = state
-        self.on_event = on_event or (lambda event, **fields: None)
         self._bound = max(0, int(cfg.staleness_bound))
         self._batch_size = max(1, int(cfg.online_batch_size))
         self._swap_every = max(1, int(cfg.swap_every))

@@ -38,7 +38,12 @@ report's overlap section); the main thread's wait for the score is a
 ``rl.reward`` span of its own, the part of the reward the pipeline did not
 hide.
 
-Not carried from the JAX trainer: meshes, reward retries and chaos hooks.
+The reward call (:meth:`SCSTTrainer._reward_call`) visits the chaos point
+``reward.call`` and runs under ``retry_call``: a transient failure is
+retried by the ``retry=`` policy and logged through ``on_event`` as a
+``reward_retry`` event, as in the JAX trainer.
+
+Not carried from the JAX trainer: meshes.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ from cst_captioning_tpu_torch.decoding.sample import sample_decode
 from cst_captioning_tpu_torch.losses import reinforce_loss
 from cst_captioning_tpu_torch.models.captioner import EncoderOutput
 from cst_captioning_tpu_torch.obs import flops as _flops
+from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from cst_captioning_tpu_torch.rl.rewards import scb_baseline
 from cst_captioning_tpu_torch.train.schedule import global_norm
 from cst_captioning_tpu_torch.train.state import TrainState
@@ -312,10 +319,13 @@ class SCSTTrainer:
 
     def __init__(self, model, reward, cfg: RLConfig,
                  max_len: int | None = None, guard: bool = False,
-                 stats: bool = False):
+                 stats: bool = False, retry: RetryPolicy | None = None,
+                 on_event=None):
         self.model = model
         self.reward = reward
         self.cfg = cfg
+        self.retry = retry or RetryPolicy()
+        self.on_event = on_event or (lambda event, **fields: None)
         self.max_len = max_len or model.cfg.max_len
         # the obs ledger, host-side constants as the JAX SCSTTrainer sets
         # them (its exit-check granularity, not the port's launch stride)
@@ -352,11 +362,25 @@ class SCSTTrainer:
 
     # ---- reward / advantage (host) ------------------------------------------
 
+    def _reward_call(self, video_ids, rows):
+        """The reward behind jittered-backoff retries: a transient failure
+        (a scoring service's) is retried, not fatal; ``reward.call`` lets
+        the chaos harness inject one."""
+
+        def call():
+            chaos.visit("reward.call")
+            return self.reward(video_ids, rows)
+
+        return retry_call(
+            call, policy=self.retry,
+            on_retry=lambda info: self.on_event("reward_retry", **info))
+
     def _advantage(self, greedy, samples_np, video_ids, valid_np):
         """-> (advantage [K, B] np, metrics dict)."""
         K = self.cfg.num_rollouts
         B = samples_np.shape[1]
-        r_samples = self.reward(video_ids, samples_np.reshape(K * B, -1))
+        r_samples = self._reward_call(video_ids,
+                                      samples_np.reshape(K * B, -1))
         r_kb = r_samples.reshape(K, B)
 
         if self.cfg.baseline == "greedy":
@@ -364,7 +388,7 @@ class SCSTTrainer:
                 raise ValueError(
                     "baseline='greedy' needs the greedy rollout; the decode "
                     "was built with with_greedy=False")
-            r_greedy = self.reward(video_ids, np.asarray(greedy))
+            r_greedy = self._reward_call(video_ids, np.asarray(greedy))
             baseline = np.broadcast_to(r_greedy[None, :], (K, B))
         elif self.cfg.baseline == "scb":
             baseline = scb_baseline(r_kb)

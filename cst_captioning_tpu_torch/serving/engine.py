@@ -49,8 +49,14 @@ gauges with its alerts through ``obs.anomaly.record_anomaly``; a drain
 dumps a flight-recorder postmortem (:meth:`CaptionService._drain_postmortem`).
 :meth:`CaptionService.stride_cost` gives one stride's analytic cost.
 
-Not carried from the JAX engine: the peer-loss drain and the chaos seams
-(resilience), ``min_len > 0`` and the XLA scan stride.
+Chaos (``resilience/chaos.py``): the serve loop visits ``serving.step``
+at the top of each iteration, before the SIGTERM check, and the swap visits
+``serving.param_swap`` after reading the staged publish and before anything
+changes, so a drain requested there refuses the swap: it is applied whole
+or refused whole, never torn.
+
+Not carried from the JAX engine: the peer-loss drain (the health slice),
+``min_len > 0`` and the XLA scan stride.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
     fused_decode_stride_paged,
     stride_weights,
 )
+from cst_captioning_tpu_torch.resilience import chaos
 from cst_captioning_tpu_torch.resilience.durable import (
     fsync_dir,
     write_bytes_durable,
@@ -529,6 +536,7 @@ class CaptionService:
         if self._pending_publish is None:
             return False
         version, model = self._pending_publish
+        chaos.visit("serving.param_swap")
         self._pending_publish = None
         if self.draining:
             self._swap_refused(version, "draining")
@@ -585,6 +593,7 @@ class CaptionService:
             with torch.no_grad():
                 self._weights = stride_weights(self.model.cell)
                 while True:
+                    chaos.visit("serving.step")
                     if pre.requested:
                         self.drain("sigterm")
                     if self.draining:

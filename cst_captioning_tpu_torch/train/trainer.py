@@ -31,9 +31,19 @@ trips and SIGTERM saves. With obs off the loops run no extra device work.
 ``rl.async_scst.AsyncSCSTTrainer`` (the actor/learner ring on one device);
 its drain persists the in-flight ring in ``seam.npz``.
 
+Resilience beyond the sentinel: ``train.spike_mode="adaptive"`` takes
+the sentinel's spike bound from the loss EWMA (``resilience/adaptive.py``,
+sharing the anomaly detector's when it is live); ``train.debug_nans`` turns
+on autograd's anomaly mode and makes every module check its output, raising
+``FloatingPointError`` at the first one that is not finite (both undone by
+:meth:`Trainer.close`). The chaos points (``resilience/chaos.py``):
+``xe.batch`` and ``rl.batch`` on the prefetch worker with the ``Batch``,
+before it is collated into arrays; ``xe.step`` once per dispatched XE step
+and ``rl.step`` once per completed RL step, on the main thread.
+
 Not ported (ROADMAP.md names their slices): meshes and data parallelism,
-peer loss and degraded or regrown meshes, and chaos visits; their config
-fields raise (``config.py``).
+peer loss and degraded or regrown meshes; their config fields raise
+(``config.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +74,8 @@ from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.obs import anomaly as _anomaly
 from cst_captioning_tpu_torch.obs import flops as _flops
 from cst_captioning_tpu_torch.obs import recorder as flight
+from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
 from cst_captioning_tpu_torch.resilience.preempt import (
     Preempted,
     PreemptionHandler,
@@ -125,6 +137,47 @@ def _rate(batch: int, times: list[float]) -> tuple[float, float]:
             float(np.median(timed)) * 1e3)
 
 
+class _NanHooks:
+    """``train.debug_nans``: autograd's anomaly mode (a backward that
+    makes a NaN raises at the op) and a forward hook on every module of
+    ``model`` that raises ``FloatingPointError`` naming the first module
+    whose output is not finite. The hooks only read their outputs. Both
+    are process-wide state, so :meth:`remove` restores them."""
+
+    def __init__(self, model: torch.nn.Module):
+        self._anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(True)
+        self._handles = [m.register_forward_hook(self._hook(name or "model"))
+                         for name, m in model.named_modules()]
+
+    @staticmethod
+    def _hook(name: str):
+        def check(module, args, output):
+            for t in _tensor_leaves(output):
+                if t.is_floating_point() and not bool(
+                        torch.isfinite(t).all()):
+                    raise FloatingPointError(
+                        f"debug_nans: the output of module {name!r} "
+                        f"({type(module).__name__}) is not finite")
+        return check
+
+    def remove(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+        torch.autograd.set_detect_anomaly(self._anomaly)
+
+
+def _tensor_leaves(x) -> list[torch.Tensor]:
+    """The tensors of a module's output (a tensor, or nested tuples of
+    them: the encoders' and cells' outputs)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return []
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, train_ds, val_ds=None,
                  log_path: str = "", device=None, params=None):
@@ -164,6 +217,8 @@ class Trainer:
         self.model = CaptionModel(cfg.model, device=self.device)
         load_flax_params(self.model, params if params is not None
                          else random_flax_params(cfg.model, cfg.train.seed))
+        self._nan_hooks = (_NanHooks(self.model) if cfg.train.debug_nans
+                           else None)
         self.log = EventLogger(log_path)
         self.batcher = Batcher(
             train_ds, batch_size=cfg.data.batch_size,
@@ -206,9 +261,13 @@ class Trainer:
     def close(self) -> None:
         """Close the event log and the flight recorder (a final flush, no
         postmortem; a run that dies before this still dumps through the
-        recorder's atexit hook). The obs recorder is the CLI's to shut."""
+        recorder's atexit hook), and undo ``debug_nans``. The obs recorder
+        is the CLI's to shut."""
         if self._stats:
             flight.shutdown()
+        if self._nan_hooks is not None:
+            self._nan_hooks.remove()
+            self._nan_hooks = None
         self.log.close()
 
     def _xe_flops_inc(self, rows: int) -> float:
@@ -366,6 +425,7 @@ class Trainer:
         """XE batches on the device: (feats, masks, labels, mask, weights,
         valid); ``skip`` drops the first batches of the epoch's order."""
         def transform(b):
+            b = chaos.visit("xe.batch", b)
             return (b.feats, b.feat_masks, b.labels.astype(np.int64), b.mask,
                     b.weights, np.asarray(b.valid, np.float32))
 
@@ -379,6 +439,7 @@ class Trainer:
         """RL batches: features on the device, video ids and the valid
         flags (lists) on the host for the reward."""
         def transform(b):
+            b = chaos.visit("rl.batch", b)
             return (b.feats, b.feat_masks, list(b.video_ids),
                     [bool(v) for v in b.valid])
 
@@ -391,13 +452,23 @@ class Trainer:
 
     def _make_sentinel(self, phase: str) -> DivergenceSentinel:
         """skip_batch checks at epoch ends and save points; rollback and
-        abort every 32 steps."""
+        abort every 32 steps. ``spike_mode="adaptive"`` adds the EWMA
+        bound: the anomaly detector's loss stream when it is live (updated
+        at the recorder's flushes), else a private one fed by the
+        sentinel's checks."""
         cfg = self.cfg.train
+        adaptive = None
+        if cfg.spike_mode == "adaptive" and cfg.spike_factor:
+            adaptive = AdaptiveThresholds(
+                factor_max=cfg.spike_factor, factor_min=cfg.spike_factor_min,
+                ewma=(self._detector.ewma("loss")
+                      if self._detector is not None else None))
         return DivergenceSentinel(
             policy=cfg.on_divergence, phase=phase, log=self.log.log,
             spike_factor=cfg.spike_factor,
             check_every=(32 if cfg.on_divergence in ("rollback", "abort")
-                         else None))
+                         else None),
+            adaptive=adaptive)
 
     def _ckpt_infos(self, phase: str = "", batch_index: int = 0,
                     step_no: int | None = None) -> dict:
@@ -571,6 +642,7 @@ class Trainer:
                         run["first_step"] = False
                         obs.counter("flops.xe.step").inc(
                             self._xe_flops_inc(cfg.data.batch_size))
+                        chaos.visit("xe.step")
                         if pre.requested:
                             self._preempt_save("xe", step_no, batch_no,
                                                sentinel)
@@ -656,7 +728,7 @@ class Trainer:
         else:
             scst = SCSTTrainer(self.model, self.reward, cfg.rl,
                                max_len=cfg.model.max_len, guard=self.guard,
-                               stats=self._stats)
+                               stats=self._stats, on_event=self.log.log)
         rl_batcher = Batcher(
             self.train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="video",
@@ -740,6 +812,7 @@ class Trainer:
             profiler.tick()
             meter.tick(cfg.data.batch_size, first=run["first_step"])
             run["first_step"] = False
+            chaos.visit("rl.step")
 
         stop = threading.Event()
         seam_sink: dict = {}

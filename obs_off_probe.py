@@ -44,7 +44,7 @@ rps = [cs.N_REQUESTS / cs.serve_timed(cs.service(model), reqs)[1]
 root = tempfile.mkdtemp(prefix="obs_off_probe_")
 try:
     data = cs.recipe_corpus(root)
-    mods = [n for n, _ in get_preset("msrvtt_cst_consensus").modalities]
+    mods = [n for n, _ in get_preset("msrvtt_cst_consensus").model.modalities]
     cfg = get_experiment("msrvtt_cst_consensus").override(
         model__attention_impl="pallas", model__decode_impl="pallas",
         train__epochs=2, rl__enabled=False,

@@ -7,9 +7,8 @@
              checkpoint the JAX package wrote (``--jax-ckpt``), whose
              metric table equals the JAX evaluator's on the same params.
 
-Also: the decoupled RL topology through ``--set``, the JAX CLI's flags
-whose machinery is not ported raise, and the default device is the
-GPU."""
+Also: the decoupled RL topology through ``--set``, ``--debug-nans``
+reaching the trainer, and the default device is the GPU."""
 
 import json
 import os
@@ -188,13 +187,29 @@ def _h5(paths, tmp_path):
     return out
 
 
-# --obs and --profile are ported (tests/test_torch_obs.py)
-@pytest.mark.parametrize("flag", [["--debug-nans"]], ids=["debug_nans"])
-def test_unported_cli_flags_raise(recipe_data, tmp_path, flag):
-    with pytest.raises(ValueError, match="not ported"):
-        train_main(["--preset", "msrvtt_xe_attention",
-                    *_common(recipe_data), *flag,
-                    "--set", f"train__ckpt_dir='{tmp_path}'"])
+def test_debug_nans_flag_reaches_the_trainer(recipe_data, tmp_path,
+                                            monkeypatch):
+    """``--debug-nans`` sets ``train.debug_nans``: the trainer trains with
+    anomaly mode and the module hooks on, and the CLI's ``close()`` turns
+    both off again."""
+    from cst_captioning_tpu_torch.train import trainer as trainer_mod
+
+    seen = {}
+    real = trainer_mod.Trainer.train_xe
+
+    def train_xe(self, *a, **kw):
+        seen["anomaly"] = torch.is_anomaly_enabled()
+        seen["hooks"] = self._nan_hooks is not None
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "train_xe", train_xe)
+    tr = train_main(["--preset", "msrvtt_xe_attention",
+                     *_common(recipe_data), "--debug-nans",
+                     "--set", "train__epochs=1",
+                     "--set", f"train__ckpt_dir='{tmp_path}'"])
+    assert tr.cfg.train.debug_nans and tr.xe_epochs == 1
+    assert seen == {"anomaly": True, "hooks": True}
+    assert not torch.is_anomaly_enabled() and tr._nan_hooks is None
 
 
 def test_cli_default_device_is_the_gpu(recipe_data, tmp_path):

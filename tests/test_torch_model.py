@@ -146,7 +146,7 @@ def test_convert_maps_every_parameter():
 
 
 def test_presets_and_device_default():
-    cfg = get_preset("msrvtt_xe_attention")
+    cfg = get_preset("msrvtt_xe_attention").model
     assert cfg.vocab_size == 9000 and cfg.d_att == 256
     assert cfg.modalities == (("resnet", 2048), ("c3d", 500))
     assert cfg.max_frames == 28 and cfg.dtype == "bfloat16"

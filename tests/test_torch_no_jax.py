@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
                 "data.prefetch", "ckpt.checkpoint", "ckpt.msgpack",
                 "train.trainer", "cli.common", "cli.train", "cli.eval",
                 "data.importers", "cli.preprocess", "cli.import_msrvtt",
-                "cli.import_msvd"):
+                "cli.import_msvd", "resilience.chaos",
+                "resilience.adaptive", "rl.async_scst", "rl.online"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 

@@ -365,19 +365,38 @@ def test_rl_topology_knobs_are_accepted(section, name, value):
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
 
 
+# the one-device resilience knobs are ported (tests/test_torch_trainer.py
+# holds their bad values to the JAX messages)
+RESILIENCE_KNOBS = [
+    {"train__debug_nans": True},
+    # in order: each override is checked as it lands
+    {"train__spike_factor": 10.0, "train__spike_mode": "adaptive"},
+    {"train__spike_factor": 10.0, "train__spike_mode": "adaptive",
+     "train__spike_factor_min": 2.0},
+]
+
+
+@pytest.mark.parametrize("overrides", RESILIENCE_KNOBS,
+                         ids=["debug_nans", "spike_mode", "spike_factor_min"])
+def test_resilience_knobs_are_accepted(overrides):
+    cfg = get_experiment("msrvtt_cst_consensus").override(**overrides)
+    for key, value in overrides.items():
+        section, _, name = key.partition("__")
+        assert getattr(getattr(cfg, section), name) == value
+    assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
 STILL_UNPORTED = [
-    ("train", "debug_nans", True, "resilience"),
-    ("train", "spike_mode", "adaptive", "resilience"),
-    ("train", "spike_factor_min", 2.0, "resilience"),
-    ("train", "health", True, "resilience"),
-    ("train", "elastic", "degraded", "resilience"),
-    ("train", "dcn_stall_s", 3.0, "resilience"),
+    ("train", "health", True, "health"),
+    ("train", "elastic", "degraded", "health"),
+    ("train", "dcn_stall_s", 3.0, "health"),
     ("train", "comm_bucket_mb", 8.0, "data-parallel"),
     ("train", "comm_dtype", "bf16", "data-parallel"),
     ("train", "comm_overlap", True, "data-parallel"),
     ("mesh", "num_devices", 2, "data-parallel"),
     ("mesh", "seq_devices", 2, "sequence-parallel"),
     ("mesh", "mp_devices", 2, "sequence-parallel"),
+    ("model", "seq_axis", "seq", "sequence-parallel"),
 ]
 
 

@@ -42,6 +42,7 @@ import pytest
 import torch  # graftlint: disable=GL006
 
 from cst_captioning_tpu.config.config import RLConfig as JaxRLConfig
+from cst_captioning_tpu.config.config import TrainConfig as JaxTrainConfig
 from cst_captioning_tpu.config.presets import get_preset as jax_preset
 from cst_captioning_tpu.data.batcher import Batcher as JaxBatcher
 from cst_captioning_tpu.data.dataset import CaptionDataset as JaxDataset
@@ -72,7 +73,8 @@ from cst_captioning_tpu_torch.data import (
     make_synthetic_dataset,
 )
 from cst_captioning_tpu_torch.models import CaptionModel as TorchCaptionModel
-from cst_captioning_tpu_torch.presets import get_experiment
+from cst_captioning_tpu_torch.presets import EXPERIMENTS, get_experiment
+from cst_captioning_tpu_torch.presets import get_preset as port_preset
 from cst_captioning_tpu_torch.resilience.preempt import Preempted
 from cst_captioning_tpu_torch.train import trainer as trainer_mod
 from cst_captioning_tpu_torch.train.trainer import Trainer
@@ -516,9 +518,7 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
 UNPORTED = [
     ("mesh", "num_devices", 2), ("mesh", "seq_devices", 2),
     ("mesh", "mp_devices", 2), ("train", "health", True),
-    ("train", "elastic", "degraded"),
-    ("train", "spike_mode", "adaptive"),
-    ("train", "debug_nans", True), ("train", "comm_dtype", "bf16"),
+    ("train", "elastic", "degraded"), ("train", "comm_dtype", "bf16"),
 ]
 
 
@@ -529,6 +529,57 @@ def test_unported_config_values_raise(section, name, value):
     with pytest.raises(ValueError, match="not ported"):
         cfg.override(**{f"{section}__{name}": value})
     # the default is accepted, and a round trip through JSON keeps it
+    assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
+# ---- config parity ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(EXPERIMENTS))
+def test_jax_preset_json_loads_and_equals_the_port_preset(name):
+    """Every JAX preset's ``to_json()`` (``model.seq_axis`` included) loads
+    in the port and equals the port's own preset in every field of every
+    section; ``get_preset`` returns the ExperimentConfig in both
+    packages."""
+    jcfg = jax_preset(name)
+    got = tcfg.ExperimentConfig.from_json(jcfg.to_json())
+    want = port_preset(name)
+    assert isinstance(want, tcfg.ExperimentConfig)
+    assert type(jcfg).__name__ == "ExperimentConfig"
+    assert got.name == want.name == name
+    for section in ("model", "data", "train", "rl", "eval", "mesh"):
+        g, w = getattr(got, section), getattr(want, section)
+        for f in dataclasses.fields(w):
+            assert getattr(g, f.name) == getattr(w, f.name), \
+                f"{name}: {section}.{f.name}"
+    assert got == want and got.model.seq_axis == ""
+
+
+# the adaptive spike bound is ported: a bad value raises the JAX package's
+# message (tests/test_resilience.py::test_train_config_validates_spike_mode),
+# and a good one round-trips
+BAD_SPIKE_VALUES = [
+    ({"spike_mode": "bogus"}, "unknown spike_mode 'bogus'"),
+    ({"spike_mode": "adaptive"}, "needs spike_factor > 0"),
+    ({"spike_mode": "adaptive", "spike_factor": 10.0,
+      "spike_factor_min": 0.0},
+     r"spike_factor_min 0.0 must be in \(0, spike_factor=10.0\]"),
+    ({"spike_mode": "adaptive", "spike_factor": 10.0,
+      "spike_factor_min": 20.0},
+     r"spike_factor_min 20.0 must be in \(0, spike_factor=10.0\]"),
+]
+
+
+@pytest.mark.parametrize("fields,message", BAD_SPIKE_VALUES,
+                         ids=["mode", "no_factor", "min_zero", "min_above"])
+def test_spike_mode_values_are_validated(fields, message):
+    with pytest.raises(ValueError, match=message):
+        tcfg.TrainConfig(**fields)
+    # the JAX package refuses the same values with the same message
+    with pytest.raises(ValueError, match=message):
+        JaxTrainConfig(**fields)
+    cfg = get_experiment("msrvtt_cst_consensus").override(
+        train__spike_factor=10.0, train__spike_mode="adaptive")
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
 
 
