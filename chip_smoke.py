@@ -159,14 +159,17 @@
    (msrvtt_scst's greedy baseline, the dense stride kernel): one
    ``reward_retry`` (``TransientIOError``), params bitwise those of the
    clean epoch; (4) ``partial_h2d`` at ``prefetch.h2d`` visit 1 and
-   ``wedged_prefetch`` (0.3 s) at ``prefetch.stage`` visit 2 with a
-   0.05 s stall watchdog: every batch staged on the card bitwise equal to
-   a clean prefetch's, one H2D retry, one stall; (5) ``enospc_rotation``
-   at ``ckpt.state_written`` on the trained state's third ``step_*``
-   save: the oldest generation is reclaimed and the save lands; then a
-   ``kill`` at ``ckpt.pre_replace``: the previous generation verifies and
-   restores; (6) ``param_swap`` at ``serving.param_swap`` visit 0 on the
-   serve phase's model and burst (capacity 32, paged): the publish from
+   ``wedged_prefetch`` (1.0 s) at ``prefetch.stage`` visit 2 with a
+   0.5 s stall watchdog, far above a batch's gather and staging: the
+   clean prefetch stalls no time, and the faulted one stages every batch
+   on the card bitwise equal to the clean one's, with one H2D retry and
+   one stall (the clean run's longest wait is reported); (5)
+   ``enospc_rotation`` at ``ckpt.state_written`` on the trained state's
+   third ``step_*`` save: the oldest generation is reclaimed and the
+   save lands; then a ``kill`` at ``ckpt.pre_replace``: the previous
+   generation verifies and restores; (6) ``param_swap`` at
+   ``serving.param_swap`` visit 0 on the serve phase's model and burst
+   (capacity 32, paged): the publish from
    the first completion is refused, version 0 throughout, and the drained
    snapshot replayed on a fresh service plus the served requests equal a
    serve without the fault bitwise; (7) ``actor_preempt`` at
@@ -176,6 +179,33 @@
    resume's restore ms, a step save's ms and bytes with and without the
    ENOSPC reclaim, the restore after the kill, the drain, snapshot load
    and replay times.
+6e. health: the strict peer-loss path (``train.health`` with 2 simulated
+   hosts, the watchdog at 0.1 s, a 0.5 s timeout, 2 misses) at
+   msrvtt_cst_consensus width with attention_impl and decode_impl
+   "pallas", B=64, over the recipe corpus's 384 train clips (6 batches an
+   epoch). (a) ``partial_preempt`` at ``xe.step`` visit 3: ``PeerLost``
+   naming host 1, one ``peer_loss_drain`` event (phase ``xe``, batch 4), a
+   ``step_*`` checkpoint whose manifest verifies, and a ``peer_loss``
+   postmortem whose meta has ``lost == [1]``; (b) a straight XE + CST run
+   (sequential RL, as the JAX test), then the same run losing host 1 at
+   ``rl.step`` visit 2: ``PeerLost``, the drain at batch 3; a restart with
+   ``resume="auto"`` and a fresh health directory ends with params and
+   step bitwise those of the straight run; (c) a second ``HealthMonitor``
+   (host 1) beats on its own thread and stops, no tombstone: the trainer's
+   watchdog declares it lost by staleness within the window the interval,
+   timeout and misses imply (``detection_bound_s``), and the XE epoch
+   drains; (d) the serve model and burst (capacity 32, K=2, S=8, paged)
+   under a started 2-host monitor, ``simulate_peer_loss(1)`` from the
+   feedback after the 16th completion: drained with reason ``peer_loss``,
+   a snapshot written, drained plus replayed equal to the undrained serve
+   exactly, paged launches >= 1; (e) a ``proc1/`` bundle written beside
+   (b)'s obs dir (its last RL step non-finite): ``obs.fleet.merge_bundles``
+   gives procs [0, 1], victims [1] and the trip on proc 1, the rendering
+   has ``[TRIP]``, and ``cli.obs_report --postmortem`` exits 0. Kernels 1,
+   2 and 4 each launch in the phase. Reported: each arm's wall and
+   launches, the detection latency (the peer's last beat to the
+   ``peer_lost`` event) beside its bound, the drains' save ms, the
+   restart's restore ms, the serve drain, snapshot load and replay times.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -242,7 +272,7 @@
    what one span costs the host (``obs_emit_cost``).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
-   rl_online's, resilience's and import's included),
+   rl_online's, resilience's, health's and import's included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -2044,8 +2074,8 @@ def rl_online_phase(host: dict, fit_sd: dict, smi: str) -> tuple[dict, dict]:
 RES_DEVICE = "cuda"
 RES_PREEMPT_AT = 3        # the xe.step visit the SIGTERM lands on
 RES_NAN_AT = 2            # the xe.batch visit the NaN poisons
-RES_STALL_S = 0.05        # the prefetch arm's stall watchdog
-RES_WEDGE_S = 0.3         # and the wedge it catches
+RES_STALL_S = 0.5         # the prefetch arm's stall watchdog: far above a
+RES_WEDGE_S = 1.0         # B=64 batch's staging (18 MB), far below the wedge
 RES_RL = dict(rollout_depth=3, staleness_bound=1)   # the actor arm's ring
 
 
@@ -2271,22 +2301,32 @@ def _resilience(root: str, model, reqs, smi: str) -> tuple[dict, dict]:
                     b.weights, np.asarray(b.valid, np.float32))
 
         def staged(plan):
+            """-> (the batches, the consumer's longest wait for one)."""
             batcher.epoch_index = 0     # the same order each time
+            out, waits = [], []
             with plan.activate():
-                out = list(prefetch_mod.prefetch_to_device(
-                    batcher.epoch(), size=2, transform=transform,
-                    device=RES_DEVICE, stall_warn_s=RES_STALL_S))
+                t = time.perf_counter()
+                for b in prefetch_mod.prefetch_to_device(
+                        batcher.epoch(), size=2, transform=transform,
+                        device=RES_DEVICE, stall_warn_s=RES_STALL_S):
+                    waits.append(time.perf_counter() - t)
+                    out.append(b)
+                    t = time.perf_counter()
             torch.cuda.synchronize()
-            return out
+            return out, max(waits)
 
-        clean = staged(FaultPlan([]))
         count = lambda n: tobs.counter(n).snapshot()  # noqa: E731
+        ahead = count("resilience.prefetch_stall")
+        clean, clean_wait = staged(FaultPlan([]))
         before = (count("resilience.h2d_retry"),
                   count("resilience.prefetch_stall"))
+        check(before[1] == ahead, f"resilience: the clean prefetch stalled "
+              f"{before[1] - ahead} times past {RES_STALL_S} s (longest wait "
+              f"{clean_wait:.3f} s)")
         plan = FaultPlan([Fault("prefetch.h2d", "partial_h2d", at=1),
                           Fault("prefetch.stage", "wedged_prefetch", at=2,
                                 delay=RES_WEDGE_S)])
-        got = staged(plan)
+        got, wedged_wait = staged(plan)
         after = (count("resilience.h2d_retry"),
                  count("resilience.prefetch_stall"))
         check(len(got) == len(clean) == steps
@@ -2295,7 +2335,9 @@ def _resilience(root: str, model, reqs, smi: str) -> tuple[dict, dict]:
         check(after[0] - before[0] == 1 and after[1] - before[1] == 1,
               f"resilience: h2d retries and stalls {before} -> {after}")
         return ({"batches": len(got), "h2d_retries": after[0] - before[0],
-                 "stalls": after[1] - before[1], "bitwise": True}, plan, None)
+                 "stalls": after[1] - before[1], "bitwise": True,
+                 "clean_max_wait_s": clean_wait,
+                 "wedged_max_wait_s": wedged_wait}, plan, None)
 
     arm("partial_h2d_wedged_prefetch", prefetch)
 
@@ -2417,6 +2459,331 @@ def _resilience(root: str, model, reqs, smi: str) -> tuple[dict, dict]:
             "batch": TRAIN_B, "steps_per_epoch": steps,
             "corpus_clips": data["meta"]["clips"]["train"], "arms": arms, "recovery": recovery,
             "launches": total, "wall_s": time.perf_counter() - t_phase,
+            "nvidia_smi": smi}, total
+
+
+# ---- phase 6e: the health monitor and the fleet merge -------------------------
+
+HEALTH_DEVICE = "cuda"
+HEALTH_INTERVAL_S = 0.1   # the watchdog's beat and poll period
+HEALTH_TIMEOUT_S = 0.5    # a peer silent this long earns a strike
+HEALTH_MISSES = 2         # consecutive strikes before a loss
+HEALTH_XE_AT = 3          # the xe.step visit the partial preemption fires at
+HEALTH_RL_AT = 2          # the rl.step visit (mid-epoch: 6 batches an epoch)
+HEALTH_RECORDER = 32      # the flight recorder's ring, arms (a) and (b)
+
+
+def health_config(ckpt_dir: str, rl=None, **train):
+    """res_config plus the health monitor: host 0 of 2 simulated hosts,
+    the short watchdog periods above."""
+    cfg = res_config(ckpt_dir, rl=rl, health=True, health_sim_hosts=2,
+                     health_interval_s=HEALTH_INTERVAL_S,
+                     peer_timeout_s=HEALTH_TIMEOUT_S,
+                     health_misses=HEALTH_MISSES)
+    return cfg.override(**{f"train__{k}": v for k, v in train.items()})
+
+
+def detection_bound_s() -> tuple[float, float]:
+    """The watchdog's detection window after a peer's last beat: the beat
+    is seen at the next poll (<= one interval), strikes start at the first
+    poll past the timeout (<= one more interval) and the loss lands on the
+    ``misses``-th strike; the upper end allows one interval of thread
+    scheduling on top."""
+    lo = HEALTH_TIMEOUT_S + (HEALTH_MISSES - 1) * HEALTH_INTERVAL_S
+    hi = HEALTH_TIMEOUT_S + (HEALTH_MISSES + 2) * HEALTH_INTERVAL_S
+    return lo, hi
+
+
+def health_phase(model, reqs, smi: str) -> tuple[dict, dict]:
+    """The strict peer-loss path through the trainer and the serve loop,
+    and the fleet merge of its postmortems (module docstring, 6e) -> (its
+    line, the launches of its runs)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    try:
+        return _health(root, model, reqs, smi)
+    finally:
+        obs_recorder.shutdown()
+        tobs.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _health(root: str, model, reqs, smi: str) -> tuple[dict, dict]:
+    from cst_captioning_tpu_torch.obs import fleet
+    from cst_captioning_tpu_torch.resilience import (
+        Fault, FaultPlan, HealthMonitor, PeerLost, verify_manifest)
+    from cst_captioning_tpu_torch.resilience import health
+
+    t_phase = time.perf_counter()
+    data = recipe_corpus(root)
+    mc = get_preset("msrvtt_cst_consensus").model
+    ds = CaptionDataset(data["info_json"],
+                        {n: data[n] for n, _ in mc.modalities}, "train",
+                        mc.max_frames)
+    d = lambda name: os.path.join(root, name)  # noqa: E731
+    total = dict.fromkeys(all_launches(), 0)
+    arms: dict = {}
+    numbers: dict = {}
+
+    def trainer(cfg, log):
+        return trainer_mod.Trainer(cfg, ds, None, log_path=log,
+                                   device=HEALTH_DEVICE)
+
+    def arm(name, fn):
+        """One arm with the launch counts set to 0 just before and read
+        just after."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t = time.perf_counter()
+        line = fn()
+        torch.cuda.synchronize()
+        n = all_launches()
+        for k, v in n.items():
+            total[k] += v
+        arms[name] = {**line, "launches": n,
+                      "wall_s": time.perf_counter() - t}
+
+    def drained(tr, fn, log):
+        """Run ``fn`` under the trainer -> (PeerLost, its drain event, the
+        drain's step save)."""
+        try:
+            err = _res_raises(PeerLost, fn)
+        finally:
+            tr.close()
+            tobs.shutdown()
+        (ev,) = _res_events(log, "peer_loss_drain")
+        save = [e for e in _res_events(log, "ckpt_step")
+                if e["batch_index"] == ev["batch_index"]][-1]
+        return err, ev, save
+
+    def obs_on(name):
+        return dict(obs=True, obs_dir=d(name),
+                    recorder_steps=HEALTH_RECORDER)
+
+    def peer_loss_bundle(obs_dir) -> dict:
+        (bundle,) = [b for b in fleet.discover_bundles(obs_dir)[0]
+                     if b.endswith("_peer_loss")]
+        check(verify_manifest(bundle), f"health: {bundle} does not verify")
+        return json.load(open(os.path.join(bundle, "meta.json")))
+
+    # (a) partial_preempt at xe.step: drain, a verified step save, the
+    #     peer_loss postmortem naming host 1, PeerLost([1])
+    def xe_drain():
+        cfg = health_config(d("xe"), **obs_on("xe_obs"))
+        tr = trainer(cfg, d("xe.jsonl"))
+        check(tr.health.survivors() == [0, 1],
+              f"health: survivors {tr.health.survivors()}")
+        plan = FaultPlan([Fault("xe.step", "partial_preempt",
+                                at=HEALTH_XE_AT, host=1)])
+        with plan.activate():
+            err, ev, save = drained(tr, tr.train_xe, d("xe.jsonl"))
+        check(err.hosts == [1] and ev["phase"] == "xe" and ev["lost"] == [1]
+              and ev["batch_index"] == HEALTH_XE_AT + 1,
+              f"health: XE drain {ev}, PeerLost hosts {err.hosts}")
+        step_dir = d(f"xe/step_{ev['step']:08d}")
+        check(verify_manifest(step_dir), f"health: {step_dir} does not "
+              "verify")
+        meta = peer_loss_bundle(d("xe_obs"))
+        check(meta["lost"] == [1], f"health: bundle meta lost "
+              f"{meta.get('lost')}")
+        numbers["xe_drain_save_ms"] = save["ms"]
+        return {"fired": plan.fired, "batch_index": ev["batch_index"],
+                "step": ev["step"], "save_ms": save["ms"],
+                "save_bytes": save["bytes"], "bundle_lost": meta["lost"]}
+
+    arm("xe_drain", xe_drain)
+
+    # (b) the strict full restart: a straight XE + RL run; the same run
+    #     losing host 1 at rl.step mid-epoch drains and raises; a restart
+    #     with resume="auto" and a fresh health dir ends bitwise equal
+    rl = dataclasses.replace(get_preset("msrvtt_cst_consensus").rl,
+                             epochs=1, pipelined=False)
+
+    def run(name, resume="", health_dir=""):
+        cfg = health_config(d(name), rl=rl, resume=resume,
+                            health_dir=health_dir,
+                            **obs_on(name + "_obs" + ("_resume" if resume
+                                                      else "")))
+        tr = trainer(cfg, d(name + ".jsonl"))
+        return tr, lambda: (tr.train_xe(), tr.train_rl())
+
+    def restart():
+        tr, fn = run("straight")
+        try:
+            fn()
+        finally:
+            tr.close()
+            tobs.shutdown()
+        straight = [p.detach().clone() for p in tr.state.params]
+        straight_step = int(tr.state.step)
+        tr2, fn2 = run("partial")
+        plan = FaultPlan([Fault("rl.step", "partial_preempt",
+                                at=HEALTH_RL_AT, host=1)])
+        with plan.activate():
+            err, ev, save = drained(tr2, fn2, d("partial.jsonl"))
+        check(err.hosts == [1] and ev["phase"] == "rl"
+              and ev["batch_index"] == HEALTH_RL_AT + 1
+              and ev["lost"] == [1],
+              f"health: RL drain {ev}, PeerLost hosts {err.hosts}")
+        again, fn3 = run("partial", resume="auto", health_dir=d("hb2"))
+        restore_ms = again.ckpt.last_restore.get("ms")
+        check(again._resume_rl_batch == HEALTH_RL_AT + 1,
+              f"health: resumed at RL batch {again._resume_rl_batch}")
+        try:
+            fn3()
+        finally:
+            again.close()
+            tobs.shutdown()
+        check(int(again.state.step) == straight_step
+              and _params_equal(again.state.params, straight),
+              "health: the restarted run's params differ from the straight "
+              "run's")
+        check(len(_res_events(d("partial.jsonl"), "peer_lost")) == 1,
+              "health: the restart's fresh monitor lost a host")
+        numbers.update(rl_drain_save_ms=save["ms"], restart_restore_ms=restore_ms)
+        return {"fired": plan.fired, "batch_index": ev["batch_index"],
+                "step": ev["step"], "save_ms": save["ms"],
+                "restore_ms": restore_ms, "steps": straight_step,
+                "bitwise": True}
+
+    arm("strict_restart", restart)
+
+    # (c) no tombstone: a second monitor (host 1) beats on its own thread
+    #     and stops; the trainer's watchdog finds the silence and drains
+    def watchdog():
+        cfg = health_config(d("wd"), health_dir=d("hb_wd"), epochs=3)
+        tr = trainer(cfg, d("wd.jsonl"))
+        peer = HealthMonitor(d("hb_wd"), host_id=1, num_hosts=2,
+                             interval_s=HEALTH_INTERVAL_S,
+                             timeout_s=HEALTH_TIMEOUT_S,
+                             misses=HEALTH_MISSES).start()
+        try:
+            deadline = time.monotonic() + 30.0
+            while tr.health._seen_seq.get(1) is None:
+                check(time.monotonic() < deadline,
+                      "health: the trainer never saw host 1 beat")
+                time.sleep(HEALTH_INTERVAL_S)
+            time.sleep(4 * HEALTH_INTERVAL_S)
+        finally:
+            peer.stop()
+        last = json.load(open(os.path.join(d("hb_wd"), "host1.hb")))
+        err, ev, save = drained(tr, tr.train_xe, d("wd.jsonl"))
+        (lost,) = _res_events(d("wd.jsonl"), "peer_lost")
+        latency = lost["ts"] - last["ts"]
+        lo, hi = detection_bound_s()
+        check(err.hosts == [1] and lost["reason"] == "heartbeat_timeout"
+              and not os.path.exists(os.path.join(d("hb_wd"), "host1.dead"))
+              and ev["phase"] == "xe",
+              f"health: watchdog arm {lost}, drain {ev}")
+        check(lo <= latency <= hi, f"health: detected {latency:.3f} s after "
+              f"the last beat, outside [{lo:.3f}, {hi:.3f}]")
+        numbers.update(detection_latency_s=latency, detection_bound_s=[lo, hi],
+                       watchdog_drain_save_ms=save["ms"])
+        return {"last_seq": last["seq"], "age_s": lost["age_s"],
+                "detection_latency_s": latency, "bound_s": [lo, hi],
+                "drain_batch_index": ev["batch_index"],
+                "save_ms": save["ms"]}
+
+    arm("watchdog_loss", watchdog)
+
+    # (e), from (b)'s obs dir: the victim's bundle beside it, then the
+    #     fleet merge and the CLI
+    def fleet_merge():
+        obs_dir = d("partial_obs")
+        meta = peer_loss_bundle(obs_dir)
+        check(meta["lost"] == [1], f"health: RL bundle lost {meta['lost']}")
+        latest = fleet.select_latest(fleet.discover_bundles(obs_dir))
+        ring = [r for r in obs_report.load_postmortem(latest[0])["ring"]
+                if r["phase"] == "rl"]
+        check(bool(ring), "health: no RL steps in the peer_loss ring")
+        fr1 = obs_recorder.FlightRecorder(
+            HEALTH_RECORDER, os.path.join(obs_dir, "proc1"), run=meta["run"],
+            proc=1, world=2, host="simhost1")
+        trip = ring[-1]["step"]
+        for r in ring:
+            fr1.record(r["step"], "rl", {
+                "rl_loss": math.nan if r["step"] == trip
+                else r.get("rl_loss", 1.0), "grad_norm": 1.0})
+        check(fr1.postmortem("divergence_nonfinite", phase="rl", step=trip)
+              is not None, "health: the victim's bundle was not written")
+        fr1.close()
+        t = time.perf_counter()
+        merged = fleet.merge_bundles(obs_dir)
+        merge_s = time.perf_counter() - t
+        text = fleet.render_fleet(merged)
+        check(merged["merged_procs"] == [0, 1]
+              and merged["victim_hosts"] == [1]
+              and merged["trip"]["proc"] == 1
+              and merged["trip"]["step"] == trip and "[TRIP]" in text,
+              f"health: fleet merge {merged['merged_procs']}, victims "
+              f"{merged['victim_hosts']}, trip {merged['trip']}")
+        rc, out = cli_stdout(cli_obs_report.main, ["--postmortem", obs_dir])
+        check(rc == 0 and "procs merged: 2/2" in out,
+              f"health: obs_report --postmortem exited {rc}")
+        return {"merged_procs": merged["merged_procs"],
+                "victim_hosts": merged["victim_hosts"],
+                "trip": {k: merged["trip"][k]
+                         for k in ("proc", "host", "phase", "step", "kinds")},
+                "offset_s": merged["procs_info"][1]["offset_s"],
+                "merge_s": merge_s}
+
+    # (d) the serve loop's drain: simulate_peer_loss(1) from the feedback
+    #     after DRAIN_AFTER completions, replayed equal to the undrained
+    def serve_drain():
+        base, _ = serve_timed(service(model), reqs)
+        mon = HealthMonitor(d("hb_serve"), host_id=0, num_hosts=2).start()
+        svc = service(model)
+        done = []
+
+        def feedback(req, result, version):
+            done.append(req.req_id)
+            if len(done) == DRAIN_AFTER:
+                health.simulate_peer_loss(1)
+
+        svc._feedback = feedback
+        snap = d("serve_drain")
+        before = fused_decode_stride_paged.launches
+        try:
+            rep, drain_s = serve_timed(svc, reqs, snapshot_dir=snap)
+        finally:
+            mon.stop()
+        paged = fused_decode_stride_paged.launches - before
+        check(rep.drained and rep.drain_reason == "peer_loss"
+              and rep.snapshot_dir == snap
+              and os.path.exists(os.path.join(snap, "manifest.json")),
+              f"health: serve drain {rep.drain_reason!r}, snapshot "
+              f"{rep.snapshot_dir}")
+        check(paged >= 1, f"health: {paged} paged launches before the drain")
+        fresh = service(model)
+        t = time.perf_counter()
+        restored = load_snapshot(snap, service=fresh)
+        load_s = time.perf_counter() - t
+        replay, replay_s = serve_timed(fresh, [])
+        union = {**rep.results, **replay.results}
+        bad = [r for r, res in base.results.items()
+               if r not in union or not same_result(union[r], res)]
+        check(not bad and union.keys() == base.results.keys(),
+              f"health: {len(bad)} requests differ after the peer-loss "
+              "drain and replay")
+        numbers.update(serve_drain_s=drain_s, serve_load_snapshot_s=load_s,
+                       serve_replay_s=replay_s)
+        return {"served": rep.completed, "replayed": len(restored),
+                "drained_launches": paged, "drain_s": drain_s,
+                "load_snapshot_s": load_s, "replay_s": replay_s,
+                "bitwise": True}
+
+    arm("serve_peer_loss", serve_drain)
+    arm("fleet_merge", fleet_merge)
+
+    check(total["fused_additive_attention"] > 0
+          and total["fused_decode_step"] > 0
+          and total["fused_decode_stride_paged"] > 0,
+          f"health: kernel 1, 2 or 4 never launched in the phase: {total}")
+    return {"phase": "health", "preset": "msrvtt_cst_consensus",
+            "batch": TRAIN_B, "hosts": 2, "interval_s": HEALTH_INTERVAL_S,
+            "timeout_s": HEALTH_TIMEOUT_S, "misses": HEALTH_MISSES,
+            "corpus_clips": data["meta"]["clips"]["train"], "arms": arms,
+            "numbers": numbers, "launches": total,
+            "wall_s": time.perf_counter() - t_phase,
             "nvidia_smi": smi}, total
 
 
@@ -3999,6 +4366,10 @@ def main() -> int:
     resil, resil_launches = resilience_phase(model, reqs, smi)
     emit(resil)
 
+    # ---- phase 6e: the health monitor and the fleet merge ------------------
+    healthy, health_launches = health_phase(model, reqs, smi)
+    emit(healthy)
+
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it
     path_launches = {
@@ -4012,7 +4383,7 @@ def main() -> int:
         "fused_decode_step": cst["launches"]["fused_decode_step"],
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
     for launched in (lifecycle_launches, decoupled_launches,
-                     online_launches, resil_launches):
+                     online_launches, resil_launches, health_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

@@ -16,11 +16,13 @@ package's ``cli.obs_report`` renders it.
 ``--postmortem`` renders flight-recorder evidence (obs/recorder.py)
 instead. Pointed at a single bundle dir (it has a ``meta.json``) it renders
 that bundle: manifest verification, the trip context, and the ring as a
-step timeline with anomaly verdicts inline. Pointed at a run dir it renders
-the latest bundle there. Bundles of several processes (``proc<k>/``) need
-the fleet merge, which comes with the port's data-parallel slice: the CLI
-refuses them. ``--list`` enumerates every bundle under the run dir with
-its trip kind + step. Pure stdlib, no torch import.
+step timeline with anomaly verdicts inline. Pointed at a run dir it merges
+the latest bundle of every process (``postmortem_*`` and
+``proc<k>/postmortem_*``) into one skew-corrected fleet timeline: one
+column per host, the trip marker, straggler and victim attribution, DCN
+stalls interleaved (``obs/fleet.py``; ``--json`` prints the merged dict).
+``--list`` enumerates every bundle under the run dir with its trip kind +
+step. Pure stdlib, no torch import.
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ import json
 import os
 import sys
 
-from cst_captioning_tpu_torch.obs.report import (
-    discover_bundles,
+from cst_captioning_tpu_torch.obs.fleet import (
     list_bundles,
+    merge_bundles,
+    render_fleet,
+)
+from cst_captioning_tpu_torch.obs.report import (
     load_postmortem,
     render_postmortem,
     render_report,
@@ -56,22 +61,6 @@ def _render_listing(rows: list[dict]) -> str:
     return "\n".join(lines)
 
 
-def _latest_bundle(run_dir: str) -> str:
-    """The newest bundle of a single-process run dir."""
-    found = discover_bundles(run_dir)
-    if not found:
-        raise FileNotFoundError(
-            f"no postmortem bundles under {run_dir!r}")
-    if len(found) > 1:
-        raise ValueError(
-            f"{run_dir!r} holds bundles of {len(found)} processes "
-            f"(procs {sorted(found)}): merging them needs the fleet merge "
-            "(obs/fleet.py), which is not ported yet (it comes with the "
-            "data-parallel slice); pass one bundle dir, or use the JAX "
-            "package's cli.obs_report")
-    return next(iter(found.values()))[-1]
-
-
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="obs_report",
@@ -82,10 +71,12 @@ def main(argv: list[str] | None = None) -> int:
                    help="obs run directory (holds events.jsonl)")
     p.add_argument("--postmortem", metavar="DIR", default=None,
                    help="render a flight-recorder postmortem bundle dir, or "
-                        "the latest bundle of a run dir")
+                        "merge every proc's latest bundle when DIR is a run "
+                        "dir (fleet timeline)")
     p.add_argument("--list", action="store_true", dest="list_bundles",
                    help="with --postmortem RUN_DIR: enumerate all bundles "
-                        "(proc, trip kind, step, integrity)")
+                        "(proc, trip kind, step, integrity) instead of "
+                        "merging")
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="emit the machine-readable report on stdout")
     args = p.parse_args(argv)
@@ -106,14 +97,20 @@ def main(argv: list[str] | None = None) -> int:
                 else:
                     print(_render_listing(rows))
                 return 0
-            bundle = args.postmortem
-            if not os.path.exists(os.path.join(bundle, "meta.json")):
-                bundle = _latest_bundle(bundle)
-            pm = load_postmortem(bundle)
+            if os.path.exists(os.path.join(args.postmortem, "meta.json")):
+                # one bundle dir: the per-process render
+                pm = load_postmortem(args.postmortem)
+                if args.as_json:
+                    print(json.dumps(pm, indent=2, default=float))
+                else:
+                    print(render_postmortem(pm))
+                return 0
+            # a run dir: every proc's latest bundle, merged
+            fleet = merge_bundles(args.postmortem)
             if args.as_json:
-                print(json.dumps(pm, indent=2, default=float))
+                print(json.dumps(fleet, indent=2, default=float))
             else:
-                print(render_postmortem(pm))
+                print(render_fleet(fleet))
             return 0
         report = report_run(args.run_dir)
     except (FileNotFoundError, ValueError) as e:

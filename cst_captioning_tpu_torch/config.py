@@ -9,10 +9,11 @@ package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
 A field whose machinery the port does not have yet (meshes, sequence
-parallelism, the health monitor and elastic meshes, gradient-communication
-knobs) raises
-``ValueError`` when it is set to anything but its default, naming what is
-missing: nothing is accepted and then ignored.
+parallelism, degraded and regrown elastic meshes, gradient-communication
+knobs) raises ``ValueError`` when it is set to anything but its default,
+naming what is missing: nothing is accepted and then ignored. The health
+monitor's knobs (``train.health*``, ``peer_timeout_s``, ``dcn_stall_s``)
+and ``elastic="strict"`` are ported.
 """
 
 from __future__ import annotations
@@ -134,17 +135,14 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 
 # each refused knob names the machinery it needs and the port slice that
 # brings it (ROADMAP.md "Modules still to port")
-_HEALTH = "the health slice"
 _DATA_PARALLEL = "the data-parallel slice"
-_NO_HEALTH = f"the multi-host health monitor and elastic meshes ({_HEALTH})"
+_NO_ELASTIC = ("the degraded-mesh continuation and its grow-back (elastic "
+               f"training, after {_DATA_PARALLEL})")
 _NO_COMMS = f"data-parallel gradient communication ({_DATA_PARALLEL})"
 _TRAIN_UNPORTED = {
-    "health": _NO_HEALTH, "health_dir": _NO_HEALTH,
-    "health_interval_s": _NO_HEALTH, "peer_timeout_s": _NO_HEALTH,
-    "health_misses": _NO_HEALTH, "health_sim_hosts": _NO_HEALTH,
-    "elastic": _NO_HEALTH, "elastic_regrow": _NO_HEALTH,
-    "dcn_stall_s": _NO_HEALTH, "comm_bucket_mb": _NO_COMMS,
-    "comm_dtype": _NO_COMMS, "comm_overlap": _NO_COMMS,
+    "elastic": _NO_ELASTIC, "elastic_regrow": _NO_ELASTIC,
+    "comm_bucket_mb": _NO_COMMS, "comm_dtype": _NO_COMMS,
+    "comm_overlap": _NO_COMMS,
 }
 _MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 _MESH_UNPORTED = {
@@ -257,6 +255,19 @@ class TrainConfig:
             raise ValueError(
                 f"unknown rl_topology {self.rl_topology!r} "
                 "(expected 'sync' or 'decoupled')")
+        if self.elastic not in ("strict", "degraded"):
+            raise ValueError(
+                f"unknown elastic mode {self.elastic!r} "
+                "(expected 'strict' or 'degraded')")
+        if self.health_interval_s <= 0 or self.peer_timeout_s <= 0:
+            raise ValueError(
+                "health knobs out of range: health_interval_s > 0 and "
+                f"peer_timeout_s > 0 required (got {self.health_interval_s}, "
+                f"{self.peer_timeout_s})")
+        if self.health_sim_hosts < 0:
+            raise ValueError(
+                f"health_sim_hosts {self.health_sim_hosts} must be >= 0 "
+                "(0 = the real process count)")
         _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 

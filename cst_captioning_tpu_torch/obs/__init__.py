@@ -18,14 +18,15 @@ resilience (README "Observability"):
   the recorder's streams; every producer (recorder, divergence sentinel,
   serving SLO monitor) reports through ``anomaly.record_anomaly`` so the
   ``anomaly`` events and ``obs.anomaly.<kind>`` counters share one spelling.
+- :mod:`obs.fleet` — merges the postmortem bundles of every process of a
+  run dir onto one skew-corrected timeline (``--postmortem <run_dir>``).
 
-The PyTorch port's copy of the JAX package's ``obs/`` (without the fleet
-merge, which comes with data parallelism): the same event stream, metric
-names, bundle layout and report, so each package's ``cli.obs_report``
-renders the other's runs. Stdlib-only at import time (torch is touched
-lazily, for the ``torch.cuda.memory_stats`` gauges and the flight
-recorder's one readback a flush), and zero-sync by construction: nothing
-in here reads a device value on the step path.
+The PyTorch port's copy of the JAX package's ``obs/``: the same event
+stream, metric names, bundle layout and report, so each package's
+``cli.obs_report`` renders the other's runs. Stdlib-only at import time
+(torch is touched lazily, for the ``torch.cuda.memory_stats`` gauges and
+the flight recorder's one readback a flush), and zero-sync by
+construction: nothing in here reads a device value on the step path.
 """
 
 from cst_captioning_tpu_torch.obs.metrics import (

@@ -10,14 +10,16 @@ device:
   (checkpoint writes, the RL reward, the prefetch placement).
 - :mod:`preempt`: SIGTERM sets a flag; the step loop saves mid-epoch and
   exits.
+- :mod:`health`: per-host heartbeats and a peer-loss watchdog, the
+  survivors' rendezvous, the validated rejoin protocol, and the DCN-stall
+  span around cross-host collectives.
 - :mod:`chaos`: seeded fault plans (NaN batches, kills mid-save, transient
   I/O errors, slow or failing reward calls, SIGTERM, slow or partial
   host-to-device copies, wedged prefetch, ENOSPC mid-rotation, serving and
-  actor preemption) fired at named points in the hot paths.
+  actor preemption, the partial preemption of a host and its rejoin)
+  fired at named points in the hot paths.
 
-The finite-update guard is ``train.state.guarded_apply_gradients``. The
-multi-host health monitor (heartbeats, rendezvous, rejoin) is the health
-slice's.
+The finite-update guard is ``train.state.guarded_apply_gradients``.
 """
 
 from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
@@ -27,6 +29,17 @@ from cst_captioning_tpu_torch.resilience.chaos import (
     PartialTransferError,
     SimulatedKill,
     TransientIOError,
+)
+from cst_captioning_tpu_torch.resilience.health import (
+    HealthMonitor,
+    HostRejoin,
+    PeerLost,
+    RejoinRefused,
+    RendezvousTimeout,
+    attempt_rejoin,
+    collective_span,
+    rendezvous,
+    simulate_rejoin,
 )
 from cst_captioning_tpu_torch.resilience.durable import (
     MANIFEST_FILE,
@@ -54,16 +67,25 @@ __all__ = [
     "DivergenceSentinel",
     "Fault",
     "FaultPlan",
+    "HealthMonitor",
+    "HostRejoin",
     "PartialTransferError",
+    "PeerLost",
     "Preempted",
     "PreemptionHandler",
+    "RejoinRefused",
+    "RendezvousTimeout",
     "RetryPolicy",
     "RollbackRequested",
     "SimulatedKill",
     "TrainingDiverged",
     "TransientIOError",
+    "attempt_rejoin",
+    "collective_span",
     "fsync_dir",
+    "rendezvous",
     "retry_call",
+    "simulate_rejoin",
     "verify_manifest",
     "write_bytes_durable",
     "write_manifest",

@@ -34,9 +34,18 @@ Fault kinds (``Fault._KINDS``, the JAX tuple):
 - ``"actor_preempt"``: preempt one actor device of the decoupled RL
   trainer (fire at ``rl.actor.step``; ``host`` indexes the victim).
 - ``"host_rejoin"`` at ``rl.actor.step``: re-admit a shed actor device.
-- ``"partial_preempt"``, and ``"host_rejoin"`` / ``"host_rejoin_flaky"``
-  anywhere else, act on the multi-host health monitor, which the port does
-  not have yet: firing one raises ``RuntimeError`` naming the health slice.
+- ``"partial_preempt"``: lose peer ``host`` on the active
+  :class:`~cst_captioning_tpu_torch.resilience.health.HealthMonitor`
+  (``health.simulate_peer_loss``: a tombstone and the ``peer_lost`` flag,
+  which the trainer and the serve loop drain on).
+- ``"host_rejoin"`` / ``"host_rejoin_flaky"`` anywhere but
+  ``rl.actor.step``: the lost peer ``host`` recovers on the active monitor
+  (``health.simulate_rejoin``; flaky: it announces itself and never checks
+  into the regrow rendezvous).
+
+The JAX point ``health.rejoin`` belongs to the degraded trainer's rejoin
+poll, which comes with the elastic continuations after the data-parallel
+slice: visiting it under a plan raises ``RuntimeError``.
 
 Points in the port (the JAX names):
 
@@ -76,9 +85,12 @@ from typing import Any
 import numpy as np
 
 from cst_captioning_tpu_torch.obs import metrics as obs_metrics
+from cst_captioning_tpu_torch.resilience import health
 
-_NO_HEALTH = ("needs the multi-host HealthMonitor (resilience/health.py), "
-              "which the PyTorch port does not have yet: the health slice")
+_NO_REJOIN_POLL = ("the chaos point 'health.rejoin' is the degraded "
+                   "trainer's rejoin poll, which is not ported yet: the "
+                   "elastic continuations come after the data-parallel "
+                   "slice")
 
 
 class SimulatedKill(BaseException):
@@ -162,6 +174,8 @@ class FaultPlan:
             return self._visits.get(point, 0)
 
     def _visit(self, point: str, payload: Any) -> Any:
+        if point == "health.rejoin":
+            raise RuntimeError(_NO_REJOIN_POLL)
         with self._lock:
             idx = self._visits.get(point, 0)
             self._visits[point] = idx + 1
@@ -201,8 +215,7 @@ class FaultPlan:
             if f.kind == "preempt":
                 os.kill(os.getpid(), signal.SIGTERM)
             elif f.kind == "partial_preempt":
-                raise RuntimeError(f"chaos partial_preempt at {point}#{idx} "
-                                   + _NO_HEALTH)
+                health.simulate_peer_loss(f.host)
             elif f.kind in ("serving_preempt", "param_swap"):
                 # a param_swap drain lands at the swap seam, before
                 # anything mutates, so the service refuses the publish
@@ -214,12 +227,14 @@ class FaultPlan:
 
                 async_scst.request_actor_preempt(f.host)
             elif f.kind in ("host_rejoin", "host_rejoin_flaky"):
-                if point != "rl.actor.step":
-                    raise RuntimeError(f"chaos {f.kind} at {point}#{idx} "
-                                       + _NO_HEALTH)
-                from cst_captioning_tpu_torch.rl import async_scst
+                if point == "rl.actor.step":
+                    # the actor fleet: re-admit a shed actor device
+                    from cst_captioning_tpu_torch.rl import async_scst
 
-                async_scst.request_actor_rejoin(f.host)
+                    async_scst.request_actor_rejoin(f.host)
+                else:
+                    health.simulate_rejoin(
+                        f.host, flaky=(f.kind == "host_rejoin_flaky"))
             elif f.kind in ("slow", "slow_h2d", "wedged_prefetch"):
                 time.sleep(f.delay)
             elif f.kind == "nan":

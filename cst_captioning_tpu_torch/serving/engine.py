@@ -55,8 +55,12 @@ at the top of each iteration, before the SIGTERM check, and the swap visits
 changes, so a drain requested there refuses the swap: it is applied whole
 or refused whole, never torn.
 
-Not carried from the JAX engine: the peer-loss drain (the health slice),
-``min_len > 0`` and the XLA scan stride.
+Peer loss: after the SIGTERM check the loop reads the active health
+monitor's ``peer_lost`` flag (``resilience/health.py``) and drains with
+reason ``"peer_loss"``: the snapshot holds the queue and the lanes in
+flight, and ``load_snapshot`` replays them elsewhere.
+
+Not carried from the JAX engine: ``min_len > 0`` and the XLA scan stride.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
     fused_decode_stride_paged,
     stride_weights,
 )
-from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience import chaos, health
 from cst_captioning_tpu_torch.resilience.durable import (
     fsync_dir,
     write_bytes_durable,
@@ -596,6 +600,9 @@ class CaptionService:
                     chaos.visit("serving.step")
                     if pre.requested:
                         self.drain("sigterm")
+                    mon = health.active_monitor()
+                    if mon is not None and mon.peer_lost:
+                        self.drain("peer_loss")
                     if self.draining:
                         break
                     # a staged publish lands before admission, so every

@@ -41,9 +41,21 @@ on autograd's anomaly mode and makes every module check its output, raising
 before it is collated into arrays; ``xe.step`` once per dispatched XE step
 and ``rl.step`` once per completed RL step, on the main thread.
 
+Peer loss (``train.health``, ``elastic="strict"``, the JAX trainer's
+strict path): the trainer starts a ``resilience.health.HealthMonitor``
+(this process is host 0 of ``train.health_sim_hosts`` or 1, heartbeats in
+``train.health_dir`` or ``<ckpt_dir>/health``) and stops it in
+:meth:`Trainer.close`. Both loops note the step for the heartbeat and read
+``peer_lost`` once a step, beside the SIGTERM checks; a loss drains the
+epoch at a batch boundary (the pipelined or decoupled RL epoch in schedule
+order, its seam saved), saves a mid-epoch checkpoint, dumps a ``peer_loss``
+postmortem naming the lost hosts and raises ``PeerLost``. A restart with
+``train.resume="auto"`` and a fresh health directory resumes from that
+save.
+
 Not ported (ROADMAP.md names their slices): meshes and data parallelism,
-peer loss and degraded or regrown meshes; their config fields raise
-(``config.py``).
+and the degraded or regrown meshes of ``elastic="degraded"``; their config
+fields raise (``config.py``).
 """
 
 from __future__ import annotations
@@ -75,7 +87,9 @@ from cst_captioning_tpu_torch.obs import anomaly as _anomaly
 from cst_captioning_tpu_torch.obs import flops as _flops
 from cst_captioning_tpu_torch.obs import recorder as flight
 from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience import health as health_mod
 from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
+from cst_captioning_tpu_torch.resilience.health import PeerLost
 from cst_captioning_tpu_torch.resilience.preempt import (
     Preempted,
     PreemptionHandler,
@@ -110,7 +124,7 @@ _VOLATILE_CONFIG_FIELDS = frozenset({
     "eval.results_json",
 })
 
-__all__ = ["Preempted", "Trainer", "TrainingDiverged"]
+__all__ = ["PeerLost", "Preempted", "Trainer", "TrainingDiverged"]
 
 
 def _config_drift(saved: dict, current: dict, prefix: str = "") -> list[str]:
@@ -244,6 +258,17 @@ class Trainer:
         self.reward: RewardComputer | None = None
         # tokens a drained pipelined RL epoch decoded but did not score
         self._pending_seam: dict | None = None
+        # the peer-loss watchdog: the loops read its flag once a step
+        self.health: health_mod.HealthMonitor | None = None
+        if cfg.train.health:
+            health_mod.set_dcn_stall_threshold(cfg.train.dcn_stall_s)
+            self.health = health_mod.HealthMonitor(
+                cfg.train.health_dir
+                or os.path.join(cfg.train.ckpt_dir, "health"),
+                host_id=0, num_hosts=cfg.train.health_sim_hosts or 1,
+                interval_s=cfg.train.health_interval_s,
+                timeout_s=cfg.train.peer_timeout_s,
+                misses=cfg.train.health_misses, log=self.log.log).start()
         if cfg.train.resume:
             self._resume()
         self._build_validator()
@@ -259,10 +284,12 @@ class Trainer:
             if self.val_ds is not None else None)
 
     def close(self) -> None:
-        """Close the event log and the flight recorder (a final flush, no
-        postmortem; a run that dies before this still dumps through the
-        recorder's atexit hook), and undo ``debug_nans``. The obs recorder
-        is the CLI's to shut."""
+        """Stop the health watchdog, close the event log and the flight
+        recorder (a final flush, no postmortem; a run that dies before this
+        still dumps through the recorder's atexit hook), and undo
+        ``debug_nans``. The obs recorder is the CLI's to shut."""
+        if self.health is not None:
+            self.health.stop()
         if self._stats:
             flight.shutdown()
         if self._nan_hooks is not None:
@@ -517,6 +544,31 @@ class Trainer:
             f"(epoch {self.epoch + 1}, batch {batch_index}); "
             "checkpoint saved - rerun with train.resume='auto'")
 
+    def _peer_loss_save(self, phase: str, step_no: int, batch_index: int,
+                        sentinel: DivergenceSentinel,
+                        seam: dict | None = None) -> None:
+        """A peer was lost: the epoch has drained to a batch boundary; check
+        pending steps, dump a postmortem naming the lost hosts, save
+        mid-epoch, raise PeerLost (strict: restart with resume="auto")."""
+        sentinel.flush()
+        # the lost hosts before the dump: the fleet merge reads them from
+        # the bundle's meta
+        lost = self.health.lost()
+        flight.postmortem("peer_loss", phase=phase, step=step_no, lost=lost)
+        self._save_step_ckpt(phase, step_no, batch_index, seam=seam)
+        obs.counter("resilience.peer_loss_drain").inc()
+        self.log.log("peer_loss_drain", phase=phase, step=step_no,
+                     batch_index=batch_index, lost=lost)
+        self.log.flush()
+        raise PeerLost(
+            lost,
+            f"lost host(s) {lost} at {phase} step {step_no} "
+            f"(epoch {self.epoch + 1}, batch {batch_index}); drained and "
+            "saved - restart with train.resume='auto'")
+
+    def _peer_lost(self) -> bool:
+        return self.health is not None and self.health.peer_lost
+
     def _apply_rollback(self, phase: str, err: RollbackRequested,
                         sentinel: DivergenceSentinel) -> None:
         """Restore the newest verifiable checkpoint and salt the data
@@ -557,8 +609,9 @@ class Trainer:
 
         ``epochs=None`` takes ``train.epochs`` as the phase total (a
         resumed run trains the rest); a number trains that many more.
-        Raises :class:`Preempted` after a SIGTERM save and
-        :class:`TrainingDiverged` under ``abort`` or past the rollback
+        Raises :class:`Preempted` after a SIGTERM save,
+        :class:`PeerLost` after a peer-loss save (``elastic="strict"``)
+        and :class:`TrainingDiverged` under ``abort`` or past the rollback
         budget."""
         cfg = self.cfg
         if epochs is None:
@@ -643,9 +696,14 @@ class Trainer:
                         obs.counter("flops.xe.step").inc(
                             self._xe_flops_inc(cfg.data.batch_size))
                         chaos.visit("xe.step")
+                        if self.health is not None:
+                            self.health.note_step(step_no)
                         if pre.requested:
                             self._preempt_save("xe", step_no, batch_no,
                                                sentinel)
+                        if self._peer_lost():
+                            self._peer_loss_save("xe", step_no, batch_no,
+                                                 sentinel)
                         if ckpt_every and step_no % ckpt_every == 0:
                             flight.flush()
                             sentinel.flush()   # never save a rejected update
@@ -657,6 +715,8 @@ class Trainer:
             # counters pass the saved state
             if pre.requested:
                 self._preempt_save("xe", step_no, batch_no, sentinel)
+            if self._peer_lost():
+                self._peer_loss_save("xe", step_no, batch_no, sentinel)
             flight.flush()
             sentinel.flush()
         self.epoch += 1
@@ -679,10 +739,11 @@ class Trainer:
         ``epochs=None``: ``rl.epochs`` is the phase total. At the handoff
         (no RL step taken yet) the optimizer starts fresh at ``rl.lr``
         with step 0; a mid-RL resume keeps the restored Adam moments and
-        checks that their structure fits the RL optimizer. A SIGTERM
-        stops the epoch at a batch boundary and the pipeline drains in
-        schedule order; the save records the batch index and, pipelined,
-        the seam's tokens, so both modes resume to the uninterrupted run.
+        checks that their structure fits the RL optimizer. A SIGTERM (or a
+        peer loss) stops the epoch at a batch boundary and the pipeline
+        drains in schedule order; the save records the batch index and,
+        pipelined, the seam's tokens, so both modes resume to the
+        uninterrupted run.
         """
         cfg = self.cfg
         if epochs is None:
@@ -813,6 +874,8 @@ class Trainer:
             meter.tick(cfg.data.batch_size, first=run["first_step"])
             run["first_step"] = False
             chaos.visit("rl.step")
+            if self.health is not None:
+                self.health.note_step(counter["step"])
 
         stop = threading.Event()
         seam_sink: dict = {}
@@ -825,7 +888,8 @@ class Trainer:
                     self._rl_device_batches(rl_batcher, skip=skip,
                                             stop_event=stop),
                     seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
-                    should_stop=lambda: pre.requested, seam=seam,
+                    should_stop=lambda: pre.requested or self._peer_lost(),
+                    seam=seam,
                     seam_sink=seam_sink if seam_capable else None)
             finally:
                 stop.set()
@@ -833,6 +897,9 @@ class Trainer:
             if pre.requested:
                 self._preempt_save("rl", counter["step"], counter["n"],
                                    sentinel, seam=seam_sink or None)
+            if self._peer_lost():
+                self._peer_loss_save("rl", counter["step"], counter["n"],
+                                     sentinel, seam=seam_sink or None)
             flight.flush()
             sentinel.flush()
         self.epoch += 1

@@ -6,8 +6,10 @@ the CPU.
 Fault plans draw and fire the same for the same seed and visit sequence in
 both packages; the adaptive bound is exactly equal on the same loss
 streams; the chaos cases of tests/test_resilience.py run against the
-port's prefetch and checkpoints; the kinds that need the health monitor
-raise naming the health slice.
+port's prefetch and checkpoints; the kinds that act on the health monitor
+(``partial_preempt``, ``host_rejoin_flaky`` off ``rl.actor.step``) reach
+the port's monitor, and the JAX point ``health.rejoin`` (the degraded
+trainer's rejoin poll) raises naming the data-parallel slice.
 """
 
 import errno
@@ -23,6 +25,7 @@ import torch  # graftlint: disable=GL006
 
 from cst_captioning_tpu.obs import anomaly as jax_anomaly
 from cst_captioning_tpu.resilience import chaos as jax_chaos
+from cst_captioning_tpu.resilience import health as jax_health
 from cst_captioning_tpu.resilience.adaptive import (
     AdaptiveThresholds as JaxAdaptive,
 )
@@ -37,6 +40,7 @@ from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.obs import anomaly as port_anomaly
 from cst_captioning_tpu_torch.obs import recorder as port_recorder
 from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience import health as port_health
 from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
 from cst_captioning_tpu_torch.resilience.chaos import (
     Fault,
@@ -206,13 +210,50 @@ def test_raising_kinds_carry_their_types():
 @pytest.mark.parametrize("point,kind", [
     ("rl.step", "partial_preempt"), ("health.rejoin", "host_rejoin"),
     ("xe.step", "host_rejoin_flaky")])
-def test_health_kinds_raise_naming_the_health_slice(point, kind):
-    plan = FaultPlan([Fault(point, kind, at=0, host=1)])
-    with plan.activate():
-        with pytest.raises(RuntimeError, match="HealthMonitor") as e:
-            chaos.visit(point)
-    assert "the health slice" in str(e.value)
-    assert plan.fired[0]["kind"] == kind
+def test_health_kinds_raise_naming_the_health_slice(point, kind, tmp_path):
+    """The three health kinds of the JAX chaos tests. With the health slice
+    ported, ``partial_preempt`` and ``host_rejoin_flaky`` (off
+    ``rl.actor.step``) act on the port's monitor, each package's alike, and
+    raise only with no active monitor; ``health.rejoin`` is the degraded
+    trainer's rejoin poll and is refused, naming the data-parallel slice."""
+    if point == "health.rejoin":
+        plan = FaultPlan([Fault(point, kind, at=0, host=1)])
+        with plan.activate():
+            with pytest.raises(RuntimeError, match="rejoin poll") as e:
+                chaos.visit(point)
+        assert "the data-parallel slice" in str(e.value)
+        assert plan.fired == [] and plan.visits(point) == 0
+        return
+    out = {}
+    for name, ch, health in (("jax", jax_chaos, jax_health),
+                             ("port", chaos, port_health)):
+        plan = ch.FaultPlan([ch.Fault(point, kind, at=0, host=1)])
+        with plan.activate():
+            with pytest.raises(RuntimeError, match="HealthMonitor"):
+                ch.visit(point)
+        d = str(tmp_path / name)
+        mon = health.HealthMonitor(d, host_id=0, num_hosts=2,
+                                   start_thread=False).start()
+        try:
+            if kind == "host_rejoin_flaky":
+                mon.simulate_loss(1)
+                mon.acknowledge()
+            plan = ch.FaultPlan([ch.Fault(point, kind, at=1, host=1)])
+            with plan.activate():
+                ch.visit(point)
+                before = (mon.peer_lost, mon.lost(),
+                          sorted(mon.pending_rejoins()))
+                ch.visit(point)
+            out[name] = (before, mon.peer_lost, mon.lost(),
+                         sorted(mon.pending_rejoins()), sorted(os.listdir(d)),
+                         plan.fired)
+        finally:
+            mon.stop()
+    assert out["port"] == out["jax"]
+    if kind == "partial_preempt":
+        assert out["port"][:3] == ((False, [], []), True, [1])
+    else:
+        assert out["port"][3] == [1] and "host1.rejoin" in out["port"][4]
 
 
 def test_actor_kinds_queue_on_the_decoupled_trainer():

@@ -63,7 +63,8 @@ def test_port_imports_no_jax():
                 "train.trainer", "cli.common", "cli.train", "cli.eval",
                 "data.importers", "cli.preprocess", "cli.import_msrvtt",
                 "cli.import_msvd", "resilience.chaos",
-                "resilience.adaptive", "rl.async_scst", "rl.online"):
+                "resilience.adaptive", "rl.async_scst", "rl.online",
+                "resilience.health", "obs.fleet", "cli.obs_report"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 

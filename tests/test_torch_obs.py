@@ -18,8 +18,8 @@ the JAX package's, on the CPU. Tolerances are exact unless stated.
   obs on gives equal ``serving.*`` counters in both engines; the
   evaluator's, prefetch's and checkpoint's spans; the step profiler's
   Chrome trace; the ``--obs`` / ``--profile`` CLIs;
-- the config: the six observability knobs are accepted, every knob still
-  unported raises naming its slice.
+- the config: the six observability knobs and the health knobs are
+  accepted, every knob still unported raises naming its slice.
 """
 
 import dataclasses
@@ -259,11 +259,12 @@ def test_obs_report_cli_equals_jax(args, capsys):
 def test_obs_report_cli_errors(tmp_path, capsys):
     assert obs_report_cli.main([str(tmp_path)]) == 2
     assert "no events.jsonl" in capsys.readouterr().err
-    # two processes' bundles need the fleet merge, which is not ported
+    # two processes' bundles merge into one fleet timeline
+    # (tests/test_torch_fleet.py holds it against the JAX merge)
     fleet = os.path.join(FIXTURES, "postmortem_fleet")
-    assert obs_report_cli.main(["--postmortem", fleet]) == 2
-    err = capsys.readouterr().err
-    assert "fleet merge" in err and "data-parallel slice" in err
+    assert obs_report_cli.main(["--postmortem", fleet]) == 0
+    out = capsys.readouterr().out
+    assert "procs merged: 2/2" in out and "victim host(s): [1]" in out
     # --list works over every proc's bundles
     assert obs_report_cli.main(["--postmortem", fleet, "--list",
                                 "--json"]) == 0
@@ -373,11 +374,18 @@ RESILIENCE_KNOBS = [
     {"train__spike_factor": 10.0, "train__spike_mode": "adaptive"},
     {"train__spike_factor": 10.0, "train__spike_mode": "adaptive",
      "train__spike_factor_min": 2.0},
+    # the health slice's knobs, and the strict elastic mode
+    {"train__health": True, "train__health_dir": "hb",
+     "train__health_interval_s": 0.1, "train__peer_timeout_s": 1.0,
+     "train__health_misses": 3, "train__health_sim_hosts": 2,
+     "train__elastic": "strict"},
+    {"train__dcn_stall_s": 3.0},
 ]
 
 
 @pytest.mark.parametrize("overrides", RESILIENCE_KNOBS,
-                         ids=["debug_nans", "spike_mode", "spike_factor_min"])
+                         ids=["debug_nans", "spike_mode", "spike_factor_min",
+                              "health", "dcn_stall_s"])
 def test_resilience_knobs_are_accepted(overrides):
     cfg = get_experiment("msrvtt_cst_consensus").override(**overrides)
     for key, value in overrides.items():
@@ -387,9 +395,8 @@ def test_resilience_knobs_are_accepted(overrides):
 
 
 STILL_UNPORTED = [
-    ("train", "health", True, "health"),
-    ("train", "elastic", "degraded", "health"),
-    ("train", "dcn_stall_s", 3.0, "health"),
+    ("train", "elastic", "degraded", "data-parallel"),
+    ("train", "elastic_regrow", False, "data-parallel"),
     ("train", "comm_bucket_mb", 8.0, "data-parallel"),
     ("train", "comm_dtype", "bf16", "data-parallel"),
     ("train", "comm_overlap", True, "data-parallel"),

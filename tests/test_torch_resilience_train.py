@@ -13,18 +13,43 @@ to that file's gates, and the port's ``debug_nans`` and adaptive sentinel.
   ``actor_preempt`` falls back to the sync schedule;
 - a drain landing at the hot swap refuses it, and the replay of the drained
   queue is bitwise equal to a run without the fault;
-- every one-device chaos point fires under a plan.
+- every one-device chaos point fires under a plan;
+- peer loss under ``elastic="strict"`` (``train.health`` with two
+  simulated hosts): a ``partial_preempt`` at ``xe.step`` drains, saves a
+  verifiable step checkpoint, dumps a ``peer_loss`` postmortem naming the
+  lost host (merged with a victim's bundle by ``obs.fleet``) and raises
+  ``PeerLost``; at ``rl.step`` (sequential and pipelined, the seam saved)
+  the drain stops at batch 1 and a full restart from a fresh health
+  directory ends bitwise equal to the straight run; the drain events'
+  ``phase``, ``step``, ``batch_index`` and ``lost`` equal the JAX
+  trainer's (``use_mesh=False``) on the same corpus and config; a peer
+  that stops beating is found by the trainer's watchdog by staleness and
+  the epoch drains.
 """
 
 import dataclasses
 import json
+import math
 import os
 import signal
+import time
 
 import numpy as np
 import pytest
 import torch  # graftlint: disable=GL006
 
+from cst_captioning_tpu.config.config import (
+    ExperimentConfig as JaxExperimentConfig,
+)
+from cst_captioning_tpu.data import CaptionDataset as JaxDataset
+from cst_captioning_tpu.data import (
+    make_synthetic_dataset as jax_synthetic,
+)
+from cst_captioning_tpu.resilience import Fault as JaxFault
+from cst_captioning_tpu.resilience import FaultPlan as JaxFaultPlan
+from cst_captioning_tpu.resilience import PeerLost as JaxPeerLost
+from cst_captioning_tpu.train.trainer import Trainer as JaxTrainer
+from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.config import (
     DataConfig,
     EOS_ID,
@@ -37,11 +62,16 @@ from cst_captioning_tpu_torch.config import (
 from cst_captioning_tpu_torch.convert import load_flax_params, random_flax_params
 from cst_captioning_tpu_torch.data import CaptionDataset, make_synthetic_dataset
 from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.obs import fleet
+from cst_captioning_tpu_torch.obs import recorder
 from cst_captioning_tpu_torch.resilience import (
     Fault,
     FaultPlan,
+    HealthMonitor,
+    PeerLost,
     Preempted,
     TrainingDiverged,
+    verify_manifest,
 )
 from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
 from cst_captioning_tpu_torch.serving import (
@@ -58,15 +88,27 @@ torch.set_num_threads(1)
 STEPS_PER_EPOCH = 3
 
 
+CORPUS = dict(num_videos=12, num_topics=3, vocab_words=20,
+              modalities={"resnet": 16}, max_frames=4, seed=5)
+
+
 @pytest.fixture(scope="module")
 def datasets(tmp_path_factory):
     out = tmp_path_factory.mktemp("chaossynth")
-    paths = make_synthetic_dataset(str(out), num_videos=12, num_topics=3,
-                                   vocab_words=20, modalities={"resnet": 16},
-                                   max_frames=4, seed=5)
+    paths = make_synthetic_dataset(str(out), **CORPUS)
     return tuple(CaptionDataset(paths["info_json"],
                                 {"resnet": paths["resnet"]}, split, 4)
                  for split in ("train", "val"))
+
+
+@pytest.fixture(scope="module")
+def jax_train_ds(tmp_path_factory):
+    """The same corpus in the JAX package's files (equal by
+    test_torch_data.py), for the JAX trainer."""
+    out = tmp_path_factory.mktemp("jaxchaossynth")
+    paths = jax_synthetic(str(out), **CORPUS)
+    return JaxDataset(paths["info_json"], {"resnet": paths["resnet"]},
+                      "train", 4)
 
 
 def make_cfg(ckpt_dir, vocab_size: int, *, pipelined: bool = False,
@@ -473,3 +515,161 @@ def test_every_one_device_point_fires(datasets, tmp_path):
     assert svc.param_version == 1
     assert sorted(f["point"] for f in plan.fired) == sorted(
         TRAIN_POINTS + ("serving.step", "serving.param_swap"))
+
+
+# ---- peer loss under elastic="strict" ----------------------------------------------
+
+DRAIN_FIELDS = ("phase", "step", "batch_index", "lost")
+
+
+def _jax_drain(jax_train_ds, cfg, fault, log, rl: bool) -> dict:
+    """The JAX trainer (one device) on the same config under the same
+    fault -> its peer_loss_drain event's fields."""
+    jtr = JaxTrainer(JaxExperimentConfig.from_json(cfg.to_json()),
+                     jax_train_ds, None, log_path=str(log), use_mesh=False)
+    try:
+        with JaxFaultPlan([JaxFault(*fault[:2], at=fault[2],
+                                    host=1)]).activate():
+            with pytest.raises(JaxPeerLost) as e:
+                jtr.train_xe()
+                if rl:
+                    jtr.train_rl()
+    finally:
+        jtr.close()
+    assert e.value.hosts == [1]
+    (ev,) = events_of(log, "peer_loss_drain")
+    return {k: ev[k] for k in DRAIN_FIELDS}
+
+
+def test_partial_preempt_xe_strict_drains_and_raises(datasets, jax_train_ds,
+                                                     tmp_path):
+    train_ds, _ = datasets
+    obs_dir = tmp_path / "obs"
+    cfg = make_cfg(tmp_path / "ck", len(train_ds.vocab), health=True,
+                   health_sim_hosts=2, obs=True, obs_dir=str(obs_dir),
+                   recorder_steps=8)
+    tr = trainer(cfg, train_ds, log=tmp_path / "ev")
+    try:
+        assert tr.health.survivors() == [0, 1]
+        plan = FaultPlan([Fault("xe.step", "partial_preempt",
+                                at=STEPS_PER_EPOCH, host=1)])
+        with plan.activate():
+            with pytest.raises(PeerLost) as e:
+                tr.train_xe()
+    finally:
+        tr.close()
+        obs.shutdown()
+    assert e.value.hosts == [1]
+    assert tr.health._thread is None     # close stopped the watchdog
+    (drain,) = events_of(tmp_path / "ev", "peer_loss_drain")
+    assert drain["phase"] == "xe" and drain["lost"] == [1]
+    assert drain["batch_index"] == 1 and drain["step"] == STEPS_PER_EPOCH + 1
+    (lost,) = events_of(tmp_path / "ev", "peer_lost")
+    assert lost["host"] == 1 and lost["reason"] == "partial_preempt"
+    (step_dir,) = [n for n in os.listdir(tmp_path / "ck")
+                   if n.startswith("step_")]
+    assert verify_manifest(str(tmp_path / "ck" / step_dir))
+    assert os.path.exists(tmp_path / "ck" / "health" / "host1.dead")
+    want = _jax_drain(jax_train_ds, make_cfg(
+        tmp_path / "jck", len(train_ds.vocab), health=True,
+        health_sim_hosts=2), ("xe.step", "partial_preempt", STEPS_PER_EPOCH),
+        tmp_path / "jev", rl=False)
+    assert {k: drain[k] for k in DRAIN_FIELDS} == want
+    # the postmortem names the victim, and merges with the victim's bundle
+    (bundle,) = [b for b in fleet.discover_bundles(str(obs_dir))[0]
+                 if b.endswith("peer_loss")]
+    meta = json.load(open(os.path.join(bundle, "meta.json")))
+    assert meta["lost"] == [1] and meta["step"] == STEPS_PER_EPOCH + 1
+    fr1 = recorder.FlightRecorder(8, str(obs_dir / "proc1"), run=meta["run"],
+                                  proc=1, world=2, host="simhost1")
+    for step in range(1, STEPS_PER_EPOCH + 2):
+        fr1.record(step, "xe", {"loss": math.nan if step == 3 else 1.0,
+                                "grad_norm": 1.0})
+    assert fr1.postmortem("divergence_nonfinite", phase="xe", step=3)
+    fr1.close()
+    merged = fleet.merge_bundles(str(obs_dir))
+    assert merged["merged_procs"] == [0, 1]
+    assert merged["victim_hosts"] == [1] and merged["trip"]["proc"] == 1
+    assert "[TRIP]" in fleet.render_fleet(merged)
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["sequential", "pipelined"])
+def test_partial_preempt_strict_full_restart_is_bitwise(
+        datasets, jax_train_ds, tmp_path, pipelined):
+    """JAX test_chaos_train.py's strict full restart on one device: losing
+    host 1 of 2 mid RL epoch 2 drains (sequential: at batch 1, after the
+    epoch's first step, as the JAX test expects; pipelined, 5 batches of 2
+    an epoch: mid-epoch with the seam), saves and raises; a restart from
+    that save with a fresh health directory ends bitwise equal to the run
+    without the loss."""
+    kw = dict(health=True, health_sim_hosts=2, pipelined=pipelined)
+    if pipelined:
+        kw.update(batch_size=2, seq_per_vid=1)
+    fault = ("rl.step", "partial_preempt", 6 if pipelined else 2)
+    straight = _rl_run(datasets, tmp_path / "a", **kw)
+    with FaultPlan([Fault(*fault[:2], at=fault[2], host=1)]).activate():
+        with pytest.raises(PeerLost) as e:
+            _rl_run(datasets, tmp_path / "b", **kw)
+    assert e.value.hosts == [1]
+    (drain,) = events_of(tmp_path / "b" / "ev", "peer_loss_drain")
+    saves = events_of(tmp_path / "b" / "ev", "ckpt_step")
+    assert drain["phase"] == "rl"
+    assert saves[-1]["batch_index"] == drain["batch_index"]
+    assert saves[-1]["seam"] is pipelined
+    if pipelined:
+        assert 1 < drain["batch_index"] < 5
+    else:
+        assert drain["batch_index"] == 1
+    train_ds, _ = datasets
+    want = _jax_drain(jax_train_ds, make_cfg(
+        tmp_path / "jck", len(train_ds.vocab), epochs=1, **kw), fault,
+        tmp_path / "jev", rl=True)
+    assert {k: drain[k] for k in DRAIN_FIELDS} == want
+    again = _rl_run(datasets, tmp_path / "b", resume="auto",
+                    health_dir=str(tmp_path / "hb2"), **kw)
+    assert again.rl_epochs == straight.rl_epochs == 2
+    assert again.state.step == straight.state.step
+    params_equal(again.state, straight.state)
+    # the restart's fresh monitor lost nobody; pipelined, it replayed the seam
+    assert len(events_of(tmp_path / "b" / "ev", "peer_lost")) == 1
+    assert bool(events_of(tmp_path / "b" / "ev", "seam_loaded")) is pipelined
+
+
+def test_watchdog_finds_a_silent_peer_and_the_epoch_drains(datasets,
+                                                           tmp_path):
+    """No tombstone: a second monitor (host 1) beats on its own thread
+    and stops; the trainer's watchdog declares it lost by staleness within
+    timeout + misses x interval, and the XE loop drains and raises."""
+    train_ds, _ = datasets
+    interval, timeout, misses = 0.02, 0.1, 2
+    cfg = make_cfg(tmp_path, len(train_ds.vocab), epochs=50, health=True,
+                   health_sim_hosts=2, health_interval_s=interval,
+                   peer_timeout_s=timeout, health_misses=misses)
+    tr = trainer(cfg, train_ds, log=tmp_path / "ev")
+    peer = HealthMonitor(str(tmp_path / "health"), host_id=1, num_hosts=2,
+                         interval_s=interval, timeout_s=timeout,
+                         misses=misses).start()
+    try:
+        deadline = time.monotonic() + 10.0
+        while tr.health._seen_seq.get(1) is None:
+            assert time.monotonic() < deadline, "host 1 never seen"
+            time.sleep(interval)
+        peer.stop()
+        t_stop = time.monotonic()
+        plan = FaultPlan([Fault("xe.step", "slow", at=0, times=10 ** 6,
+                                delay=interval)])
+        with plan.activate():
+            with pytest.raises(PeerLost) as e:
+                tr.train_xe()
+        waited = time.monotonic() - t_stop
+    finally:
+        peer.stop()
+        tr.close()
+    assert e.value.hosts == [1]
+    (lost,) = events_of(tmp_path / "ev", "peer_lost")
+    assert lost["reason"] == "heartbeat_timeout" and lost["age_s"] > timeout
+    assert not os.path.exists(tmp_path / "health" / "host1.dead")
+    (drain,) = events_of(tmp_path / "ev", "peer_loss_drain")
+    assert drain["phase"] == "xe" and tr.xe_epochs < 50
+    assert waited < 10.0

@@ -10,7 +10,10 @@ drain snapshots written by either package and replayed by the other onto
 a grown service; SIGTERM and request_drain; grow_capacity with live lane
 state; the SLO monitor; grouped admission (tokens equal to solo admission,
 logprobs within 8 float32 ulps: a batched encoder GEMM is not bit-equal to
-a solo one, on either package); static_batch_serve.
+a solo one, on either package); static_batch_serve; the peer-loss drain
+(each package's active health monitor loses host 1 from the feedback:
+both engines drain with reason "peer_loss" at the same stride, and each
+replay completes the undrained serve).
 """
 
 import json
@@ -33,10 +36,12 @@ from cst_captioning_tpu.serving import CaptionService as JaxCaptionService
 from cst_captioning_tpu.serving import ClipRequest as JaxClipRequest
 from cst_captioning_tpu.serving import load_snapshot as jax_load_snapshot
 from cst_captioning_tpu.serving import static_batch_serve as jax_static_serve
+from cst_captioning_tpu.resilience import health as jax_health
 from cst_captioning_tpu.serving.engine import SloMonitor as JaxSloMonitor
 from cst_captioning_tpu_torch import config as tcfg
 from cst_captioning_tpu_torch.convert import load_flax_params
 from cst_captioning_tpu_torch.models import CaptionModel as TorchCaptionModel
+from cst_captioning_tpu_torch.resilience import health as port_health
 from cst_captioning_tpu_torch.serving import (
     CaptionService,
     ClipRequest,
@@ -364,6 +369,44 @@ def test_sigterm_and_request_drain(setup, tmp_path):
     assert rep2.completed == 2
     with pytest.raises(RuntimeError, match="no CaptionService"):
         request_drain()
+
+
+def test_peer_loss_drain_matches_jax(setup, tmp_path):
+    """A peer lost mid-serve (the active monitor's simulate_loss from the
+    feedback after the 2nd completion): both engines drain with reason
+    "peer_loss" at the same stride with the same completed requests; each
+    package's replay of its snapshot completes the undrained serve."""
+    s = setup
+    out = {}
+    for name, health, make, cls, load in (
+            ("jax", jax_health, lambda: _jax_service(s), JaxClipRequest,
+             jax_load_snapshot),
+            ("port", port_health, lambda: _service(s["tmodel"]), ClipRequest,
+             load_snapshot)):
+        base = make().serve(_requests(cls=cls))
+        mon = health.HealthMonitor(str(tmp_path / f"{name}_hb"), host_id=0,
+                                   num_hosts=2, start_thread=False).start()
+        try:
+            svc = make()
+            _drain_after(svc, 2, lambda _svc: mon.simulate_loss(1))
+            snap = str(tmp_path / f"{name}_snap")
+            drained = svc.serve(_requests(cls=cls), snapshot_dir=snap)
+        finally:
+            mon.stop()
+        assert drained.drained and drained.drain_reason == "peer_loss"
+        assert drained.snapshot_dir == snap and 2 <= drained.completed < 6
+        replay = make().serve(load(snap))
+        union = {**drained.results, **replay.results}
+        assert set(union) == set(base.results)
+        _assert_match(union, base.results)
+        out[name] = (drained, replay, base)
+    (jd, jr, jb), (td, tr, tb) = out["jax"], out["port"]
+    assert td.strides == jd.strides and set(td.results) == set(jd.results)
+    assert set(tr.results) == set(jr.results)
+    _assert_match(tb.results, jb.results)
+    # the drain read the flag: with no monitor the same serve runs through
+    assert port_health.active_monitor() is None
+    assert not _service(s["tmodel"]).serve(_requests()).drained
 
 
 # ---- grow_capacity -----------------------------------------------------------

@@ -21,8 +21,9 @@ clips), the composite attention and decode on both sides:
 - the XE -> RL handoff (a fresh optimizer, step 0, a constant ``rl.lr``);
 - ``rl.reward_threads`` reaching ``RewardComputer``;
 - every config value whose machinery is not ported raising (the
-  observability knobs are ported: ``test_torch_obs.py``), and the
-  decoupled and online RL knobs validated with the JAX messages;
+  observability and health knobs are ported: ``test_torch_obs.py``), and
+  the health, decoupled and online RL knobs validated with the JAX
+  messages;
 - ``train.rl_topology="decoupled"`` through ``train_rl`` against the sync
   trainer (bitwise), and a SIGTERM during a decoupled RL epoch resumed
   from its persisted ring to the uninterrupted run;
@@ -514,10 +515,11 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
     assert seen["reward"].num_threads == (threads or os.cpu_count())
 
 
-# the observability knobs are ported (tests/test_torch_obs.py)
+# the observability and health knobs are ported (tests/test_torch_obs.py);
+# the degraded and regrown meshes of elastic training are not
 UNPORTED = [
     ("mesh", "num_devices", 2), ("mesh", "seq_devices", 2),
-    ("mesh", "mp_devices", 2), ("train", "health", True),
+    ("mesh", "mp_devices", 2), ("train", "elastic_regrow", False),
     ("train", "elastic", "degraded"), ("train", "comm_dtype", "bf16"),
 ]
 
@@ -581,6 +583,25 @@ def test_spike_mode_values_are_validated(fields, message):
     cfg = get_experiment("msrvtt_cst_consensus").override(
         train__spike_factor=10.0, train__spike_mode="adaptive")
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
+# the health knobs are ported: a bad value raises the JAX package's message
+BAD_HEALTH_VALUES = [
+    ({"elastic": "bogus"}, "unknown elastic mode 'bogus'"),
+    ({"health_interval_s": 0.0}, "health knobs out of range"),
+    ({"peer_timeout_s": -1.0}, "health knobs out of range"),
+    ({"health_sim_hosts": -1}, "health_sim_hosts -1 must be >= 0"),
+]
+
+
+@pytest.mark.parametrize("fields,message", BAD_HEALTH_VALUES,
+                         ids=["elastic", "interval", "timeout", "sim_hosts"])
+def test_health_values_are_validated(fields, message):
+    with pytest.raises(ValueError, match=message) as got:
+        tcfg.TrainConfig(**fields)
+    with pytest.raises(ValueError, match=message) as want:
+        JaxTrainConfig(**fields)
+    assert str(got.value) == str(want.value)
 
 
 # the decoupled and online RL knobs are ported: a bad value raises the JAX
