@@ -270,9 +270,50 @@
    and a drain after 16 completions whose postmortem bundle verifies.
    Prints the top host rows of the training and the serve reports, and
    what one span costs the host (``obs_emit_cost``).
+8d. data_parallel: ``train/mesh.py``, ``train/multihost.py`` and
+   ``parallel/comms.py`` through the port's Trainer and Evaluator at
+   msrvtt_cst_consensus width with the kernels, global batch 64, over the
+   recipe corpus's 384 train clips, dropout 0, once at float32 compute
+   (the JAX data-parallel tests' setting) and once at bfloat16 (the
+   presets'); each run: an XE epoch (6 steps) with its greedy
+   validation, a CST epoch (K=5, self-consensus) and an SCST epoch
+   (msrvtt_scst's greedy baseline, the stride kernel) each from the start
+   weights (a 4-epoch XE fit of the seeded init, on one device), and the
+   start weights' beam-5 evaluation of the 64 val clips. Besides, one CST
+   update at lr 5e-2 (the rate the JAX tolerances were set for; the
+   presets' RL rate of 2e-5 moves a parameter less than those
+   tolerances) from the start weights on the first batch. (a) NCCL at
+   world size 1 (a ``file://`` init in this process), against the same
+   runs without a mesh. (b) two ranks on the one card over gloo (named
+   explicitly; NCCL refuses two ranks on one device), this script run as
+   ``--dp-rank`` children, 32 rows a rank, against arm (a): both ranks'
+   params bitwise equal after each phase, ``proc1/`` holding
+   ``dcn.collective`` spans, kernels 1, 2, 3 and 5 launched on each rank.
+   The schedule's gates (``dp_gate``), in (a) and (b): per JAX leaf the
+   displacement from the start within ``DP_DISP`` of the reference's, the
+   XE losses within ``DP_LOSS``, every rollout row decoded from the
+   start weights equal, the beam-5 captions and metrics equal; at
+   float32 also the JAX tolerances with no element outside (params after
+   XE rtol 1e-3 / atol 1e-5, after CST and SCST rtol 1e-2 / atol 2e-3)
+   and >= 95% of the later rollout rows and of the validation captions
+   equal. The update's gates (``dp_rate_close``): the reduced gradient
+   (Adam's first moment) within ``DP_GRAD`` of its leaf's scale, the
+   params within the JAX tolerance but where the reference's gradient is
+   within that rounding of 0, the loss within 1e-5. (c) the same update
+   at two ranks with bf16 on the wire against f32: the JAX bound 5e-3 on
+   that footing, the loss within 1e-6. Planted faults (``dp_planted``:
+   the smallest bucket zeroed, or split back one element off) must fail
+   the update's gates, and a zeroed bucket in a bfloat16 XE epoch the
+   ``DP_DISP`` gate. Also: the ``comm.buckets`` / ``comm.bytes_on_wire``
+   gauges equal to ``comms.ledger``, the NCCL version. Reported: each
+   arm's wall and phase times, the per-rank step ms, the
+   ``rl.update.allreduce`` spans, the CUDA-event ms of one update's
+   all-reduce, the buckets and bytes on the wire and each rank's
+   launches (arm (b)'s times are gloo through the host).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
-   rl_online's, resilience's, health's and import's included),
+   rl_online's, resilience's, health's, import's and data_parallel's
+   included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -364,6 +405,7 @@ from cst_captioning_tpu_torch.ops.decode_step import (
     stack_carry,
     unstack_carry,
 )
+from cst_captioning_tpu_torch.parallel import CommConfig
 from cst_captioning_tpu_torch.ops.decode_stride import (
     decode_stride_plain,
     fused_decode_stride,
@@ -4109,6 +4151,698 @@ def _obs(root: str, smi: str) -> tuple[dict, dict]:
     return line, total
 
 
+# ---- phase 8d: data parallel ---------------------------------------------
+
+DP_DEVICE = "cuda:0"
+DP_BACKEND_A = "nccl"     # arm (a)'s group
+DP_MODEL: dict = {}       # model overrides (a CPU rehearsal shrinks it)
+DP_TIMEOUT_S = 600        # a rank of arm (b), start to exit
+DP_GROUP_TIMEOUT_S = 120  # a collective that waits this long raises
+DP_FROM_START = 2         # pipelined: batches 0 and 1 decode the start weights
+DP_REDUCE_REPS = 10
+DP_FIT_EPOCHS, DP_FIT_LR = 4, 2e-3   # the start weights' short XE fit
+DP_KERNELS = ("fused_additive_attention", "fused_decode_step",
+              "fused_decode_stride", "fused_beam_step")
+DP_PHASES = ("xe", "cst", "scst")
+# float32: the JAX data-parallel tests' compute and tolerances; bfloat16:
+# the presets' compute, held to bounds set from the card's readings
+DP_DTYPES = ("float32", "bfloat16")
+XE_TOL = (1e-3, 1e-5)     # rtol, atol: tests/test_train.py:88-89
+RL_TOL = (1e-2, 2e-3)     # tests/test_rl.py:159
+DP_TOL = {"xe": XE_TOL, "cst": RL_TOL, "scst": RL_TOL}
+BF16_ATOL = 5e-3          # tests/test_comms.py:289-291
+DP_RATE = 5e-2            # the RL rate those tolerances were set for
+# Bounds from the card's readings (PERF.md, data parallel), each above
+# what the correct reduction reads and below what a planted fault reads
+# (a zeroed leaf reads 1 in both measures). DP_DISP: per JAX leaf, the
+# difference of
+# two runs' displacements from the start weights over the reference's
+# (``dp_close``; read at most 4.9e-4 in float32, 0.53 in bfloat16: the
+# SCST epoch's attention score vector, whose small RL gradient Adam moves
+# by its sign). DP_GRAD: the reduced gradient's largest difference, a
+# share of its leaf's largest element (``dp_rate_close``; read 3.1e-5 at
+# f32, 8.0e-3 with bf16 on the wire, which rounds each addend to 2^-9).
+# DP_LOSS: the XE losses, relative (the float32 one is the JAX tests';
+# bfloat16 read 4.0e-4, and a planted fault moves them less than that, so
+# the params gate is the one that catches it).
+DP_DISP = {"float32": 1e-2, "bfloat16": 0.8}
+DP_LOSS = {"float32": 1e-5, "bfloat16": 1e-3}
+DP_GRAD = {"f32": 1e-4, "bf16": 2.0 ** -6}
+DP_FAULTS = ("zero", "offset")
+
+
+def dp_config(ckpt_dir: str, preset: str, obs_dir: str, **over):
+    """``preset`` at full width with the kernels, B=64, one epoch a phase
+    over the recipe corpus's 384 train clips (6 steps), obs on at
+    ``obs_dir``; dropout 0 (a rank's dropout stream folds its rank, so one
+    rank and two would draw other masks) and float32 compute unless
+    ``model__dtype`` says otherwise (the JAX data-parallel tests run so,
+    and their tolerances are float32's)."""
+    return get_preset(preset).override(**{
+        "model__attention_impl": "pallas", "model__decode_impl": "pallas",
+        "model__dropout": 0.0, "model__dtype": "float32",
+        **{f"model__{k}": v for k, v in DP_MODEL.items()},
+        "train__epochs": 1, "train__log_every_steps": 1,
+        "train__ckpt_dir": ckpt_dir, "rl__epochs": 1,
+        "train__obs": bool(obs_dir), "train__obs_dir": obs_dir, **over})
+
+
+def dp_sync() -> None:
+    if torch.device(DP_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dp_layout(start: dict) -> tuple[list, list]:
+    """The start weights as the port's tensors (on the host) and the JAX
+    leaves located in them (``mesh.param_leaves``)."""
+    from cst_captioning_tpu_torch.train.mesh import param_leaves
+
+    model = load_flax_params(CaptionModel(dp_config(
+        "", "msrvtt_cst_consensus", "").model, device="cpu"), start)
+    return [p.detach().clone() for p in model.parameters()], \
+        param_leaves(model)
+
+
+def dp_leaf_views(tensors: list, leaves: list) -> list:
+    """Each JAX leaf's elements of a port tensor list, flat, on the host."""
+    flat = [t.detach().cpu().reshape(-1) for t in tensors]
+    return [flat[lf.param][lf.offset:lf.offset + lf.numel] for lf in leaves]
+
+
+def _share(num: float, den: float) -> float:
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def dp_close(got: list, want: list, tol, layout: tuple) -> dict:
+    """Two runs' parameters from one start -> the largest error, the
+    elements outside ``|got - want| <= atol + rtol * |want|`` (``tol``;
+    None counts none) and ``disp_rel``: per JAX leaf, the difference of
+    the two displacements from the start over the reference's,
+    ``||got - want|| / ||want - start||``, the largest and its leaf. A
+    leaf whose gradient the reduction lost reads 1 (it never moved); one
+    split back at another offset reads about sqrt(2); a summation order
+    reads far less, at any rate."""
+    start, leaves = layout
+    rtol, atol = tol or (math.inf, math.inf)
+    worst, bad, n, disp, at = 0.0, 0, 0, 0.0, None
+    for lf, g, w, s in zip(leaves, *(dp_leaf_views(x, leaves)
+                                     for x in (got, want, start))):
+        g, w, s = g.double(), w.double(), s.double()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        bad += int((d > atol + rtol * w.abs()).sum())
+        n += d.numel()
+        r = _share(float(d.norm()), float((w - s).norm()))
+        if r > disp:
+            disp, at = r, lf.path
+    return {"max_abs_err": worst, "outside_tol": bad, "elements": n,
+            "disp_rel": disp, "disp_leaf": at}
+
+
+def dp_rate_close(got: dict, want: dict, tol: tuple, leaves: list,
+                  bound: float) -> dict:
+    """One update at DP_RATE (``dp_rate_update``) against a reference ->
+    the loss's relative error; ``grad_rel``, the largest difference of the
+    two reduced gradients (Adam's first moment) as a share of the
+    reference leaf's largest element; the elements of the params outside
+    ``|got - want| <= atol + rtol * |want|`` and how many of those are
+    excused: where the reference's gradient lies within ``bound`` of its
+    leaf's largest of 0, the reduction's rounding decides its sign and
+    Adam's first step moves it by lr one way or the other. A lost or
+    misplaced bucket reads ``grad_rel`` 1 or more and moves elements whose
+    gradients are far from 0."""
+    rtol, atol = tol
+    grad_rel, worst, bad, excused = 0.0, 0.0, 0, 0
+    views = [dp_leaf_views(x, leaves) for x in (
+        got["params"], want["params"], got["grads"], want["grads"])]
+    for p, q, g, h in zip(*views):
+        scale = float(h.abs().max())
+        grad_rel = max(grad_rel, _share(float((g - h).abs().max()), scale))
+        d = (p - q).abs()
+        worst = max(worst, float(d.max()))
+        out = d > atol + rtol * q.abs()
+        bad += int(out.sum())
+        excused += int((out & (h.abs() <= bound * scale)).sum())
+    return {"loss_rel_err": rel_err(got["loss"], want["loss"]),
+            "grad_rel": grad_rel, "max_abs_err": worst, "outside_tol": bad,
+            "excused": excused}
+
+
+def dp_rate_ok(c: dict, bound: float, loss_rtol: float) -> bool:
+    return c["loss_rel_err"] <= loss_rtol and c["grad_rel"] <= bound \
+        and c["outside_tol"] == c["excused"]
+
+
+def dp_rows_equal(got: list, want: list, rows=slice(None)) -> list:
+    """Per batch, the share of token rows (lane, clip) equal between two
+    runs' rollouts; ``rows`` picks a rank's clips of ``want``."""
+    out = []
+    for g, w in zip(got, want):
+        w = w[:, rows]
+        out.append(float((g == w).all(dim=-1).float().mean())
+                   if g.shape == w.shape else 0.0)
+    return out
+
+
+@contextlib.contextmanager
+def dp_planted(kind: str):
+    """A fault planted in the gradient all-reduce, alike on every rank:
+    the smallest bucket's sum zeroed ("zero") or split back one element
+    off ("offset"). The gates must refuse what it trains."""
+    from cst_captioning_tpu_torch.parallel import comms
+
+    wait = comms.Reduction.wait
+
+    def planted(self):
+        bucketed = [i for i, p in enumerate(self._pending)
+                    if p[2] is not None]
+        if bucketed:
+            i = min(bucketed, key=lambda i: self._pending[i][1].numel())
+            work, buf, indices = self._pending[i]
+            if work is not None:
+                work.wait()
+            if kind == "zero":
+                buf.zero_()
+            else:
+                buf.copy_(buf.roll(1))
+            self._pending[i] = (None, buf, indices)
+        return wait(self)
+
+    comms.Reduction.wait = planted
+    try:
+        yield
+    finally:
+        comms.Reduction.wait = wait
+
+
+def dp_reduce_ms(mesh, comm, leaves: list, shapes: list) -> float:
+    """CUDA-event ms of one update's gradient all-reduce (a step's
+    ``GradReducer``, its plan built once, on gradient-shaped tensors), the
+    mean of ``DP_REDUCE_REPS`` after a warm-up."""
+    from cst_captioning_tpu_torch.parallel.comms import GradReducer
+
+    reduce = GradReducer(leaves, mesh, comm)
+    g = torch.Generator(device=mesh.device).manual_seed(mesh.rank)
+    grads = [torch.randn(s, generator=g, device=mesh.device) for s in shapes]
+    reduce(grads)
+    if mesh.device.type != "cuda":      # a CPU rehearsal: the host clock
+        t = time.perf_counter()
+        for _ in range(DP_REDUCE_REPS):
+            reduce(grads)
+        return (time.perf_counter() - t) * 1e3 / DP_REDUCE_REPS
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(DP_REDUCE_REPS):
+        reduce(grads)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / DP_REDUCE_REPS
+
+
+def dp_fit(root: str, data: dict, ds) -> dict:
+    """The start weights: the trainer's seeded init after DP_FIT_EPOCHS XE
+    epochs at DP_FIT_LR on one device (captions that end and differ, as a
+    model past its first epochs gives; random weights leave beam search a
+    field of near-ties) -> the flax tree."""
+    from cst_captioning_tpu_torch.convert import state_dict_to_flax
+
+    cfg = dp_config(os.path.join(root, "fit"), "msrvtt_cst_consensus", "",
+                    train__epochs=DP_FIT_EPOCHS, train__lr=DP_FIT_LR)
+    tr = trainer_mod.Trainer(cfg, ds, None, device=DP_DEVICE)
+    tr.train_xe()
+    tr.close()
+    return state_dict_to_flax(tr.model.cfg, tr.model.state_dict())
+
+
+def dp_schedule(root: str, data: dict, start: dict, use_mesh: bool,
+                dtype: str = "float32",
+                phases: tuple = ("xe", "cst", "scst", "beam")) -> dict:
+    """The data-parallel phase's schedule on this process (module
+    docstring, 8d) at compute ``dtype``, each phase from the start weights
+    (``dp_fit``): an XE epoch with its greedy validation, a CST epoch
+    (msrvtt_cst_consensus: K=5, self-consensus, pipelined), an SCST epoch
+    (msrvtt_scst's RL: the greedy baseline's fused stride decode), and the
+    beam-5 evaluation of the start weights on the val split (64 clips). ->
+    the params after each phase, every batch's rollouts (this rank's
+    rows), the losses, captions and metrics, the four kernels' launches,
+    step times, the ``rl.update.allreduce`` spans and the comm gauges."""
+    from cst_captioning_tpu_torch.rl import scst as scst_mod
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    mc = dp_config(root, "msrvtt_cst_consensus", "",
+                   model__dtype=dtype).model
+    ds = {s: CaptionDataset(data["info_json"],
+                            {n: data[n] for n, _ in mc.modalities}, s,
+                            mc.max_frames,
+                            consensus_weights=data["consensus_weights"])
+          for s in ("train", "val")}
+    out: dict = {}
+    orig = scst_mod.SCSTTrainer._score
+
+    def run(name, preset, rl=False, val=None):
+        log = os.path.join(root, f"{name}.jsonl")
+        obs_dir = os.path.join(root, f"obs_{name}")
+        cfg = dp_config(os.path.join(root, name), preset, obs_dir,
+                        model__dtype=dtype, data__cider_df=data["cider_df"])
+        rows = out.setdefault(f"{name}_rollouts", [])
+
+        def recording(self, greedy, samples, *rest, **kw):
+            rows.append(samples.cpu() if greedy is None else
+                        torch.cat([greedy[None], samples]).cpu())
+            return orig(self, greedy, samples, *rest, **kw)
+
+        tr = trainer_mod.Trainer(cfg, ds["train"], val, log_path=log,
+                                 device=DP_DEVICE, params=start,
+                                 use_mesh=use_mesh)
+        scst_mod.SCSTTrainer._score = recording
+        t = time.perf_counter()
+        try:
+            if rl:
+                tr.epoch = tr.xe_epochs = 1    # the CST epoch's batch order
+                tr.train_rl()
+            else:
+                tr.train_xe()
+            dp_sync()
+            out[f"{name}_s"] = time.perf_counter() - t
+            if val is not None:
+                out["val_captions"] = tr.validator.generate()
+        finally:
+            scst_mod.SCSTTrainer._score = orig
+            tr.close()
+            out[f"{name}_comm"] = (tobs.gauge("comm.buckets").value,
+                                   tobs.gauge("comm.bytes_on_wire").value)
+            tobs.shutdown()
+        out[f"{name}_params"] = [p.detach().clone()
+                                 for p in tr.model.parameters()]
+        proc = "" if tr.rank == 0 else f".proc{tr.rank}"
+        logp = log.replace(".jsonl", f"{proc}.jsonl")
+        ev = "rl" if rl else "xe"
+        out[f"{name}_step_ms"] = _res_events(logp, f"{ev}_epoch")[-1][
+            "step_ms_median"]
+        out[f"{name}_losses"] = [e["rl_loss" if rl else "loss"]
+                                 for e in _res_events(logp, f"{ev}_step")]
+        sub = os.path.join(obs_dir, f"proc{tr.rank}") if tr.rank \
+            else obs_dir
+        spans = [e for e in obs_report.load_events(sub)
+                 if e["event"] == "span" and e["name"] == "dcn.collective"]
+        out[f"{name}_allreduce_ms"] = [e["dur"] * 1e3 for e in spans
+                                       if e.get("op") ==
+                                       "rl.update.allreduce"]
+        out[f"{name}_collective_ops"] = sorted({e.get("op") for e in spans})
+        out["proc_dir"] = os.path.isdir(sub)
+
+    dp_sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if "xe" in phases:
+        run("xe", "msrvtt_cst_consensus", val=ds["val"])
+    if "cst" in phases:
+        run("cst", "msrvtt_cst_consensus", rl=True)
+    if "scst" in phases:
+        run("scst", "msrvtt_scst", rl=True)
+    if "beam" in phases:
+        ecfg = dp_config(root, "msrvtt_eval_beam5", "", model__dtype=dtype)
+        emodel = CaptionModel(ecfg.model, device=DP_DEVICE)
+        load_flax_params(emodel, start)
+        mesh = make_mesh(device=DP_DEVICE) if use_mesh else None
+        t = time.perf_counter()
+        res = Evaluator(emodel, ds["val"], ecfg.eval, batch_size=TRAIN_B,
+                        mesh=mesh).evaluate()
+        dp_sync()
+        out.update(beam_s=time.perf_counter() - t,
+                   beam_captions=res["captions"], beam_metrics=res["metrics"])
+    out.update(wall_s=time.perf_counter() - t0, launches=all_launches())
+    return out
+
+
+def dp_compare(got: dict, want: dict, layout: tuple,
+               rows=slice(None)) -> dict:
+    """One run of the schedule against a reference run of it: the params
+    after each phase (``dp_close`` at the JAX tolerances), the losses, the
+    rollouts (``rows``: this rank's clips of the reference's), the greedy
+    validation and the beam-5 captions and metrics."""
+    return {
+        "params": {n: dp_close(got[f"{n}_params"], want[f"{n}_params"],
+                               DP_TOL[n], layout) for n in DP_PHASES},
+        "loss_rel_err": {n: max(rel_err(x, y) for x, y in zip(
+            got[f"{n}_losses"], want[f"{n}_losses"]))
+            if len(got[f"{n}_losses"]) == len(want[f"{n}_losses"])
+            else math.inf for n in DP_PHASES},
+        "rollout_rows_equal": {n: dp_rows_equal(
+            got[f"{n}_rollouts"], want[f"{n}_rollouts"], rows)
+            for n in ("cst", "scst")},
+        "val_agreement": dp_caption_agreement(got["val_captions"],
+                                              want["val_captions"]),
+        "val_clips_equal": set(got["val_captions"]) ==
+        set(want["val_captions"]),
+        "beam_equal": got["beam_captions"] == want["beam_captions"]
+        and got["beam_metrics"] == want["beam_metrics"]}
+
+
+def dp_gate(arm: str, dtype: str, c: dict) -> None:
+    """A schedule's comparison (``dp_compare``) through the gates of its
+    compute dtype. Both: every param's leaf within DP_DISP of the
+    reference's displacement, the XE losses within DP_LOSS, every rollout
+    row decoded from the start weights equal, the validation over the
+    same clips, the beam-5 captions and metrics equal. float32 adds the
+    JAX tolerances (no element outside) and >= AGREE of the rollout rows
+    over the epoch and of the validation captions (later batches decode
+    weights that differ by the update's summation order)."""
+    f32 = dtype == "float32"
+    where = f"data_parallel {arm} {dtype}"
+    for n, p in c["params"].items():
+        check(p["disp_rel"] <= DP_DISP[dtype]
+              and (p["outside_tol"] == 0 or not f32),
+              f"{where}: {n} params {p}")
+    check(c["loss_rel_err"]["xe"] <= DP_LOSS[dtype],
+          f"{where}: XE losses {c['loss_rel_err']}")
+    for n, agree in c["rollout_rows_equal"].items():
+        check(len(agree) == 6 and min(agree[:DP_FROM_START]) == 1.0
+              and (float(np.mean(agree)) >= AGREE or not f32),
+              f"{where}: {n} rollout rows equal {agree}")
+    check(c["val_clips_equal"]
+          and (c["val_agreement"] >= AGREE or not f32),
+          f"{where}: validation captions agree {c['val_agreement']}")
+    check(c["beam_equal"], f"{where}: beam-5 captions or metrics differ")
+
+
+def dp_rate_update(data: dict, start: dict, mesh, comm) -> dict:
+    """One CST update (K=5) at DP_RATE, Adam from zero moments, from the
+    start weights on the first video-mode batch (this rank's rows with a
+    ``mesh``, all 64 without): rollouts decoded from the start weights
+    (equal at any world size), seeded advantages -> the loss, the params
+    and the reduced gradient as Adam's first moment holds it ((1 - b1)
+    times the clipped gradient after one step)."""
+    from cst_captioning_tpu_torch.rl import make_parallel_rl_decode
+    from cst_captioning_tpu_torch.rl import make_parallel_rl_update
+    from cst_captioning_tpu_torch.rl import make_rl_update
+
+    cfg = dp_config("", "msrvtt_cst_consensus", "")
+    mc = cfg.model
+    ds = CaptionDataset(data["info_json"],
+                        {n: data[n] for n, _ in mc.modalities}, "train",
+                        mc.max_frames)
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
+    batch = next(Batcher(ds, batch_size=TRAIN_B, max_len=mc.max_len,
+                         mode="video", host_shard=(rank, world))
+                 .epoch(shuffle=False))
+    dev = torch.device(DP_DEVICE)
+    feats = {k: torch.from_numpy(v).to(dev) for k, v in batch.feats.items()}
+    masks = {k: torch.from_numpy(v).to(dev)
+             for k, v in batch.feat_masks.items()}
+    K = cfg.rl.num_rollouts
+    model = load_flax_params(CaptionModel(mc, device=dev), start)
+    _, samples = make_parallel_rl_decode(model, mesh, K, with_greedy=False)(
+        model, feats, masks, 11)
+    lb = TRAIN_B // world
+    adv = np.random.default_rng(5).standard_normal((K, TRAIN_B))
+    adv = torch.from_numpy(adv[:, rank * lb:(rank + 1) * lb].astype(
+        np.float32)).to(dev)
+    state = create_train_state(model, make_optimizer(
+        cfg.train, 1, lr_override=DP_RATE), seed=cfg.train.seed)
+    upd = make_rl_update(model) if mesh is None else \
+        make_parallel_rl_update(model, mesh, comm=comm)
+    state, m = upd(state, feats, masks, samples, adv,
+                   torch.ones(lb, device=dev))
+    return {"loss": float(m["rl_loss"]),
+            "params": [p.detach().cpu().clone() for p in state.params],
+            "grads": [mu.cpu().clone() for mu in state.opt_state["mu"]]}
+
+
+def dp_caption_agreement(got: dict, want: dict) -> float:
+    return float(np.mean([got.get(v) == c for v, c in want.items()]))
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+_DP_REF_KEYS = (*(f"{n}_{k}" for n in DP_PHASES for k in ("params",
+                                                            "losses")),
+                "cst_rollouts", "scst_rollouts", "val_captions",
+                "beam_captions", "beam_metrics")
+
+
+def _dp_times(x: dict) -> dict:
+    return {n: {"s": x[f"{n}_s"], "step_ms_median": x[f"{n}_step_ms"],
+                "update_allreduce_span_ms": x[f"{n}_allreduce_ms"]}
+            for n in DP_PHASES}
+
+
+def dp_child(argv: list) -> int:
+    """One rank of arm (b): gloo on ``cuda:0`` (named explicitly: two
+    ranks cannot share a card over NCCL), the schedule at each compute
+    dtype, the update at DP_RATE with f32 and bf16 on the wire and with
+    each planted fault, the comparisons with arm (a)'s reference; a result
+    pickle for the parent."""
+    import pickle
+
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    global DP_DEVICE, DP_MODEL
+    rank, world, init, args_path, out_path = argv
+    rank, world = int(rank), int(world)
+    with open(args_path, "rb") as f:
+        a = pickle.load(f)
+    DP_DEVICE, DP_MODEL = a["device"], a["model"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"file://{init}", world_size=world, rank=rank,
+                         backend="gloo", device=DP_DEVICE,
+                         timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        root = os.path.join(a["root"], f"rank{rank}")
+        ref = torch.load(a["ref"], map_location="cpu")
+        layout = dp_layout(a["start"])
+        lb = TRAIN_B // world
+        rows = slice(rank * lb, (rank + 1) * lb)
+        res = {"rank": rank}
+        for dtype in DP_DTYPES:
+            got = dp_schedule(os.path.join(root, dtype), a["data"],
+                              a["start"], True, dtype)
+            res[dtype] = {
+                "compare": dp_compare(got, ref[dtype], layout, rows),
+                "digests": {n: multihost.allgather_pyobj(
+                    _digest(got[f"{n}_params"])) for n in DP_PHASES},
+                "times": _dp_times(got), "wall_s": got["wall_s"],
+                "beam_s": got["beam_s"], "launches": got["launches"],
+                "comm": {n: got[f"{n}_comm"] for n in DP_PHASES},
+                "collective_ops": got["cst_collective_ops"],
+                "proc_dir": got["proc_dir"]}
+        # the update at the JAX tests' rate: f32 and bf16 on the wire, and
+        # the planted faults, each against arm (a)'s f32 update
+        multihost.barrier()
+        mesh = make_mesh(device=DP_DEVICE)
+        leaves = layout[1]
+        f32 = dp_rate_update(a["data"], a["start"], mesh, CommConfig())
+        b16 = dp_rate_update(a["data"], a["start"], mesh,
+                             CommConfig(dtype="bf16"))
+        res["rate_vs_a"] = dp_rate_close(f32, ref["rate"], RL_TOL, leaves,
+                                         DP_GRAD["f32"])
+        res["bf16"] = dp_rate_close(b16, f32, (0.0, BF16_ATOL), leaves,
+                                    DP_GRAD["bf16"])
+        res["planted"] = {}
+        for kind in DP_FAULTS:
+            with dp_planted(kind):
+                bad = dp_rate_update(a["data"], a["start"], mesh,
+                                     CommConfig())
+            res["planted"][kind] = dp_rate_close(bad, ref["rate"], RL_TOL,
+                                                 leaves, DP_GRAD["f32"])
+        with dp_planted("zero"):
+            bad = dp_schedule(os.path.join(root, "planted"), a["data"],
+                              a["start"], True, "bfloat16", phases=("xe",))
+        res["planted"]["bf16_xe_zero"] = {
+            "disp": dp_close(bad["xe_params"], ref["bfloat16"]["xe_params"],
+                             None, layout),
+            "loss_rel_err": max(rel_err(x, y) for x, y in zip(
+                bad["xe_losses"], ref["bfloat16"]["xe_losses"]))}
+        shapes = [p.shape for p in layout[0]]
+        res["reduce_ms"] = {w: dp_reduce_ms(mesh, CommConfig(dtype=w),
+                                            leaves, shapes)
+                            for w in ("f32", "bf16")}
+    finally:
+        multihost.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def data_parallel_phase(smi: str) -> tuple[dict, dict]:
+    """Data parallel at full width (module docstring, 8d) -> (its line, the
+    launches of its runs: arm (a)'s mesh runs and both ranks' of arm
+    (b))."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        return _data_parallel(root, smi)
+    finally:
+        tobs.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def dp_launch(root: str, data: dict, start: dict, a: dict,
+              a_rate: dict) -> tuple[list, float]:
+    """Arm (b): this script as two ``--dp-rank`` children on the one card,
+    given arm (a)'s reference -> their results and the wall seconds."""
+    import pickle
+
+    ref = os.path.join(root, "ref.pt")
+    torch.save({**{d: {k: a[d][k] for k in _DP_REF_KEYS} for d in DP_DTYPES},
+                "rate": a_rate}, ref)
+    args = os.path.join(root, "dp.args")
+    with open(args, "wb") as f:
+        pickle.dump({"root": root, "data": data, "ref": ref, "start": start,
+                     "device": DP_DEVICE, "model": DP_MODEL}, f)
+    init = os.path.join(root, "gloo.init")
+    outs = [os.path.join(root, f"rank{r}.out") for r in range(2)]
+    errs = [os.path.join(root, f"rank{r}.err") for r in range(2)]
+    t = time.perf_counter()
+    procs = []
+    try:
+        for r in range(2):
+            with open(errs[r], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                     str(r), "2", init, args, outs[r]],
+                    stdout=subprocess.DEVNULL, stderr=err))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    check(all(p.returncode == 0 for p in procs),
+          "data_parallel (b): a rank failed:\n" +
+          "\n".join(open(e).read()[-4000:] for e in errs))
+    return [pickle.load(open(o, "rb")) for o in outs], wall
+
+
+def _data_parallel(root: str, smi: str) -> tuple[dict, dict]:
+    from cst_captioning_tpu_torch.parallel.comms import ledger
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    data = recipe_corpus(root)
+    mc = dp_config(root, "msrvtt_cst_consensus", "").model
+    t = time.perf_counter()
+    start = dp_fit(root, data, CaptionDataset(
+        data["info_json"], {n: data[n] for n, _ in mc.modalities}, "train",
+        mc.max_frames, consensus_weights=data["consensus_weights"]))
+    fit_s = time.perf_counter() - t
+    layout = dp_layout(start)
+    leaves = layout[1]
+    # arm (a): NCCL at world size 1 beside the same schedule without a mesh
+    one = {d: dp_schedule(os.path.join(root, "one", d), data, start, False,
+                          d) for d in DP_DTYPES}
+    one_rate = dp_rate_update(data, start, None, None)
+    multihost.initialize(f"file://{os.path.join(root, 'nccl.init')}",
+                         world_size=1, rank=0, backend=DP_BACKEND_A,
+                         device=DP_DEVICE, timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        check(multihost.backend() == DP_BACKEND_A,
+              f"data_parallel: the group is {multihost.backend()}")
+        nccl = (str(torch.cuda.nccl.version()) if DP_BACKEND_A == "nccl"
+                else None)
+        a = {d: dp_schedule(os.path.join(root, "a", d), data, start, True,
+                            d) for d in DP_DTYPES}
+        mesh = make_mesh(device=DP_DEVICE)
+        a_rate = dp_rate_update(data, start, mesh, CommConfig())
+        a_reduce_ms = dp_reduce_ms(mesh, CommConfig(), leaves,
+                                   [p.shape for p in layout[0]])
+    finally:
+        multihost.shutdown()
+    led = ledger(leaves, CommConfig())
+    compare_a = {d: dp_compare(a[d], one[d], layout) for d in DP_DTYPES}
+    for d in DP_DTYPES:
+        dp_gate("(a)", d, compare_a[d])
+        for n in DP_PHASES:
+            check(a[d][f"{n}_comm"] == (led["buckets"],
+                                        led["bytes_on_wire_per_update"]),
+                  f"data_parallel (a): comm gauges {a[d][n + '_comm']} "
+                  f"!= {led}")
+        for k in DP_KERNELS:
+            check(a[d]["launches"][k] > 0,
+                  f"data_parallel (a) {d}: {k} never launched")
+    rate_a = dp_rate_close(a_rate, one_rate, RL_TOL, leaves, DP_GRAD["f32"])
+    check(dp_rate_ok(rate_a, DP_GRAD["f32"], 1e-5),
+          f"data_parallel (a): the update at lr {DP_RATE} {rate_a}")
+
+    # arm (b): two ranks on the one card over gloo, against arm (a)
+    ranks, b_wall = dp_launch(root, data, start, a, a_rate)
+    for r in ranks:
+        for d in DP_DTYPES:
+            for n in DP_PHASES:
+                check(len(set(r[d]["digests"][n])) == 1,
+                      f"data_parallel (b) {d}: rank params differ after {n}")
+            dp_gate(f"(b) rank {r['rank']}", d, r[d]["compare"])
+            for k in DP_KERNELS:
+                check(r[d]["launches"][k] > 0,
+                      f"data_parallel (b) {d}: rank {r['rank']} never "
+                      f"launched {k}")
+        check(dp_rate_ok(r["rate_vs_a"], DP_GRAD["f32"], 1e-5),
+              f"data_parallel (b): the update at lr {DP_RATE} vs arm (a) "
+              f"{r['rate_vs_a']}")
+        # (c): bf16 on the wire against f32 (the loss never rides it)
+        check(dp_rate_ok(r["bf16"], DP_GRAD["bf16"], 1e-6),
+              f"data_parallel (c): bf16 vs f32 {r['bf16']}")
+        for kind in DP_FAULTS:
+            check(not dp_rate_ok(r["planted"][kind], DP_GRAD["f32"], 1e-5),
+                  f"data_parallel (b): the planted '{kind}' fault passed "
+                  f"the update's gates {r['planted'][kind]}")
+        planted = r["planted"]["bf16_xe_zero"]
+        check(planted["disp"]["disp_rel"] > DP_DISP["bfloat16"],
+              f"data_parallel (b): the planted fault passed the bfloat16 "
+              f"params gate {planted}")
+    check(ranks[1]["float32"]["proc_dir"]
+          and {"rl.update.allreduce", "global_weighted_mean", "ckpt.save"}
+          <= set(ranks[1]["float32"]["collective_ops"]),
+          "data_parallel (b): no proc1/ stream with the dcn.collective "
+          f"spans: {ranks[1]['float32']['collective_ops']}")
+
+    launched = dict.fromkeys(all_launches(), 0)
+    for src in (*(a[d]["launches"] for d in DP_DTYPES),
+                *(r[d]["launches"] for r in ranks for d in DP_DTYPES)):
+        for k, v in src.items():
+            launched[k] += v
+    line = {
+        "phase": "data_parallel", "preset": "msrvtt_cst_consensus",
+        "global_batch": TRAIN_B, "nccl": nccl, "fit_s": fit_s,
+        "buckets": led["buckets"],
+        "bytes_on_wire": led["bytes_on_wire_per_update"],
+        "bounds": {"disp": DP_DISP, "loss": DP_LOSS, "grad": DP_GRAD,
+                   "rate": DP_RATE},
+        "a_nccl_world1": {
+            **{d: {"wall_s": a[d]["wall_s"], "mesh": _dp_times(a[d]),
+                   "no_mesh": _dp_times(one[d]),
+                   "no_mesh_wall_s": one[d]["wall_s"],
+                   "vs_no_mesh": compare_a[d],
+                   "launches": a[d]["launches"]} for d in DP_DTYPES},
+            "rate_update_vs_no_mesh": rate_a,
+            "reduce_ms": a_reduce_ms},
+        "b_gloo_2ranks_one_card": {
+            "wall_s": b_wall, "note": "gloo through the host",
+            "ranks": [{"rank": r["rank"], "reduce_ms": r["reduce_ms"],
+                       "rate_update_vs_a": r["rate_vs_a"],
+                       **{d: {k: r[d][k] for k in (
+                           "wall_s", "times", "compare", "launches")}
+                          for d in DP_DTYPES}} for r in ranks]},
+        "c_bf16_wire": [r["bf16"] for r in ranks],
+        "planted": [r["planted"] for r in ranks],
+        "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    return line, launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -4413,6 +5147,10 @@ def main() -> int:
     emit(observed)
     for k, v in obs_launches.items():
         path_launches[k] += v
+    parallel, dp_launches = data_parallel_phase(smi)
+    emit(parallel)
+    for k, v in dp_launches.items():
+        path_launches[k] += v
 
     print(smi, flush=True)
     emit({"kernels": [
@@ -4427,4 +5165,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_child(sys.argv[2:]))
     sys.exit(main())

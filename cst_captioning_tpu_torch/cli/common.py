@@ -37,6 +37,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "DIR (sets train.obs + train.obs_dir; report with "
                         "`python -m cst_captioning_tpu_torch.cli.obs_report "
                         "DIR`)")
+    p.add_argument("--dist-init", default=None, metavar="URL",
+                   help="torch.distributed init URL (e.g. file:///tmp/x) "
+                        "with RANK / WORLD_SIZE from the env; default: the "
+                        "launcher's env:// (MASTER_ADDR / MASTER_PORT)")
     # the JAX CLI's flag; the sanitizer is not ported, so the config it
     # sets raises
     p.add_argument("--debug-nans", action="store_true",

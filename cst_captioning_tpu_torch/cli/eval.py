@@ -9,6 +9,10 @@ the COCO-style metric table.
 (its ``state.msgpack``, read without flax or msgpack) instead of
 ``--ckpt-dir``. ``--obs DIR`` writes the eval's observability stream
 (default dir ``obs_eval`` when only ``train.obs`` is set).
+
+Under ``python -m torch.distributed.run --nproc-per-node N`` (or
+``--dist-init``, as ``cli.train``) each rank decodes its rows of every
+batch on ``cuda:<LOCAL_RANK>``, rank 0 scores and writes the results.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from cst_captioning_tpu_torch.cli.common import (
 )
 from cst_captioning_tpu_torch.eval.evaluator import evaluate_split
 from cst_captioning_tpu_torch.models import CaptionModel
+from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.train.mesh import make_mesh
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -41,6 +47,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     if bool(args.ckpt_dir) == bool(args.jax_ckpt):
         raise SystemExit("give one of --ckpt-dir or --jax-ckpt")
+    multihost.initialize(args.dist_init, device=args.device)
     cfg = load_config(args)
     split = args.split or cfg.eval.split
     if cfg.train.obs:
@@ -53,6 +60,7 @@ def main(argv: list[str] | None = None) -> dict:
         return _evaluate(args, cfg, split)
     finally:
         obs.shutdown()
+        multihost.shutdown()
 
 
 def _evaluate(args, cfg, split: str) -> dict:
@@ -60,7 +68,10 @@ def _evaluate(args, cfg, split: str) -> dict:
     # the trainer spells it
     with obs.span("setup"):
         ds = open_dataset(args, cfg, split)
-        model = CaptionModel(cfg.model, device=args.device)
+        mesh = (make_mesh(cfg.mesh.num_devices, device=args.device)
+                if multihost.is_multiprocess() else None)
+        model = CaptionModel(cfg.model, device=mesh.device if mesh
+                             else args.device)
         if args.jax_ckpt:
             if not os.path.exists(os.path.join(args.jax_ckpt,
                                                JAX_STATE_FILE)):
@@ -72,7 +83,7 @@ def _evaluate(args, cfg, split: str) -> dict:
             load_params(args.ckpt_dir, args.ckpt_name, model)
     result = evaluate_split(model, ds, cfg.eval,
                             batch_size=cfg.data.batch_size,
-                            results_json=args.results_json)
+                            results_json=args.results_json, mesh=mesh)
     print(json.dumps(result["metrics"], indent=2, default=float))
     return result
 

@@ -11,6 +11,17 @@
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions.
 ``--obs DIR`` writes the run's observability stream (report it with
 ``cli.obs_report DIR``); ``--profile DIR`` writes torch.profiler traces.
+
+Data parallel: one process a device, launched by torchrun, each rank on
+``cuda:<LOCAL_RANK>`` (NCCL; ``--device cpu`` uses gloo):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m cst_captioning_tpu_torch.cli.train --preset ... \
+        --set mesh__num_devices=2
+
+``--dist-init URL`` (e.g. ``file:///tmp/rdzv``) forms the group from that
+URL and the ``RANK`` / ``WORLD_SIZE`` env instead of ``MASTER_ADDR`` /
+``MASTER_PORT``.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ from cst_captioning_tpu_torch.cli.common import (
     load_config,
     open_dataset,
 )
+from cst_captioning_tpu_torch.train import multihost
 from cst_captioning_tpu_torch.train.trainer import Trainer
 
 
@@ -32,6 +44,8 @@ def main(argv: list[str] | None = None) -> Trainer:
     p.add_argument("--skip-xe", action="store_true",
                    help="run only the RL phase")
     args = p.parse_args(argv)
+    # the process group before any CUDA work: NCCL binds the local rank
+    multihost.initialize(args.dist_init, device=args.device)
     cfg = load_config(args)
     train_ds = open_dataset(args, cfg, "train")
     try:
@@ -58,6 +72,7 @@ def main(argv: list[str] | None = None) -> Trainer:
             trainer.close()
     finally:
         obs.shutdown()
+        multihost.shutdown()
     return trainer
 
 

@@ -8,12 +8,14 @@ and ``section__field`` overrides. Field names and defaults match the JAX
 package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
-A field whose machinery the port does not have yet (meshes, sequence
-parallelism, degraded and regrown elastic meshes, gradient-communication
-knobs) raises ``ValueError`` when it is set to anything but its default,
-naming what is missing: nothing is accepted and then ignored. The health
-monitor's knobs (``train.health*``, ``peer_timeout_s``, ``dcn_stall_s``)
-and ``elastic="strict"`` are ported.
+A field whose machinery the port does not have yet (the model- and
+sequence-parallel meshes, degraded and regrown elastic meshes) raises
+``ValueError`` when it is set to anything but its default, naming what is
+missing: nothing is accepted and then ignored. The health monitor's knobs
+(``train.health*``, ``peer_timeout_s``, ``dcn_stall_s``),
+``elastic="strict"``, the data mesh (``mesh.num_devices``: one rank a
+device, ``train/mesh.py``) and the gradient-communication knobs
+(``train.comm_*``, ``parallel/comms.py``) are ported.
 """
 
 from __future__ import annotations
@@ -135,15 +137,9 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 
 # each refused knob names the machinery it needs and the port slice that
 # brings it (ROADMAP.md "Modules still to port")
-_DATA_PARALLEL = "the data-parallel slice"
-_NO_ELASTIC = ("the degraded-mesh continuation and its grow-back (elastic "
-               f"training, after {_DATA_PARALLEL})")
-_NO_COMMS = f"data-parallel gradient communication ({_DATA_PARALLEL})"
-_TRAIN_UNPORTED = {
-    "elastic": _NO_ELASTIC, "elastic_regrow": _NO_ELASTIC,
-    "comm_bucket_mb": _NO_COMMS, "comm_dtype": _NO_COMMS,
-    "comm_overlap": _NO_COMMS,
-}
+_NO_ELASTIC = ("the degraded-mesh continuation and its grow-back (the "
+               "elastic slice)")
+_TRAIN_UNPORTED = {"elastic": _NO_ELASTIC, "elastic_regrow": _NO_ELASTIC}
 _MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 _MESH_UNPORTED = {
     "seq_devices": f"sequence parallelism ({_MODEL_SEQUENCE})",
@@ -268,6 +264,14 @@ class TrainConfig:
             raise ValueError(
                 f"health_sim_hosts {self.health_sim_hosts} must be >= 0 "
                 "(0 = the real process count)")
+        if self.comm_dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f"unknown comm_dtype {self.comm_dtype!r} "
+                "(expected 'f32' or 'bf16')")
+        if self.comm_bucket_mb < 0:
+            raise ValueError(
+                f"comm_bucket_mb {self.comm_bucket_mb} must be >= 0 "
+                "(0 = one message per leaf)")
         _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 
@@ -302,7 +306,7 @@ class RLConfig:
     rollout_depth: int = 2
     staleness_bound: int = 1
     # the actor submesh's share of the devices (a split needs more than
-    # one device: the data-parallel slice)
+    # one device: the actor/learner slice)
     actor_fraction: float = 0.5
     # online SCST from served traffic (rl/online.py): served requests per
     # learner batch, and learner updates between publishes into the service
@@ -371,19 +375,17 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh; the port runs on one device."""
+    """The device mesh: one rank a device (``train/mesh.py``)."""
 
     data_axis: str = "data"
-    num_devices: int = 0                # 0 = all visible devices (one here)
+    # 0 = the initialized world size (1 without a launcher); N > 1 must
+    # equal it (``train.mesh.make_mesh`` raises, saying to launch N
+    # processes)
+    num_devices: int = 0
     seq_devices: int = 1
     mp_devices: int = 1
 
     def __post_init__(self):
-        if self.num_devices > 1:
-            raise ValueError(
-                f"mesh.num_devices={self.num_devices} is not supported by "
-                "the PyTorch port: data parallelism is not ported yet "
-                f"({_DATA_PARALLEL}; one device: leave it at 0 or 1)")
         _refuse_unported(self, "mesh", _MESH_UNPORTED)
 
 
@@ -415,6 +417,13 @@ class ExperimentConfig:
                     f"rl.actor_fraction {self.rl.actor_fraction} must be in "
                     "(0, 1) — both submeshes need at least one device's "
                     "share")
+        if self.train.comm_overlap and self.rl.update_chunks < 2:
+            # overlap hides a chunk's all-reduce behind the next chunk's
+            # backward: one chunk leaves nothing to hide behind
+            raise ValueError(
+                "train.comm_overlap requires rl.update_chunks >= 2 (the "
+                f"chunk boundary is the overlap seam; got "
+                f"{self.rl.update_chunks})")
         if self.rl.online_batch_size < 1:
             raise ValueError(
                 f"rl.online_batch_size {self.rl.online_batch_size} must be "

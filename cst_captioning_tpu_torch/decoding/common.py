@@ -199,13 +199,17 @@ def counter_gumbel_noise(seeds: torch.Tensor, ts: torch.Tensor, K: int,
     return (-torch.log(-torch.log(u))).to(torch.float32)
 
 
-def rollout_noise(seed: int, K: int, B: int, V: int,
-                  device) -> Callable[[int], torch.Tensor]:
+def rollout_noise(seed: int, K: int, B: int, V: int, device,
+                  row_offset: int = 0) -> Callable[[int], torch.Tensor]:
     """The RL rollouts' Gumbel noise: step ``t`` -> [K, B, V] float32, a
     counter hash of (step seed, row b, rollout k, step t, token v), drawn
-    in the batch's own row order."""
+    in the batch's own row order. ``row_offset`` is the global index of
+    row 0: a data-parallel rank holding rows ``offset..offset+B`` of the
+    global batch draws their noise, so sharded rollouts equal unsharded
+    ones."""
     dev = torch.device(device)
-    rows = torch.arange(B, device=dev, dtype=torch.int64)
+    rows = torch.arange(row_offset, row_offset + B, device=dev,
+                        dtype=torch.int64)
     seeds = _mix32((int(seed) & _M32) ^ _mix32(rows + 0x165667B1))
 
     def noise(t: int) -> torch.Tensor:

@@ -144,11 +144,12 @@ def fused_decode(model, feats, masks, seed: int = 0, num_rollouts: int = 1,
                  temperature: float = 1.0, max_len: int | None = None,
                  min_len: int = 0, decode_stride: int | None = None,
                  compact: bool | None = None,
-                 noise_fn: NoiseFn | None = None):
+                 noise_fn: NoiseFn | None = None, row_offset: int = 0):
     """-> (greedy [B, T], greedy_lp [B, T], tokens [K, B, T], logprobs
     [K, B, T]); int32 tokens, float32 untempered model logprobs of the
     chosen tokens, PAD/0 after EOS on every lane. ``decode_stride`` and
-    ``compact`` default from ``model.cfg``."""
+    ``compact`` default from ``model.cfg``; ``row_offset`` is the global
+    index of row 0 for the noise (``rollout_noise``)."""
     cfg = model.cfg
     T = max_len or cfg.max_len
     K = num_rollouts
@@ -164,7 +165,7 @@ def fused_decode(model, feats, masks, seed: int = 0, num_rollouts: int = 1,
     B = enc.memory.shape[0]
     if noise_fn is None:
         noise_fn = rollout_noise(seed, K, B, cfg.vocab_size,
-                                 enc.memory.device)
+                                 enc.memory.device, row_offset)
     draw = lambda t: noise_fn(min(t, T - 1))  # noqa: E731
     # the kernels' float32 weights, packed once for the whole decode
     weights = stride_weights(model.cell) if cfg.decode_impl == "pallas" \
@@ -194,7 +195,7 @@ def npad_decode(model, feats, masks, seed: int = 0, num_lanes: int = 4,
                 temperature: float = 1.0, max_len: int | None = None,
                 min_len: int = 0, decode_stride: int | None = None,
                 compact: bool | None = None,
-                noise_fn: NoiseFn | None = None):
+                noise_fn: NoiseFn | None = None, row_offset: int = 0):
     """Noisy Parallel Approximate Decoding -> (tokens [B, T], scores [B]):
     the greedy lane and ``num_lanes`` noise-perturbed lanes decode together
     and the highest sum-logprob lane answers (ties toward the greedy lane,
@@ -202,7 +203,8 @@ def npad_decode(model, feats, masks, seed: int = 0, num_lanes: int = 4,
     g_tok, g_lp, s_tok, s_lp = fused_decode(
         model, feats, masks, seed, num_rollouts=num_lanes,
         temperature=temperature, max_len=max_len, min_len=min_len,
-        decode_stride=decode_stride, compact=compact, noise_fn=noise_fn)
+        decode_stride=decode_stride, compact=compact, noise_fn=noise_fn,
+        row_offset=row_offset)
     tokens = torch.cat([g_tok[None], s_tok])                  # [1+M, B, T]
     logprobs = torch.cat([g_lp[None], s_lp])
     return npad_best_lane(tokens, logprobs)

@@ -36,17 +36,20 @@ from cst_captioning_tpu_torch.ops.decode_stride import stride_weights
 def sample_decode(model, feats, masks, seed: int = 0, num_rollouts: int = 1,
                   temperature: float = 1.0, max_len: int | None = None,
                   min_len: int = 0,
-                  noise_fn: Callable[[int], torch.Tensor] | None = None):
+                  noise_fn: Callable[[int], torch.Tensor] | None = None,
+                  row_offset: int = 0):
     """-> (tokens [K, B, T] int32, logprobs [K, B, T] float32); PAD/0 after
     EOS. ``logprobs`` are the untempered model logprobs of the sampled
-    tokens (REINFORCE needs log p_model)."""
+    tokens (REINFORCE needs log p_model). ``row_offset``: the global index
+    of row 0 for the noise (``rollout_noise``)."""
     cfg = model.cfg
     T = max_len or cfg.max_len
     K = num_rollouts
     enc = model.encode(feats, masks)
     B = enc.memory.shape[0]
     if noise_fn is None:
-        noise_fn = rollout_noise(seed, K, B, cfg.vocab_size, enc.memory.device)
+        noise_fn = rollout_noise(seed, K, B, cfg.vocab_size,
+                                 enc.memory.device, row_offset)
     # the kernel's float32 weights, packed once for the whole loop
     weights = stride_weights(model.cell) if cfg.decode_impl == "pallas" \
         else None

@@ -22,13 +22,21 @@ the ``eval.batches`` / ``eval.captions`` counters and the overlap gauges
 (``eval.overlap_fraction``, ``eval.overlap_efficiency``, the stage totals
 and ``eval.wall_s``) from the same seconds ``timing`` holds.
 
-Not ported: meshes, multi-host evaluation and sequence parallelism
-(ROADMAP.md names their slices).
+Data parallel (``mesh=``, a ``train.mesh.DataMesh`` of more than one
+rank): each rank decodes its contiguous rows of every batch (the batch
+size rounded up to a multiple of the world size; the Batcher wrap-pads
+and marks the extra rows invalid), ``allgather_pyobj`` merges the caption
+dicts, rank 0 scores and ``broadcast_pyobj`` fans the metrics out, so
+every rank returns the one-rank result; only rank 0 writes
+``results_json``. This path is the serial one (the pipelined drain needs
+every caption on one host). The ``('data', 'seq')`` mesh comes with the
+model- and sequence-parallel slice.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -44,6 +52,7 @@ from cst_captioning_tpu_torch.decoding.fused import npad_decode
 from cst_captioning_tpu_torch.decoding.greedy import greedy_decode
 from cst_captioning_tpu_torch.metrics.scorer import CaptionScorer
 from cst_captioning_tpu_torch.metrics.tokenizer import ptb_tokenize
+from cst_captioning_tpu_torch.train import multihost
 
 
 def npad_batch_seed(npad_seed: int, batch_index: int) -> int:
@@ -60,25 +69,40 @@ class Evaluator:
     on the model's device."""
 
     def __init__(self, model, dataset, cfg: EvalConfig | None = None,
-                 batch_size: int = 32):
+                 batch_size: int = 32, mesh=None):
         self.model = model
         self.ds = dataset
         self.cfg = cfg = cfg or EvalConfig()
+        self.mesh = mesh
+        self.multiproc = mesh is not None and mesh.world > 1
+        if mesh is not None and batch_size % mesh.world:
+            # every batch size shards: the wrap-padded rows are invalid,
+            # so the captions stay the one-rank ones
+            padded = -(-batch_size // mesh.world) * mesh.world
+            logging.getLogger(__name__).warning(
+                "eval batch_size %d -> %d (next multiple of the %d-rank "
+                "'data' axis; wrap-padded rows are masked out)",
+                batch_size, padded, mesh.world)
+            batch_size = padded
         # both scorers built (and so validated) up front; the pre-tokenized
         # one scores the pipelined drain and keeps its native CIDEr-D pool
         # across calls, as the serial one does
         self._scorer = CaptionScorer(metrics=cfg.metrics)
         self._scorer_pre = CaptionScorer(metrics=cfg.metrics,
                                          pre_tokenized=True)
-        self.batcher = Batcher(dataset, batch_size=batch_size,
-                               max_len=cfg.max_len, mode="video")
+        self.batcher = Batcher(
+            dataset, batch_size=batch_size, max_len=cfg.max_len, mode="video",
+            host_shard=(mesh.rank, mesh.world) if self.multiproc
+            else (0, 1))
         self.timing: dict[str, float] = {}
         W, T, ml = cfg.beam_size, cfg.max_len, cfg.min_len
         if cfg.npad_lanes > 0:
+            # a rank draws the noise of its global rows
+            row0 = self.batcher.host_shard[0] * self.batcher.local_batch_size
             self._decode = lambda m, f, k, bi: npad_decode(
                 m, f, k, npad_batch_seed(cfg.npad_seed, bi),
                 num_lanes=cfg.npad_lanes, temperature=cfg.npad_temperature,
-                max_len=T, min_len=ml)[0]
+                max_len=T, min_len=ml, row_offset=row0)[0]
         elif W > 1:
             self._decode = lambda m, f, k, bi: beam_search(
                 m, f, k, beam_size=W, max_len=T, min_len=ml,
@@ -117,6 +141,11 @@ class Evaluator:
             pending = (tokens, batch)
         if pending is not None:
             collect(*pending)
+        if self.multiproc:
+            merged: dict[str, str] = {}
+            for part in multihost.allgather_pyobj(out):
+                merged.update(part)
+            out = merged
         return out
 
     def _tok_res_shard(self, items):
@@ -231,20 +260,28 @@ class Evaluator:
         return captions, metrics
 
     def evaluate(self, results_json: str = "") -> dict[str, Any]:
-        """Generate and score; write the results json when given a path."""
+        """Generate and score; write the results json when given a path.
+        Several ranks take the serial path: rank 0 scores the merged
+        captions and the metrics are broadcast; rank 0 alone writes."""
         with obs.span("eval", split=self.ds.split):
-            if self.cfg.pipelined:
+            if self.cfg.pipelined and not self.multiproc:
                 captions, metrics = self._evaluate_pipelined()
                 obs.snapshot_metrics(split=self.ds.split)
             else:
                 captions = self.generate()
-                gts = {vid: list(caps)
-                       for vid, caps in self.ds.gts_pool().items()}
-                res = {vid: [captions[vid]] for vid in captions}
-                with obs.span("eval.score"):
-                    metrics = self._scorer.score(gts, res)
+                metrics = None
+                if not self.multiproc or self.mesh.rank == 0:
+                    gts = {vid: list(caps)
+                           for vid, caps in self.ds.gts_pool().items()}
+                    res = {vid: [captions[vid]] for vid in captions}
+                    with obs.span("eval.score"):
+                        metrics = self._scorer.score(gts, res)
+                if self.multiproc:
+                    metrics = multihost.broadcast_pyobj(metrics)
         result = {"split": self.ds.split, "metrics": metrics,
                   "captions": captions}
+        if results_json and self.multiproc and self.mesh.rank != 0:
+            results_json = ""     # one writer on a shared file system
         if results_json:
             os.makedirs(os.path.dirname(results_json) or ".", exist_ok=True)
             with open(results_json, "w") as f:
@@ -253,6 +290,7 @@ class Evaluator:
 
 
 def evaluate_split(model, dataset, cfg: EvalConfig | None = None,
-                   batch_size: int = 32,
-                   results_json: str = "") -> dict[str, Any]:
-    return Evaluator(model, dataset, cfg, batch_size).evaluate(results_json)
+                   batch_size: int = 32, results_json: str = "",
+                   mesh=None) -> dict[str, Any]:
+    return Evaluator(model, dataset, cfg, batch_size,
+                     mesh=mesh).evaluate(results_json)

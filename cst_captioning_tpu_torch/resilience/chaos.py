@@ -44,8 +44,8 @@ Fault kinds (``Fault._KINDS``, the JAX tuple):
   into the regrow rendezvous).
 
 The JAX point ``health.rejoin`` belongs to the degraded trainer's rejoin
-poll, which comes with the elastic continuations after the data-parallel
-slice: visiting it under a plan raises ``RuntimeError``.
+poll, which comes with the elastic continuations (the elastic slice):
+visiting it under a plan raises ``RuntimeError``.
 
 Points in the port (the JAX names):
 
@@ -89,8 +89,7 @@ from cst_captioning_tpu_torch.resilience import health
 
 _NO_REJOIN_POLL = ("the chaos point 'health.rejoin' is the degraded "
                    "trainer's rejoin poll, which is not ported yet: the "
-                   "elastic continuations come after the data-parallel "
-                   "slice")
+                   "elastic continuations come with the elastic slice")
 
 
 class SimulatedKill(BaseException):

@@ -9,6 +9,8 @@ from cst_captioning_tpu_torch.rl.online import OnlineSCSTTrainer
 from cst_captioning_tpu_torch.rl.rewards import RewardComputer, scb_baseline
 from cst_captioning_tpu_torch.rl.scst import (
     SCSTTrainer,
+    make_parallel_rl_decode,
+    make_parallel_rl_update,
     make_rl_decode,
     make_rl_update,
     rollout_seed,
@@ -21,6 +23,8 @@ __all__ = [
     "RolloutRing",
     "SCSTTrainer",
     "make_actor_decode",
+    "make_parallel_rl_decode",
+    "make_parallel_rl_update",
     "make_rl_decode",
     "make_rl_update",
     "request_actor_preempt",

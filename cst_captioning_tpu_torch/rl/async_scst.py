@@ -11,10 +11,10 @@ recounted: decoded again under the current parameters from the entry's own
 seed and noise, so the drop and recount sequence is the same run to run.
 
 One device, one stream. The JAX package splits the data mesh into actor
-and learner submeshes; the port has no data parallelism yet, so actor and
-learner share the device and its stream, and a layout of more than one
-device raises (the data-parallel slice brings the split, with
-``shrink_actors`` / ``grow_actors``). The learner updates ``state.model``
+and learner submeshes; here actor and learner share the device and its
+stream, and a layout of more than one device raises (the actor/learner
+slice brings the split across ranks, with ``shrink_actors`` /
+``grow_actors``). The learner updates ``state.model``
 in place; the ring stays correct because each decode is launched on the
 stream before the updates it must not see. The actor's "broadcast"
 (``rl.actor.broadcast``) is a rebind of the learner's model.
@@ -217,9 +217,8 @@ class AsyncSCSTTrainer(SCSTTrainer):
         if devices is not None and len({str(d) for d in devices}) > 1:
             raise ValueError(
                 f"AsyncSCSTTrainer got {len(devices)} devices: the "
-                "actor/learner split across devices needs data "
-                "parallelism, which the PyTorch port has not ported yet "
-                "(the data-parallel slice); run it on one device")
+                "actor/learner split across devices is not ported yet "
+                "(the actor/learner slice); run it on one device")
         depth = max(1, int(cfg.rollout_depth))
         bound = max(0, int(cfg.staleness_bound))
         # depth 1 + bound 0 IS the strict sequential schedule

@@ -43,7 +43,14 @@ The reward call (:meth:`SCSTTrainer._reward_call`) visits the chaos point
 retried by the ``retry=`` policy and logged through ``on_event`` as a
 ``reward_retry`` event, as in the JAX trainer.
 
-Not carried from the JAX trainer: meshes.
+Data parallel (``SCSTTrainer(mesh=...)``, a ``train.mesh.DataMesh``): each
+rank decodes its own rows (:func:`make_parallel_rl_decode`, the noise of
+its global rows, so the sharded rollouts equal the unsharded ones token
+for token), scores them on the host, and the update
+(:func:`make_parallel_rl_update`) sums the REINFORCE numerator, the token
+count and the gradients over the ranks before the one division. A
+drained pipeline's seam is gathered across the ranks, so a resume on the
+same world size replays it.
 """
 
 from __future__ import annotations
@@ -69,9 +76,11 @@ from cst_captioning_tpu_torch.losses import reinforce_loss
 from cst_captioning_tpu_torch.models.captioner import EncoderOutput
 from cst_captioning_tpu_torch.obs import flops as _flops
 from cst_captioning_tpu_torch.resilience import chaos
+from cst_captioning_tpu_torch.resilience.health import collective_span
 from cst_captioning_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from cst_captioning_tpu_torch.rl.rewards import scb_baseline
 from cst_captioning_tpu_torch.train.schedule import global_norm
+from cst_captioning_tpu_torch.train import multihost
 from cst_captioning_tpu_torch.train.state import TrainState
 from cst_captioning_tpu_torch.train.steps import _apply
 
@@ -175,20 +184,41 @@ def make_rl_decode(model, num_rollouts: int, temperature: float = 1.0,
     rollouts (``fused_decode``); ``fused=False`` runs ``greedy_decode``
     and then ``sample_decode``, the two-loop reference. Without
     ``with_greedy`` (the scb and none baselines) ``greedy`` is None."""
+    return make_parallel_rl_decode(model, None, num_rollouts, temperature,
+                                   max_len, with_greedy, fused)
+
+
+def make_parallel_rl_decode(model, mesh, num_rollouts: int,
+                            temperature: float = 1.0,
+                            max_len: int | None = None,
+                            with_greedy: bool = True,
+                            fused: bool = True) -> Callable:
+    """The data-parallel decode (:func:`make_rl_decode` on this rank's
+    rows; ``mesh=None`` is the one-device decode): each rank decodes its
+    own rows of the global batch (a decode has no cross-row interaction),
+    drawing the noise of its global rows (``rollout_noise``'s
+    ``row_offset``), so the rollouts of the global batch equal the
+    one-rank decode's token for token at any world size. The JAX decode
+    folds the axis index into its key instead; the port's draws differ
+    from JAX's by design (module docstring)."""
     del model  # the decode call names the model that holds the params
 
     def decode(model, feats, masks, seed: int, noise_fn=None):
+        B = next(iter(feats.values())).shape[0]
+        offset = mesh.rank * B if mesh is not None else 0
         if with_greedy and fused:
             greedy, _, samples, _ = fused_decode(
                 model, feats, masks, seed, num_rollouts=num_rollouts,
-                temperature=temperature, max_len=max_len, noise_fn=noise_fn)
+                temperature=temperature, max_len=max_len, noise_fn=noise_fn,
+                row_offset=offset)
             return greedy, samples
         greedy = None
         if with_greedy:
             greedy, _ = greedy_decode(model, feats, masks, max_len=max_len)
         samples, _ = sample_decode(
             model, feats, masks, seed, num_rollouts=num_rollouts,
-            temperature=temperature, max_len=max_len, noise_fn=noise_fn)
+            temperature=temperature, max_len=max_len, noise_fn=noise_fn,
+            row_offset=offset)
         return greedy, samples
 
     return decode
@@ -227,12 +257,21 @@ def _enc_from_leaves(leaves) -> EncoderOutput:
 
 
 def _chunked_loss_grads(model, params, feats, masks, samples, advantage,
-                        valid, chunks: int):
+                        valid, chunks: int, reduce=None,
+                        overlap: str = "off"):
     """REINFORCE sums and gradients accumulated over ``chunks`` slices of
     the K rollout axis, with one encoder pass shared by every chunk: each
     chunk differentiates the decode w.r.t. (params, encoder output), the
     encoder-output gradients accumulate in float32, and one backward
-    through the encoder at the end folds them into the parameters."""
+    through the encoder at the end folds them into the parameters.
+
+    ``overlap`` ("defer" or "eager", with ``reduce(grads, async_op)`` ->
+    a ``parallel.comms.Reduction``): each chunk's parameter gradients are
+    reduced across the ranks as they come, and so are the encoder's at the
+    end, so the returned gradients are reduced already. "defer" starts a
+    chunk's reduction and waits for it after the next chunk's backward;
+    "eager" waits at once. Both add the reduced chunks in one order, so
+    they are bitwise equal."""
     K, B, T = samples.shape
     if K % chunks:
         raise ValueError(f"update_chunks {chunks} must divide K={K} rollouts")
@@ -249,22 +288,42 @@ def _chunked_loss_grads(model, params, feats, masks, samples, advantage,
           for i in diff]
     num = torch.zeros((), device=samples.device)
     den = torch.zeros((), device=samples.device)
+    pending = None    # "defer": the previous chunk's reduction in flight
+
+    def add(acc, g):
+        return [a if b is None else a + b for a, b in zip(acc, g)]
+
     for c in range(chunks):
         n_c, d_c = _decode_loss_sums(model, _tile_enc(enc, kc), sam[c], adv[c],
                                      valid_f)
         g = torch.autograd.grad(n_c, params + [cut[i] for i in diff],
                                 allow_unused=True)
-        gp = [a if b is None else a + b for a, b in zip(gp, g[:len(params)])]
+        g_p = g[:len(params)]
+        if overlap == "off":
+            gp = add(gp, g_p)
+        else:
+            g_p = [torch.zeros_like(p) if b is None else b
+                   for p, b in zip(params, g_p)]
+            if pending is not None:
+                gp = add(gp, pending.wait())
+            pending = reduce(g_p, overlap == "defer")
+            if overlap == "eager":
+                gp = add(gp, pending.wait())
+                pending = None
         ge = [a + b.float() for a, b in zip(ge, g[len(params):])]
         num = num + n_c.detach()
         den = den + d_c
+    if pending is not None:
+        gp = add(gp, pending.wait())
     # one backward through the encoder, in the encoder output's dtypes
     g_enc = torch.autograd.grad(
         [leaves[i] for i in diff], params,
         grad_outputs=[e.to(leaves[i].dtype) for e, i in zip(ge, diff)],
         allow_unused=True)
-    g_sum = [a if b is None else a + b for a, b in zip(gp, g_enc)]
-    return num, den, g_sum
+    if overlap != "off":
+        g_enc = reduce([torch.zeros_like(p) if b is None else b
+                        for p, b in zip(params, g_enc)], False).wait()
+    return num, den, add(gp, g_enc)
 
 
 def make_rl_update(model, chunks: int = 1, guard: bool = False,
@@ -300,6 +359,56 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
     return update
 
 
+def make_parallel_rl_update(model, mesh, chunks: int = 1,
+                            guard: bool = False, comm=None,
+                            stats: bool = False) -> Callable:
+    """The data-parallel REINFORCE update, in the sum form: each rank's
+    ``(num, den)`` and the gradient of ``num`` over its rows, ``num`` and
+    ``den`` summed in one all-reduce, the gradients by
+    ``parallel.comms.GradReducer``, then the division by the global
+    ``max(den, 1)`` and the update, alike on every rank. ``chunks``,
+    ``guard`` and ``stats`` as :func:`make_rl_update`. ``comm.overlap``
+    "defer" / "eager" reduce each chunk's gradients as they come
+    (:func:`_chunked_loss_grads`) and need ``chunks >= 2``."""
+    from cst_captioning_tpu_torch.parallel.comms import (
+        GradReducer,
+        reduce_sums,
+    )
+    from cst_captioning_tpu_torch.train.mesh import param_leaves
+
+    overlap = "off" if comm is None else comm.overlap
+    if overlap != "off" and chunks < 2:
+        raise ValueError(
+            "comm overlap requires chunks >= 2: the rl.update_chunks "
+            "boundary is the overlap seam (config validation enforces the "
+            f"same; got chunks={chunks})")
+    reducer = GradReducer(param_leaves(model), mesh, comm)
+
+    def update(state: TrainState, feats, masks, samples, advantage, valid):
+        model = state.model
+        params = state.params
+        if chunks > 1:
+            num, den, g = _chunked_loss_grads(
+                model, params, feats, masks, samples, advantage, valid,
+                chunks, reduce=reducer.start, overlap=overlap)
+        else:
+            K, B, T = samples.shape
+            enc = model.encode(feats, masks)
+            num, den = _decode_loss_sums(
+                model, _tile_enc(enc, K), samples.reshape(K * B, T),
+                advantage.reshape(K * B), valid.repeat(K))
+            g = torch.autograd.grad(num, params)
+        num_t, den_t = reduce_sums(num, den, mesh)
+        den_t = torch.clamp(den_t, min=1.0)
+        if overlap == "off":
+            g = reducer(g)
+        grads = [x / den_t for x in g]
+        return _apply(state, grads, num_t / den_t, global_norm(grads), guard,
+                      key="rl_loss", stats=stats)
+
+    return update
+
+
 class SCSTTrainer:
     """Per-batch CST step: decode -> consensus reward -> REINFORCE update.
 
@@ -320,10 +429,12 @@ class SCSTTrainer:
     def __init__(self, model, reward, cfg: RLConfig,
                  max_len: int | None = None, guard: bool = False,
                  stats: bool = False, retry: RetryPolicy | None = None,
-                 on_event=None):
+                 on_event=None, mesh=None, comm=None):
         self.model = model
         self.reward = reward
         self.cfg = cfg
+        self.mesh = mesh
+        self.comm = comm
         self.retry = retry or RetryPolicy()
         self.on_event = on_event or (lambda event, **fields: None)
         self.max_len = max_len or model.cfg.max_len
@@ -350,15 +461,23 @@ class SCSTTrainer:
         obs.gauge("rl.decode.budget").set(float(self._depth_budget))
         # decode FLOPs are the analytic per-clip model
         obs.gauge("flops.backend.rl.decode").set(0.0)
-        self.decode = make_rl_decode(
-            model, cfg.num_rollouts, cfg.temperature, max_len,
-            with_greedy=cfg.baseline == "greedy")
+        wg = cfg.baseline == "greedy"
         # the loop's stride: the fused decode's, or the per-step exit check
         stride = max(1, min(model.cfg.decode_stride, self.max_len))
-        self._stride = stride if cfg.baseline == "greedy" and stride > 1 \
-            else None
-        self.update = make_rl_update(model, chunks=cfg.update_chunks,
-                                     guard=guard, stats=stats)
+        self._stride = stride if wg and stride > 1 else None
+        if mesh is not None:
+            self.decode = make_parallel_rl_decode(
+                model, mesh, cfg.num_rollouts, cfg.temperature, max_len,
+                with_greedy=wg)
+            self.update = make_parallel_rl_update(
+                model, mesh, chunks=cfg.update_chunks, guard=guard,
+                comm=comm, stats=stats)
+        else:
+            self.decode = make_rl_decode(
+                model, cfg.num_rollouts, cfg.temperature, max_len,
+                with_greedy=wg)
+            self.update = make_rl_update(model, chunks=cfg.update_chunks,
+                                         guard=guard, stats=stats)
 
     # ---- reward / advantage (host) ------------------------------------------
 
@@ -476,8 +595,14 @@ class SCSTTrainer:
                 obs.gauge("flops.backend.rl.update").set(0.0)
             obs.counter("flops.rl.update").inc(
                 len(valid_np) * self._update_flops_per_clip)
-            state, metrics = self.update(state, feats, masks, samples, adv,
-                                         valid)
+            args = (state, feats, masks, samples, adv, valid)
+            if self.mesh is not None and self.comm is not None:
+                # the update carries the gradient all-reduce: its span is
+                # the JAX trainer's, where collective stalls show
+                with collective_span("rl.update.allreduce"):
+                    state, metrics = self.update(*args)
+            else:
+                state, metrics = self.update(*args)
         metrics.update(host_metrics)
         return state, metrics
 
@@ -509,27 +634,34 @@ class SCSTTrainer:
 
     @staticmethod
     def _seam_capture(decoded, video_ids) -> dict:
-        """Host copies of a decoded, unscored batch's tokens."""
+        """Host copies of a decoded, unscored batch's tokens, gathered
+        across the ranks (the global batch's rows, in rank order), so any
+        rank of a resumed run can replay its share."""
         greedy, samples = decoded
-        out = {"samples": samples.cpu().numpy(),
-               "video_ids": [str(v) for v in video_ids]}
+        out = {"samples": multihost.allgather_to_host(samples, dim=1),
+               "video_ids": [str(i) for part in multihost.allgather_pyobj(
+                   [str(v) for v in video_ids]) for i in part]}
         if greedy is not None:
-            out["greedy"] = greedy.cpu().numpy()
+            out["greedy"] = multihost.allgather_to_host(greedy)
         return out
 
     @staticmethod
     def _seam_tokens_to_device(seam: dict, device):
-        """Persisted seam tokens -> (greedy or None, samples) on
-        ``device``, as the decode gives them."""
-        samples = torch.from_numpy(np.asarray(seam["samples"])).to(device)
+        """Persisted seam tokens -> (greedy or None, samples) of this
+        rank's rows on ``device``, as the decode gives them."""
+        samples = multihost.put_full_global(np.asarray(seam["samples"]),
+                                            device, dim=1)
         greedy = seam.get("greedy")
         if greedy is not None:
-            greedy = torch.from_numpy(np.asarray(greedy)).to(device)
+            greedy = multihost.put_full_global(np.asarray(greedy), device,
+                                               dim=0)
         return greedy, samples
 
     @staticmethod
     def _seam_matches(seam: dict, video_ids) -> bool:
-        return list(seam.get("video_ids", [])) == [str(v) for v in video_ids]
+        ids = [i for part in multihost.allgather_pyobj(
+            [str(v) for v in video_ids]) for i in part]
+        return list(seam.get("video_ids", [])) == ids
 
     # ---- an epoch ----------------------------------------------------------
 

@@ -32,10 +32,16 @@ class TrainState:
     def params(self) -> list[torch.nn.Parameter]:
         return list(self.model.parameters())
 
-    def dropout_generator(self) -> torch.Generator:
-        """The dropout stream of this step, on the model's device."""
+    def dropout_generator(self, rank: int = 0) -> torch.Generator:
+        """The dropout stream of this step, on the model's device; a
+        data-parallel ``rank`` other than 0 folds into the seed (as the
+        JAX step folds the axis index), so ranks draw distinct masks and
+        rank 0 draws the one-device step's."""
         g = torch.Generator(device=self.model.device)
-        g.manual_seed((self.seed * 1_000_003 + self.step) % (2**63))
+        seed = (self.seed * 1_000_003 + self.step) % (2**63)
+        if rank:
+            seed = (seed ^ (rank * 0x9E3779B97F4A7C15)) % (2**63)
+        g.manual_seed(seed)
         return g
 
     def apply_gradients(self, grads) -> "TrainState":

@@ -1,11 +1,18 @@
-"""The XE train step for one device (the JAX package's ``train/steps.py``
-``make_xe_step``): forward with dropout, masked (weighted) XE, backward,
-global-norm clip and the optimizer update, optionally behind the
-finite-update guard; and the step's row weights for ``TrainConfig.loss``,
-as the JAX trainer's XE epoch picks them. ``stats=True`` (the flight
-recorder on) adds the per-family update ratios as extra 0-dim tensor
-outputs; the parameter math is the same, bit for bit. Data parallelism
-comes with its slice.
+"""The XE train steps (the JAX package's ``train/steps.py``): forward
+with dropout, masked (weighted) XE, backward, global-norm clip and the
+optimizer update, optionally behind the finite-update guard; and the
+step's row weights for ``TrainConfig.loss``, as the JAX trainer's XE epoch
+picks them. ``stats=True`` (the flight recorder on) adds the per-family
+update ratios as extra 0-dim tensor outputs; the parameter math is the
+same, bit for bit.
+
+:func:`make_xe_step` runs on one device. :func:`make_parallel_xe_step` is
+its data-parallel form over a ``train.mesh.DataMesh``: each rank computes
+the sum form ``(num, den)`` of its rows' loss and the gradient of ``num``,
+one all-reduce sums ``num`` and ``den``, a ``parallel.comms.GradReducer``
+sums the gradients, and both divide by the global ``max(den, 1)``, so the
+step equals the one-device step on the concatenated batch up to float
+summation order; the update then runs alike on every rank.
 """
 
 from __future__ import annotations
@@ -76,21 +83,33 @@ def _apply(state: TrainState, grads, loss, gnorm, guard: bool,
     return state, metrics
 
 
+def _local_loss_sums(state: TrainState, feats, masks, labels, mask,
+                     weights, label_smoothing: float, rank: int = 0):
+    """(numerator, denominator) of the masked XE on these rows, dropout
+    from the step's generator (folded with ``rank``)."""
+    model = state.model
+    model.train()
+    logits = model(feats, masks, labels, train=True,
+                   generator=state.dropout_generator(rank))
+    w_mask = mask.float() * weights.float()[:, None]
+    den = w_mask.sum()
+    # masked_cross_entropy normalizes; the sum form lets the global
+    # normalization come after the cross-rank reduce
+    num = masked_cross_entropy(logits, labels, mask, weights=weights,
+                               label_smoothing=label_smoothing) * den
+    return num, den
+
+
 def xe_loss_and_grads(state: TrainState, feats, masks, labels, mask,
                       weights, label_smoothing: float = 0.0):
     """(loss, grads in ``state.params`` order) of the masked XE with
     dropout drawn from the step's generator."""
-    model = state.model
-    model.train()
-    logits = model(feats, masks, labels, train=True,
-                   generator=state.dropout_generator())
-    w_mask = mask.float() * weights.float()[:, None]
-    den = w_mask.sum()
-    num = masked_cross_entropy(logits, labels, mask, weights=weights,
-                               label_smoothing=label_smoothing) * den
+    num, den = _local_loss_sums(state, feats, masks, labels, mask, weights,
+                                label_smoothing)
     loss = num / torch.clamp(den, min=1.0)
     grads = torch.autograd.grad(loss, state.params)
     return loss.detach(), grads
+
 
 
 def xe_row_weights(loss: str, weights: torch.Tensor,
@@ -118,5 +137,36 @@ def make_xe_step(model=None, label_smoothing: float = 0.0,
                                         weights, label_smoothing)
         return _apply(state, grads, loss, global_norm(grads), guard,
                       stats=stats)
+
+    return step
+
+
+def make_parallel_xe_step(model, mesh, label_smoothing: float = 0.0,
+                          guard: bool = False, comm=None,
+                          stats: bool = False):
+    """-> step(state, feats, masks, labels, mask, weights) -> (state,
+    metrics) over this rank's rows of the global batch (module docstring).
+    ``comm`` (``parallel.comms.CommConfig``) selects the gradient
+    all-reduce: None is one all-reduce a leaf; f32 buckets are bitwise
+    equal to it at two ranks. The loss and grad norm in the metrics are
+    the global ones, the same on every rank."""
+    # parallel.comms imports train.mesh, whose package imports this module
+    from cst_captioning_tpu_torch.parallel.comms import (
+        GradReducer,
+        reduce_sums,
+    )
+    from cst_captioning_tpu_torch.train.mesh import param_leaves
+
+    reduce = GradReducer(param_leaves(model), mesh, comm)
+
+    def step(state: TrainState, feats, masks, labels, mask, weights):
+        num, den = _local_loss_sums(state, feats, masks, labels, mask,
+                                    weights, label_smoothing, mesh.rank)
+        grads_num = torch.autograd.grad(num, state.params)
+        num_t, den_t = reduce_sums(num, den, mesh)
+        den_t = torch.clamp(den_t, min=1.0)
+        grads = [g / den_t for g in reduce(grads_num)]
+        return _apply(state, grads, num_t / den_t, global_norm(grads),
+                      guard, stats=stats)
 
     return step

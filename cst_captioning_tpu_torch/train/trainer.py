@@ -1,6 +1,6 @@
-"""The training loop on one device (the JAX package's
-``train/trainer.py``): XE epochs, greedy validation by CIDEr-D,
-best/latest checkpoints, resume, the XE -> RL handoff and CST epochs.
+"""The training loop (the JAX package's ``train/trainer.py``): XE
+epochs, greedy validation by CIDEr-D, best/latest checkpoints, resume, the
+XE -> RL handoff and CST epochs, on one device or data parallel.
 
 Batches are collated and staged on the device by the prefetch thread
 (``data/prefetch.py``). Both phase loops run under a SIGTERM handler: a
@@ -53,9 +53,25 @@ postmortem naming the lost hosts and raises ``PeerLost``. A restart with
 ``train.resume="auto"`` and a fresh health directory resumes from that
 save.
 
-Not ported (ROADMAP.md names their slices): meshes and data parallelism,
-and the degraded or regrown meshes of ``elastic="degraded"``; their config
-fields raise (``config.py``).
+Data parallel (``use_mesh``; None means a world of more than one rank,
+launched one process a device, ``train/multihost.py``): a 1-D
+``train.mesh.DataMesh``; each rank collates its contiguous rows of every
+global batch (``Batcher(host_shard=(rank, world))``; the batch size must
+divide), the steps are ``make_parallel_xe_step`` and the data-parallel
+``SCSTTrainer``, and ``replicate`` broadcasts rank 0's state after the
+init and after every restore. Rank 0 alone writes checkpoints, and a
+barrier follows each save so that no rank runs ahead of a file it may
+resume from; every rank resumes from the shared directory. Validation
+runs on every rank (the sharded evaluator). The obs stream of a rank
+other than 0 goes to ``<obs_dir>/proc<rank>``; the health monitor is host
+``rank`` of ``world`` (``health_sim_hosts`` 0), and its strict peer-loss
+poll comes before each step's collectives, so a survivor drains without
+entering a collective with a dead peer.
+
+Not ported (ROADMAP.md names their slices): the degraded or regrown meshes
+of ``elastic="degraded"``, the model- and sequence-parallel meshes, and the
+decoupled RL topology across ranks; their config fields raise
+(``config.py``).
 """
 
 from __future__ import annotations
@@ -86,6 +102,7 @@ from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.obs import anomaly as _anomaly
 from cst_captioning_tpu_torch.obs import flops as _flops
 from cst_captioning_tpu_torch.obs import recorder as flight
+from cst_captioning_tpu_torch.parallel.comms import CommConfig
 from cst_captioning_tpu_torch.resilience import chaos
 from cst_captioning_tpu_torch.resilience import health as health_mod
 from cst_captioning_tpu_torch.resilience.adaptive import AdaptiveThresholds
@@ -105,9 +122,19 @@ from cst_captioning_tpu_torch.rl import (
     SCSTTrainer,
 )
 from cst_captioning_tpu_torch.rl.scst import rollout_seed
+from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.train.mesh import (
+    batch_sharding,
+    make_mesh,
+    replicate,
+)
 from cst_captioning_tpu_torch.train.schedule import make_optimizer
 from cst_captioning_tpu_torch.train.state import create_train_state
-from cst_captioning_tpu_torch.train.steps import make_xe_step, xe_row_weights
+from cst_captioning_tpu_torch.train.steps import (
+    make_parallel_xe_step,
+    make_xe_step,
+    xe_row_weights,
+)
 from cst_captioning_tpu_torch.utils.logging import EventLogger
 from cst_captioning_tpu_torch.utils.profiling import StepProfiler
 
@@ -194,11 +221,29 @@ def _tensor_leaves(x) -> list[torch.Tensor]:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, train_ds, val_ds=None,
-                 log_path: str = "", device=None, params=None):
+                 log_path: str = "", device=None, params=None,
+                 use_mesh: bool | None = None):
         self.cfg = cfg
         self.train_ds = train_ds
         self.val_ds = val_ds
-        self.device = resolve_device(device)
+        self.device = multihost.local_device(resolve_device(device))
+        self.rank, self.world = multihost.host_shard()
+        n_dev = cfg.mesh.num_devices or self.world
+        self.use_mesh = n_dev > 1 if use_mesh is None else use_mesh
+        self.mesh = (make_mesh(cfg.mesh.num_devices, device=self.device)
+                     if self.use_mesh else None)
+        if self.mesh is not None and cfg.data.batch_size % self.mesh.world:
+            # unlike eval (which wrap-pads), padding a training batch would
+            # change how rows group into optimizer steps
+            raise ValueError(
+                f"training batch_size {cfg.data.batch_size} must be "
+                f"divisible by the mesh's {self.mesh.world}-device 'data' "
+                "axis; pick a multiple or set mesh.num_devices/seq_devices")
+        if self.mesh is not None and self.world > 1 \
+                and cfg.train.rl_topology == "decoupled":
+            raise ValueError(
+                "train.rl_topology='decoupled' across ranks is not ported "
+                "yet (the actor/learner slice); run it on one device")
         # analytic FLOPs per teacher-forced XE row (obs/flops.py): the
         # flops.xe.step counter behind the run report's MFU column
         mc = cfg.model
@@ -209,6 +254,9 @@ class Trainer:
             num_layers=mc.num_layers)
         self._xe_probed = False
         obs_dir = cfg.train.obs_dir or os.path.join(cfg.train.ckpt_dir, "obs")
+        if self.rank != 0:
+            # one stream a process, as the JSONL log
+            obs_dir = os.path.join(obs_dir, f"proc{self.rank}")
         if cfg.train.obs:
             obs.configure(obs_dir, run=cfg.name,
                           snapshot_every=cfg.train.log_every_steps)
@@ -224,7 +272,8 @@ class Trainer:
                           if self._stats and cfg.train.anomaly else None)
         if self._stats:
             flight.configure(cfg.train.recorder_steps, obs_dir, run=cfg.name,
-                             detector=self._detector, config=cfg.to_dict())
+                             detector=self._detector, config=cfg.to_dict(),
+                             proc=self.rank, world=self.world)
         # everything below (the model, state, resume) is run setup: its
         # span keeps the report's coverage honest
         setup_span = obs.span("setup").begin()
@@ -233,18 +282,37 @@ class Trainer:
                          else random_flax_params(cfg.model, cfg.train.seed))
         self._nan_hooks = (_NanHooks(self.model) if cfg.train.debug_nans
                            else None)
+        if log_path and self.rank != 0:
+            # one event log a process: rank k writes <name>.proc<k><ext>
+            root, ext = os.path.splitext(log_path)
+            log_path = f"{root}.proc{self.rank}{ext}"
         self.log = EventLogger(log_path)
+        # each rank collates its rows of every global batch (the shuffle
+        # is epoch-keyed, so the ranks agree without communicating)
         self.batcher = Batcher(
             train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="caption",
-            seq_per_vid=cfg.data.seq_per_vid, seed=cfg.data.shuffle_seed)
+            seq_per_vid=cfg.data.seq_per_vid, seed=cfg.data.shuffle_seed,
+            host_shard=self._host_shard())
         self.steps_per_epoch = self.batcher.num_batches()
         tx = make_optimizer(cfg.train, self.steps_per_epoch)
-        self.state = create_train_state(self.model, tx, seed=cfg.train.seed)
+        self.state = self._replicate(
+            create_train_state(self.model, tx, seed=cfg.train.seed))
         # the finite-update guard rides with any active sentinel policy
         self.guard = cfg.train.on_divergence != "off"
-        self.xe_step = make_xe_step(self.model, cfg.train.label_smoothing,
-                                    guard=self.guard, stats=self._stats)
+        self.comm = CommConfig.from_train(cfg.train)
+        if self.mesh is not None:
+            self.xe_step = make_parallel_xe_step(
+                self.model, self.mesh, cfg.train.label_smoothing,
+                guard=self.guard, comm=self.comm, stats=self._stats)
+        else:
+            self.xe_step = make_xe_step(self.model, cfg.train.label_smoothing,
+                                        guard=self.guard, stats=self._stats)
+        if multihost.is_multiprocess():
+            # evidence the group formed (a failed one would train N copies)
+            self.log.log("distributed", processes=self.world,
+                         process_index=self.rank, devices=self.world,
+                         backend=multihost.backend())
         self.ckpt = CheckpointManager(
             cfg.train.ckpt_dir, metric="CIDEr-D", keep=cfg.train.keep_ckpts,
             log=self.log.log)
@@ -265,7 +333,8 @@ class Trainer:
             self.health = health_mod.HealthMonitor(
                 cfg.train.health_dir
                 or os.path.join(cfg.train.ckpt_dir, "health"),
-                host_id=0, num_hosts=cfg.train.health_sim_hosts or 1,
+                host_id=self.rank,
+                num_hosts=cfg.train.health_sim_hosts or self.world,
                 interval_s=cfg.train.health_interval_s,
                 timeout_s=cfg.train.peer_timeout_s,
                 misses=cfg.train.health_misses, log=self.log.log).start()
@@ -274,13 +343,21 @@ class Trainer:
         self._build_validator()
         setup_span.end()
 
+    def _host_shard(self) -> tuple[int, int]:
+        return batch_sharding(self.mesh) if self.mesh is not None else (0, 1)
+
+    def _replicate(self, state):
+        """Rank 0's state on every rank (a no-op without a mesh)."""
+        return replicate(self.mesh, state) if self.mesh is not None \
+            else state
+
     def _build_validator(self) -> None:
         cfg = self.cfg
         self.validator = (
             Evaluator(self.model, self.val_ds,
                       EvalConfig(beam_size=1, max_len=cfg.model.max_len,
                                  metrics=("CIDEr-D",)),
-                      batch_size=cfg.data.batch_size)
+                      batch_size=cfg.data.batch_size, mesh=self.mesh)
             if self.val_ds is not None else None)
 
     def close(self) -> None:
@@ -335,7 +412,7 @@ class Trainer:
     def _adopt_restored(self, state, infos: dict,
                         src_dir: str) -> tuple[int, str]:
         """Install a restored state's bookkeeping -> (batch_index, phase)."""
-        self.state = state
+        self.state = self._replicate(state)
         self.epoch = int(infos.get("epoch", 0))
         self.xe_epochs = int(infos.get("xe_epochs", self.epoch))
         self.rl_epochs = int(infos.get("rl_epochs", 0))
@@ -443,6 +520,7 @@ class Trainer:
     def load_params_from(self, ckpt_dir: str, name: str = "best"):
         """XE -> RL handoff: params only (the optimizer starts fresh)."""
         load_params(ckpt_dir, name, self.model)
+        self.state = self._replicate(self.state)
         self.log.log("handoff", source=f"{ckpt_dir}/{name}")
 
     # ---- batches ---------------------------------------------------------------
@@ -511,20 +589,27 @@ class Trainer:
         }
 
     def _save_step_ckpt(self, phase: str, step_no: int, batch_index: int,
-                        seam: dict | None = None) -> None:
+                        seam: dict | None = None,
+                        barrier: bool = True) -> None:
         """A mid-epoch checkpoint recording the batch index; ``seam``
-        rides along as ``seam.npz`` in the same swap."""
-        extra = None
-        if seam:
-            extra = {"seam.npz": self._seam_bytes(seam, self.epoch,
-                                                  batch_index)}
-        with obs.span("ckpt", kind="step"):
-            self.ckpt.save_step(self.state, step_no,
-                                self._ckpt_infos(phase, batch_index, step_no),
-                                extra_files=extra)
+        rides along as ``seam.npz`` in the same swap. Rank 0 writes; with
+        ``barrier`` every rank then waits for the file (a peer-loss save
+        skips it: the lost peer would never arrive)."""
+        if self.rank == 0:
+            extra = None
+            if seam:
+                extra = {"seam.npz": self._seam_bytes(seam, self.epoch,
+                                                      batch_index)}
+            with obs.span("ckpt", kind="step"):
+                self.ckpt.save_step(
+                    self.state, step_no,
+                    self._ckpt_infos(phase, batch_index, step_no),
+                    extra_files=extra)
+        if barrier:
+            multihost.barrier("ckpt.save")
         self.log.log("ckpt_step", phase=phase, step=step_no,
                      batch_index=batch_index, seam=bool(seam),
-                     **self.ckpt.last_save)
+                     **(self.ckpt.last_save if self.rank == 0 else {}))
 
     def _preempt_save(self, phase: str, step_no: int, batch_index: int,
                       sentinel: DivergenceSentinel,
@@ -555,7 +640,8 @@ class Trainer:
         # the bundle's meta
         lost = self.health.lost()
         flight.postmortem("peer_loss", phase=phase, step=step_no, lost=lost)
-        self._save_step_ckpt(phase, step_no, batch_index, seam=seam)
+        self._save_step_ckpt(phase, step_no, batch_index, seam=seam,
+                             barrier=False)
         obs.counter("resilience.peer_loss_drain").inc()
         self.log.log("peer_loss_drain", phase=phase, step=step_no,
                      batch_index=batch_index, lost=lost)
@@ -586,7 +672,7 @@ class Trainer:
                 f"{phase} diverged with no checkpoint to roll back to: "
                 f"{err}") from err
         state, infos = restored
-        self.state = state
+        self.state = self._replicate(state)
         self.epoch = int(infos.get("epoch", 0))
         self.xe_epochs = int(infos.get("xe_epochs", self.epoch))
         self.rl_epochs = int(infos.get("rl_epochs", 0))
@@ -694,7 +780,8 @@ class Trainer:
                                    first=run["first_step"])
                         run["first_step"] = False
                         obs.counter("flops.xe.step").inc(
-                            self._xe_flops_inc(cfg.data.batch_size))
+                            self._xe_flops_inc(
+                                self.batcher.local_batch_size))
                         chaos.visit("xe.step")
                         if self.health is not None:
                             self.health.note_step(step_no)
@@ -789,11 +876,12 @@ class Trainer:
         else:
             scst = SCSTTrainer(self.model, self.reward, cfg.rl,
                                max_len=cfg.model.max_len, guard=self.guard,
-                               stats=self._stats, on_event=self.log.log)
+                               stats=self._stats, on_event=self.log.log,
+                               mesh=self.mesh, comm=self.comm)
         rl_batcher = Batcher(
             self.train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="video",
-            seed=cfg.data.shuffle_seed)
+            seed=cfg.data.shuffle_seed, host_shard=self._host_shard())
         rl_batcher.salt = self.batcher.salt
         self._rl_batcher = rl_batcher
         target = self.rl_epochs + epochs
@@ -908,8 +996,11 @@ class Trainer:
         clips_s, step_ms = _rate(cfg.data.batch_size, times)
         self.log.log(
             "rl_epoch", epoch=self.epoch,
-            reward=(float(np.dot(rewards, valid_rows)) / n_valid
-                    if n_valid else 0.0),
+            # each rank scores its own rows: weight by valid rows and
+            # reduce across the ranks exactly
+            reward=multihost.global_weighted_mean(
+                float(np.dot(rewards, valid_rows)) if valid_rows else 0.0,
+                n_valid),
             steps=len(times), clips_per_s=clips_s, step_ms_median=step_ms)
         obs.snapshot_metrics(epoch=self.epoch)
         return self._validate_and_checkpoint(counter["step"])
@@ -926,11 +1017,17 @@ class Trainer:
             value = result["metrics"].get("CIDEr-D")
             self.log.log("validate", epoch=self.epoch, cider_d=value,
                          ms=(time.perf_counter() - t0) * 1e3)
-        with obs.span("ckpt", kind="epoch"):
-            is_best = self.ckpt.save(self.state, value,
-                                     infos=self._ckpt_infos(step_no=step_no))
-        self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
-                     **self.ckpt.last_save)
-        if is_best:
-            self.log.log("new_best", epoch=self.epoch, cider_d=value)
+        # validation runs on every rank (the sharded decode); rank 0 alone
+        # writes the checkpoint, and the barrier keeps the others from
+        # running ahead of it
+        if self.rank == 0:
+            with obs.span("ckpt", kind="epoch"):
+                is_best = self.ckpt.save(
+                    self.state, value,
+                    infos=self._ckpt_infos(step_no=step_no))
+            self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
+                         **self.ckpt.last_save)
+            if is_best:
+                self.log.log("new_best", epoch=self.epoch, cider_d=value)
+        multihost.barrier("ckpt.save")
         return value

@@ -444,7 +444,7 @@ def test_one_device_preemption_falls_back_to_sync(setup):
 
 
 def test_several_devices_are_refused(setup):
-    with pytest.raises(ValueError, match="data-parallel slice"):
+    with pytest.raises(ValueError, match="actor/learner slice"):
         _port(setup, _rl(), devices=[torch.device("cuda", 0),
                                      torch.device("cuda", 1)])
     a, state = _port(setup, _rl(), devices=[torch.device("cpu")])

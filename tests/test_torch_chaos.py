@@ -215,13 +215,13 @@ def test_health_kinds_raise_naming_the_health_slice(point, kind, tmp_path):
     ported, ``partial_preempt`` and ``host_rejoin_flaky`` (off
     ``rl.actor.step``) act on the port's monitor, each package's alike, and
     raise only with no active monitor; ``health.rejoin`` is the degraded
-    trainer's rejoin poll and is refused, naming the data-parallel slice."""
+    trainer's rejoin poll and is refused, naming the elastic slice."""
     if point == "health.rejoin":
         plan = FaultPlan([Fault(point, kind, at=0, host=1)])
         with plan.activate():
             with pytest.raises(RuntimeError, match="rejoin poll") as e:
                 chaos.visit(point)
-        assert "the data-parallel slice" in str(e.value)
+        assert "the elastic slice" in str(e.value)
         assert plan.fired == [] and plan.visits(point) == 0
         return
     out = {}

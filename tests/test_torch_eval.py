@@ -115,9 +115,11 @@ def jax_results(corpus):
     return out
 
 
-def _jax_draws(seed: int, K: int, B: int, V: int, device):
+def _jax_draws(seed: int, K: int, B: int, V: int, device,
+               row_offset: int = 0):
     """The JAX evaluator's NPAD draws for the batch whose port seed this
-    is (``npad_batch_seed``)."""
+    is (``npad_batch_seed``); one rank, so its rows start at 0."""
+    assert row_offset == 0
     bi = seed - NPAD_SEED * 1_000_003
     keys = rollout_step_keys(
         jax.random.fold_in(jax.random.key(NPAD_SEED), bi), K, T)

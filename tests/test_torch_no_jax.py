@@ -64,7 +64,9 @@ def test_port_imports_no_jax():
                 "data.importers", "cli.preprocess", "cli.import_msrvtt",
                 "cli.import_msvd", "resilience.chaos",
                 "resilience.adaptive", "rl.async_scst", "rl.online",
-                "resilience.health", "obs.fleet", "cli.obs_report"):
+                "resilience.health", "obs.fleet", "cli.obs_report",
+                "train.mesh", "train.multihost", "parallel",
+                "parallel.comms"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 

@@ -395,12 +395,8 @@ def test_resilience_knobs_are_accepted(overrides):
 
 
 STILL_UNPORTED = [
-    ("train", "elastic", "degraded", "data-parallel"),
-    ("train", "elastic_regrow", False, "data-parallel"),
-    ("train", "comm_bucket_mb", 8.0, "data-parallel"),
-    ("train", "comm_dtype", "bf16", "data-parallel"),
-    ("train", "comm_overlap", True, "data-parallel"),
-    ("mesh", "num_devices", 2, "data-parallel"),
+    ("train", "elastic", "degraded", "elastic"),
+    ("train", "elastic_regrow", False, "elastic"),
     ("mesh", "seq_devices", 2, "sequence-parallel"),
     ("mesh", "mp_devices", 2, "sequence-parallel"),
     ("model", "seq_axis", "seq", "sequence-parallel"),
@@ -415,6 +411,27 @@ def test_still_unported_knobs_raise_naming_their_slice(section, name, value,
         get_experiment("msrvtt_cst_consensus").override(
             **{f"{section}__{name}": value})
     assert f"{slice_} slice" in str(e.value)
+
+
+# the data-parallel knobs, ported with the data-parallel slice
+# (train/mesh.py, parallel/comms.py); comm_overlap needs update_chunks >= 2
+DATA_PARALLEL_KNOBS = [
+    {"train__comm_bucket_mb": 8.0},
+    {"train__comm_dtype": "bf16"},
+    {"rl__update_chunks": 5, "train__comm_overlap": True},
+    {"mesh__num_devices": 2},
+]
+
+
+@pytest.mark.parametrize("overrides", DATA_PARALLEL_KNOBS,
+                         ids=["comm_bucket_mb", "comm_dtype", "comm_overlap",
+                              "num_devices"])
+def test_data_parallel_knobs_are_accepted(overrides):
+    cfg = get_experiment("msrvtt_cst_consensus").override(**overrides)
+    for key, value in overrides.items():
+        section, _, name = key.partition("__")
+        assert getattr(getattr(cfg, section), name) == value
+    assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
 
 
 def test_recorder_steps_must_be_non_negative():

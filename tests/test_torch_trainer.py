@@ -78,6 +78,7 @@ from cst_captioning_tpu_torch.presets import EXPERIMENTS, get_experiment
 from cst_captioning_tpu_torch.presets import get_preset as port_preset
 from cst_captioning_tpu_torch.resilience.preempt import Preempted
 from cst_captioning_tpu_torch.train import trainer as trainer_mod
+from cst_captioning_tpu_torch.train.mesh import make_mesh
 from cst_captioning_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
@@ -515,12 +516,12 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
     assert seen["reward"].num_threads == (threads or os.cpu_count())
 
 
-# the observability and health knobs are ported (tests/test_torch_obs.py);
-# the degraded and regrown meshes of elastic training are not
+# the observability, health and data-parallel knobs are ported
+# (tests/test_torch_obs.py); the degraded and regrown meshes of elastic
+# training and the model- and sequence-parallel meshes are not
 UNPORTED = [
-    ("mesh", "num_devices", 2), ("mesh", "seq_devices", 2),
-    ("mesh", "mp_devices", 2), ("train", "elastic_regrow", False),
-    ("train", "elastic", "degraded"), ("train", "comm_dtype", "bf16"),
+    ("mesh", "seq_devices", 2), ("mesh", "mp_devices", 2),
+    ("train", "elastic_regrow", False), ("train", "elastic", "degraded"),
 ]
 
 
@@ -532,6 +533,23 @@ def test_unported_config_values_raise(section, name, value):
         cfg.override(**{f"{section}__{name}": value})
     # the default is accepted, and a round trip through JSON keeps it
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+
+
+# ported with the data-parallel slice: the config takes them; a mesh wider
+# than this run's ranks raises, saying how many processes to launch
+DATA_PARALLEL = [("mesh", "num_devices", 2), ("train", "comm_dtype", "bf16")]
+
+
+@pytest.mark.parametrize("section,name,value", DATA_PARALLEL,
+                         ids=[f"{s}.{n}" for s, n, _ in DATA_PARALLEL])
+def test_data_parallel_config_values_are_accepted(section, name, value):
+    cfg = get_experiment("msrvtt_cst_consensus").override(
+        **{f"{section}__{name}": value})
+    assert getattr(getattr(cfg, section), name) == value
+    assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
+    if name == "num_devices":
+        with pytest.raises(ValueError, match="launch 2 processes"):
+            make_mesh(cfg.mesh.num_devices, device="cpu")
 
 
 # ---- config parity ---------------------------------------------------------
