@@ -310,10 +310,36 @@
    ``rl.update.allreduce`` spans, the CUDA-event ms of one update's
    all-reduce, the buckets and bytes on the wire and each rank's
    launches (arm (b)'s times are gloo through the host).
+8e. rl_split: the actor/learner split across ranks
+   (``rl.AsyncSCSTTrainer(mesh=...)``, ``parallel.submesh``) on the
+   data_parallel phase's recipe corpus and start weights, B=64 global, 6
+   video-mode batches, ``actor_fraction`` 0.5, Adam at lr 5e-2 (one update
+   moves the tokens, so a stale version shows), attention_impl and
+   decode_impl "pallas". The reference: the same epoch in this process on
+   a mesh of 3 virtual ranks (the split's plan, faults, events and
+   ledgers, every role here), itself bitwise equal to no mesh. (a) NCCL at
+   world 1 (the shared plan): bitwise equal to no mesh. (b) three gloo
+   ranks on the one card, this script as ``--dp-rank`` children: ranks 0
+   and 1 actors, rank 2 the learner; at float32 and at bfloat16, depth 2
+   / bound 1, depth 3 / bound 1 (the JAX drop ledger), ``actor_preempt``
+   at batch 2 then ``host_rejoin`` at batch 4 (2 -> 1 -> 2 actors), two
+   preempts (2 -> 1 -> the sync fallback), all at msrvtt_cst_consensus,
+   and depth 2 / bound 1 at msrvtt_scst (kernel 3). Gates: the learner's
+   scored token rows, the losses and rewards, every rank's params digest,
+   the staleness ledger, the drops and the events equal the reference's;
+   the fired faults; the occupancy alike on every rank; per rank, 30
+   attention launches an update on the learner and none on the actors,
+   one decode-step launch a counted decode step, decodes on the actors
+   and none on the learner without drops. Planted faults must fail the
+   gates: an actor that decodes with the previous parameter version, and
+   a handoff that routes rows one rank off. Reported: each epoch's wall
+   and clips/s beside the reference's (one card time-sliced between
+   three processes: semantics, not speed), the broadcast's ms an update,
+   the occupancy, each rank's launches.
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
-   rl_online's, resilience's, health's, import's and data_parallel's
-   included),
+   rl_online's, resilience's, health's, import's, data_parallel's and
+   rl_split's included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -4612,6 +4638,8 @@ def dp_child(argv: list) -> int:
     rank, world = int(rank), int(world)
     with open(args_path, "rb") as f:
         a = pickle.load(f)
+    if a.get("job") == "rl_split":
+        return split_child(rank, world, init, a, out_path)
     DP_DEVICE, DP_MODEL = a["device"], a["model"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4675,44 +4703,40 @@ def dp_child(argv: list) -> int:
     return 0
 
 
-def data_parallel_phase(smi: str) -> tuple[dict, dict]:
-    """Data parallel at full width (module docstring, 8d) -> (its line, the
-    launches of its runs: arm (a)'s mesh runs and both ranks' of arm
-    (b))."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+def data_parallel_phase(root: str, smi: str) -> tuple[dict, dict, dict,
+                                                     dict]:
+    """Data parallel at full width (module docstring, 8d), its files under
+    ``root`` -> (its line, the launches of its runs: arm (a)'s mesh runs
+    and both ranks' of arm (b), the corpus's paths, the start weights)."""
     try:
         return _data_parallel(root, smi)
     finally:
         tobs.shutdown()
-        shutil.rmtree(root, ignore_errors=True)
 
 
-def dp_launch(root: str, data: dict, start: dict, a: dict,
-              a_rate: dict) -> tuple[list, float]:
-    """Arm (b): this script as two ``--dp-rank`` children on the one card,
-    given arm (a)'s reference -> their results and the wall seconds."""
+def spawn_ranks(root: str, args: dict, world: int, label: str,
+                timeout: float) -> tuple[list, float]:
+    """This script as ``world`` ``--dp-rank`` children on the one card
+    (gloo), given ``args`` -> each rank's result pickle and the wall
+    seconds; a rank that fails fails the phase with its stderr."""
     import pickle
 
-    ref = os.path.join(root, "ref.pt")
-    torch.save({**{d: {k: a[d][k] for k in _DP_REF_KEYS} for d in DP_DTYPES},
-                "rate": a_rate}, ref)
-    args = os.path.join(root, "dp.args")
-    with open(args, "wb") as f:
-        pickle.dump({"root": root, "data": data, "ref": ref, "start": start,
-                     "device": DP_DEVICE, "model": DP_MODEL}, f)
-    init = os.path.join(root, "gloo.init")
-    outs = [os.path.join(root, f"rank{r}.out") for r in range(2)]
-    errs = [os.path.join(root, f"rank{r}.err") for r in range(2)]
+    path = os.path.join(root, f"{label}.args")
+    with open(path, "wb") as f:
+        pickle.dump(args, f)
+    init = os.path.join(root, f"{label}.init")
+    outs = [os.path.join(root, f"{label}.rank{r}.out") for r in range(world)]
+    errs = [os.path.join(root, f"{label}.rank{r}.err") for r in range(world)]
     t = time.perf_counter()
     procs = []
     try:
-        for r in range(2):
+        for r in range(world):
             with open(errs[r], "w") as err:
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--dp-rank",
-                     str(r), "2", init, args, outs[r]],
+                     str(r), str(world), init, path, outs[r]],
                     stdout=subprocess.DEVNULL, stderr=err))
-        deadline = time.monotonic() + DP_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
@@ -4722,9 +4746,22 @@ def dp_launch(root: str, data: dict, start: dict, a: dict,
                 p.wait()
     wall = time.perf_counter() - t
     check(all(p.returncode == 0 for p in procs),
-          "data_parallel (b): a rank failed:\n" +
+          f"{label}: a rank failed:\n" +
           "\n".join(open(e).read()[-4000:] for e in errs))
     return [pickle.load(open(o, "rb")) for o in outs], wall
+
+
+def dp_launch(root: str, data: dict, start: dict, a: dict,
+              a_rate: dict) -> tuple[list, float]:
+    """Arm (b): this script as two ``--dp-rank`` children on the one card,
+    given arm (a)'s reference -> their results and the wall seconds."""
+    ref = os.path.join(root, "ref.pt")
+    torch.save({**{d: {k: a[d][k] for k in _DP_REF_KEYS} for d in DP_DTYPES},
+                "rate": a_rate}, ref)
+    return spawn_ranks(root, {"root": root, "data": data, "ref": ref,
+                              "start": start, "device": DP_DEVICE,
+                              "model": DP_MODEL}, 2, "data_parallel (b)",
+                       DP_TIMEOUT_S)
 
 
 def _data_parallel(root: str, smi: str) -> tuple[dict, dict]:
@@ -4840,7 +4877,366 @@ def _data_parallel(root: str, smi: str) -> tuple[dict, dict]:
         "c_bf16_wire": [r["bf16"] for r in ranks],
         "planted": [r["planted"] for r in ranks],
         "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
-    return line, launched
+    return line, launched, data, start
+
+
+# ---- phase 8e: the actor/learner split across ranks -----------------------
+
+SPLIT_WORLD = 3           # arm (b): round(3 * 0.5) = 2 actors, 1 learner
+SPLIT_FRACTION = 0.5
+SPLIT_TIMEOUT_S = 600     # a rank of arm (b), start to exit
+SPLIT_D2B1 = dict(rollout_depth=2, staleness_bound=1)
+# (name, preset, ring, faults at rl.actor.step: (kind, visit)); the epochs
+# of arm (b), each at float32 and at bfloat16
+SPLIT_RUNS = (
+    ("d2b1", "msrvtt_cst_consensus", SPLIT_D2B1, ()),
+    ("d3b1", "msrvtt_cst_consensus",
+     dict(rollout_depth=3, staleness_bound=1), ()),
+    ("regrow", "msrvtt_cst_consensus", SPLIT_D2B1,
+     (("actor_preempt", 2), ("host_rejoin", 4))),
+    ("exhaust", "msrvtt_cst_consensus", SPLIT_D2B1,
+     (("actor_preempt", 2), ("actor_preempt", 3))),
+    ("scst", "msrvtt_scst", SPLIT_D2B1, ()),
+)
+# planted faults, each in a float32 d2b1 epoch: the gates must refuse them
+SPLIT_PLANTED = ("stale_actor", "rows_off_by_one")
+# the split's RL rate: the JAX RL tolerances' (DP_RATE), at which one
+# update moves the tokens, so that a version off by one shows (at the
+# presets' 2e-5 consecutive versions decode the same tokens)
+SPLIT_RATE = DP_RATE
+
+
+def split_inputs(data: dict, preset: str, dtype: str, dev):
+    """The phase's model config, its RL reward and the 6 video-mode
+    batches of 64 (the recipe corpus's 384 train clips, the data_parallel
+    phase's order for its RL epoch), staged on the card."""
+    cfg = dp_config("", preset, "", model__dtype=dtype,
+                    data__cider_df=data["cider_df"])
+    mc = cfg.model
+    ds = CaptionDataset(data["info_json"],
+                        {n: data[n] for n, _ in mc.modalities}, "train",
+                        mc.max_frames,
+                        consensus_weights=data["consensus_weights"])
+    rl = cfg.rl
+    reward = RewardComputer(
+        ds.vocab, ds.gts_pool(), df=CorpusDF.load(data["cider_df"]),
+        cider_weight=rl.reward_cider_weight,
+        bleu_weight=rl.reward_bleu4_weight, bleu_scale=rl.reward_bleu4_scale,
+        num_threads=rl.reward_threads)
+    batcher = Batcher(ds, batch_size=TRAIN_B, max_len=mc.max_len,
+                      mode="video", seed=cfg.data.shuffle_seed)
+    batcher.epoch_index = 1
+    batches = [({k: torch.from_numpy(x).to(dev) for k, x in b.feats.items()},
+                {k: torch.from_numpy(x).to(dev)
+                 for k, x in b.feat_masks.items()},
+                list(b.video_ids), [bool(v) for v in b.valid])
+               for b in batcher.epoch(shuffle=True)]
+    return cfg, reward, batches
+
+
+def split_epoch(inputs, start: dict, ring: dict, faults, mesh, dev) -> dict:
+    """One decoupled epoch from the start weights on ``mesh`` (the ranks
+    of arm (b), a world-1 mesh, a mesh of virtual ranks or None) -> the
+    rows its learner scored, losses, rewards, the params' digest, the
+    ledgers and events, launches by kernel and decode steps, the wall,
+    the occupancy and each broadcast's seconds."""
+    from cst_captioning_tpu_torch.resilience.chaos import Fault, FaultPlan
+    from cst_captioning_tpu_torch.rl import async_scst
+    from cst_captioning_tpu_torch.train import multihost
+
+    cfg, reward, batches = inputs
+    rl = dataclasses.replace(cfg.rl, actor_fraction=SPLIT_FRACTION, **ring)
+    model = load_flax_params(CaptionModel(cfg.model, device=dev), start)
+    state = create_train_state(model, make_optimizer(
+        cfg.train, 1, lr_override=SPLIT_RATE), seed=cfg.train.seed)
+    rec = RecordingReward(reward)
+    events = []
+    tr = AsyncSCSTTrainer(model, rec, rl, guard=True, batch_size=TRAIN_B,
+                          mesh=mesh,
+                          on_event=lambda e, **kw: events.append([e, kw]))
+    plan = FaultPlan([Fault("rl.actor.step", k, at=at) for k, at in faults])
+    bcast, real = [], multihost.broadcast_tensors
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        real(*a, **kw)
+        bcast.append(time.perf_counter() - t)
+
+    base = cfg.train.seed + 1
+    steps, counting = counted_sample_steps()
+    dp_sync()
+    ops.reset_launches()
+    t = time.perf_counter()
+    with counting, plan.activate(), mock.patch.object(
+            async_scst.multihost, "broadcast_tensors", timed):
+        state, ms = tr.train_epoch(state, batches,
+                                   lambda j: rollout_seed(base, 0, 1, j))
+    dp_sync()
+    wall = time.perf_counter() - t
+    return {"calls": rec.calls, "losses": [m["rl_loss"] for m in ms],
+            "rewards": [m["reward_mean"] for m in ms],
+            "finite": all(m["nonfinite"] == 0.0 and np.isfinite(m["rl_loss"])
+                          for m in ms),
+            "digest": _digest(state.params), "step": int(state.step),
+            "staleness": {str(k): v for k, v in tr.last_staleness.items()},
+            "dropped": tr.last_dropped, "events": events,
+            "fired": [f["kind"] for f in plan.fired],
+            "launches": all_launches(), "decode_steps": steps[0],
+            "wall_s": wall, "clips_per_s": len(ms) * TRAIN_B / wall,
+            "occupancy": tr.last_occupancy, "broadcast_s": bcast,
+            "role": ("actor" if tr._split() and tr._me in
+                     tr._initial_plan.actor_ranks else
+                     "learner" if tr._split() else "both")}
+
+
+@contextlib.contextmanager
+def split_planted(kind: str):
+    """A fault planted in the split, on the ranks it concerns: an actor
+    that decodes with the previous parameter version ("stale_actor": the
+    broadcast lands, the actor keeps the version before it), or a
+    handoff that routes rows one rank off ("rows_off_by_one": the learner
+    takes actor i's rows from actor i + 1). The gates must refuse what it
+    trains."""
+    from cst_captioning_tpu_torch.rl import async_scst
+
+    cls = async_scst.AsyncSCSTTrainer
+    if kind == "stale_actor":
+        real = cls._refresh_actor
+        held = {}
+
+        def patched(self, state):
+            before = self._actor_version
+            real(self, state)
+            if self._split() and self._me in self._plan.actor_ranks \
+                    and self._actor_version != before:
+                with torch.no_grad():
+                    params = [p.data for p in state.model.parameters()]
+                    new = [p.clone() for p in params]
+                    for p, q in zip(params, held.get("prev", new)):
+                        p.copy_(q)
+                held["prev"] = new
+        name = "_refresh_actor"
+    else:
+        real = cls._routes
+
+        def patched(self, B):
+            A = self._plan.actor_ranks
+            return [(A[(A.index(a) + 1) % len(A)] if lr == self._me else a,
+                     lr, lo, hi, a0, l0)
+                    for a, lr, lo, hi, a0, l0 in real(self, B)]
+        name = "_routes"
+    with mock.patch.object(cls, name, patched):
+        yield
+
+
+def split_child(rank: int, world: int, init: str, a: dict,
+                out_path: str) -> int:
+    """One rank of arm (b): gloo on the card, every epoch of SPLIT_RUNS at
+    each compute dtype, then the planted faults -> a result pickle (the
+    learner's scored rows only on the learner)."""
+    import pickle
+
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    global DP_DEVICE, DP_MODEL
+    DP_DEVICE, DP_MODEL = a["device"], a["model"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(a["device"])
+    multihost.initialize(f"file://{init}", world_size=world, rank=rank,
+                         backend="gloo", device=a["device"],
+                         timeout_s=DP_GROUP_TIMEOUT_S)
+    res = {"rank": rank, "runs": {}, "planted": {}}
+    try:
+        mesh = make_mesh(device=dev)
+        inputs = {}
+        for dtype in DP_DTYPES:
+            for name, preset, ring, faults in SPLIT_RUNS:
+                if (preset, dtype) not in inputs:
+                    inputs[preset, dtype] = split_inputs(a["data"], preset,
+                                                         dtype, dev)
+                res["runs"][name, dtype] = split_epoch(
+                    inputs[preset, dtype], a["start"], ring, faults, mesh,
+                    dev)
+        x = inputs["msrvtt_cst_consensus", "float32"]
+        for kind in SPLIT_PLANTED:
+            with split_planted(kind):
+                res["planted"][kind] = split_epoch(x, a["start"], SPLIT_D2B1,
+                                                   (), mesh, dev)
+        multihost.barrier()
+    finally:
+        multihost.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def split_equal(got: dict, want: dict, learner: bool) -> list:
+    """What differs between a rank's epoch and the one-process reference
+    on the same schedule, plan and faults (empty: bitwise equal): the
+    learner's scored token rows, the losses and rewards, the params'
+    digest, the staleness ledger, the drops and the events."""
+    bad = []
+    if learner and (len(got["calls"]) != len(want["calls"]) or not all(
+            np.array_equal(x, y) for x, y in zip(got["calls"],
+                                                 want["calls"]))):
+        bad.append("tokens")
+    for k in ("losses", "rewards", "digest", "step", "staleness", "dropped",
+              "events"):
+        if got[k] != want[k]:
+            bad.append(k)
+    return bad
+
+
+def rl_split_phase(root: str, data: dict, start: dict, smi: str
+                   ) -> tuple[dict, dict]:
+    """The actor/learner split (module docstring, 8e) on the
+    data_parallel phase's corpus and start weights -> (its line, the
+    launches of arm (a)'s mesh epoch and of every rank's epochs in arm
+    (b))."""
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import DataMesh, make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DP_DEVICE)
+    # the one-process references: every role in this process, on a mesh
+    # of SPLIT_WORLD virtual ranks (the split's plan, events and ledgers)
+    virtual = DataMesh("data", 0, SPLIT_WORLD, dev)
+    inputs, refs = {}, {}
+    t = time.perf_counter()
+    for dtype in DP_DTYPES:
+        for name, preset, ring, faults in SPLIT_RUNS:
+            if (preset, dtype) not in inputs:
+                inputs[preset, dtype] = split_inputs(data, preset, dtype,
+                                                     dev)
+            refs[name, dtype] = split_epoch(inputs[preset, dtype], start,
+                                            ring, faults, virtual, dev)
+    ref_s = time.perf_counter() - t
+    x = inputs["msrvtt_cst_consensus", "float32"]
+    one = split_epoch(x, start, SPLIT_D2B1, (), None, dev)
+    check(not split_equal(one, refs["d2b1", "float32"], True),
+          "rl_split: the virtual-rank plan and no mesh differ: "
+          f"{split_equal(one, refs['d2b1', 'float32'], True)}")
+    for dtype in DP_DTYPES:
+        d3 = refs["d3b1", dtype]
+        check(d3["staleness"] == {str(k): v for k, v in
+                                  D3B1_STALENESS.items()}
+              and d3["dropped"] == D3B1_DROPPED,
+              f"rl_split: depth 3 bound 1 {dtype} ledger {d3['staleness']}, "
+              f"dropped {d3['dropped']}; the JAX trainer's: "
+              f"{D3B1_STALENESS}, {D3B1_DROPPED}")
+        check([e for e, _ in refs["regrow", dtype]["events"]]
+              == ["rl_actor_degraded", "rl_actor_regrown"]
+              and [e for e, _ in refs["exhaust", dtype]["events"]]
+              == ["rl_actor_degraded", "rl_actor_fallback_sync"],
+              f"rl_split: the reference's events {dtype}: "
+              f"{refs['regrow', dtype]['events']}, "
+              f"{refs['exhaust', dtype]['events']}")
+    # arm (a): NCCL at world 1, the shared plan: the one-process epoch
+    multihost.initialize(f"file://{os.path.join(root, 'split.init')}",
+                         world_size=1, rank=0, backend=DP_BACKEND_A,
+                         device=DP_DEVICE, timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        a = split_epoch(x, start, SPLIT_D2B1, (), make_mesh(device=dev), dev)
+    finally:
+        multihost.shutdown()
+    bad = split_equal(a, one, True)
+    check(not bad, f"rl_split (a): NCCL at world 1 differs from one "
+          f"process in {bad}")
+    # arm (b): SPLIT_WORLD gloo ranks on the one card
+    ranks, b_wall = spawn_ranks(
+        root, {"job": "rl_split", "data": data, "start": start,
+               "device": DP_DEVICE, "model": DP_MODEL}, SPLIT_WORLD,
+        "rl_split (b)",
+        SPLIT_TIMEOUT_S)
+    launched = dict(a["launches"])
+    report = {}
+    T = x[0].model.max_len
+    faults_of = {n: f for n, _, _, f in SPLIT_RUNS}
+    for (name, dtype), want in refs.items():
+        per_rank = []
+        for r in ranks:
+            got = r["runs"][name, dtype]
+            learner = got["role"] == "learner"
+            bad = split_equal(got, want, learner)
+            check(not bad and got["finite"]
+                  and got["fired"] == [k for k, _ in faults_of[name]],
+                  f"rl_split (b) {name} {dtype} rank {r['rank']} "
+                  f"({got['role']}) differs from one process in {bad}, "
+                  f"fired {got['fired']}")
+            n = got["launches"]
+            updates = len(want["losses"])
+            if learner:
+                check(n["fused_additive_attention"] == T * updates,
+                      f"rl_split (b) {name} {dtype}: the learner launched "
+                      f"{n['fused_additive_attention']} attention kernels "
+                      f"for {updates} updates")
+            else:
+                check(n["fused_additive_attention"] == 0,
+                      f"rl_split (b) {name} {dtype}: an actor launched "
+                      f"the attention kernel: {n}")
+            decode = ("fused_decode_stride" if name == "scst"
+                      else "fused_decode_step")
+            other = ("fused_decode_step" if name == "scst"
+                     else "fused_decode_stride")
+            if name != "scst":
+                check(n[decode] == got["decode_steps"],
+                      f"rl_split (b) {name} {dtype}: {n[decode]} decode-"
+                      f"step launches for {got['decode_steps']} steps")
+            check(n[other] == n["fused_decode_stride_paged"]
+                  == n["fused_beam_step"] == 0,
+                  f"rl_split (b) {name} {dtype}: other kernels {n}")
+            for k, v in n.items():
+                launched[k] += v
+            per_rank.append({"rank": r["rank"], "role": got["role"],
+                             "wall_s": got["wall_s"], "launches": n,
+                             "broadcast_ms": [s * 1e3 for s in
+                                              got["broadcast_s"]]})
+        # every actor decoded and the learner recounted only after drops,
+        # orphans or the sync fallback
+        roles = {p["role"]: p for p in per_rank}
+        check(any(p["launches"][decode] > 0 for p in per_rank
+                  if p["role"] == "actor"),
+              f"rl_split (b) {name} {dtype}: no actor decoded")
+        if name in ("d2b1", "scst"):
+            check(roles["learner"]["launches"][decode] == 0,
+                  f"rl_split (b) {name} {dtype}: the learner decoded")
+        got0 = ranks[0]["runs"][name, dtype]
+        check(all(r["runs"][name, dtype]["occupancy"] == got0["occupancy"]
+                  for r in ranks), f"rl_split (b) {name}: occupancy differs")
+        report[f"{name}_{dtype}"] = {
+            "wall_s": max(p["wall_s"] for p in per_rank),
+            "clips_per_s": min(r["runs"][name, dtype]["clips_per_s"]
+                               for r in ranks),
+            "one_process_clips_per_s": want["clips_per_s"],
+            "occupancy": got0["occupancy"],
+            "staleness": got0["staleness"], "dropped": got0["dropped"],
+            "events": got0["events"], "ranks": per_rank}
+    planted = {}
+    for kind in SPLIT_PLANTED:
+        bad = sorted({b for r in ranks for b in split_equal(
+            r["planted"][kind], refs["d2b1", "float32"],
+            r["planted"][kind]["role"] == "learner")})
+        check(bad, f"rl_split (b): the planted '{kind}' fault passed the "
+              "gates")
+        planted[kind] = bad
+    bms = [m for p in report["d2b1_float32"]["ranks"]
+           for m in p["broadcast_ms"]]
+    return {"phase": "rl_split", "preset": "msrvtt_cst_consensus",
+            "scst_preset": "msrvtt_scst", "global_batch": TRAIN_B,
+            "world": SPLIT_WORLD, "actor_fraction": SPLIT_FRACTION,
+            "plan": {"actors": list(range(2)), "learners": [2]},
+            "batches": len(x[2]), "reference_s": ref_s,
+            "a_nccl_world1": {"wall_s": a["wall_s"],
+                              "clips_per_s": a["clips_per_s"],
+                              "one_process_clips_per_s": one["clips_per_s"]},
+            "b_gloo_ranks_one_card": {
+                "wall_s": b_wall, "note": "gloo through the host, one "
+                "card time-sliced: semantics, not speed", **report},
+            "broadcast_ms_per_update": bms, "planted": planted,
+            "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}, \
+        launched
 
 
 def main() -> int:
@@ -5147,10 +5543,18 @@ def main() -> int:
     emit(observed)
     for k, v in obs_launches.items():
         path_launches[k] += v
-    parallel, dp_launches = data_parallel_phase(smi)
-    emit(parallel)
-    for k, v in dp_launches.items():
-        path_launches[k] += v
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        parallel, dp_launches, dp_data, dp_start = data_parallel_phase(
+            root, smi)
+        emit(parallel)
+        split, split_launches = rl_split_phase(root, dp_data, dp_start, smi)
+        emit(split)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for launched in (dp_launches, split_launches):
+        for k, v in launched.items():
+            path_launches[k] += v
 
     print(smi, flush=True)
     emit({"kernels": [

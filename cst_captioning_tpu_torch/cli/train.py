@@ -22,6 +22,21 @@ Data parallel: one process a device, launched by torchrun, each rank on
 ``--dist-init URL`` (e.g. ``file:///tmp/rdzv``) forms the group from that
 URL and the ``RANK`` / ``WORLD_SIZE`` env instead of ``MASTER_ADDR`` /
 ``MASTER_PORT``.
+
+The decoupled RL topology across ranks: the XE phase runs data parallel
+on every rank, then each RL epoch splits the ranks into actors (the first
+``round(N * rl.actor_fraction)``) and learners, each side clamped to a
+divisor of the batch:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m cst_captioning_tpu_torch.cli.train --preset msrvtt_cst_consensus \
+        ... --set mesh__num_devices=4 \
+        --set train__rl_topology="'decoupled'" --set rl__actor_fraction=0.5
+
+The trainer logs the plan as an ``rl_split`` event (``actors``,
+``learners``: global ranks; ``shared`` for one rank or the strict
+schedule), e.g. ``{"event": "rl_split", "actors": [0, 1], "learners":
+[2, 3], "shared": false}``.
 """
 
 from __future__ import annotations

@@ -305,8 +305,11 @@ class RLConfig:
     # (depth 1 with bound 0 is the strict sequential schedule)
     rollout_depth: int = 2
     staleness_bound: int = 1
-    # the actor submesh's share of the devices (a split needs more than
-    # one device: the actor/learner slice)
+    # train.rl_topology="decoupled" on a mesh of several ranks: the share
+    # of the ranks that decode (the first round(n * actor_fraction), at
+    # least one and at most n - 1, each side clamped to a divisor of the
+    # batch; parallel/submesh.py); the rest learn. A world of one rank
+    # runs the one-device ring, whatever the fraction
     actor_fraction: float = 0.5
     # online SCST from served traffic (rl/online.py): served requests per
     # learner batch, and learner updates between publishes into the service

@@ -1,7 +1,7 @@
 """Parallelism across devices (the JAX package's ``parallel/``): the
-gradient communication of the data-parallel steps (``comms.py``). The
-actor/learner submeshes, the compile layer and sequence parallelism come
-with their slices (ROADMAP.md)."""
+gradient communication of the data-parallel steps (``comms.py``) and the
+actor/learner submeshes of decoupled SCST (``submesh.py``). The compile
+layer and sequence parallelism come with their slice (ROADMAP.md)."""
 
 from cst_captioning_tpu_torch.parallel.comms import (
     Bucket,
@@ -17,6 +17,14 @@ from cst_captioning_tpu_torch.parallel.comms import (
     reduce_tree,
     start_reduce,
 )
+from cst_captioning_tpu_torch.parallel.submesh import (
+    SubmeshPlan,
+    grow_actors,
+    largest_divisor,
+    plan_submesh,
+    shared_plan,
+    shrink_actors,
+)
 
 __all__ = [
     "Bucket",
@@ -24,11 +32,17 @@ __all__ = [
     "CommConfig",
     "GradReducer",
     "Reduction",
+    "SubmeshPlan",
+    "grow_actors",
+    "largest_divisor",
     "ledger",
     "mp_shard_view",
     "per_leaf_f32_bytes",
     "plan_buckets",
+    "plan_submesh",
     "reduce_sums",
     "reduce_tree",
+    "shared_plan",
+    "shrink_actors",
     "start_reduce",
 ]

@@ -31,9 +31,16 @@ Fault kinds (``Fault._KINDS``, the JAX tuple):
 - ``"param_swap"``: a drain landing exactly at the hot swap (fire at
   ``serving.param_swap``): the swap is refused and the drained snapshot
   replays under the old version, never a torn one.
-- ``"actor_preempt"``: preempt one actor device of the decoupled RL
-  trainer (fire at ``rl.actor.step``; ``host`` indexes the victim).
-- ``"host_rejoin"`` at ``rl.actor.step``: re-admit a shed actor device.
+- ``"actor_preempt"``: preempt one actor rank of the decoupled RL
+  trainer (fire at ``rl.actor.step``; ``host`` indexes the victim in the
+  current actor set). The rank is shed, not killed: it stays alive and
+  idle.
+- ``"host_rejoin"`` at ``rl.actor.step``: re-admit a shed actor rank
+  (``host`` indexes the initial actor set). Across ranks the epoch agrees
+  on both at each batch boundary, in one exchange over the world: the
+  requests of the lowest rank holding any land on every rank, so the same
+  seeded plan run on every rank (each rank visits ``rl.actor.step`` once a
+  batch) counts once, and a request made on one rank alone lands on all.
 - ``"partial_preempt"``: lose peer ``host`` on the active
   :class:`~cst_captioning_tpu_torch.resilience.health.HealthMonitor`
   (``health.simulate_peer_loss``: a tombstone and the ``peer_lost`` flag,

@@ -197,10 +197,12 @@ def make_parallel_rl_decode(model, mesh, num_rollouts: int,
     rows; ``mesh=None`` is the one-device decode): each rank decodes its
     own rows of the global batch (a decode has no cross-row interaction),
     drawing the noise of its global rows (``rollout_noise``'s
-    ``row_offset``), so the rollouts of the global batch equal the
-    one-rank decode's token for token at any world size. The JAX decode
-    folds the axis index into its key instead; the port's draws differ
-    from JAX's by design (module docstring)."""
+    ``row_offset``: ``mesh.rank`` times the rows given, so on an actor or
+    learner submesh its index within that side), and the rollouts of the
+    global batch equal the one-rank decode's token for token at any world
+    size or actor count. The JAX decode folds the axis index into its key
+    instead; the port's draws differ from JAX's by design (module
+    docstring)."""
     del model  # the decode call names the model that holds the params
 
     def decode(model, feats, masks, seed: int, noise_fn=None):

@@ -15,6 +15,7 @@ from cst_captioning_tpu_torch.train.mesh import (
     make_mesh,
     replicate,
     shard_batch,
+    submesh,
 )
 from cst_captioning_tpu_torch.train.steps import (
     make_parallel_xe_step,
@@ -37,5 +38,6 @@ __all__ = [
     "make_xe_step",
     "replicate",
     "shard_batch",
+    "submesh",
     "xe_row_weights",
 ]

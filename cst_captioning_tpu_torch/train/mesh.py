@@ -9,7 +9,9 @@ shard along axis 0 across the ranks (:func:`shard_batch`: this rank's
 contiguous rows, the ``Batcher(host_shard=...)`` slicing); parameters and
 optimizer state are replicated, and :func:`replicate` broadcasts them from
 rank 0. The ``('data', 'seq')`` and ``('data', 'mp')`` meshes come with
-the model- and sequence-parallel slice and raise.
+the model- and sequence-parallel slice and raise. :func:`submesh` is a
+``DataMesh`` over a subset of the ranks (the actor and learner sides of
+``parallel/submesh.py``), with its own group.
 
 The partition rule tables are the JAX package's, as plain data: ordered
 ``(family, path regex, spec)`` rows, the spec a tuple of axis names or
@@ -37,13 +39,22 @@ _MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 
 @dataclass(frozen=True)
 class DataMesh:
-    """One ``'data'`` axis over ``world`` ranks, seen from ``rank``."""
+    """One ``'data'`` axis over ``world`` ranks, seen from ``rank``
+    (its index on the axis). ``ranks`` are the axis's global ranks (empty:
+    ``0 .. world-1``). A mesh without a ``group`` and ``world`` above 1
+    runs in one process: a plan over virtual ranks (``AsyncSCSTTrainer``
+    runs every role of such a plan here)."""
 
     axis: str
     rank: int
     world: int
     device: torch.device
     group: object = None        # the axis's process group (None: world 1)
+    ranks: tuple = ()
+
+    @property
+    def global_ranks(self) -> tuple[int, ...]:
+        return tuple(self.ranks) or tuple(range(self.world))
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -82,7 +93,31 @@ def make_mesh(num_devices: int = 0, axis: str = "data",
     dev = multihost.local_device(torch.device("cuda" if device is None
                                               else device))
     return DataMesh(axis=axis, rank=rank, world=world, device=dev,
-                    group=dist.group.WORLD if dist.is_initialized() else None)
+                    group=dist.group.WORLD if dist.is_initialized() else None,
+                    ranks=tuple(range(world)))
+
+
+def submesh(mesh: DataMesh, ranks) -> DataMesh | None:
+    """The ``DataMesh`` over ``ranks`` (global ranks of ``mesh``, in axis
+    order), seen from this rank: its ``rank`` and ``world`` are the index
+    and size within ``ranks``, its ``group`` their own
+    (``multihost.group_of``; none for one rank, or when ``mesh`` has no
+    group). A rank outside ``ranks`` gets None, never a mesh it could
+    enter a collective on. Creating the group is collective over the whole
+    world: every rank calls this for each rank set, in the same order."""
+    ranks = tuple(int(r) for r in ranks)
+    parent = mesh.global_ranks
+    if not ranks or len(set(ranks)) != len(ranks) \
+            or not set(ranks) <= set(parent):
+        raise ValueError(f"submesh ranks {ranks} are not distinct ranks of "
+                         f"the mesh's {parent}")
+    group = (multihost.group_of(ranks)
+             if len(ranks) > 1 and mesh.group is not None else None)
+    me = parent[mesh.rank]
+    if me not in ranks:
+        return None
+    return DataMesh(axis=mesh.axis, rank=ranks.index(me), world=len(ranks),
+                    device=mesh.device, group=group, ranks=ranks)
 
 
 def batch_sharding(mesh: DataMesh) -> tuple[int, int]:
@@ -110,11 +145,12 @@ def shard_batch(mesh: DataMesh, batch, dim: int = 0):
     return multihost._tree_map(take, batch)
 
 
-def replicate(mesh: DataMesh, state):
+def replicate(mesh: DataMesh, state, src: int = 0):
     """Broadcast a ``TrainState``'s parameters, optimizer moments and step
-    from rank 0 -> the state (updated in place). The JAX package assembles
-    its replicated arrays from identical host copies; a broadcast also
-    keeps a rank that restored another file from drifting apart."""
+    from global rank ``src`` -> the state (updated in place). The JAX
+    package assembles its replicated arrays from identical host copies; a
+    broadcast also keeps a rank that restored another file from drifting
+    apart."""
     if mesh.group is None or mesh.world == 1:
         return state
     tensors = [p.data for p in state.params]
@@ -123,11 +159,11 @@ def replicate(mesh: DataMesh, state):
         if isinstance(v, list):
             tensors.extend(v)
     for t in tensors:
-        dist.broadcast(t, src=0, group=mesh.group)
+        dist.broadcast(t, src=src, group=mesh.group)
     counters = torch.tensor([state.step, state.opt_state.get("count", 0),
                              state.seed], dtype=torch.int64,
                             device=tensors[0].device)
-    dist.broadcast(counters, src=0, group=mesh.group)
+    dist.broadcast(counters, src=src, group=mesh.group)
     state.step, count, state.seed = (int(v) for v in counters.tolist())
     if "count" in state.opt_state:
         state.opt_state["count"] = count

@@ -28,8 +28,14 @@ ends) with ``train.anomaly``'s detector, dumping postmortems on sentinel
 trips and SIGTERM saves. With obs off the loops run no extra device work.
 
 ``train.rl_topology="decoupled"`` runs the RL epochs through
-``rl.async_scst.AsyncSCSTTrainer`` (the actor/learner ring on one device);
-its drain persists the in-flight ring in ``seam.npz``.
+``rl.async_scst.AsyncSCSTTrainer``: the actor/learner ring on one device,
+or, on a mesh of several ranks, the ranks split into actor and learner
+ranks (``parallel.submesh.plan_submesh`` at ``rl.actor_fraction``), every
+rank fed the global batch from the same seeded batcher and sliced by
+role. Every rank sees the same steps and leaves each epoch holding the
+learner's state, so rank 0 (an actor) writes the learner's parameters and
+moments; a drain gathers the learners' in-flight ring into the one
+``seam.npz``, and a stop any rank asks for drains every rank.
 
 Resilience beyond the sentinel: ``train.spike_mode="adaptive"`` takes
 the sentinel's spike bound from the loss EWMA (``resilience/adaptive.py``,
@@ -69,9 +75,8 @@ poll comes before each step's collectives, so a survivor drains without
 entering a collective with a dead peer.
 
 Not ported (ROADMAP.md names their slices): the degraded or regrown meshes
-of ``elastic="degraded"``, the model- and sequence-parallel meshes, and the
-decoupled RL topology across ranks; their config fields raise
-(``config.py``).
+of ``elastic="degraded"`` and the model- and sequence-parallel meshes;
+their config fields raise (``config.py``).
 """
 
 from __future__ import annotations
@@ -239,11 +244,6 @@ class Trainer:
                 f"training batch_size {cfg.data.batch_size} must be "
                 f"divisible by the mesh's {self.mesh.world}-device 'data' "
                 "axis; pick a multiple or set mesh.num_devices/seq_devices")
-        if self.mesh is not None and self.world > 1 \
-                and cfg.train.rl_topology == "decoupled":
-            raise ValueError(
-                "train.rl_topology='decoupled' across ranks is not ported "
-                "yet (the actor/learner slice); run it on one device")
         # analytic FLOPs per teacher-forced XE row (obs/flops.py): the
         # flops.xe.step counter behind the run report's MFU column
         mc = cfg.model
@@ -868,20 +868,31 @@ class Trainer:
             bleu_scale=cfg.rl.reward_bleu4_scale,
             num_threads=cfg.rl.reward_threads)
         if cfg.train.rl_topology == "decoupled":
-            # the actor/learner ring schedule (rl/async_scst.py)
+            # the actor/learner ring schedule (rl/async_scst.py), split
+            # across the ranks of a mesh
             scst = AsyncSCSTTrainer(
                 self.model, self.reward, cfg.rl, max_len=cfg.model.max_len,
                 guard=self.guard, stats=self._stats,
-                batch_size=cfg.data.batch_size, on_event=self.log.log)
+                batch_size=cfg.data.batch_size, mesh=self.mesh,
+                comm=self.comm, on_event=self.log.log)
+            if scst.plan is not None:
+                self.log.log("rl_split", actors=list(scst.plan.actor_ranks),
+                             learners=list(scst.plan.learner_ranks),
+                             shared=scst.plan.shared)
         else:
             scst = SCSTTrainer(self.model, self.reward, cfg.rl,
                                max_len=cfg.model.max_len, guard=self.guard,
                                stats=self._stats, on_event=self.log.log,
                                mesh=self.mesh, comm=self.comm)
+        # a split epoch takes the global batch on every rank and slices it
+        # by role
+        split = cfg.train.rl_topology == "decoupled" \
+            and self.mesh is not None and self.mesh.world > 1
         rl_batcher = Batcher(
             self.train_ds, batch_size=cfg.data.batch_size,
             max_len=cfg.model.max_len, mode="video",
-            seed=cfg.data.shuffle_seed, host_shard=self._host_shard())
+            seed=cfg.data.shuffle_seed,
+            host_shard=(0, 1) if split else self._host_shard())
         rl_batcher.salt = self.batcher.salt
         self._rl_batcher = rl_batcher
         target = self.rl_epochs + epochs
@@ -982,7 +993,11 @@ class Trainer:
             finally:
                 stop.set()
             profiler.stop()
-            if pre.requested:
+            # a decoupled epoch across ranks stops every rank when any one
+            # asks: a rank whose peer was preempted saves with it
+            agreed = isinstance(scst, AsyncSCSTTrainer) and \
+                scst.last_stopped and not self._peer_lost()
+            if pre.requested or agreed:
                 self._preempt_save("rl", counter["step"], counter["n"],
                                    sentinel, seam=seam_sink or None)
             if self._peer_lost():

@@ -18,8 +18,9 @@ JAX kernels in interpret mode, the port's plain versions):
   in strict mode; the ring seam through ``Trainer._seam_bytes`` /
   ``_load_seam`` and a seam the JAX trainer wrote; a seam of another
   batch order discarded; the one-device preemption falling back to the
-  sync loop; a rejoin without a split a no-op; a layout of several
-  devices refused."""
+  sync loop; a rejoin without a split a no-op; a layout of two virtual
+  ranks planned as one actor and one learner, and a 2-D mesh refused.
+  The split across gloo ranks is ``tests/test_torch_rl_split.py``'s."""
 
 import types
 
@@ -444,9 +445,26 @@ def test_one_device_preemption_falls_back_to_sync(setup):
 
 
 def test_several_devices_are_refused(setup):
-    with pytest.raises(ValueError, match="actor/learner slice"):
-        _port(setup, _rl(), devices=[torch.device("cuda", 0),
-                                     torch.device("cuda", 1)])
-    a, state = _port(setup, _rl(), devices=[torch.device("cpu")])
+    """A layout of several devices is the actor/learner split: at world 2
+    (a mesh of two virtual ranks, run in this process) the plan is one
+    actor and one learner, and the epoch equals the one-device run bit for
+    bit; only a 2-D mesh is refused, naming the model- and
+    sequence-parallel slice."""
+    mesh = ttrain.DataMesh("data", 0, 2, torch.device("cpu"))
+    a, state = _port(setup, _rl(), mesh=mesh, batch_size=B)
+    plan = a._plan
+    assert not plan.shared and (plan.actor_ranks, plan.learner_ranks) == \
+        ((0,), (1,))
     state, m = a.train_epoch(state, _torch_batches(setup, 2), _seeds())
+    one, o_state = _port(setup, _rl())
+    o_state, om = one.train_epoch(o_state, _torch_batches(setup, 2),
+                                  _seeds())
     assert len(m) == 2
+    _same_run(om, m, one.reward, a.reward)
+    _equal_params(o_state, state)
+
+    class Grid:     # a (data, mp) grid of four virtual ranks
+        axis_names, world, group = ("data", "mp"), 4, None
+
+    with pytest.raises(ValueError, match="model- and sequence-parallel"):
+        _port(setup, _rl(), mesh=Grid())

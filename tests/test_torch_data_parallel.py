@@ -512,13 +512,24 @@ def test_cli_train_two_ranks(trainer_runs, tmp_path):
 
 
 def test_decoupled_topology_across_ranks_is_refused(monkeypatch, tmp_path):
-    """The actor/learner split across ranks comes with its slice: a world
-    of two (the rank helpers report it) with rl_topology='decoupled'
-    raises before anything is built."""
-    from cst_captioning_tpu_torch.train import multihost
+    """The actor/learner split across ranks is ported: at a world of two
+    (the rank helpers report it; no process group, so its ranks are
+    virtual) the decoupled trainer plans one actor and one learner on the
+    Trainer's mesh. What stays refused is a 2-D mesh, naming the model-
+    and sequence-parallel slice."""
+    from cst_captioning_tpu_torch.rl import AsyncSCSTTrainer
+    from cst_captioning_tpu_torch.train import make_mesh, multihost
 
     monkeypatch.setattr(multihost, "host_shard", lambda: (0, 2))
     cfg = get_experiment("msrvtt_cst_consensus").override(
-        train__rl_topology="decoupled", train__ckpt_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="actor/learner slice"):
-        Trainer(cfg, None, device="cpu")
+        train__rl_topology="decoupled", train__ckpt_dir=str(tmp_path),
+        **{f"model__{k}": v for k, v in MODEL.items()})
+    mesh = make_mesh(cfg.mesh.num_devices, device="cpu")
+    assert mesh.world == 2 and mesh.group is None
+    model = CaptionModel(cfg.model, device="cpu")
+    a = AsyncSCSTTrainer(model, None, cfg.rl, batch_size=cfg.data.batch_size,
+                         mesh=mesh)
+    assert (a._plan.actor_ranks, a._plan.learner_ranks) == ((0,), (1,))
+    with pytest.raises(ValueError, match="model- and sequence-parallel"):
+        get_experiment("msrvtt_cst_consensus").override(
+            train__rl_topology="decoupled", mesh__mp_devices=2)

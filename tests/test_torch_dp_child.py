@@ -1,7 +1,8 @@
 """One rank of a multi-process run of the PyTorch port, for the
 data-parallel tests (``tests/test_torch_mesh.py``, ``test_torch_comms.py``,
-``test_torch_multihost.py``, ``test_torch_data_parallel.py``). Not a test
-module: it holds no test functions.
+``test_torch_multihost.py``, ``test_torch_data_parallel.py``,
+``test_torch_rl_split.py``). Not a test module: it holds no test
+functions.
 
     python tests/test_torch_dp_child.py JOB RANK WORLD INIT_FILE ARGS OUT
 
@@ -33,6 +34,11 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
     out = os.path.join(tmp_dir, f"{job}.out")
     with open(args_path, "wb") as f:
         pickle.dump(args, f)
+    # a rendezvous file or results left by an earlier launch of the job in
+    # this directory would pair the ranks with the dead ones
+    for stale in [init] + [f"{out}.rank{r}" for r in range(world)]:
+        if os.path.exists(stale):
+            os.remove(stale)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     # stderr to files: a rank blocked on a full pipe would stall the
@@ -368,6 +374,134 @@ def job_partial_kill(rank, world, a):
         out["step"] = int(tr.state.step)
     _write(a, rank, out)
     os._exit(0)          # the lost peer never joins a teardown
+
+
+class TokenReward:
+    """``tests/test_async_scst.py``'s rigged reward: +1 per occurrence of
+    a target token; ``calls`` keeps every scored row batch."""
+
+    def __init__(self, target: int = 7):
+        self.target = target
+        self.calls = []
+
+    def __call__(self, video_ids, rows):
+        import numpy as np
+
+        rows = np.asarray(rows)
+        self.calls.append(rows.copy())
+        return (rows == self.target).sum(axis=1).astype(np.float32)
+
+
+def split_run(a, case, mesh, device="cpu"):
+    """One decoupled epoch of ``case`` (``rl`` overrides, ``faults``,
+    ``stop_after``) on ``mesh`` (a real or a virtual DataMesh) from the
+    test's weights and batches -> its ledgers, events, scored rows,
+    losses, params and drained ring."""
+    import torch  # graftlint: disable=GL006
+
+    from cst_captioning_tpu_torch.config import RLConfig, TrainConfig
+    from cst_captioning_tpu_torch.resilience.chaos import Fault, FaultPlan
+    from cst_captioning_tpu_torch.rl import AsyncSCSTTrainer, rollout_seed
+    from cst_captioning_tpu_torch.train import (
+        create_train_state, make_optimizer)
+
+    model = _small_model(a, device)
+    tx = make_optimizer(TrainConfig(**a["train"]), 10)
+    state = create_train_state(model, tx, seed=1)
+    events = []
+    reward = TokenReward()
+    tr = AsyncSCSTTrainer(
+        model, reward, RLConfig(**{**a["rl"], **case.get("rl", {})}),
+        batch_size=a["B"], mesh=mesh,
+        on_event=lambda e, **kw: events.append([e, kw]))
+    t = lambda x: {k: torch.from_numpy(v).to(device)  # noqa: E731
+                   for k, v in x.items()}
+    batches = [(t(f), t(m), list(v), None) for f, m, v in a["batches"]]
+    from cst_captioning_tpu_torch.train import multihost
+
+    faults = [Fault("rl.actor.step", k, at=at, host=h)
+              for k, at, h in case.get("faults", ())]
+    me = multihost.process_index()
+    plan = FaultPlan(faults if me in case.get("ranks", (me,)) else [])
+    seen = {"n": 0}
+
+    def stop():
+        seen["n"] += 1
+        return seen["n"] > case.get("stop_after", 10 ** 9)
+
+    sink = {}
+    with plan.activate():
+        state, ms = tr.train_epoch(
+            state, batches, lambda j: rollout_seed(7, 0, 1, j),
+            should_stop=stop, seam_sink=sink)
+    return {"staleness": dict(tr.last_staleness),
+            "dropped": tr.last_dropped, "rejoined": tr.last_rejoined,
+            "events": events, "fired": [f["kind"] for f in plan.fired],
+            "calls": reward.calls, "losses": [m["rl_loss"] for m in ms],
+            "rewards": [m["reward_mean"] for m in ms],
+            "params": _np(state.params), "step": int(state.step),
+            "n_actors": tr._plan.n_actors if tr._plan else 1,
+            "fallback": tr._fallback_sync, "occupancy": tr.last_occupancy,
+            "stopped": tr.last_stopped, "ring": sink.get("ring", [])}
+
+
+def job_split(rank, world, a):
+    """Each case of ``a["cases"]`` through ``split_run`` on the world's
+    ranks."""
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    return {c["name"]: split_run(a, c, mesh) for c in a["cases"]}
+
+
+def job_split_trainer(rank, world, a):
+    """The decoupled topology through the Trainer on the world's ranks:
+    for each case of ``a["cases"]`` a Trainer from the seeded init (XE
+    skipped), its RL epoch under the case's fault plan on every rank
+    (``ranks``: on those alone); ``resume`` restarts the case named there
+    from its checkpoints with ``train.resume="auto"``."""
+    import json
+
+    from cst_captioning_tpu_torch.data import CaptionDataset
+    from cst_captioning_tpu_torch.presets import get_experiment
+    from cst_captioning_tpu_torch.resilience.chaos import Fault, FaultPlan
+    from cst_captioning_tpu_torch.resilience.preempt import Preempted
+    from cst_captioning_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for case in a["cases"]:
+        name = case["name"]
+        run_dir = os.path.join(a["tmp"], case.get("resume", name))
+        extra = {"train__resume": "auto"} if case.get("resume") else {}
+        cfg = get_experiment(a["preset"]).override(
+            train__ckpt_dir=os.path.join(run_dir, "ck"), **a["overrides"],
+            **extra)
+        ds = CaptionDataset(a["info_json"], a["features"], "train",
+                            a["max_frames"],
+                            consensus_weights=cfg.data.consensus_weights)
+        log = os.path.join(a["tmp"], f"{name}.jsonl")
+        tr = Trainer(cfg, ds, None, log_path=log, device="cpu")
+        if not case.get("resume"):
+            tr.epoch = tr.xe_epochs = 1      # as after the XE epoch
+        faults = [Fault(*f) for f in case.get("faults", ())]
+        plan = FaultPlan(faults if rank in case.get("ranks", (rank,))
+                         else [])
+        res = {"preempted": False}
+        try:
+            with plan.activate():
+                tr.train_rl()
+        except Preempted:
+            res["preempted"] = True
+        finally:
+            tr.close()
+        mine = log if rank == 0 else log.replace(".jsonl",
+                                                 f".proc{rank}.jsonl")
+        res.update(params=_np(tr.state.params), step=int(tr.state.step),
+                   rl_epochs=tr.rl_epochs,
+                   fired=[f["kind"] for f in plan.fired],
+                   events=[json.loads(x) for x in open(mine)])
+        out[name] = res
+    return out
 
 
 def _write(a, rank, payload):

@@ -66,7 +66,7 @@ def test_port_imports_no_jax():
                 "resilience.adaptive", "rl.async_scst", "rl.online",
                 "resilience.health", "obs.fleet", "cli.obs_report",
                 "train.mesh", "train.multihost", "parallel",
-                "parallel.comms"):
+                "parallel.comms", "parallel.submesh"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 
