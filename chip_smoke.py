@@ -336,10 +336,47 @@
    and clips/s beside the reference's (one card time-sliced between
    three processes: semantics, not speed), the broadcast's ms an update,
    the occupancy, each rank's launches.
+8f. elastic: elastic training over real ranks (``train.elastic=
+   "degraded"``, the Trainer's continuations, ``multihost.regroup``) on
+   the data_parallel phase's corpus and start weights, at
+   msrvtt_cst_consensus as that phase runs it (full width, kernels 1 and
+   2, dropout 0, float32, B=64 global), the health phase's watchdog
+   periods, two gloo ranks on the one card, host = rank, this script as
+   ``--dp-rank`` children; two XE epochs, then two pipelined CST epochs.
+   Beside the two ranks wait a restarted host 1 and a restarted host 0,
+   each until its tombstone appears. (a) The parent SIGKILLs host 1 37 ms
+   after its third XE step's event (mid-step); host 0 finds the loss
+   (its monitor; its collective raised), drains, regroups at world 1 and
+   goes on. (c) The restarted host 1 finds its tombstone and rejoins:
+   ``mesh_regrow`` with hosts [0, 1] at generation 2. (b) The parent
+   SIGKILLs host 0, rank 0, two CST steps after the regrow; host 1 writes
+   the drain save (no seam: no update past the loss) and goes on as rank
+   0 of generation 3. (d) The restarted host 0 announces itself and exits
+   before the rendezvous: ``regrow_refused``. A degraded boundary waits
+   0.3 s, so a restarted host arrives while the survivors still train.
+   Gates: the events' hosts and generations, host 0's XE clock and the
+   RL clock contiguous, and every stretch between two membership changes
+   bitwise equal step by step (params and Adam moments, a fingerprint of
+   their bits on the card) to a fresh run at its world resumed from the
+   drain save it began at: (a) at world 1 to the regrow, (c) at world 2
+   on both hosts to host 0's death (two more ranks), (b) and (d) at world
+   1 to the end, through the refusal (the run without the rejoin). (e)
+   msrvtt_scst (kernel 3 decodes): two ranks, one RL epoch, the parent
+   SIGKILLs host 1 after the second SCST step; host 0's continuation
+   bitwise as above. Planted faults, in one process with two simulated
+   hosts and one XE epoch, must fail the stretch gate: a survivor that
+   keeps its own state and bookkeeping instead of the drain save, and a
+   regrow that takes the drain's position with the previous drain's
+   parameters (the stale state a rejoiner would bring). Reported: the
+   detection latency against the window, the rendezvous, regroup and
+   restore ms of each continuation and of the rejoiner, the first step's
+   ms on each new world, the outage wall (death to the first step on the
+   new world; the regrow drain to the first step after it), each host's
+   kernel launches.
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
-   rl_online's, resilience's, health's, import's, data_parallel's and
-   rl_split's included),
+   rl_online's, resilience's, health's, import's, data_parallel's,
+   rl_split's and elastic's included),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -4635,9 +4672,11 @@ def dp_child(argv: list) -> int:
 
     global DP_DEVICE, DP_MODEL
     rank, world, init, args_path, out_path = argv
-    rank, world = int(rank), int(world)
     with open(args_path, "rb") as f:
         a = pickle.load(f)
+    if a.get("job") == "elastic":
+        return el_child(rank, int(world), a, out_path)
+    rank, world = int(rank), int(world)
     if a.get("job") == "rl_split":
         return split_child(rank, world, init, a, out_path)
     DP_DEVICE, DP_MODEL = a["device"], a["model"]
@@ -5239,6 +5278,681 @@ def rl_split_phase(root: str, data: dict, start: dict, smi: str
         launched
 
 
+
+# ---- phase 8f: elastic training over real ranks ------------------------------
+
+EL_XE_EPOCHS, EL_RL_EPOCHS = 2, 2
+EL_KILL_XE_STEP = 3       # (a): host 1 dies after logging this XE step
+EL_KILL_RL_STEPS = 2      # (b): host 0 dies this many RL steps after both
+                          # the regrow and the RL phase's start
+EL_KILL_SCST_STEP = 2     # (e): host 1 dies after this SCST step
+EL_OFFSET_S = 0.037       # a kill lands this long after the step's event
+EL_BOUNDARY_S = 0.3       # a degraded boundary's wait: a restarted host
+                          # arrives while the survivors still train
+EL_TIMEOUT_S = 420        # a launch, start to exit
+EL_STANDBY_WAIT_S = 300   # a restarted host's wait for its tombstone
+EL_PLANTED = ("own_state", "stale_rejoin")
+
+
+class ElasticRefEnd(Exception):
+    """A reference run reached the end of the stretch it checks."""
+
+
+def el_config(root: str, preset: str, hosts: int, **over):
+    """``preset`` as the data_parallel phase runs it (full width, the
+    kernels, dropout 0, float32, B=64) with checkpoints under ``root``,
+    the monitor on over two hosts (``hosts`` 0: the real ranks; 2:
+    simulated in one process), ``elastic="degraded"``, the health phase's
+    watchdog periods, every step save kept."""
+    return dp_config(root, preset, "", **{
+        "train__epochs": EL_XE_EPOCHS, "rl__epochs": EL_RL_EPOCHS,
+        "train__health": True, "train__health_sim_hosts": hosts,
+        "train__health_dir": os.path.join(root, "health"),
+        "train__health_interval_s": HEALTH_INTERVAL_S,
+        "train__peer_timeout_s": HEALTH_TIMEOUT_S,
+        "train__health_misses": HEALTH_MISSES,
+        "train__elastic": "degraded", "train__keep_ckpts": 64,
+        "train__eval_every_epochs": 100, **over})
+
+
+def el_fingerprint(state) -> str:
+    """A bitwise fingerprint of a TrainState, taken on the card: per
+    tensor (params, Adam moments) the integer sum of its bit patterns and
+    their position-weighted sum, hashed with the step."""
+    import hashlib
+
+    tensors = list(state.params)
+    for k in sorted(state.opt_state):
+        if isinstance(state.opt_state[k], list):
+            tensors.extend(state.opt_state[k])
+    sums = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(
+            torch.int32 if t.element_size() == 4 else torch.int16
+        ).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    h = hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes())
+    h.update(str(int(state.step)).encode())
+    return h.hexdigest()
+
+
+def el_tap(path: str, stop_at: str | None = None):
+    """Append one line a step to ``path``, flushed (a killed process
+    keeps what it wrote): ``"<phase>:<step>"``, the state's fingerprint,
+    the world, the step's ms and the kernel launches so far. ``stop_at``
+    raises :class:`ElasticRefEnd` after that step. -> the undo."""
+    from cst_captioning_tpu_torch.rl import scst as scst_mod
+
+    f = open(path, "a", buffering=1)
+    saved = (trainer_mod.make_parallel_xe_step, trainer_mod.make_xe_step,
+             scst_mod.SCSTTrainer._apply)
+
+    def record(key, state, world, t0):
+        dp_sync()
+        f.write(json.dumps({"key": key, "fp": el_fingerprint(state),
+                            "world": world,
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "ts": time.time(),
+                            "launches": all_launches()}) + "\n")
+        if key == stop_at:
+            raise ElasticRefEnd(key)
+
+    def wrap(factory, parallel):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+            world = args[1].world if parallel else 1
+
+            def tapped(state, *rest):
+                t0 = time.perf_counter()
+                state, m = step(state, *rest)
+                record(f"xe:{int(state.step)}", state, world, t0)
+                return state, m
+            return tapped
+        return make
+
+    def apply(self, state, *rest):
+        t0 = time.perf_counter()
+        state, m = saved[2](self, state, *rest)
+        record(f"rl:{int(state.step)}", state,
+               1 if self.mesh is None else self.mesh.world, t0)
+        return state, m
+
+    trainer_mod.make_parallel_xe_step = wrap(saved[0], True)
+    trainer_mod.make_xe_step = wrap(saved[1], False)
+    scst_mod.SCSTTrainer._apply = apply
+
+    def undo():
+        (trainer_mod.make_parallel_xe_step, trainer_mod.make_xe_step,
+         scst_mod.SCSTTrainer._apply) = saved
+        f.close()
+    return undo
+
+
+def el_harness(root: str, planted: str = ""):
+    """Wrap the Trainer's continuations for this phase -> the undo. Each
+    drain save a continuation restores is hard-linked to
+    ``<root>/drains/h<host>_<i>_<kind>`` (a later save of the same step
+    number replaces the original) for its reference; a degraded boundary
+    waits ``EL_BOUNDARY_S``. ``planted``: ``own_state`` keeps the
+    survivor's own state and bookkeeping instead of the drain save;
+    ``stale_rejoin`` takes, at a regrow, the drain save's position with
+    the previous drain save's parameters and moments: the stale state a
+    rejoiner would bring."""
+    orig = trainer_mod.Trainer._restore_drain
+    poll = trainer_mod.Trainer._poll_rejoin
+    seen: list = []
+
+    def keep(self, kind):
+        name = self._last_step_ckpt
+        if self.rank == 0:
+            shutil.copytree(
+                os.path.join(self.cfg.train.ckpt_dir, name),
+                os.path.join(root, "drains",
+                             f"h{self.host_id}_{len(seen)}_{kind}", name),
+                copy_function=os.link)
+        seen.append(name)
+
+    def restore(self, what):
+        kind = what.split()[0]
+        if planted == "own_state" and kind == "degraded":
+            keep(self, kind)
+            return self.state, self._ckpt_infos()
+        out = orig(self, what)      # names the agreed drain save
+        keep(self, kind)
+        if planted == "stale_rejoin" and kind == "regrow":
+            # the drain's position, the previous drain's state
+            self._last_step_ckpt = seen[-2]
+            stale, _ = orig(self, what)
+            self._last_step_ckpt = seen[-1]
+            return stale, out[1]
+        return out
+
+    def slow_poll(self):
+        if self.health is not None and self.health.lost_hosts:
+            time.sleep(EL_BOUNDARY_S)
+        poll(self)
+
+    trainer_mod.Trainer._restore_drain = restore
+    trainer_mod.Trainer._poll_rejoin = slow_poll
+
+    def undo():
+        trainer_mod.Trainer._restore_drain = orig
+        trainer_mod.Trainer._poll_rejoin = poll
+    return undo
+
+
+def el_drains(root: str) -> dict:
+    """The drain saves the harness kept, by host, in order: each with its
+    directory, name, kind and ``"<phase>:<step>"`` key."""
+    out: dict = {}
+    d = os.path.join(root, "drains")
+    for entry in sorted(os.listdir(d), key=lambda n: int(n.split("_")[1])):
+        host, _, kind = entry.split("_")
+        (name,) = os.listdir(os.path.join(d, entry))
+        infos = json.load(open(os.path.join(d, entry, name, "infos.json")))
+        out.setdefault(int(host[1:]), []).append({
+            "dir": os.path.join(d, entry), "name": name, "kind": kind,
+            "key": f"{infos['phase']}:{infos['global_step']}"})
+    return out
+
+
+def el_dataset(data: dict, mc) -> CaptionDataset:
+    return CaptionDataset(data["info_json"],
+                          {n: data[n] for n, _ in mc.modalities}, "train",
+                          mc.max_frames,
+                          consensus_weights=data["consensus_weights"])
+
+
+def el_child(who: str, world: int, a: dict, out_path: str) -> int:
+    """One process of an elastic launch: rank ``who`` of the launch's gloo
+    group, or ``standby<i>``, host ``a["standbys"][i]["host"]`` restarted:
+    it waits for its tombstone and rejoins through the Trainer
+    (``flaky``: it exits after its announce, before the rendezvous). A
+    reference rank (``a["ref"]``) resumes ``a["over"]``'s drain save with
+    no monitor. Every step's fingerprint streams to
+    ``<root>/steps_<label><who>.jsonl``; a result pickle at the end (a
+    killed host writes none)."""
+    import pickle
+
+    from cst_captioning_tpu_torch.resilience import health
+    from cst_captioning_tpu_torch.train import multihost
+
+    global DP_DEVICE, DP_MODEL
+    DP_DEVICE, DP_MODEL = a["device"], a["model"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = a["root"]
+    cfg = el_config(a.get("ckpt_dir", root), a["preset"], 0,
+                    **a.get("over", {}))
+    ds = el_dataset(a["data"], cfg.model)
+    el_harness(root)
+    el_tap(os.path.join(root, f"steps_{a['label']}{who}.jsonl"),
+           a.get("stop_at"))
+    if who.startswith("standby"):
+        spec = a["standbys"][int(who[len("standby"):])]
+        host = spec["host"]
+        tomb = os.path.join(cfg.train.health_dir, f"host{host}.dead")
+        deadline = time.monotonic() + EL_STANDBY_WAIT_S
+        while not os.path.exists(tomb):
+            if time.monotonic() > deadline:
+                return 0
+            time.sleep(0.01)
+        multihost.set_identity(host, world, "gloo",
+                               timeout_s=DP_GROUP_TIMEOUT_S)
+        if spec.get("flaky"):
+            def gone(*args, **kw):
+                os._exit(0)
+            health.rendezvous = gone
+        log = os.path.join(root, f"log_{who}.jsonl")
+    else:
+        host = int(who)
+        multihost.initialize(f"file://{a['init']}", world_size=world,
+                             rank=host, backend="gloo", device=DP_DEVICE,
+                             timeout_s=DP_GROUP_TIMEOUT_S)
+        log = os.path.join(root, f"log{a['label']}.jsonl")
+    ops.reset_launches()
+    tr = trainer_mod.Trainer(cfg, ds, None, log_path=log, device=DP_DEVICE,
+                             params=a["start"], use_mesh=True)
+    if tr.health is not None and not who.startswith("standby"):
+        # every monitor has seen its peer beat before anyone dies
+        deadline = time.monotonic() + 60.0
+        while any(tr.health._seen_seq.get(p) is None
+                  for p in tr.health.peers):
+            check(time.monotonic() < deadline, "elastic: a peer never beat")
+            time.sleep(0.02)
+        multihost.barrier()
+    try:
+        tr.train_xe()
+        tr.train_rl()
+    except ElasticRefEnd:
+        pass
+    finally:
+        tr.close()
+        multihost.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump({"host": host, "launches": all_launches(),
+                     "world": tr.world, "rl_epochs": tr.rl_epochs,
+                     "generation": (tr.health.generation
+                                    if tr.health is not None else None),
+                     "survivors": (tr.health.survivors()
+                                   if tr.health is not None else None)}, f)
+    return 0
+
+
+def el_spawn(root: str, a: dict, world: int, standbys: int,
+             label: str) -> list:
+    """Start this script's ``--dp-rank`` children for ``a`` (``world``
+    ranks and ``standbys`` restarted hosts) -> [(who, Popen, out, err)]."""
+    import pickle
+
+    path = os.path.join(root, f"{label}.args")
+    a = {**a, "root": root, "label": label, "job": "elastic",
+         "init": os.path.join(root, f"{label}.init"), "device": DP_DEVICE,
+         "model": DP_MODEL}
+    with open(path, "wb") as f:
+        pickle.dump(a, f)
+    procs = []
+    for who in [str(r) for r in range(world)] + [
+            f"standby{i}" for i in range(standbys)]:
+        out = os.path.join(root, f"{label}.{who}.out")
+        err = os.path.join(root, f"{label}.{who}.err")
+        with open(err, "w") as e:
+            procs.append((who, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 who, str(world), a["init"], path, out],
+                stdout=subprocess.DEVNULL, stderr=e), out, err))
+    return procs
+
+
+def el_lines(path: str) -> list:
+    """The JSON lines written so far (a torn last line skipped)."""
+    out = []
+    if os.path.exists(path):
+        for line in open(path):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def el_wait(pred, procs, what: str):
+    """Poll ``pred()`` every 10 ms until it returns a value; a child that
+    failed, or the launch's timeout, fails the phase."""
+    deadline = time.monotonic() + EL_TIMEOUT_S
+    while True:
+        got = pred()
+        if got:
+            return got
+        for who, p, _, err in procs:
+            if p.poll() not in (None, 0, -9):
+                check(False, f"elastic: {who} exited {p.returncode} "
+                      f"waiting for {what}:\n" + open(err).read()[-4000:])
+        check(time.monotonic() < deadline,
+              f"elastic: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def el_finish(procs, killed=()) -> dict:
+    """Wait for a launch's children -> the results of those that ran to
+    their end; one that failed fails the phase."""
+    import pickle
+
+    deadline = time.monotonic() + EL_TIMEOUT_S
+    out = {}
+    try:
+        for who, p, res, err in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if who in killed:
+                continue
+            check(p.returncode == 0, f"elastic: {who} exited "
+                  f"{p.returncode}:\n" + open(err).read()[-4000:])
+            if os.path.exists(res):
+                out[who] = pickle.load(open(res, "rb"))
+    finally:
+        for _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def el_reference(root: str, data: dict, start: dict, preset: str,
+                 drain: dict, world: int, stop_at: str | None, label: str,
+                 over: dict | None = None):
+    """A fresh run at ``world`` with no monitor, resumed from the drain
+    save ``drain``, to ``stop_at`` (or the end). One rank runs in this
+    process -> (None, its steps' path); two run as ``--dp-rank`` children
+    -> (their Popen list, to finish later; rank 0's steps' path)."""
+    over = {**(over or {}), "train__health": False,
+            "train__resume": drain["dir"], "mesh__num_devices": world}
+    ck = os.path.join(root, f"ref_{label}")
+    if world > 1:
+        a = {"preset": preset, "data": data, "start": start, "over": over,
+             "ckpt_dir": ck, "stop_at": stop_at, "standbys": []}
+        return (el_spawn(root, a, world, 0, f"ref_{label}"),
+                os.path.join(root, f"steps_ref_{label}0.jsonl"))
+    path = os.path.join(root, f"steps_ref_{label}.jsonl")
+    cfg = el_config(ck, preset, 0, **over)
+    undo = el_tap(path, stop_at)
+    try:
+        tr = trainer_mod.Trainer(cfg, el_dataset(data, cfg.model), None,
+                                 device=DP_DEVICE, params=start,
+                                 use_mesh=True)
+        try:
+            tr.train_xe()
+            tr.train_rl()
+        except ElasticRefEnd:
+            pass
+        finally:
+            tr.close()
+    finally:
+        undo()
+    return None, path
+
+
+def el_key(k: str) -> tuple:
+    ph, st = k.split(":")
+    return {"xe": 0, "rl": 1}[ph], int(st)
+
+
+def el_stretch(lines: list, world: int, after: str,
+               until: str | None = None) -> dict:
+    """The step lines taken at ``world`` after the drain ``after`` and up
+    to ``until`` (inclusive), by key."""
+    lo = el_key(after)
+    hi = el_key(until) if until else (9, 0)
+    return {x["key"]: x for x in lines
+            if lo < el_key(x["key"]) <= hi and x["world"] == world}
+
+
+def el_differ(got: dict, ref_path: str) -> list:
+    """Keys of ``got`` whose fingerprint differs from the reference's (or
+    that it never reached)."""
+    ref = {x["key"]: x["fp"] for x in el_lines(ref_path)}
+    return sorted((k for k, x in got.items() if ref.get(k) != x["fp"]),
+                  key=el_key)
+
+
+def el_first(stretch: dict) -> dict:
+    return stretch[min(stretch, key=el_key)]
+
+
+def el_one(events: list, kind: str, label: str) -> dict:
+    got = [e for e in events if e["event"] == kind]
+    check(len(got) == 1, f"elastic {label}: {kind} events {got}")
+    return got[0]
+
+
+def el_planted(root: str, data: dict, start: dict, kind: str) -> dict:
+    """A planted fault through the continuation in one process, two
+    simulated hosts, one XE epoch: ``own_state`` loses host 1 after step
+    2; ``stale_rejoin`` loses it and takes it back at the next boundary.
+    -> whether the stretch after the planted restore differs from a fresh
+    resume of its true drain save (it must)."""
+    from cst_captioning_tpu_torch.resilience import Fault, FaultPlan
+
+    P = os.path.join(root, f"planted_{kind}")
+    cfg = el_config(P, "msrvtt_cst_consensus", 2, train__epochs=1,
+                    mesh__num_devices=1)
+    faults = [Fault("xe.step", "partial_preempt", at=1, host=1)]
+    if kind == "stale_rejoin":
+        faults.append(Fault("health.rejoin", "host_rejoin", at=0, host=1))
+    path = os.path.join(P, "steps.jsonl")
+    os.makedirs(P, exist_ok=True)
+    undo_h, undo_t = el_harness(P, planted=kind), el_tap(path)
+    try:
+        tr = trainer_mod.Trainer(cfg, el_dataset(data, cfg.model), None,
+                                 device=DP_DEVICE, params=start,
+                                 use_mesh=True)
+        try:
+            with FaultPlan(faults).activate():
+                tr.train_xe()
+        finally:
+            tr.close()
+    finally:
+        undo_t()
+        undo_h()
+    drain = el_drains(P)[0][-1]
+    _, ref = el_reference(P, data, start, "msrvtt_cst_consensus", drain, 1,
+                          None, kind, {"train__epochs": 1})
+    stretch = el_stretch(el_lines(path), 1, drain["key"])
+    bad = el_differ(stretch, ref)
+    return {"drain": drain["key"], "steps": len(stretch), "differ": bad}
+
+
+def elastic_phase(root: str, data: dict, start: dict, smi: str
+                  ) -> tuple[dict, dict]:
+    """Elastic training over real ranks (module docstring, 8f) on the
+    data_parallel phase's corpus and start weights -> (its line, the
+    launches of its runs)."""
+    try:
+        return _elastic(os.path.join(root, "elastic"), data, start, smi)
+    finally:
+        tobs.shutdown()
+
+
+def _elastic(root: str, data: dict, start: dict, smi: str
+             ) -> tuple[dict, dict]:
+    t_phase = time.perf_counter()
+    preset = "msrvtt_cst_consensus"
+    lo, hi = detection_bound_s()
+    window = HEALTH_TIMEOUT_S * HEALTH_MISSES + HEALTH_INTERVAL_S
+    total = dict.fromkeys(all_launches(), 0)
+
+    # ---- (a)-(d): one launch: hosts 0 and 1, host 1 restarted (it
+    #      rejoins), host 0 restarted flaky
+    L = os.path.join(root, "L1")
+    os.makedirs(L)
+    procs = el_spawn(L, {"preset": preset, "data": data, "start": start,
+                         "standbys": [{"host": 1},
+                                      {"host": 0, "flaky": True}]},
+                     2, 2, "L1")
+    log0, log1 = (os.path.join(L, f"logL1{p}.jsonl") for p in ("", ".proc1"))
+    log_r = os.path.join(L, "log_standby0.proc1.jsonl")
+
+    def steps(path, kind):
+        return [e["step"] for e in el_lines(path) if e["event"] == kind]
+
+    t0 = time.perf_counter()
+    el_wait(lambda: max(steps(log1, "xe_step"), default=0)
+            >= EL_KILL_XE_STEP, procs, f"host 1's XE step {EL_KILL_XE_STEP}")
+    time.sleep(EL_OFFSET_S)
+    procs[1][1].kill()
+    t_kill_a = time.time()
+    regrow = el_wait(lambda: next((e for e in el_lines(log0)
+                                   if e["event"] == "mesh_regrow"), None),
+                     procs, "the regrow")
+    base = max([e["step"] for e in el_lines(log0) if e["event"] == "rl_step"
+                and e["ts"] < regrow["ts"]], default=0)
+    el_wait(lambda: max(steps(log0, "rl_step"), default=0)
+            >= base + EL_KILL_RL_STEPS, procs, "host 0's RL steps")
+    time.sleep(EL_OFFSET_S)
+    procs[0][1].kill()
+    t_kill_b = time.time()
+    res = el_finish(procs, {"0", "1"})
+    l1_wall = time.perf_counter() - t0
+    check("standby0" in res, "elastic: the rejoined host 1 left no result")
+    h1 = res["standby0"]
+    ev0, evr = el_lines(log0), el_lines(log_r)
+    st0 = el_lines(os.path.join(L, "steps_L10.jsonl"))
+    st1 = el_lines(os.path.join(L, "steps_L11.jsonl"))
+    str_ = el_lines(os.path.join(L, "steps_L1standby0.jsonl"))
+
+    # (a) host 0 finds the loss and goes on at world 1
+    lost_a = el_one(ev0, "peer_lost", "(a)")
+    deg_a = el_one(ev0, "degraded_mesh", "(a)")
+    check(deg_a["lost"] == [1] and deg_a["survivors"] == [0]
+          and deg_a["devices"] == 1, f"elastic (a): degraded_mesh {deg_a}")
+    xe_clock = sorted(set(steps(log0, "xe_step")))
+    check(xe_clock == list(range(1, len(xe_clock) + 1)),
+          f"elastic (a): host 0's XE clock {xe_clock}")
+    # (c) host 1 restarted rejoins: generation 2, hosts [0, 1]
+    rg = el_one(ev0, "mesh_regrow", "(c)")
+    check(rg["hosts"] == [0, 1] and rg["generation"] == 2
+          and rg["rejoiner"] == 1, f"elastic (c): mesh_regrow {rg}")
+    joined = el_one(evr, "rejoined", "(c)")
+    check(joined["generation"] == 2 and joined["rank"] == 1,
+          f"elastic (c): rejoined {joined}")
+    # (b) host 1 finds host 0's loss, writes the drain save and goes on as
+    #     rank 0 of generation 3, with no update past the loss
+    deg_b = el_one(evr, "degraded_mesh", "(b)")
+    drain_b = el_one(evr, "peer_loss_drain", "(b)")
+    save_b = [e for e in evr if e["event"] == "ckpt_step"
+              and e["step"] == drain_b["step"]][-1]
+    check(deg_b["lost"] == [0] and deg_b["survivors"] == [1]
+          and "bytes" in save_b and not save_b["seam"]
+          and drain_b["batch_index"] == drain_b["step"],
+          f"elastic (b): {deg_b}, {drain_b}, {save_b}")
+    # (d) the restarted host 0 announces and leaves: refused
+    ref_d = el_one(evr, "regrow_refused", "(d)")
+    check(ref_d["rejoiner"] == 0 and h1["generation"] == 3
+          and h1["survivors"] == [1] and h1["rl_epochs"] == EL_RL_EPOCHS,
+          f"elastic (d): {ref_d}, {h1}")
+    rl_clock = sorted(set(steps(log0, "rl_step") + steps(log_r, "rl_step")))
+    check(rl_clock == list(range(1, len(rl_clock) + 1)),
+          f"elastic: the RL clock {rl_clock}")
+
+    # each stretch against a fresh resume from its drain save: (a) world
+    # 1 to the regrow, (c) world 2 (both hosts) to host 0's death, (b)
+    # and (d) world 1 from host 1's drain to the end, through the refusal
+    drains = el_drains(L)
+    check([d["kind"] for d in drains[0]] == ["degraded", "regrow"]
+          and [d["kind"] for d in drains[1]] == ["degraded", "regrow"],
+          f"elastic: drains {drains}")
+    dA, dC = drains[0]
+    dB = drains[1][0]
+    t = time.perf_counter()
+    pair, ref_c = el_reference(L, data, start, preset, dC, 2, dB["key"], "C")
+    _, ref_a = el_reference(L, data, start, preset, dA, 1, dC["key"], "A")
+    _, ref_b = el_reference(L, data, start, preset, dB, 1, None, "B")
+    el_finish(pair)
+    ref_s = time.perf_counter() - t
+    stretches = {
+        "a_world1": (el_stretch(st0, 1, dA["key"], dC["key"]), ref_a),
+        "c_world2_host0": (el_stretch(st0, 2, dC["key"]), ref_c),
+        "c_world2_host1": (el_stretch(str_, 2, dC["key"]),
+                           ref_c.replace("C0.jsonl", "C1.jsonl")),
+        "bd_world1": (el_stretch(str_, 1, dB["key"]), ref_b)}
+    for k, (got, ref) in stretches.items():
+        bad = el_differ(got, ref)
+        check(got and not bad, f"elastic {k}: {len(got)} steps, {bad} "
+              "differ from the fresh resume of their drain save")
+    times = [e for e in ev0 + evr if e["event"] == "elastic_times"]
+    first_a = next(e for e in ev0 if e["event"] == "xe_step"
+                   and e["ts"] > deg_a["ts"])
+    first_c = next(e for e in ev0 if e["event"] in ("xe_step", "rl_step")
+                   and e["ts"] > rg["ts"])
+    first_b = next(e for e in evr if e["event"] == "rl_step"
+                   and e["ts"] > deg_b["ts"])
+    drain_c = el_one(ev0, "regrow_drain", "(c)")
+    lost_b = el_one(evr, "peer_lost", "(b)")
+    launches = {"host0": st0[-1]["launches"], "host1": st1[-1]["launches"],
+                "host1_rejoined": h1["launches"]}
+    for who, src in launches.items():
+        for k in ("fused_additive_attention", "fused_decode_step"):
+            if who != "host1":      # the first host 1 died in XE
+                check(src[k] > 0, f"elastic: {who} never launched {k}")
+        for k, v in src.items():
+            total[k] += v
+    check(lost_a["ts"] - t_kill_a <= window,
+          f"elastic (a): detection {lost_a['ts'] - t_kill_a:.3f} s past "
+          f"the window {window} s")
+    line = {"phase": "elastic", "preset": preset,
+            "scst_preset": "msrvtt_scst", "global_batch": TRAIN_B,
+            "hosts": 2, "backend": "gloo, two ranks on the one card",
+            "detection_bound_s": [lo, hi], "collective_window_s": window,
+            "a_c_b_d": {
+                "wall_s": l1_wall, "reference_s": ref_s,
+                "detection_s": {"a": lost_a["ts"] - t_kill_a,
+                                "b": lost_b["ts"] - t_kill_b},
+                "detected_by": {"a": lost_a["reason"],
+                                "b": lost_b["reason"]},
+                "collective_raised": {
+                    "a": any(e["event"] == "collective_peer_loss"
+                             for e in ev0),
+                    "b": any(e["event"] == "collective_peer_loss"
+                             for e in evr)},
+                "elastic_times": [{k: e[k] for k in (
+                    "kind", "generation", "rendezvous_ms", "regroup_ms",
+                    "restore_ms", "world")} for e in times],
+                "rejoin": {k: joined[k] for k in (
+                    "rendezvous_ms", "regroup_ms", "restore_ms")},
+                "outage_s": {"shrink_a": first_a["ts"] - t_kill_a,
+                             "regrow_c": first_c["ts"] - drain_c["ts"],
+                             "shrink_b": first_b["ts"] - t_kill_b},
+                "first_step_ms": {
+                    k: el_first(got)["ms"] for k, (got, _) in
+                    stretches.items()},
+                "stretch_steps": {k: len(got) for k, (got, _) in
+                                  stretches.items()},
+                "drains": {"a": dA["key"], "c": dC["key"], "b": dB["key"]},
+                "regrow_refused_d": ref_d["detail"],
+                "launches": launches}}
+
+    # ---- (e) SCST (kernel 3 decodes): host 1 dies mid-epoch, host 0
+    #      goes on alone
+    L2 = os.path.join(root, "L2")
+    os.makedirs(L2)
+    over_e = {"train__epochs": 0, "rl__epochs": 1}
+    procs = el_spawn(L2, {"preset": "msrvtt_scst", "data": data,
+                          "start": start, "standbys": [], "over": over_e},
+                     2, 0, "L2")
+    t0 = time.perf_counter()
+    el_wait(lambda: max(steps(os.path.join(L2, "logL2.proc1.jsonl"),
+                              "rl_step"), default=0) >= EL_KILL_SCST_STEP,
+            procs, "host 1's SCST steps")
+    time.sleep(EL_OFFSET_S)
+    procs[1][1].kill()
+    t_kill_e = time.time()
+    res2 = el_finish(procs, {"1"})
+    l2_wall = time.perf_counter() - t0
+    ev_e = el_lines(os.path.join(L2, "logL2.jsonl"))
+    deg_e = el_one(ev_e, "degraded_mesh", "(e)")
+    check(deg_e["lost"] == [1] and deg_e["devices"] == 1,
+          f"elastic (e): {deg_e}")
+    (dE,) = el_drains(L2)[0]
+    _, ref_e = el_reference(L2, data, start, "msrvtt_scst", dE, 1, None,
+                            "E", over_e)
+    st_e = el_lines(os.path.join(L2, "steps_L20.jsonl"))
+    got_e = el_stretch(st_e, 1, dE["key"])
+    bad_e = el_differ(got_e, ref_e)
+    check(got_e and not bad_e,
+          f"elastic (e): {len(got_e)} steps, {bad_e} differ from the fresh "
+          "resume of the drain save")
+    launches_e = {"host0": res2["0"]["launches"],
+                  "host1": el_lines(os.path.join(
+                      L2, "steps_L21.jsonl"))[-1]["launches"]}
+    for who, src in launches_e.items():
+        check(src["fused_decode_stride"] > 0,
+              f"elastic (e): {who} never launched the stride kernel")
+        for k, v in src.items():
+            total[k] += v
+    lost_e = el_one(ev_e, "peer_lost", "(e)")
+    first_e = next(e for e in ev_e if e["event"] == "rl_step"
+                   and e["ts"] > deg_e["ts"])
+    line["e_scst"] = {
+        "wall_s": l2_wall, "drain": dE["key"],
+        "detection_s": lost_e["ts"] - t_kill_e,
+        "outage_s": first_e["ts"] - t_kill_e,
+        "first_step_ms": el_first(got_e)["ms"],
+        "elastic_times": [{k: e[k] for k in (
+            "kind", "generation", "rendezvous_ms", "regroup_ms",
+            "restore_ms", "world")} for e in ev_e
+            if e["event"] == "elastic_times"],
+        "stretch_steps": len(got_e), "launches": launches_e}
+
+    # ---- planted faults, in one process with two simulated hosts
+    planted = {kind: el_planted(root, data, start, kind)
+               for kind in EL_PLANTED}
+    for kind, p in planted.items():
+        check(p["steps"] and p["differ"], f"elastic: the planted '{kind}' "
+              f"fault passed the stretch gate {p}")
+    line.update(planted=planted, wall_s=time.perf_counter() - t_phase,
+                nvidia_smi=smi)
+    return line, total
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU",
@@ -5550,9 +6264,12 @@ def main() -> int:
         emit(parallel)
         split, split_launches = rl_split_phase(root, dp_data, dp_start, smi)
         emit(split)
+        elastic, elastic_launches = elastic_phase(root, dp_data, dp_start,
+                                                  smi)
+        emit(elastic)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for launched in (dp_launches, split_launches):
+    for launched in (dp_launches, split_launches, elastic_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

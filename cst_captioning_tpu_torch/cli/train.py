@@ -37,11 +37,23 @@ The trainer logs the plan as an ``rl_split`` event (``actors``,
 ``learners``: global ranks; ``shared`` for one rank or the strict
 schedule), e.g. ``{"event": "rl_split", "actors": [0, 1], "learners":
 [2, 3], "shared": false}``.
+
+Elastic training: with ``--set train__health=True --set
+train__elastic="'degraded'"`` (and a ``train__health_dir`` every host
+shares) the survivors of a lost rank go on at the smaller world. To bring
+the host back, start its rank again with the same command and the same
+``RANK`` / ``WORLD_SIZE``: it finds its tombstone in the health directory,
+forms no launch group, and joins the survivors' next generation at their
+next batch boundary (a ``rejoined`` event, and ``mesh_regrow`` on the
+survivors). Under ``--dist-init`` pass the same URL; it is not used.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
 
 from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.cli.common import (
@@ -50,7 +62,7 @@ from cst_captioning_tpu_torch.cli.common import (
     open_dataset,
 )
 from cst_captioning_tpu_torch.train import multihost
-from cst_captioning_tpu_torch.train.trainer import Trainer
+from cst_captioning_tpu_torch.train.trainer import Trainer, is_rejoining
 
 
 def main(argv: list[str] | None = None) -> Trainer:
@@ -59,9 +71,17 @@ def main(argv: list[str] | None = None) -> Trainer:
     p.add_argument("--skip-xe", action="store_true",
                    help="run only the RL phase")
     args = p.parse_args(argv)
-    # the process group before any CUDA work: NCCL binds the local rank
-    multihost.initialize(args.dist_init, device=args.device)
     cfg = load_config(args)
+    # the process group before any CUDA work: NCCL binds the local rank. A
+    # host the run lost and that comes back joins the survivors instead
+    rank, world = (int(os.environ.get(k, d)) for k, d in
+                   (("RANK", "0"), ("WORLD_SIZE", "1")))
+    if world > 1 and is_rejoining(cfg, rank):
+        multihost.set_identity(
+            rank, world, "nccl" if torch.device(args.device).type == "cuda"
+            else "gloo")
+    else:
+        multihost.initialize(args.dist_init, device=args.device)
     train_ds = open_dataset(args, cfg, "train")
     try:
         val_ds = open_dataset(args, cfg, "val")
@@ -80,7 +100,8 @@ def main(argv: list[str] | None = None) -> Trainer:
             if not args.skip_xe:
                 trainer.train_xe()
             if cfg.rl.enabled:
-                if cfg.rl.init_from:
+                # a rejoiner holds the survivors' state already
+                if cfg.rl.init_from and not trainer.rejoined:
                     trainer.load_params_from(cfg.rl.init_from, "best")
                 trainer.train_rl()
         finally:

@@ -9,12 +9,13 @@ package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
 A field whose machinery the port does not have yet (the model- and
-sequence-parallel meshes, degraded and regrown elastic meshes) raises
-``ValueError`` when it is set to anything but its default, naming what is
-missing: nothing is accepted and then ignored. The health monitor's knobs
-(``train.health*``, ``peer_timeout_s``, ``dcn_stall_s``),
-``elastic="strict"``, the data mesh (``mesh.num_devices``: one rank a
-device, ``train/mesh.py``) and the gradient-communication knobs
+sequence-parallel meshes) raises ``ValueError`` when it is set to anything
+but its default, naming what is missing: nothing is accepted and then
+ignored. The health monitor's knobs (``train.health*``, ``peer_timeout_s``,
+``dcn_stall_s``), both elastic modes (``train.elastic`` "strict" or
+"degraded", and ``elastic_regrow``: the degraded-mesh continuation and
+grow-back of ``train/trainer.py``), the data mesh (``mesh.num_devices``:
+one rank a device, ``train/mesh.py``) and the gradient-communication knobs
 (``train.comm_*``, ``parallel/comms.py``) are ported.
 """
 
@@ -137,9 +138,6 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 
 # each refused knob names the machinery it needs and the port slice that
 # brings it (ROADMAP.md "Modules still to port")
-_NO_ELASTIC = ("the degraded-mesh continuation and its grow-back (the "
-               "elastic slice)")
-_TRAIN_UNPORTED = {"elastic": _NO_ELASTIC, "elastic_regrow": _NO_ELASTIC}
 _MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 _MESH_UNPORTED = {
     "seq_devices": f"sequence parallelism ({_MODEL_SEQUENCE})",
@@ -272,7 +270,6 @@ class TrainConfig:
             raise ValueError(
                 f"comm_bucket_mb {self.comm_bucket_mb} must be >= 0 "
                 "(0 = one message per leaf)")
-        _refuse_unported(self, "train", _TRAIN_UNPORTED)
 
 
 @dataclass(frozen=True)

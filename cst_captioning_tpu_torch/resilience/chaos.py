@@ -46,13 +46,13 @@ Fault kinds (``Fault._KINDS``, the JAX tuple):
   (``health.simulate_peer_loss``: a tombstone and the ``peer_lost`` flag,
   which the trainer and the serve loop drain on).
 - ``"host_rejoin"`` / ``"host_rejoin_flaky"`` anywhere but
-  ``rl.actor.step``: the lost peer ``host`` recovers on the active monitor
+  ``rl.actor.step`` (the JAX tests fire them at ``health.rejoin``): the
+  lost peer ``host`` recovers on the active monitor
   (``health.simulate_rejoin``; flaky: it announces itself and never checks
-  into the regrow rendezvous).
-
-The JAX point ``health.rejoin`` belongs to the degraded trainer's rejoin
-poll, which comes with the elastic continuations (the elastic slice):
-visiting it under a plan raises ``RuntimeError``.
+  into the regrow rendezvous). When the hosts are real processes
+  ``host_rejoin`` raises, naming the host to restart; the flaky kind still
+  leaves its marker and heartbeat, so the survivors' regrow rendezvous
+  times out.
 
 Points in the port (the JAX names):
 
@@ -70,6 +70,8 @@ Points in the port (the JAX names):
 ``serving.step``         serving loop, once per iteration
 ``serving.param_swap``   between a staged publish and its application
 ``rl.actor.step``        decoupled actor loop, once per batch
+``health.rejoin``        the degraded trainer's rejoin poll, once per
+                         batch boundary while a host is lost
 =======================  =================================================
 
 Each firing counts on ``resilience.chaos_fault`` and
@@ -93,11 +95,6 @@ import numpy as np
 
 from cst_captioning_tpu_torch.obs import metrics as obs_metrics
 from cst_captioning_tpu_torch.resilience import health
-
-_NO_REJOIN_POLL = ("the chaos point 'health.rejoin' is the degraded "
-                   "trainer's rejoin poll, which is not ported yet: the "
-                   "elastic continuations come with the elastic slice")
-
 
 class SimulatedKill(BaseException):
     """A chaos-injected process death. A BaseException on purpose: code
@@ -180,8 +177,6 @@ class FaultPlan:
             return self._visits.get(point, 0)
 
     def _visit(self, point: str, payload: Any) -> Any:
-        if point == "health.rejoin":
-            raise RuntimeError(_NO_REJOIN_POLL)
         with self._lock:
             idx = self._visits.get(point, 0)
             self._visits[point] = idx + 1

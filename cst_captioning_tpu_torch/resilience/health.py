@@ -30,6 +30,11 @@ recoverable event:
   :func:`attempt_rejoin`) and re-admits it (:meth:`HealthMonitor.readmit`).
   A refused rejoin raises :class:`RejoinRefused` and leaves the membership
   as it was.
+- Generations on disk (the elastic trainer's): the lowest live host
+  publishes each agreed membership as ``generation.json``
+  (:func:`publish_generation`), and marks every host it lost with a
+  tombstone; a host restarted into the run finds its own tombstone, reads
+  the generation (:func:`read_generation`) and asks to join the next one.
 - :func:`collective_span`: the DCN-stall probe. It wraps a cross-host
   collective in the ``dcn.collective`` span and emits a ``dcn_stall``
   event and counter when the collective takes longer than the threshold.
@@ -163,6 +168,10 @@ class HealthMonitor:
         self.log = log or (lambda event, **fields: None)
         self.clock = clock
         self._start_thread = start_thread
+        # the hosts are real processes (the elastic trainer on several
+        # ranks sets this): a simulated recovery would announce a process
+        # that does not exist
+        self.real_hosts = False
         self.peers: set[int] = set(range(num_hosts)) - {host_id}
         self.lost_hosts: set[int] = set()
         # the membership generation, bumped on every shrink or regrow;
@@ -230,6 +239,29 @@ class HealthMonitor:
 
     def _tombstone(self, host: int) -> str:
         return os.path.join(self.dir, f"host{host}.dead")
+
+    def has_tombstone(self, host: int | None = None) -> bool:
+        """Whether ``host`` (this one by default) has a tombstone: read
+        before :meth:`start`, which clears this host's own, it tells a
+        restarted host that the run it belonged to lost it."""
+        return os.path.exists(self._tombstone(
+            self.host_id if host is None else int(host)))
+
+    def mark_dead(self, host: int) -> None:
+        """Write ``host``'s tombstone (a loss the trainer acknowledged by
+        continuing without it)."""
+        _publish_json(self._tombstone(host), {"host": int(host),
+                                              "by": self.host_id})
+
+    def continue_seq(self) -> None:
+        """Continue this host's heartbeat seq past the one its previous
+        incarnation left on disk: a rejoin is validated by seqs other than
+        the last one seen before the loss, and a fresh stream counting
+        from 1 could meet it."""
+        rec = self._read_hb(self.host_id)
+        if rec is not None and isinstance(rec.get("seq"), int):
+            with self._lock:
+                self._seq = max(self._seq, int(rec["seq"]))
 
     def note_step(self, step: int) -> None:
         """Record train progress for the next heartbeat: an attribute
@@ -357,6 +389,12 @@ class HealthMonitor:
         if host == self.host_id:
             raise ValueError(
                 f"host_rejoin host {host} is this host; it never left")
+        if self.real_hosts and not flaky:
+            raise RuntimeError(
+                f"host_rejoin host {host}: the hosts are real processes, and "
+                "a simulated recovery would announce one that does not "
+                f"exist; restart host {host}'s process with the run's config "
+                "(it finds its tombstone and rejoins)")
         with self._lock:
             if host not in self.lost_hosts:
                 raise ValueError(
@@ -588,6 +626,31 @@ def attempt_rejoin(
     except RejoinRefused:
         obs.counter("resilience.regrow.refused").inc()
         raise
+
+
+def publish_generation(dir: str, generation: int, hosts) -> None:
+    """Record the membership a continuation agreed on as
+    ``<dir>/generation.json``: what a restarted host reads to ask for the
+    next generation."""
+    _publish_json(os.path.join(dir, "generation.json"),
+                  {"generation": int(generation),
+                   "hosts": sorted(int(h) for h in hosts),
+                   "ts": time.time()})
+
+
+def read_generation(dir: str) -> dict:
+    """The last published membership: ``{"generation", "hosts"}``
+    (generation 0 and no hosts before any continuation)."""
+    try:
+        with open(os.path.join(dir, "generation.json"),
+                  encoding="utf-8") as f:
+            rec = json.load(f)
+    except (OSError, ValueError):
+        rec = None
+    if not isinstance(rec, dict):
+        return {"generation": 0, "hosts": []}
+    return {"generation": int(rec.get("generation", 0)),
+            "hosts": [int(h) for h in rec.get("hosts", [])]}
 
 
 def _write_rendezvous_marker(dir: str, generation: int, host_id: int) -> str:

@@ -670,7 +670,8 @@ class SCSTTrainer:
     def train_epoch(self, state: TrainState, batches, seeds,
                     on_step=None, pipelined: bool = True, should_stop=None,
                     seam: dict | None = None,
-                    seam_sink: dict | None = None, noise_fns=None):
+                    seam_sink: dict | None = None, noise_fns=None,
+                    abandon=None):
         """CST over an epoch of batches -> (state, metrics list).
 
         ``batches`` yields ``(feats, masks, video_ids, valid)`` with the
@@ -696,6 +697,16 @@ class SCSTTrainer:
         replays them for its first batch (when its video ids match)
         instead of decoding it again, so the resumed run equals the
         uninterrupted one.
+
+        ``abandon()`` is read when the epoch stops: true means the stop is
+        a peer lost on real ranks, and the drain then enters no collective
+        of the group that held it. A pending pipelined update, whose
+        all-reduce has not run, is not applied, and no seam is captured
+        (gathering it is a collective too). The state is then exactly the
+        updates applied so far, ``len(metrics)`` steps on, and a resume
+        from its save decodes the first unapplied batch again. Seam replay
+        stays for a stop on a whole group (SIGTERM, a rejoin's drain, and
+        simulated hosts in one process).
         """
         out = []
         dev = state.model.device
@@ -737,6 +748,11 @@ class SCSTTrainer:
             for j, (feats, masks, video_ids, valid) in enumerate(batches):
                 valid_np = self._valid_np(valid, len(video_ids))
                 if should_stop is not None and should_stop():
+                    if abandon is not None and abandon():
+                        # the pending updates' all-reduces would meet a
+                        # dead rank: drop them, and the seam with them
+                        scored = decoded = None
+                        break
                     if seam_sink is not None:
                         if scored is not None:
                             state, m = self._apply(state,

@@ -24,6 +24,13 @@ here a JAX ``'data'`` axis of N devices is N ranks:
   learner submeshes of ``parallel/submesh.py``): ``dist.new_group`` is
   collective over the whole world, so every rank creates each group, in
   the same order; they are cached by their rank tuple.
+- Generations (elastic training, ``train/trainer.py``): a process keeps
+  the rank it was launched with as its host id for its whole life
+  (:func:`host_identity`); after a peer loss or a rejoin,
+  :func:`regroup` tears the old group down (NCCL's is aborted: it holds a
+  dead rank) and forms a new one over the live hosts from a ``FileStore``
+  in the shared health directory, its rank the host's index among them.
+  A generation of one host forms no group: the survivor runs alone.
 - Tensors between role ranks (the decoupled RL split, ``rl/async_scst.py``):
   :func:`post_send` / :func:`post_recv`, a tagged point-to-point transfer
   (staged through host memory on gloo, whose send and recv take CPU
@@ -59,6 +66,11 @@ _CPU_GROUP = None
 _TIMEOUT = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
 # subgroups by their sorted global rank tuple (group_of)
 _GROUPS: dict[tuple[int, ...], object] = {}
+# (host id, hosts): the rank and world this process was launched with,
+# kept across regroups (None: the current group's rank and world)
+_IDENTITY: tuple[int, int] | None = None
+# the backend of the launch, which every later generation uses
+_BACKEND = ""
 
 
 def initialize(init_method: str | None = None,
@@ -75,7 +87,7 @@ def initialize(init_method: str | None = None,
     alone). ``backend`` defaults to ``nccl`` for a CUDA ``device`` and
     ``gloo`` for the CPU. A second call is a no-op. Call it before any
     CUDA work: with NCCL the rank binds ``cuda:<LOCAL_RANK>``."""
-    global _CPU_GROUP, _TIMEOUT
+    global _CPU_GROUP, _TIMEOUT, _IDENTITY, _BACKEND
     if dist.is_initialized():
         return True
     env = os.environ
@@ -108,16 +120,92 @@ def initialize(init_method: str | None = None,
                             timeout=timeout)
     _CPU_GROUP = (dist.new_group(backend="gloo", timeout=timeout)
                   if backend != "gloo" else dist.group.WORLD)
+    _IDENTITY, _BACKEND = (rank, world_size), backend
     return True
 
 
-def shutdown() -> None:
-    """Destroy the process group (a no-op when there is none)."""
+def set_identity(host_id: int, hosts: int, backend: str,
+                 timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """Name this process host ``host_id`` of ``hosts`` without forming a
+    group: a host restarted into a degraded run joins the survivors'
+    next generation through :func:`regroup` instead of the launch's
+    rendezvous, whose store may have died with its old rank 0."""
+    global _IDENTITY, _BACKEND, _TIMEOUT
+    if not 0 <= int(host_id) < int(hosts):
+        raise ValueError(f"host id {host_id} not in [0, {hosts})")
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    _IDENTITY, _BACKEND = (int(host_id), int(hosts)), backend
+    _TIMEOUT = datetime.timedelta(seconds=timeout_s)
+
+
+def host_identity() -> tuple[int, int]:
+    """(host id, hosts): the rank and world this process was launched
+    with, the same in every generation; the current group's (0, 1 alone)
+    when nothing named one."""
+    return _IDENTITY if _IDENTITY is not None else host_shard()
+
+
+def timeout_s() -> float:
+    """The group timeout in seconds (every generation's)."""
+    return _TIMEOUT.total_seconds()
+
+
+def _teardown() -> None:
+    """Drop the current group and the groups made over it. An NCCL group
+    is aborted, not destroyed: destroying waits on communicators that
+    hold a dead rank. Gloo closes its sockets."""
     global _CPU_GROUP
     if dist.is_initialized():
-        dist.destroy_process_group()
+        if str(dist.get_backend()) == "nccl":
+            from torch.distributed import distributed_c10d as c10d
+
+            abort = getattr(c10d, "_abort_process_group", None)
+            if abort is not None:
+                abort()
+            else:
+                dist.destroy_process_group()
+        else:
+            dist.destroy_process_group()
     _CPU_GROUP = None
     _GROUPS.clear()
+
+
+def shutdown() -> None:
+    """Destroy the process group (a no-op when there is none) and forget
+    the host identity."""
+    global _IDENTITY, _BACKEND
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _teardown()               # the caches
+    _IDENTITY, _BACKEND = None, ""
+
+
+def regroup(members, host_id: int, generation: int,
+            store_dir: str) -> tuple[int, int]:
+    """Membership generation ``generation`` over the hosts ``members``
+    -> (this host's rank, world). The old group is torn down
+    (:func:`_teardown`); with more than one member a new one forms, on
+    the launch's backend, over a ``FileStore`` at
+    ``<store_dir>/pg_<generation:04d>`` (every member passes the same
+    directory), its rank the host's index in the sorted members, and the
+    host-object group beside it. A single member forms none."""
+    global _CPU_GROUP
+    members = sorted({int(m) for m in members})
+    if int(host_id) not in members:
+        raise ValueError(f"host {host_id} is not a member of {members}")
+    backend = _BACKEND or "gloo"
+    rank, world = members.index(int(host_id)), len(members)
+    with collective_span("regroup"):
+        _teardown()
+        if world > 1:
+            store = dist.FileStore(
+                os.path.join(store_dir, f"pg_{int(generation):04d}"), world)
+            dist.init_process_group(backend, store=store, rank=rank,
+                                    world_size=world, timeout=_TIMEOUT)
+            _CPU_GROUP = (dist.new_group(backend="gloo", timeout=_TIMEOUT)
+                          if backend != "gloo" else dist.group.WORLD)
+    return rank, world
 
 
 def is_multiprocess() -> bool:

@@ -47,36 +47,70 @@ on autograd's anomaly mode and makes every module check its output, raising
 before it is collated into arrays; ``xe.step`` once per dispatched XE step
 and ``rl.step`` once per completed RL step, on the main thread.
 
-Peer loss (``train.health``, ``elastic="strict"``, the JAX trainer's
-strict path): the trainer starts a ``resilience.health.HealthMonitor``
-(this process is host 0 of ``train.health_sim_hosts`` or 1, heartbeats in
-``train.health_dir`` or ``<ckpt_dir>/health``) and stops it in
-:meth:`Trainer.close`. Both loops note the step for the heartbeat and read
-``peer_lost`` once a step, beside the SIGTERM checks; a loss drains the
-epoch at a batch boundary (the pipelined or decoupled RL epoch in schedule
-order, its seam saved), saves a mid-epoch checkpoint, dumps a ``peer_loss``
-postmortem naming the lost hosts and raises ``PeerLost``. A restart with
+Peer loss (``train.health``, the JAX trainer's elastic paths): the
+trainer starts a ``resilience.health.HealthMonitor`` (host ``host_id`` of
+``train.health_sim_hosts`` simulated hosts, or of the launch's ranks;
+heartbeats in ``train.health_dir`` or ``<ckpt_dir>/health``) and stops it
+in :meth:`Trainer.close`. Both loops note the step for the heartbeat and
+read ``peer_lost`` once a step, beside the SIGTERM checks; a loss drains
+the epoch at a batch boundary (the pipelined or decoupled RL epoch in
+schedule order, its seam saved), saves a mid-epoch checkpoint, dumps a
+``peer_loss`` postmortem naming the lost hosts and raises ``PeerLost``.
+``elastic="strict"`` ends the run there: a restart with
 ``train.resume="auto"`` and a fresh health directory resumes from that
 save.
 
-Data parallel (``use_mesh``; None means a world of more than one rank,
-launched one process a device, ``train/multihost.py``): a 1-D
-``train.mesh.DataMesh``; each rank collates its contiguous rows of every
-global batch (``Batcher(host_shard=(rank, world))``; the batch size must
-divide), the steps are ``make_parallel_xe_step`` and the data-parallel
-``SCSTTrainer``, and ``replicate`` broadcasts rank 0's state after the
-init and after every restore. Rank 0 alone writes checkpoints, and a
-barrier follows each save so that no rank runs ahead of a file it may
-resume from; every rank resumes from the shared directory. Validation
-runs on every rank (the sharded evaluator). The obs stream of a rank
-other than 0 goes to ``<obs_dir>/proc<rank>``; the health monitor is host
-``rank`` of ``world`` (``health_sim_hosts`` 0), and its strict peer-loss
-poll comes before each step's collectives, so a survivor drains without
-entering a collective with a dead peer.
+``elastic="degraded"`` goes on instead (:meth:`Trainer._continue_degraded`):
+the survivors rendezvous at the next membership generation, the lowest
+live host publishes it and marks the lost hosts with tombstones, the
+group is re-formed over the survivors (``multihost.regroup``), every
+survivor restores the drain save by name, and the mesh, gradient reducer,
+XE step, evaluator and batch share (in RL also the SCST trainer and its
+batcher, ``_build_scst``) are rebuilt for the new world; the phase loop
+replays the rest of the epoch on the same global batch. With
+``elastic_regrow`` the survivors poll for rejoin markers at every batch
+boundary (the ``health.rejoin`` chaos point); a validated rejoiner is
+admitted at a drained boundary: a rendezvous, a regroup over every live
+host, the survivors' drain save restored by name on every member and
+replicated from rank 0. A rejoin whose rendezvous times out is refused
+and the run goes on as it was. One process with ``health_sim_hosts``
+simulates the hosts over its one device, as the JAX trainer over its
+mesh.
 
-Not ported (ROADMAP.md names their slices): the degraded or regrown meshes
-of ``elastic="degraded"`` and the model- and sequence-parallel meshes;
-their config fields raise (``config.py``).
+Host ids and ranks: a process keeps its launch rank as its host id for
+its whole life (the monitor's host, its ``proc<k>/`` obs stream, its
+``<log>.proc<k>.jsonl``, the ``lost`` / ``survivors`` / ``rejoiner``
+fields); :attr:`rank` and :attr:`world` are the current generation's (its
+index among the live hosts). A host restarted with the run's config finds
+its tombstone (``is_rejoining``; ``cli.train`` then forms no launch group),
+asks for the next generation and joins the survivors at their next
+boundary, taking their drain save: it never trusts a checkpoint of its
+own.
+
+On real ranks a drain enters no collective of the group that held the
+dead rank: a pending pipelined RL update is not applied and the save
+carries no seam (``SCSTTrainer.train_epoch``'s ``abandon``). A collective
+that raises (the XE step, the RL update, validation, the epoch's
+exchanges) is a peer loss when the monitor confirms one within its
+detection window, and drains the same way, the step in flight not
+applied; otherwise the error stands. The lowest live host writes every
+checkpoint, with no barrier on a group that lost a host. Refused: a loss
+during a split (decoupled across ranks) RL epoch, and a global batch the
+live world does not divide (a regrow to such a world is refused).
+
+Data parallel (``use_mesh``; None means more than one host, launched one
+process a device, ``train/multihost.py``): a 1-D ``train.mesh.DataMesh``;
+each rank collates its contiguous rows of every global batch
+(``Batcher(host_shard=(rank, world))``; the batch size must divide), the
+steps are ``make_parallel_xe_step`` and the data-parallel
+``SCSTTrainer``, and ``replicate`` broadcasts rank 0's state after the
+init and after every restore. A barrier follows each epoch save so that
+no rank runs ahead of a file it may resume from; every rank resumes from
+the shared directory. Validation runs on every rank (the sharded
+evaluator).
+
+Not ported (ROADMAP.md names their slices): the model- and
+sequence-parallel meshes; their config fields raise (``config.py``).
 """
 
 from __future__ import annotations
@@ -224,6 +258,27 @@ def _tensor_leaves(x) -> list[torch.Tensor]:
     return []
 
 
+def health_dir(cfg: ExperimentConfig) -> str:
+    """The run's health directory (heartbeats, tombstones, rendezvous)."""
+    return cfg.train.health_dir or os.path.join(cfg.train.ckpt_dir, "health")
+
+
+def is_rejoining(cfg: ExperimentConfig, host_id: int) -> bool:
+    """Whether host ``host_id`` starting with ``cfg`` is a host the run
+    lost coming back: ``elastic="degraded"`` with the monitor on, and its
+    tombstone (written by the survivors' continuation) in the health
+    directory. Such a host joins the survivors' next generation instead of
+    forming the launch's group (``cli.train`` asks this first)."""
+    return bool(cfg.train.health and cfg.train.elastic == "degraded"
+                and os.path.exists(os.path.join(health_dir(cfg),
+                                                f"host{int(host_id)}.dead")))
+
+
+# the trainer's own control flow, never a collective's error
+_CONTROL = (PeerLost, health_mod.HostRejoin, RollbackRequested,
+            TrainingDiverged, Preempted)
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, train_ds, val_ds=None,
                  log_path: str = "", device=None, params=None,
@@ -232,18 +287,13 @@ class Trainer:
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.device = multihost.local_device(resolve_device(device))
+        # a process keeps its launch rank as its host id for its whole life
+        # (the monitor's host, its obs stream and event log); its group
+        # rank and world follow the membership generation
+        self.host_id, self._hosts = multihost.host_identity()
         self.rank, self.world = multihost.host_shard()
-        n_dev = cfg.mesh.num_devices or self.world
+        n_dev = cfg.mesh.num_devices or self._hosts
         self.use_mesh = n_dev > 1 if use_mesh is None else use_mesh
-        self.mesh = (make_mesh(cfg.mesh.num_devices, device=self.device)
-                     if self.use_mesh else None)
-        if self.mesh is not None and cfg.data.batch_size % self.mesh.world:
-            # unlike eval (which wrap-pads), padding a training batch would
-            # change how rows group into optimizer steps
-            raise ValueError(
-                f"training batch_size {cfg.data.batch_size} must be "
-                f"divisible by the mesh's {self.mesh.world}-device 'data' "
-                "axis; pick a multiple or set mesh.num_devices/seq_devices")
         # analytic FLOPs per teacher-forced XE row (obs/flops.py): the
         # flops.xe.step counter behind the run report's MFU column
         mc = cfg.model
@@ -254,9 +304,9 @@ class Trainer:
             num_layers=mc.num_layers)
         self._xe_probed = False
         obs_dir = cfg.train.obs_dir or os.path.join(cfg.train.ckpt_dir, "obs")
-        if self.rank != 0:
+        if self.host_id != 0:
             # one stream a process, as the JSONL log
-            obs_dir = os.path.join(obs_dir, f"proc{self.rank}")
+            obs_dir = os.path.join(obs_dir, f"proc{self.host_id}")
         if cfg.train.obs:
             obs.configure(obs_dir, run=cfg.name,
                           snapshot_every=cfg.train.log_every_steps)
@@ -273,7 +323,7 @@ class Trainer:
         if self._stats:
             flight.configure(cfg.train.recorder_steps, obs_dir, run=cfg.name,
                              detector=self._detector, config=cfg.to_dict(),
-                             proc=self.rank, world=self.world)
+                             proc=self.host_id, world=self._hosts)
         # everything below (the model, state, resume) is run setup: its
         # span keeps the report's coverage honest
         setup_span = obs.span("setup").begin()
@@ -282,11 +332,70 @@ class Trainer:
                          else random_flax_params(cfg.model, cfg.train.seed))
         self._nan_hooks = (_NanHooks(self.model) if cfg.train.debug_nans
                            else None)
-        if log_path and self.rank != 0:
-            # one event log a process: rank k writes <name>.proc<k><ext>
+        if log_path and self.host_id != 0:
+            # one event log a process: host k writes <name>.proc<k><ext>
             root, ext = os.path.splitext(log_path)
-            log_path = f"{root}.proc{self.rank}{ext}"
+            log_path = f"{root}.proc{self.host_id}{ext}"
         self.log = EventLogger(log_path)
+        # the elastic bookkeeping (the JAX trainer's): the membership
+        # generation, the device layout now and at the start (a regrow
+        # rebuilds from the original), a validated rejoiner awaiting its
+        # boundary, and the last step save, which the continuations
+        # restore by name
+        self._degraded_gen = 0
+        self._regrow_host: int | None = None
+        self._last_step_ckpt: str | None = None
+        # the hosts are processes of their own: a loss regroups them
+        self._real_ranks = self._hosts > 1
+        self._members = list(range(self._hosts))   # this generation's hosts
+        self.rejoined = False
+        self.health: health_mod.HealthMonitor | None = None
+        if cfg.train.health:
+            health_mod.set_dcn_stall_threshold(cfg.train.dcn_stall_s)
+            self.health = health_mod.HealthMonitor(
+                health_dir(cfg), host_id=self.host_id,
+                num_hosts=cfg.train.health_sim_hosts or self._hosts,
+                interval_s=cfg.train.health_interval_s,
+                timeout_s=cfg.train.peer_timeout_s,
+                misses=cfg.train.health_misses, log=self.log.log)
+            self.health.real_hosts = self._real_ranks
+        # a host of a multi-process run without the launch's group was
+        # restarted into the run (cli.train found its tombstone)
+        rejoining = self._real_ranks and not multihost.is_multiprocess() \
+            and self.world == 1
+        if rejoining and not (self.health is not None
+                              and cfg.train.elastic == "degraded"
+                              and self.health.has_tombstone()):
+            raise ValueError(
+                f"host {self.host_id} of {self._hosts} has no process group "
+                "and is not a host the run lost (no tombstone of it in "
+                f"{health_dir(cfg)} under train.elastic='degraded'); form "
+                "the group with multihost.initialize")
+        if self.health is not None:
+            if rejoining:
+                self.health.continue_seq()
+            self.health.start()
+        if rejoining:
+            self._join_next_generation()
+        self.mesh = (make_mesh(0 if self._degraded_gen
+                               else cfg.mesh.num_devices, device=self.device)
+                     if self.use_mesh else None)
+        self._check_batch_divides()
+        # the device layout: one device a host on real ranks (a device is
+        # its host's id), else the one device this process drives
+        members = self._members
+        self._original_mesh_devices = (
+            None if self.mesh is None
+            else list(range(self._hosts)) if self._real_ranks
+            else list(range(self.mesh.world)))
+        self._all_mesh_devices = (
+            None if self.mesh is None
+            else members if self._real_ranks
+            else list(self._original_mesh_devices))
+        self._original_hosts = (cfg.train.health_sim_hosts or self._hosts
+                                if cfg.train.health else 1)
+        self._initial_hosts = (len(members) if rejoining
+                               else self._original_hosts)
         # each rank collates its rows of every global batch (the shuffle
         # is epoch-keyed, so the ranks agree without communicating)
         self.batcher = Batcher(
@@ -296,18 +405,14 @@ class Trainer:
             host_shard=self._host_shard())
         self.steps_per_epoch = self.batcher.num_batches()
         tx = make_optimizer(cfg.train, self.steps_per_epoch)
-        self.state = self._replicate(
-            create_train_state(self.model, tx, seed=cfg.train.seed))
+        self.state = create_train_state(self.model, tx, seed=cfg.train.seed)
+        if not rejoining:
+            # a rejoiner takes the survivors' state below
+            self.state = self._replicate(self.state)
         # the finite-update guard rides with any active sentinel policy
         self.guard = cfg.train.on_divergence != "off"
         self.comm = CommConfig.from_train(cfg.train)
-        if self.mesh is not None:
-            self.xe_step = make_parallel_xe_step(
-                self.model, self.mesh, cfg.train.label_smoothing,
-                guard=self.guard, comm=self.comm, stats=self._stats)
-        else:
-            self.xe_step = make_xe_step(self.model, cfg.train.label_smoothing,
-                                        guard=self.guard, stats=self._stats)
+        self._build_xe_step()
         if multihost.is_multiprocess():
             # evidence the group formed (a failed one would train N copies)
             self.log.log("distributed", processes=self.world,
@@ -326,22 +431,22 @@ class Trainer:
         self.reward: RewardComputer | None = None
         # tokens a drained pipelined RL epoch decoded but did not score
         self._pending_seam: dict | None = None
-        # the peer-loss watchdog: the loops read its flag once a step
-        self.health: health_mod.HealthMonitor | None = None
-        if cfg.train.health:
-            health_mod.set_dcn_stall_threshold(cfg.train.dcn_stall_s)
-            self.health = health_mod.HealthMonitor(
-                cfg.train.health_dir
-                or os.path.join(cfg.train.ckpt_dir, "health"),
-                host_id=self.rank,
-                num_hosts=cfg.train.health_sim_hosts or self.world,
-                interval_s=cfg.train.health_interval_s,
-                timeout_s=cfg.train.peer_timeout_s,
-                misses=cfg.train.health_misses, log=self.log.log).start()
-        if cfg.train.resume:
+        if rejoining:
+            self._adopt_rejoin()
+        elif cfg.train.resume:
             self._resume()
         self._build_validator()
         setup_span.end()
+
+    def _check_batch_divides(self) -> None:
+        if self.mesh is not None and self.cfg.data.batch_size \
+                % self.mesh.world:
+            # unlike eval (which wrap-pads), padding a training batch would
+            # change how rows group into optimizer steps
+            raise ValueError(
+                f"training batch_size {self.cfg.data.batch_size} must be "
+                f"divisible by the mesh's {self.mesh.world}-device 'data' "
+                "axis; pick a multiple or set mesh.num_devices/seq_devices")
 
     def _host_shard(self) -> tuple[int, int]:
         return batch_sharding(self.mesh) if self.mesh is not None else (0, 1)
@@ -350,6 +455,18 @@ class Trainer:
         """Rank 0's state on every rank (a no-op without a mesh)."""
         return replicate(self.mesh, state) if self.mesh is not None \
             else state
+
+    def _build_xe_step(self) -> None:
+        """(Re)build the XE step for the current mesh: at init and after
+        every shrink or regrow (its gradient reducer holds the group)."""
+        if self.mesh is not None:
+            self.xe_step = make_parallel_xe_step(
+                self.model, self.mesh, self.cfg.train.label_smoothing,
+                guard=self.guard, comm=self.comm, stats=self._stats)
+        else:
+            self.xe_step = make_xe_step(
+                self.model, self.cfg.train.label_smoothing, guard=self.guard,
+                stats=self._stats)
 
     def _build_validator(self) -> None:
         cfg = self.cfg
@@ -588,14 +705,26 @@ class Trainer:
             "config": self.cfg.to_dict(),
         }
 
+    def _is_writer(self) -> bool:
+        """Whether this host writes the checkpoints: the lowest live one.
+        That is rank 0 of the generation, and, while a drain runs on a
+        group that lost hosts, the lowest survivor the monitor knows (the
+        lost one may have been rank 0)."""
+        if self.health is not None and self._real_ranks:
+            return self.host_id == min(self.health.survivors())
+        return self.rank == 0
+
     def _save_step_ckpt(self, phase: str, step_no: int, batch_index: int,
                         seam: dict | None = None,
                         barrier: bool = True) -> None:
         """A mid-epoch checkpoint recording the batch index; ``seam``
-        rides along as ``seam.npz`` in the same swap. Rank 0 writes; with
-        ``barrier`` every rank then waits for the file (a peer-loss save
-        skips it: the lost peer would never arrive)."""
-        if self.rank == 0:
+        rides along as ``seam.npz`` in the same swap. The lowest live host
+        writes; with ``barrier`` every rank then waits for the file (the
+        peer-loss and regrow drains skip it: a lost peer would never
+        arrive, and the continuation's rendezvous, which the writer enters
+        only once its save is durable, orders the rest)."""
+        writer = self._is_writer()
+        if writer:
             extra = None
             if seam:
                 extra = {"seam.npz": self._seam_bytes(seam, self.epoch,
@@ -605,11 +734,14 @@ class Trainer:
                     self.state, step_no,
                     self._ckpt_infos(phase, batch_index, step_no),
                     extra_files=extra)
+        # the elastic continuations restore this save by name (an older
+        # epoch-end save may rank above a drain's in another phase)
+        self._last_step_ckpt = f"step_{int(step_no):08d}"
         if barrier:
             multihost.barrier("ckpt.save")
         self.log.log("ckpt_step", phase=phase, step=step_no,
                      batch_index=batch_index, seam=bool(seam),
-                     **(self.ckpt.last_save if self.rank == 0 else {}))
+                     **(self.ckpt.last_save if writer else {}))
 
     def _preempt_save(self, phase: str, step_no: int, batch_index: int,
                       sentinel: DivergenceSentinel,
@@ -634,7 +766,9 @@ class Trainer:
                         seam: dict | None = None) -> None:
         """A peer was lost: the epoch has drained to a batch boundary; check
         pending steps, dump a postmortem naming the lost hosts, save
-        mid-epoch, raise PeerLost (strict: restart with resume="auto")."""
+        mid-epoch (the lowest survivor writes, with no barrier on the group
+        that lost them), raise PeerLost: the phase loop continues degraded,
+        or, strict, the caller restarts with resume="auto"."""
         sentinel.flush()
         # the lost hosts before the dump: the fleet merge reads them from
         # the bundle's meta
@@ -650,10 +784,35 @@ class Trainer:
             lost,
             f"lost host(s) {lost} at {phase} step {step_no} "
             f"(epoch {self.epoch + 1}, batch {batch_index}); drained and "
-            "saved - restart with train.resume='auto'")
+            "saved - continuing degraded or restart with "
+            "train.resume='auto'")
 
     def _peer_lost(self) -> bool:
         return self.health is not None and self.health.peer_lost
+
+    def _collective_failed(self, err: BaseException, phase: str,
+                           step_no: int, batch_index: int,
+                           sentinel: DivergenceSentinel) -> None:
+        """A collective raised (gloo: a peer closed the connection): a
+        peer loss if the monitor confirms one within its detection window
+        (``peer_timeout_s * health_misses`` plus one interval), and then
+        the epoch drains as for a polled loss, the step in flight not
+        applied (its update comes after its reductions). Otherwise, and
+        for anything but a collective's error, ``err`` stands."""
+        if not isinstance(err, RuntimeError) or isinstance(err, _CONTROL) \
+                or self.health is None or not self._real_ranks:
+            raise err
+        t = self.cfg.train
+        window = t.peer_timeout_s * t.health_misses + t.health_interval_s
+        deadline = time.monotonic() + window
+        while not self.health.peer_lost:
+            if time.monotonic() > deadline:
+                raise err
+            time.sleep(min(0.01, t.health_interval_s / 4))
+        self.log.log("collective_peer_loss", phase=phase, step=step_no,
+                     batch_index=batch_index, lost=self.health.lost(),
+                     error=type(err).__name__, detail=str(err)[:200])
+        self._peer_loss_save(phase, step_no, batch_index, sentinel)
 
     def _apply_rollback(self, phase: str, err: RollbackRequested,
                         sentinel: DivergenceSentinel) -> None:
@@ -688,6 +847,330 @@ class Trainer:
                      restored_step=infos.get("global_step"),
                      restored_epoch=self.epoch, salt=self._rollbacks)
 
+    # ---- elastic: the degraded mesh and its grow-back -------------------------
+
+    def _surviving_devices(self, survivors: list[int], devices=None,
+                           hosts: int | None = None) -> list:
+        """The devices of ``survivors``, in the original order (the JAX
+        trainer's arithmetic). On real ranks a device is its host's id;
+        simulated hosts split this process's device list evenly, host k
+        the k-th contiguous chunk. The default base is the current layout;
+        a regrow passes the original one, so a re-admitted host's share
+        comes back in its place."""
+        devices = self._all_mesh_devices if devices is None else devices
+        hosts = self._initial_hosts if hosts is None else hosts
+        if self._real_ranks:
+            alive = set(survivors)
+            return [d for d in devices if d in alive]
+        per_host = max(1, len(devices) // hosts)
+        out = []
+        for h in survivors:
+            out.extend(devices[h * per_host:(h + 1) * per_host])
+        return out
+
+    def _regroup(self, members: list[int], generation: int) -> None:
+        """Make ``members`` the group (real ranks: a new process group,
+        ``multihost.regroup``) and rebuild the mesh over it, with this
+        host's share of every batch."""
+        if self._real_ranks:
+            self.rank, self.world = multihost.regroup(
+                members, self.host_id, generation, store_dir=self.health.dir)
+        self.mesh = make_mesh(0, device=self.device)
+        self._members = list(members)
+        if self._real_ranks:
+            self.batcher = self._rebuild_batcher(self.batcher,
+                                                 self._host_shard())
+
+    def _restore_drain(self, what: str) -> tuple:
+        """The drain save every member continues from, by name: the
+        lowest live host wrote it, and a member that has no name for it (a
+        rejoiner) takes the first one in rank order. A rejoiner never
+        trusts a checkpoint of its own."""
+        name = self._last_step_ckpt
+        if self.world > 1:
+            name = next((n for n in multihost.allgather_pyobj(name)
+                         if n is not None), None)
+        restored = (self.ckpt.restore_latest(self.state, prefer=name)
+                    if name is not None else None)
+        if restored is None or restored[1].get("ckpt_name") != name:
+            raise RuntimeError(
+                f"{what} found no drain save {name!r} in "
+                f"{self.cfg.train.ckpt_dir}")
+        self._last_step_ckpt = name
+        return restored
+
+    def _continue_degraded(self, phase: str, err: PeerLost) -> None:
+        """Continue after a drained peer loss: rendezvous the survivors,
+        regroup them (real ranks) into a shrunk 1-D data mesh over the
+        surviving devices, restore the drain save by name on every
+        survivor (the batch index and seam with it), rebuild the
+        mesh-shaped pieces (gradient reducer, XE step, evaluator, batch
+        share), and let the phase loop replay the rest of the epoch on the
+        same global batch."""
+        cfg = self.cfg
+        if self.health is None or self._all_mesh_devices is None:
+            raise err  # the continuation needs the monitor and a mesh
+        if self._real_ranks and phase == "rl" \
+                and cfg.train.rl_topology == "decoupled":
+            raise RuntimeError(
+                "degraded-mesh continuation does not support a real lost "
+                "peer during a split (decoupled across ranks) RL epoch: its "
+                "boundary exchange holds the dead rank; run the decoupled "
+                "topology with elastic='strict'") from err
+        t0 = time.perf_counter()
+        self._degraded_gen += 1
+        gen = self._degraded_gen
+        expected = self.health.survivors()
+        with obs.span("degraded_rendezvous", generation=gen):
+            survivors = health_mod.rendezvous(
+                self.health.dir, host_id=self.health.host_id, hosts=expected,
+                generation=gen,
+                timeout_s=max(cfg.train.peer_timeout_s * 4.0, 1.0))
+        t1 = time.perf_counter()
+        devices = self._surviving_devices(survivors)
+        n_data = len(devices)
+        if n_data == 0:
+            raise RuntimeError(
+                f"no devices survive the loss of host(s) {err.hosts}"
+            ) from err
+        if cfg.data.batch_size % n_data:
+            raise RuntimeError(
+                f"cannot continue degraded: global batch_size "
+                f"{cfg.data.batch_size} is not divisible by the {n_data} "
+                "surviving devices - run elastic='strict' or pick a batch "
+                "size divisible by every survivable mesh width") from err
+        if self._real_ranks and self._is_writer():
+            # the generation first: a restarted host that finds its
+            # tombstone reads it to ask for the next one
+            health_mod.publish_generation(self.health.dir, gen, survivors)
+            for victim in err.hosts:
+                self.health.mark_dead(victim)
+        self._regroup(survivors, gen)
+        t2 = time.perf_counter()
+        state, infos = self._restore_drain("degraded continuation")
+        batch_index, res_phase = self._adopt_restored(
+            state, infos, cfg.train.ckpt_dir)
+        t3 = time.perf_counter()
+        self._build_xe_step()
+        self._build_validator()
+        self.health.set_membership(survivors)
+        self.health.acknowledge()
+        # rejoin markers for the next regrow carry generation + 1
+        self.health.generation = gen
+        self._all_mesh_devices = devices
+        self._initial_hosts = len(survivors)
+        obs.counter("resilience.degraded_continuation").inc()
+        obs.event("degraded_mesh", phase=phase, lost=err.hosts,
+                  survivors=survivors, devices=n_data)
+        # the fleet timeline pairs shrink -> regrow arcs, one a victim
+        for victim in err.hosts:
+            obs.event("mesh_shrink", phase=phase, victim=victim,
+                      devices=n_data, generation=gen)
+        self.log.log("degraded_mesh", phase=phase, lost=err.hosts,
+                     survivors=survivors, devices=n_data,
+                     global_batch=cfg.data.batch_size,
+                     resumed_phase=res_phase,
+                     resumed_batch_index=batch_index)
+        self.log.log("elastic_times", kind="shrink", generation=gen,
+                     rendezvous_ms=(t1 - t0) * 1e3,
+                     regroup_ms=(t2 - t1) * 1e3,
+                     restore_ms=(t3 - t2) * 1e3, world=self.world)
+
+    def _poll_rejoin(self) -> None:
+        """The batch-boundary rejoin poll: free unless the run is degraded
+        with ``elastic_regrow`` (a few attribute reads); then it visits the
+        ``health.rejoin`` chaos point and scans for rejoin markers. A
+        validated rejoiner is admitted at the next drained boundary
+        (``_regrow_host``); a refused one's marker is consumed and the run
+        goes on as it was. Across several live ranks the lowest scans and
+        its answer is every rank's."""
+        h = self.health
+        if (h is None or self._regrow_host is not None
+                or self.cfg.train.elastic != "degraded"
+                or not self.cfg.train.elastic_regrow
+                or self._original_mesh_devices is None
+                or not (h.lost_hosts or len(self._members) < self._hosts
+                        and self._real_ranks)
+                or h.peer_lost):  # an unacknowledged loss outranks a rejoin
+            return
+        chaos.visit("health.rejoin")
+        host = None
+        if self.rank == 0:
+            pending = h.pending_rejoins()
+            if pending:
+                host = min(pending)  # a fixed order when several announce
+                gen = self._degraded_gen + 1
+                try:
+                    health_mod.attempt_rejoin(h, host, gen)
+                except health_mod.RejoinRefused as e:
+                    h.clear_rejoin(host)
+                    obs.event("rejoin_refused", host=host, generation=gen)
+                    self.log.log("rejoin_refused", host=host,
+                                 generation=gen, detail=str(e))
+                    host = None
+        if self.world > 1:
+            host = multihost.broadcast_pyobj(host)
+        self._regrow_host = host
+
+    def _regrow_save(self, phase: str, step_no: int, batch_index: int,
+                     sentinel: DivergenceSentinel,
+                     seam: dict | None = None) -> None:
+        """A validated rejoiner waits: drain at the batch boundary as for a
+        peer loss (on a whole group, so the seam is kept), save, and raise
+        ``HostRejoin`` to the phase loop, which runs the regrow."""
+        host = self._regrow_host
+        sentinel.flush()
+        self._save_step_ckpt(phase, step_no, batch_index, seam=seam,
+                             barrier=False)
+        obs.counter("resilience.regrow_drain").inc()
+        self.log.log("regrow_drain", phase=phase, step=step_no,
+                     batch_index=batch_index, rejoiner=host)
+        self.log.flush()
+        raise health_mod.HostRejoin(
+            host,
+            f"host {host} re-admission scheduled at {phase} step {step_no} "
+            f"(epoch {self.epoch + 1}, batch {batch_index}); drained and "
+            "saved")
+
+    def _continue_regrown(self, phase: str,
+                          err: health_mod.HostRejoin) -> bool:
+        """The grow-back, the inverse of :meth:`_continue_degraded`: the
+        survivors and the rejoiner rendezvous at the next generation, the
+        group (real ranks) and the mesh are rebuilt over every live host
+        from the original layout, every member restores the survivors'
+        regrow drain save by name and ``replicate`` makes it theirs, and
+        the phase loop replays the rest of the epoch, seam included. ->
+        whether the host was admitted. A rendezvous that times out (a
+        flaky rejoiner) or a grown world that does not divide the batch
+        refuses it: the run goes on degraded from the same save, as it
+        would have without the rejoin."""
+        cfg = self.cfg
+        host = err.host
+        self._regrow_host = None
+        gen = self._degraded_gen + 1
+        members = sorted(set(self.health.survivors()) | {host})
+        devices = self._surviving_devices(
+            members, devices=self._original_mesh_devices,
+            hosts=self._original_hosts)
+        n_data = len(devices)
+        admitted = False
+        refuse_reason = ""
+        t0 = time.perf_counter()
+        if cfg.data.batch_size % n_data:
+            refuse_reason = (
+                f"global batch_size {cfg.data.batch_size} is not divisible "
+                f"by the {n_data} regrown devices")
+        else:
+            try:
+                with obs.span("regrow_rendezvous", generation=gen):
+                    health_mod.rendezvous(
+                        self.health.dir, host_id=self.health.host_id,
+                        hosts=members, generation=gen,
+                        timeout_s=max(cfg.train.peer_timeout_s * 2.0, 0.5))
+                admitted = True
+            except health_mod.RendezvousTimeout as e:
+                # the flaky rejoiner: announced, validated, then gone
+                # before it checked in
+                refuse_reason = str(e)
+        t1 = time.perf_counter()
+        if admitted:
+            if self._real_ranks and self._is_writer():
+                health_mod.publish_generation(self.health.dir, gen, members)
+            self._regroup(members, gen)
+            self.health.readmit(host)
+            self.health.set_membership(members)
+            self._degraded_gen = gen
+            self.health.generation = gen
+            self._all_mesh_devices = devices
+            self._initial_hosts = len(members)
+        else:
+            obs.counter("resilience.regrow.refused").inc()
+            self.health.clear_rejoin(host)
+            obs.event("regrow_refused", phase=phase, rejoiner=host,
+                      generation=gen)
+            self.log.log("regrow_refused", phase=phase, rejoiner=host,
+                         generation=gen, detail=refuse_reason)
+        t2 = time.perf_counter()
+        # the survivors' state: the regrow drain saved it moments ago, and
+        # restoring it by name onto the mesh (grown, or as it was) re-arms
+        # the mid-epoch resume (batch index and seam) either way
+        state, infos = self._restore_drain("regrow continuation")
+        batch_index, res_phase = self._adopt_restored(
+            state, infos, cfg.train.ckpt_dir)
+        t3 = time.perf_counter()
+        if admitted:
+            self._build_xe_step()
+            self._build_validator()
+            obs.counter("resilience.regrow.admitted").inc()
+            obs.event("mesh_regrow", phase=phase, rejoiner=host,
+                      devices=n_data, generation=gen)
+            self.log.log("mesh_regrow", phase=phase, rejoiner=host,
+                         hosts=members, devices=n_data, generation=gen,
+                         global_batch=cfg.data.batch_size,
+                         resumed_phase=res_phase,
+                         resumed_batch_index=batch_index)
+            self.log.log("elastic_times", kind="regrow", generation=gen,
+                         rendezvous_ms=(t1 - t0) * 1e3,
+                         regroup_ms=(t2 - t1) * 1e3,
+                         restore_ms=(t3 - t2) * 1e3, world=self.world)
+        return admitted
+
+    def _rebuild_batcher(self, old: Batcher,
+                         host_shard: tuple[int, int]) -> Batcher:
+        """The same data order (epoch index and salt) at a new host
+        share."""
+        new = Batcher(self.train_ds, batch_size=old.batch_size,
+                      max_len=old.max_len, mode=old.mode,
+                      seq_per_vid=old.seq_per_vid, seed=old.seed,
+                      host_shard=host_shard)
+        new.epoch_index = old.epoch_index
+        new.salt = old.salt
+        return new
+
+    def _join_next_generation(self) -> None:
+        """A restarted host's side of a regrow: ask for the generation
+        after the survivors' last one (``generation.json``), wait in its
+        rendezvous for the survivors' next drained boundary, and join its
+        group. The survivors' drain save is restored after the rest of the
+        setup (:meth:`_adopt_rejoin`)."""
+        h = self.health
+        cur = health_mod.read_generation(h.dir)
+        gen = cur["generation"] + 1
+        members = sorted(set(cur["hosts"]) | {self.host_id})
+        h.announce_rejoin(gen)
+        self.log.log("rejoin_announced", host=self.host_id, generation=gen,
+                     hosts=members)
+        t0 = time.perf_counter()
+        with obs.span("regrow_rendezvous", generation=gen):
+            health_mod.rendezvous(h.dir, host_id=self.host_id, hosts=members,
+                                  generation=gen,
+                                  timeout_s=multihost.timeout_s())
+        t1 = time.perf_counter()
+        self.rank, self.world = multihost.regroup(
+            members, self.host_id, gen, store_dir=h.dir)
+        self._rejoin_times = {"rendezvous_ms": (t1 - t0) * 1e3,
+                              "regroup_ms": (time.perf_counter() - t1) * 1e3}
+        h.set_membership(members)
+        h.generation = gen
+        self._degraded_gen = gen
+        self._members = members
+
+    def _adopt_rejoin(self) -> None:
+        """The rejoiner takes the survivors' regrow drain save by name,
+        and ``replicate`` makes the writer's state its own."""
+        t0 = time.perf_counter()
+        state, infos = self._restore_drain("rejoin")
+        batch_index, phase = self._adopt_restored(state, infos,
+                                                  self.cfg.train.ckpt_dir)
+        self.rejoined = True
+        self.log.log("rejoined", host=self.host_id,
+                     generation=self._degraded_gen, hosts=self._members,
+                     rank=self.rank, world=self.world,
+                     resumed_phase=phase or "epoch_end",
+                     resumed_batch_index=batch_index,
+                     restore_ms=(time.perf_counter() - t0) * 1e3,
+                     **self._rejoin_times)
+
     # ---- XE ----------------------------------------------------------------------
 
     def train_xe(self, epochs: int | None = None) -> float | None:
@@ -717,6 +1200,16 @@ class Trainer:
                                               run)
                 except RollbackRequested as e:
                     self._apply_rollback("xe", e, sentinel)
+                except PeerLost as e:
+                    # strict ends the run (its drain save resumes bitwise
+                    # on the full mesh); degraded goes on with the survivors
+                    if cfg.train.elastic != "degraded":
+                        raise
+                    self._continue_degraded("xe", e)
+                    run["first_step"] = True
+                except health_mod.HostRejoin as e:
+                    if self._continue_regrown("xe", e):
+                        run["first_step"] = True
         return last_val
 
     def _profiler(self, phase: str) -> StepProfiler:
@@ -751,8 +1244,12 @@ class Trainer:
                     with obs.span("xe.step"):
                         feats, masks, labels, mask, weights, valid = arrays
                         w = xe_row_weights(cfg.train.loss, weights, valid)
-                        self.state, m = self.xe_step(
-                            self.state, feats, masks, labels, mask, w)
+                        try:
+                            self.state, m = self.xe_step(
+                                self.state, feats, masks, labels, mask, w)
+                        except RuntimeError as e:
+                            self._collective_failed(e, "xe", step_no,
+                                                    batch_no, sentinel)
                         losses.append(m["loss"])
                         # record before push: a sentinel trip's postmortem
                         # flushes, so the ring holds the diverged step
@@ -791,6 +1288,10 @@ class Trainer:
                         if self._peer_lost():
                             self._peer_loss_save("xe", step_no, batch_no,
                                                  sentinel)
+                        self._poll_rejoin()
+                        if self._regrow_host is not None:
+                            self._regrow_save("xe", step_no, batch_no,
+                                              sentinel)
                         if ckpt_every and step_no % ckpt_every == 0:
                             flight.flush()
                             sentinel.flush()   # never save a rejected update
@@ -804,6 +1305,9 @@ class Trainer:
                 self._preempt_save("xe", step_no, batch_no, sentinel)
             if self._peer_lost():
                 self._peer_loss_save("xe", step_no, batch_no, sentinel)
+            self._poll_rejoin()
+            if self._regrow_host is not None:
+                self._regrow_save("xe", step_no, batch_no, sentinel)
             flight.flush()
             sentinel.flush()
         self.epoch += 1
@@ -816,7 +1320,7 @@ class Trainer:
                      steps=len(times), clips_per_s=clips_s,
                      step_ms_median=step_ms)
         obs.snapshot_metrics(epoch=self.epoch)
-        return self._validate_and_checkpoint(step_no)
+        return self._validate_and_checkpoint("xe", step_no, sentinel)
 
     # ---- RL ----------------------------------------------------------------------
 
@@ -867,6 +1371,44 @@ class Trainer:
             bleu_weight=cfg.rl.reward_bleu4_weight,
             bleu_scale=cfg.rl.reward_bleu4_scale,
             num_threads=cfg.rl.reward_threads)
+        scst, rl_batcher = self._build_scst()
+        target = self.rl_epochs + epochs
+        meter = obs.StepMeter("rl")
+        profiler = self._profiler("rl")
+        sentinel = self._make_sentinel("rl")
+        last_val = None
+        run = {"first_step": True}
+        rl_setup.end()
+        try:
+            with PreemptionHandler() as pre:
+                while self.rl_epochs < target:
+                    try:
+                        last_val = self._rl_epoch(scst, rl_batcher, meter,
+                                                  profiler, sentinel, pre,
+                                                  run)
+                    except RollbackRequested as e:
+                        self._apply_rollback("rl", e, sentinel)
+                    except PeerLost as e:
+                        if cfg.train.elastic != "degraded":
+                            raise
+                        self._continue_degraded("rl", e)
+                        # the decode and update hold the mesh, the batcher
+                        # its share: rebuild them on the shrunk one
+                        scst, rl_batcher = self._build_scst()
+                        run["first_step"] = True
+                    except health_mod.HostRejoin as e:
+                        if self._continue_regrown("rl", e):
+                            scst, rl_batcher = self._build_scst()
+                            run["first_step"] = True
+        finally:
+            self._rl_batcher = None
+        return last_val
+
+    def _build_scst(self):
+        """The RL epoch's trainer and batcher for the current mesh (the JAX
+        trainer's ``build_scst``): at the phase's start and after every
+        shrink or regrow."""
+        cfg = self.cfg
         if cfg.train.rl_topology == "decoupled":
             # the actor/learner ring schedule (rl/async_scst.py), split
             # across the ranks of a mesh
@@ -895,25 +1437,7 @@ class Trainer:
             host_shard=(0, 1) if split else self._host_shard())
         rl_batcher.salt = self.batcher.salt
         self._rl_batcher = rl_batcher
-        target = self.rl_epochs + epochs
-        meter = obs.StepMeter("rl")
-        profiler = self._profiler("rl")
-        sentinel = self._make_sentinel("rl")
-        last_val = None
-        run = {"first_step": True}
-        rl_setup.end()
-        try:
-            with PreemptionHandler() as pre:
-                while self.rl_epochs < target:
-                    try:
-                        last_val = self._rl_epoch(scst, rl_batcher, meter,
-                                                  profiler, sentinel, pre,
-                                                  run)
-                    except RollbackRequested as e:
-                        self._apply_rollback("rl", e, sentinel)
-        finally:
-            self._rl_batcher = None
-        return last_val
+        return scst, rl_batcher
 
     def _rl_epoch(self, scst, rl_batcher, meter, profiler, sentinel, pre,
                   run) -> float | None:
@@ -975,9 +1499,14 @@ class Trainer:
             chaos.visit("rl.step")
             if self.health is not None:
                 self.health.note_step(counter["step"])
+            self._poll_rejoin()
 
         stop = threading.Event()
         seam_sink: dict = {}
+        # a lost peer on real ranks: the drain enters no collective of the
+        # group that held it (rl/scst.py, ``abandon``)
+        kw = ({"abandon": lambda: self._real_ranks and self._peer_lost()}
+              if not isinstance(scst, AsyncSCSTTrainer) else {})
         # the rl.epoch span's self time is what the decode, reward and
         # update spans inside train_epoch do not claim: input waits, drains
         with obs.span("rl.epoch"):
@@ -987,62 +1516,81 @@ class Trainer:
                     self._rl_device_batches(rl_batcher, skip=skip,
                                             stop_event=stop),
                     seeds, on_step=on_step, pipelined=cfg.rl.pipelined,
-                    should_stop=lambda: pre.requested or self._peer_lost(),
+                    should_stop=lambda: (pre.requested or self._peer_lost()
+                                         or self._regrow_host is not None),
                     seam=seam,
-                    seam_sink=seam_sink if seam_capable else None)
+                    seam_sink=seam_sink if seam_capable else None, **kw)
+            except RuntimeError as e:
+                # the update in flight raised in its all-reduce: it was
+                # not applied, and its save carries no seam
+                self._collective_failed(e, "rl", counter["step"],
+                                        counter["n"], sentinel)
             finally:
                 stop.set()
             profiler.stop()
             # a decoupled epoch across ranks stops every rank when any one
             # asks: a rank whose peer was preempted saves with it
             agreed = isinstance(scst, AsyncSCSTTrainer) and \
-                scst.last_stopped and not self._peer_lost()
+                scst.last_stopped and not self._peer_lost() \
+                and self._regrow_host is None
             if pre.requested or agreed:
                 self._preempt_save("rl", counter["step"], counter["n"],
                                    sentinel, seam=seam_sink or None)
             if self._peer_lost():
                 self._peer_loss_save("rl", counter["step"], counter["n"],
                                      sentinel, seam=seam_sink or None)
+            if self._regrow_host is not None:
+                self._regrow_save("rl", counter["step"], counter["n"],
+                                  sentinel, seam=seam_sink or None)
             flight.flush()
             sentinel.flush()
         self.epoch += 1
         self.rl_epochs += 1
         n_valid = float(np.sum(valid_rows)) if valid_rows else 0.0
         clips_s, step_ms = _rate(cfg.data.batch_size, times)
-        self.log.log(
-            "rl_epoch", epoch=self.epoch,
+        try:
             # each rank scores its own rows: weight by valid rows and
             # reduce across the ranks exactly
-            reward=multihost.global_weighted_mean(
+            reward = multihost.global_weighted_mean(
                 float(np.dot(rewards, valid_rows)) if valid_rows else 0.0,
-                n_valid),
-            steps=len(times), clips_per_s=clips_s, step_ms_median=step_ms)
+                n_valid)
+        except RuntimeError as e:
+            self._collective_failed(e, "rl", counter["step"], 0, sentinel)
+        self.log.log("rl_epoch", epoch=self.epoch, reward=reward,
+                     steps=len(times), clips_per_s=clips_s,
+                     step_ms_median=step_ms)
         obs.snapshot_metrics(epoch=self.epoch)
-        return self._validate_and_checkpoint(counter["step"])
+        return self._validate_and_checkpoint("rl", counter["step"], sentinel)
 
     # ---- validation ----------------------------------------------------------------
 
-    def _validate_and_checkpoint(self, step_no: int | None = None
+    def _validate_and_checkpoint(self, phase: str, step_no: int,
+                                 sentinel: DivergenceSentinel
                                  ) -> float | None:
+        """Validation (every rank: the sharded decode), the epoch
+        checkpoint (the lowest live host writes) and a barrier that keeps
+        the others from running ahead of it. A peer lost in either
+        exchange drains as an epoch-end save (batch index 0)."""
         value = None
-        if self.validator is not None and (
-                self.epoch % self.cfg.train.eval_every_epochs == 0):
-            t0 = time.perf_counter()
-            result = self.validator.evaluate()
-            value = result["metrics"].get("CIDEr-D")
-            self.log.log("validate", epoch=self.epoch, cider_d=value,
-                         ms=(time.perf_counter() - t0) * 1e3)
-        # validation runs on every rank (the sharded decode); rank 0 alone
-        # writes the checkpoint, and the barrier keeps the others from
-        # running ahead of it
-        if self.rank == 0:
-            with obs.span("ckpt", kind="epoch"):
-                is_best = self.ckpt.save(
-                    self.state, value,
-                    infos=self._ckpt_infos(step_no=step_no))
-            self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
-                         **self.ckpt.last_save)
-            if is_best:
-                self.log.log("new_best", epoch=self.epoch, cider_d=value)
-        multihost.barrier("ckpt.save")
+        try:
+            if self.validator is not None and (
+                    self.epoch % self.cfg.train.eval_every_epochs == 0):
+                t0 = time.perf_counter()
+                result = self.validator.evaluate()
+                value = result["metrics"].get("CIDEr-D")
+                self.log.log("validate", epoch=self.epoch, cider_d=value,
+                             ms=(time.perf_counter() - t0) * 1e3)
+            if self._is_writer():
+                with obs.span("ckpt", kind="epoch"):
+                    is_best = self.ckpt.save(
+                        self.state, value,
+                        infos=self._ckpt_infos(step_no=step_no))
+                self.log.log("ckpt_epoch", epoch=self.epoch, best=is_best,
+                             **self.ckpt.last_save)
+                if is_best:
+                    self.log.log("new_best", epoch=self.epoch,
+                                 cider_d=value)
+            multihost.barrier("ckpt.save")
+        except RuntimeError as e:
+            self._collective_failed(e, phase, step_no, 0, sentinel)
         return value

@@ -211,19 +211,12 @@ def test_raising_kinds_carry_their_types():
     ("rl.step", "partial_preempt"), ("health.rejoin", "host_rejoin"),
     ("xe.step", "host_rejoin_flaky")])
 def test_health_kinds_raise_naming_the_health_slice(point, kind, tmp_path):
-    """The three health kinds of the JAX chaos tests. With the health slice
-    ported, ``partial_preempt`` and ``host_rejoin_flaky`` (off
-    ``rl.actor.step``) act on the port's monitor, each package's alike, and
-    raise only with no active monitor; ``health.rejoin`` is the degraded
-    trainer's rejoin poll and is refused, naming the elastic slice."""
-    if point == "health.rejoin":
-        plan = FaultPlan([Fault(point, kind, at=0, host=1)])
-        with plan.activate():
-            with pytest.raises(RuntimeError, match="rejoin poll") as e:
-                chaos.visit(point)
-        assert "the elastic slice" in str(e.value)
-        assert plan.fired == [] and plan.visits(point) == 0
-        return
+    """The three health kinds of the JAX chaos tests. ``partial_preempt``
+    and ``host_rejoin`` / ``host_rejoin_flaky`` (off ``rl.actor.step``;
+    ``health.rejoin`` is the degraded trainer's rejoin poll) act on the
+    port's monitor, each package's alike, and raise only with no active
+    monitor; a ``host_rejoin`` where the hosts are real processes raises,
+    naming the host to restart."""
     out = {}
     for name, ch, health in (("jax", jax_chaos, jax_health),
                              ("port", chaos, port_health)):
@@ -235,7 +228,7 @@ def test_health_kinds_raise_naming_the_health_slice(point, kind, tmp_path):
         mon = health.HealthMonitor(d, host_id=0, num_hosts=2,
                                    start_thread=False).start()
         try:
-            if kind == "host_rejoin_flaky":
+            if kind in ("host_rejoin", "host_rejoin_flaky"):
                 mon.simulate_loss(1)
                 mon.acknowledge()
             plan = ch.FaultPlan([ch.Fault(point, kind, at=1, host=1)])
@@ -254,6 +247,23 @@ def test_health_kinds_raise_naming_the_health_slice(point, kind, tmp_path):
         assert out["port"][:3] == ((False, [], []), True, [1])
     else:
         assert out["port"][3] == [1] and "host1.rejoin" in out["port"][4]
+    if kind == "host_rejoin":
+        # the rendezvous marker of a whole rejoin, and no such process on
+        # real hosts
+        assert "rendezvous_0001" in out["port"][4]
+        mon = port_health.HealthMonitor(str(tmp_path / "real"), host_id=0,
+                                        num_hosts=2,
+                                        start_thread=False).start()
+        try:
+            mon.real_hosts = True
+            mon.simulate_loss(1)
+            plan = FaultPlan([Fault(point, kind, at=0, host=1)])
+            with plan.activate():
+                with pytest.raises(RuntimeError, match="restart host 1"):
+                    chaos.visit(point)
+            assert mon.pending_rejoins() == {}
+        finally:
+            mon.stop()
 
 
 def test_actor_kinds_queue_on_the_decoupled_trainer():

@@ -1,8 +1,8 @@
 """One rank of a multi-process run of the PyTorch port, for the
 data-parallel tests (``tests/test_torch_mesh.py``, ``test_torch_comms.py``,
 ``test_torch_multihost.py``, ``test_torch_data_parallel.py``,
-``test_torch_rl_split.py``). Not a test module: it holds no test
-functions.
+``test_torch_rl_split.py``, ``test_torch_elastic.py``). Not a test module:
+it holds no test functions.
 
     python tests/test_torch_dp_child.py JOB RANK WORLD INIT_FILE ARGS OUT
 
@@ -10,7 +10,10 @@ forms a gloo group from ``file://INIT_FILE`` (unless the job's own CLI
 does), runs ``JOB(rank, world, args)`` with ``args`` the pickled dict at
 ARGS, and pickles the job's result dict to ``OUT.rank<RANK>``. Jobs import
 only the port (never jax). :func:`launch` starts the ranks and collects
-their results, with a timeout so a hang fails instead of stalling.
+their results, with a timeout so a hang fails instead of stalling. A RANK
+of ``standby<i>`` is a host started outside the group (a restarted host
+of an elastic run: :func:`job_elastic`), its result at
+``OUT.standby<i>``.
 """
 
 import os
@@ -23,11 +26,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def launch(job: str, args: dict, tmp_dir, world: int = 2,
-           timeout: float = 120.0) -> tuple[list, list, list]:
-    """Run ``job`` on ``world`` gloo ranks -> (each rank's result dict, or
-    None where a rank wrote none; the exit codes; the stderr texts). A
+           timeout: float = 120.0, standbys: int = 0
+           ) -> tuple[list, list, list]:
+    """Run ``job`` on ``world`` gloo ranks, and ``standbys`` processes
+    outside the group -> (each process's result dict, or None where one
+    wrote none; the exit codes; the stderr texts), the ranks' first. A
     launch past ``timeout`` raises ``subprocess.TimeoutExpired`` after
-    killing the ranks."""
+    killing the processes."""
     tmp_dir = str(tmp_dir)
     init = os.path.join(tmp_dir, f"{job}.init")
     args_path = os.path.join(tmp_dir, f"{job}.args")
@@ -36,20 +41,22 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
         pickle.dump(args, f)
     # a rendezvous file or results left by an earlier launch of the job in
     # this directory would pair the ranks with the dead ones
-    for stale in [init] + [f"{out}.rank{r}" for r in range(world)]:
+    names = [str(r) for r in range(world)] + [
+        f"standby{i}" for i in range(standbys)]
+    for stale in [init] + [f"{out}.rank{r}" for r in names]:
         if os.path.exists(stale):
             os.remove(stale)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     # stderr to files: a rank blocked on a full pipe would stall the
     # collective its peer waits in
-    err_paths = [f"{out}.rank{r}.err" for r in range(world)]
+    err_paths = [f"{out}.rank{r}.err" for r in names]
     procs = []
     try:
-        for r in range(world):
-            with open(err_paths[r], "w") as err:
+        for r, err_path in zip(names, err_paths):
+            with open(err_path, "w") as err:
                 procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), job, str(r),
+                    [sys.executable, os.path.abspath(__file__), job, r,
                      str(world), init, args_path, out], env=env,
                     stdout=subprocess.DEVNULL, stderr=err))
         deadline = time.monotonic() + timeout
@@ -62,7 +69,7 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
                 p.wait()
     errs = [open(e).read() for e in err_paths]
     results = []
-    for r in range(world):
+    for r in names:
         path = f"{out}.rank{r}"
         results.append(pickle.load(open(path, "rb"))
                        if os.path.exists(path) else None)
@@ -504,6 +511,223 @@ def job_split_trainer(rank, world, a):
     return out
 
 
+def state_digest(state) -> str:
+    """sha256 of a TrainState's parameters, Adam moments and step: equal
+    digests are bitwise equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(state.params)
+    for k in sorted(state.opt_state):
+        v = state.opt_state[k]
+        if isinstance(v, list):
+            tensors.extend(v)
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    h.update(str(int(state.step)).encode())
+    return h.hexdigest()
+
+
+def tap_steps(digests: dict):
+    """Record ``(state_digest, world)`` after every XE step and RL update
+    the trainer module builds, keyed ``"<phase>:<step>"`` -> the undo."""
+    from cst_captioning_tpu_torch.rl import scst as scst_mod
+    from cst_captioning_tpu_torch.train import trainer as trainer_mod
+
+    saved = (trainer_mod.make_parallel_xe_step, trainer_mod.make_xe_step,
+             scst_mod.SCSTTrainer._apply)
+
+    def wrap(factory, parallel):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+            world = args[1].world if parallel else 1
+
+            def tapped(state, *rest):
+                state, m = step(state, *rest)
+                digests[f"xe:{int(state.step)}"] = (state_digest(state),
+                                                    world)
+                return state, m
+            return tapped
+        return make
+
+    def apply(self, state, *rest):
+        state, m = saved[2](self, state, *rest)
+        digests[f"rl:{int(state.step)}"] = (
+            state_digest(state), 1 if self.mesh is None else self.mesh.world)
+        return state, m
+
+    trainer_mod.make_parallel_xe_step = wrap(saved[0], True)
+    trainer_mod.make_xe_step = wrap(saved[1], False)
+    scst_mod.SCSTTrainer._apply = apply
+
+    def undo():
+        (trainer_mod.make_parallel_xe_step, trainer_mod.make_xe_step,
+         scst_mod.SCSTTrainer._apply) = saved
+    return undo
+
+
+def _exit_at_allreduce(n: int):
+    """This process dies inside its ``n``-th all-reduce (0-based): the
+    peer is then inside the same collective."""
+    import torch.distributed as dist  # graftlint: disable=GL006
+
+    real, seen = dist.all_reduce, {"n": 0}
+
+    def all_reduce(t, *args, **kw):
+        if seen["n"] == n:
+            os._exit(0)
+        seen["n"] += 1
+        return real(t, *args, **kw)
+
+    dist.all_reduce = all_reduce
+
+
+def job_elastic(rank, world, a):
+    """One host of an elastic run for ``tests/test_torch_elastic.py``: the
+    Trainer under the run's config (health on, ``elastic="degraded"``),
+    its XE and RL phases, every step's state digest (:func:`tap_steps`).
+    ``a["hosts"][rank]`` plans this host: ``faults`` (chaos
+    ``(point, kind, at)``; a ``kill`` exits the process without cleanup)
+    and ``exit_allreduce`` (die inside that all-reduce). A standby
+    (``rank`` ``"standby<i>"``, ``a["standbys"][i]``) is host ``host``
+    restarted: it waits for its tombstone, then starts the Trainer, which
+    rejoins; ``flaky`` exits after the announce, before the rendezvous."""
+    import json
+    import shutil
+    import time
+
+    from cst_captioning_tpu_torch import obs
+    from cst_captioning_tpu_torch.data import CaptionDataset
+    from cst_captioning_tpu_torch.presets import get_experiment
+    from cst_captioning_tpu_torch.resilience import health
+    from cst_captioning_tpu_torch.resilience.chaos import (
+        Fault, FaultPlan, SimulatedKill)
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.trainer import Trainer
+
+    cfg = get_experiment(a["preset"]).override(
+        train__ckpt_dir=a["ckpt_dir"], **a["overrides"])
+    ds = CaptionDataset(a["info_json"], a["features"], "train",
+                        a["max_frames"])
+    drains: list = []
+    restore = Trainer._restore_drain
+
+    def keep(self, what):
+        # a copy of each drain save the run continues from (a later save
+        # of the same step number would replace it), for its reference
+        out = restore(self, what)
+        infos = out[1]
+        if self.rank == 0:
+            dst = os.path.join(a["tmp"], "drains",
+                               f"h{self.host_id}_{len(drains)}")
+            shutil.copytree(os.path.join(a["ckpt_dir"],
+                                         self._last_step_ckpt),
+                            os.path.join(dst, self._last_step_ckpt))
+            drains.append({"what": what, "dir": dst,
+                           "name": self._last_step_ckpt,
+                           "key": f"{infos['phase']}:{infos['global_step']}",
+                           "generation": self._degraded_gen})
+        return out
+
+    Trainer._restore_drain = keep
+    poll = Trainer._poll_rejoin
+
+    def slow_poll(self):
+        # the degraded stretch lasts long enough for a restarted host
+        if self.health is not None and self.health.lost_hosts:
+            time.sleep(a.get("degraded_boundary_s", 0.0))
+        poll(self)
+
+    Trainer._poll_rejoin = slow_poll
+    standby = a.get("_standby")
+    if standby is not None:
+        spec = a["standbys"][standby]
+        host, plan_spec = spec["host"], spec
+        tomb = os.path.join(a["health_dir"], f"host{host}.dead")
+        deadline = time.monotonic() + a.get("standby_wait", 60.0)
+        while not os.path.exists(tomb):
+            if time.monotonic() > deadline:
+                return {"host": host, "standby": standby, "never": True}
+            time.sleep(0.02)
+        multihost.set_identity(host, world, "gloo", timeout_s=90.0)
+        if spec.get("flaky"):
+            def gone(*args, **kw):
+                _write(a, f"standby{standby}",
+                       {"host": host, "standby": standby, "flaky": True})
+                os._exit(0)
+            health.rendezvous = gone
+        log = os.path.join(a["tmp"], f"log_s{standby}.jsonl")
+    else:
+        host, plan_spec = rank, a["hosts"].get(rank, {})
+        log = os.path.join(a["tmp"], "log.jsonl")
+        if plan_spec.get("exit_allreduce") is not None:
+            _exit_at_allreduce(plan_spec["exit_allreduce"])
+    digests: dict = {}
+    tap_steps(digests)
+    tr = Trainer(cfg, ds, None, log_path=log, device="cpu")
+    if standby is None:
+        # every monitor has seen every peer beat before a host dies (a
+        # peer never seen is lost by tombstone only)
+        deadline = time.monotonic() + 30.0
+        while any(tr.health._seen_seq.get(p) is None
+                  for p in tr.health.peers):
+            assert time.monotonic() < deadline, "a peer never beat"
+            time.sleep(0.02)
+        multihost.barrier()
+    plan = FaultPlan([Fault(p, k, at=at, **kw)
+                      for p, k, at, kw in plan_spec.get("faults", ())])
+    out = {"host": host, "standby": standby, "rejoined": tr.rejoined}
+    try:
+        with plan.activate():
+            tr.train_xe()
+            tr.train_rl()
+    except SimulatedKill:
+        # what the test reads of a dead host: its steps and drain saves
+        mine = log if host == 0 else log.replace(".jsonl",
+                                                 f".proc{host}.jsonl")
+        _write(a, rank, {"host": host, "died": "SimulatedKill",
+                         "digests": digests, "drains": drains,
+                         "events": [json.loads(x) for x in open(mine)]})
+        os._exit(0)      # a dead host does not clean up
+    finally:
+        tr.close()
+        obs.shutdown()
+    mine = log if host == 0 else log.replace(".jsonl", f".proc{host}.jsonl")
+    out.update(digests=digests, params=_np(tr.state.params),
+               step=int(tr.state.step), rl_epochs=tr.rl_epochs,
+               xe_epochs=tr.xe_epochs, rank=tr.rank, world=tr.world,
+               survivors=tr.health.survivors(),
+               generation=tr.health.generation,
+               fired=[f["kind"] for f in plan.fired], drains=drains,
+               events=[json.loads(x) for x in open(mine)])
+    return out
+
+
+def job_elastic_ref(rank, world, a):
+    """The reference of a continuation: the run's config on this world
+    (no health), resumed from ``a["resume"]`` (a directory holding one
+    drain save), to the end of the run, every step's digest recorded."""
+    from cst_captioning_tpu_torch.data import CaptionDataset
+    from cst_captioning_tpu_torch.presets import get_experiment
+    from cst_captioning_tpu_torch.train.trainer import Trainer
+
+    digests: dict = {}
+    tap_steps(digests)
+    cfg = get_experiment(a["preset"]).override(
+        train__ckpt_dir=a["ckpt_dir"], train__resume=a["resume"],
+        **{**a["overrides"], **a.get("ref_overrides", {})})
+    ds = CaptionDataset(a["info_json"], a["features"], "train",
+                        a["max_frames"])
+    tr = Trainer(cfg, ds, None, device="cpu", use_mesh=True)
+    try:
+        tr.train_xe()
+        tr.train_rl()
+    finally:
+        tr.close()
+    return {"digests": digests, "params": _np(tr.state.params),
+            "step": int(tr.state.step)}
+
+
 def _write(a, rank, payload):
     with open(f"{a['_out']}.rank{rank}", "wb") as f:
         pickle.dump(payload, f)
@@ -511,17 +735,22 @@ def _write(a, rank, payload):
 
 def main(argv):
     job, rank, world, init_file, args_path, out = argv
-    rank, world = int(rank), int(world)
+    world = int(world)
     import torch  # graftlint: disable=GL006
 
     torch.set_num_threads(1)
     with open(args_path, "rb") as f:
         a = pickle.load(f)
     a["_out"] = out
-    if job == "cli":
-        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    if rank.startswith("standby"):
+        # a host started outside the group: the job forms its own
+        a["_standby"] = int(rank[len("standby"):])
     else:
-        _init(rank, world, init_file)
+        rank = int(rank)
+        if job == "cli":
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+        else:
+            _init(rank, world, init_file)
     result = globals()[f"job_{job}"](rank, world, a)
     with open(f"{out}.rank{rank}", "wb") as f:
         pickle.dump(result, f)

@@ -517,20 +517,33 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
 
 
 # the observability, health and data-parallel knobs are ported
-# (tests/test_torch_obs.py); the degraded and regrown meshes of elastic
-# training and the model- and sequence-parallel meshes are not
+# (tests/test_torch_obs.py), and so are the degraded and regrown meshes of
+# elastic training (tests/test_torch_elastic.py); the model- and
+# sequence-parallel meshes are not. (section, name, value, still refused)
 UNPORTED = [
-    ("mesh", "seq_devices", 2), ("mesh", "mp_devices", 2),
-    ("train", "elastic_regrow", False), ("train", "elastic", "degraded"),
+    ("mesh", "seq_devices", 2, True), ("mesh", "mp_devices", 2, True),
+    ("train", "elastic_regrow", False, False),
+    ("train", "elastic", "degraded", False),
 ]
 
 
-@pytest.mark.parametrize("section,name,value", UNPORTED,
-                         ids=[f"{s}.{n}" for s, n, _ in UNPORTED])
-def test_unported_config_values_raise(section, name, value):
+@pytest.mark.parametrize("section,name,value,refused", UNPORTED,
+                         ids=[f"{s}.{n}" for s, n, _, _ in UNPORTED])
+def test_unported_config_values_raise(section, name, value, refused):
+    """A value whose machinery is not ported raises; one the elastic slice
+    brought is accepted, and its JSON round trip equals the JAX package's
+    ``to_json()`` of the same override."""
     cfg = get_experiment("msrvtt_cst_consensus")
-    with pytest.raises(ValueError, match="not ported"):
-        cfg.override(**{f"{section}__{name}": value})
+    key = f"{section}__{name}"
+    if refused:
+        with pytest.raises(ValueError, match="not ported"):
+            cfg.override(**{key: value})
+    else:
+        got = cfg.override(**{key: value})
+        assert getattr(getattr(got, section), name) == value
+        want = jax_preset("msrvtt_cst_consensus").override(**{key: value})
+        assert json.loads(got.to_json()) == json.loads(want.to_json())
+        assert tcfg.ExperimentConfig.from_json(want.to_json()) == got
     # the default is accepted, and a round trip through JSON keeps it
     assert tcfg.ExperimentConfig.from_json(cfg.to_json()) == cfg
 
