@@ -13,6 +13,9 @@ the COCO-style metric table.
 Under ``python -m torch.distributed.run --nproc-per-node N`` (or
 ``--dist-init``, as ``cli.train``) each rank decodes its rows of every
 batch on ``cuda:<LOCAL_RANK>``, rank 0 scores and writes the results.
+``--set mesh__seq_devices=S`` carries the training layout into the eval:
+a ``('data', 'seq')`` grid of the N ranks, each holding its shard of the
+frame axis (``parallel.seq_parallel``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from cst_captioning_tpu_torch.cli.common import (
 from cst_captioning_tpu_torch.eval.evaluator import evaluate_split
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.train import multihost
-from cst_captioning_tpu_torch.train.mesh import make_mesh
+from cst_captioning_tpu_torch.train.mesh import GridMesh, make_mesh
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -68,10 +71,17 @@ def _evaluate(args, cfg, split: str) -> dict:
     # the trainer spells it
     with obs.span("setup"):
         ds = open_dataset(args, cfg, split)
-        mesh = (make_mesh(cfg.mesh.num_devices, device=args.device)
-                if multihost.is_multiprocess() else None)
+        # seq_devices > 1 carries the training layout into the eval: the
+        # frames shard over each seq row of the grid
+        mesh = (make_mesh(cfg.mesh.num_devices,
+                          seq_devices=cfg.mesh.seq_devices,
+                          device=args.device)
+                if multihost.is_multiprocess() or cfg.mesh.seq_devices > 1
+                else None)
         model = CaptionModel(cfg.model, device=mesh.device if mesh
                              else args.device)
+        if isinstance(mesh, GridMesh):
+            model.set_seq(mesh.seq)
         if args.jax_ckpt:
             if not os.path.exists(os.path.join(args.jax_ckpt,
                                                JAX_STATE_FILE)):

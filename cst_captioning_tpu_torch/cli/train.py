@@ -23,6 +23,16 @@ Data parallel: one process a device, launched by torchrun, each rank on
 URL and the ``RANK`` / ``WORLD_SIZE`` env instead of ``MASTER_ADDR`` /
 ``MASTER_PORT``.
 
+Sequence parallel: ``--set mesh__seq_devices=S`` makes the N ranks a
+``('data', 'seq')`` grid of N/S rows, each row's S ranks holding a shard
+of every clip's frames (``model.max_frames`` and the ranks divide by S,
+the batch by N/S; the kernels stay off, ``attention_impl`` and
+``decode_impl`` "xla"):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m cst_captioning_tpu_torch.cli.train --preset msrvtt_xe_attention \
+        ... --set mesh__num_devices=4 --set mesh__seq_devices=2
+
 The decoupled RL topology across ranks: the XE phase runs data parallel
 on every rank, then each RL epoch splits the ranks into actors (the first
 ``round(N * rl.actor_fraction)``) and learners, each side clamped to a

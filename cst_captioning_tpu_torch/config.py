@@ -8,15 +8,18 @@ and ``section__field`` overrides. Field names and defaults match the JAX
 package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
-A field whose machinery the port does not have yet (the model- and
-sequence-parallel meshes) raises ``ValueError`` when it is set to anything
+A field whose machinery the port does not have yet (the model-parallel
+mesh, ``mesh.mp_devices``) raises ``ValueError`` when it is set to anything
 but its default, naming what is missing: nothing is accepted and then
 ignored. The health monitor's knobs (``train.health*``, ``peer_timeout_s``,
 ``dcn_stall_s``), both elastic modes (``train.elastic`` "strict" or
 "degraded", and ``elastic_regrow``: the degraded-mesh continuation and
 grow-back of ``train/trainer.py``), the data mesh (``mesh.num_devices``:
-one rank a device, ``train/mesh.py``) and the gradient-communication knobs
-(``train.comm_*``, ``parallel/comms.py``) are ported.
+one rank a device, ``train/mesh.py``), the gradient-communication knobs
+(``train.comm_*``, ``parallel/comms.py``) and sequence parallelism
+(``mesh.seq_devices``, ``model.seq_axis``: the ``('data', 'seq')`` grid of
+ranks, ``parallel/seq_parallel.py``) are ported, with the JAX package's
+checks on them.
 """
 
 from __future__ import annotations
@@ -93,7 +96,14 @@ class ModelConfig:
             raise ValueError(
                 f"unsupported param dtype {self.param_dtype!r} (float32 only)"
             )
-        _refuse_unported(self, "model", _MODEL_UNPORTED)
+        if self.decode_impl == "pallas" and self.seq_axis:
+            # the kernels' softmax is one device's; a frame-sharded bank
+            # needs the collective one
+            raise ValueError(
+                "decode_impl='pallas' cannot run with a frame-sharded "
+                "memory bank (seq_axis set) — the kernel's attention "
+                "softmax is not collective"
+            )
 
 
 @dataclass(frozen=True)
@@ -138,13 +148,8 @@ def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
 
 # each refused knob names the machinery it needs and the port slice that
 # brings it (ROADMAP.md "Modules still to port")
-_MODEL_SEQUENCE = "the model- and sequence-parallel slice"
 _MESH_UNPORTED = {
-    "seq_devices": f"sequence parallelism ({_MODEL_SEQUENCE})",
-    "mp_devices": f"model parallelism ({_MODEL_SEQUENCE})",
-}
-_MODEL_UNPORTED = {
-    "seq_axis": f"a frame-sharded memory bank ({_MODEL_SEQUENCE})",
+    "mp_devices": "model parallelism (the model-parallel slice)",
 }
 
 
@@ -386,6 +391,16 @@ class MeshConfig:
     mp_devices: int = 1
 
     def __post_init__(self):
+        if self.seq_devices < 1:
+            raise ValueError(
+                f"mesh.seq_devices {self.seq_devices} must be >= 1 "
+                "(1 = no sequence parallelism)")
+        if self.seq_devices > 1 and self.mp_devices > 1:
+            # both want the second mesh axis (the JAX package's message)
+            raise ValueError(
+                "mesh.mp_devices > 1 cannot compose with the "
+                "sequence-parallel ('seq_devices > 1') path yet — "
+                "pick one second mesh axis")
         _refuse_unported(self, "mesh", _MESH_UNPORTED)
 
 
@@ -403,6 +418,30 @@ class ExperimentConfig:
 
     def __post_init__(self):
         # the JAX package's cross-section checks, with its messages
+        sp = self.mesh.seq_devices > 1
+        if self.model.attention_impl == "pallas" and sp:
+            # the sequence-parallel path's softmax is collective; the
+            # kernel's is one device's
+            raise ValueError(
+                "attention_impl='pallas' is not implemented for the "
+                "sequence-parallel ('seq_devices > 1') path; use one or the "
+                "other")
+        if self.model.decode_impl == "pallas" and sp:
+            raise ValueError(
+                "decode_impl='pallas' is not implemented for the "
+                "sequence-parallel ('seq_devices > 1') path; use one or the "
+                "other")
+        if sp and self.model.max_frames % self.mesh.seq_devices:
+            raise ValueError(
+                f"model.max_frames {self.model.max_frames} must be "
+                f"divisible by mesh.seq_devices {self.mesh.seq_devices}")
+        if sp and (self.train.comm_dtype != "f32"
+                   or self.train.comm_overlap):
+            raise ValueError(
+                "train.comm_dtype='bf16' / train.comm_overlap are not "
+                "implemented for the sequence-parallel ('seq_devices > 1') "
+                "path: its gradients are computed outside shard_map and "
+                "never ride a grad allreduce")
         if self.train.rl_topology == "decoupled":
             if self.rl.rollout_depth < 1:
                 raise ValueError(
@@ -417,6 +456,12 @@ class ExperimentConfig:
                     f"rl.actor_fraction {self.rl.actor_fraction} must be in "
                     "(0, 1) — both submeshes need at least one device's "
                     "share")
+            if sp:
+                # a split over a ('data', 'seq') grid needs 2-D plans,
+                # which come with model parallelism
+                raise ValueError(
+                    "train.rl_topology='decoupled' is not implemented for "
+                    "the sequence-parallel ('seq_devices > 1') path")
         if self.train.comm_overlap and self.rl.update_chunks < 2:
             # overlap hides a chunk's all-reduce behind the next chunk's
             # backward: one chunk leaves nothing to hide behind

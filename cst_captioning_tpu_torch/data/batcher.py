@@ -114,21 +114,36 @@ class Batcher:
     def epoch(self, shuffle: bool = True):
         # the order depends only on (seed, epoch_index); unshuffled epochs
         # (eval) consume no epoch index
+        chunks = self._chunks(shuffle)
+        if shuffle:
+            self.epoch_index += 1
+        for chunk, valid in chunks:
+            yield self._collate(chunk, valid)
+
+    def epoch_video_ids(self, shuffle: bool = True) -> list[str]:
+        """The video ids this shard collates over the next ``epoch``, in
+        order, without taking its epoch index (sequence parallelism's row
+        check, ``parallel.seq_parallel.check_row_feed``)."""
+        return [self.ds.records[ri].video_id
+                for chunk, _ in self._chunks(shuffle) for ri, _ in chunk]
+
+    def _chunks(self, shuffle: bool) -> list:
+        """This shard's (items, valid) per batch of the next epoch."""
         rng = None
         if shuffle:
             key = ((self.seed, self.epoch_index) if not self.salt
                    else (self.seed, self.salt, self.epoch_index))
             rng = np.random.default_rng(key)
-            self.epoch_index += 1
         items = self._items(rng)
         bs = self.batch_size
         idx, count = self.host_shard
         lb = self.local_batch_size
+        out = []
         for start in range(0, len(items), bs):
             chunk = items[start : start + bs]
             if len(chunk) < bs:
                 if self.drop_last:
-                    return
+                    break
                 pad = [chunk[i % len(chunk)] for i in range(bs - len(chunk))]
                 valid = np.array([True] * len(chunk) + [False] * len(pad))
                 chunk = chunk + pad
@@ -137,7 +152,8 @@ class Batcher:
             if count > 1:
                 chunk = chunk[idx * lb : (idx + 1) * lb]
                 valid = valid[idx * lb : (idx + 1) * lb]
-            yield self._collate(chunk, valid)
+            out.append((chunk, valid))
+        return out
 
     def _collate(self, items: list[tuple[int, int]], valid: np.ndarray) -> Batch:
         bs, T = self.local_batch_size, self.max_len

@@ -29,8 +29,15 @@ and marks the extra rows invalid), ``allgather_pyobj`` merges the caption
 dicts, rank 0 scores and ``broadcast_pyobj`` fans the metrics out, so
 every rank returns the one-rank result; only rank 0 writes
 ``results_json``. This path is the serial one (the pipelined drain needs
-every caption on one host). The ``('data', 'seq')`` mesh comes with the
-model- and sequence-parallel slice.
+every caption on one host).
+
+Sequence parallel (``mesh`` a ``('data', 'seq')`` ``GridMesh``, the model
+an ``sp_model`` over its row): the batch rounds up to and shards over the
+data axis, every rank of a row collating the same rows, and each rank
+uploads only its shard of the frames (the dataset's ``max_frames`` must
+divide over the row); greedy, beam and NPAD decode over the sharded bank,
+and the merge is the data-parallel one (a row's ranks give the same
+captions).
 """
 
 from __future__ import annotations
@@ -52,7 +59,9 @@ from cst_captioning_tpu_torch.decoding.fused import npad_decode
 from cst_captioning_tpu_torch.decoding.greedy import greedy_decode
 from cst_captioning_tpu_torch.metrics.scorer import CaptionScorer
 from cst_captioning_tpu_torch.metrics.tokenizer import ptb_tokenize
+from cst_captioning_tpu_torch.parallel.seq_parallel import shard_frames
 from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.train.mesh import batch_sharding
 
 
 def npad_batch_seed(npad_seed: int, batch_index: int) -> int:
@@ -75,14 +84,27 @@ class Evaluator:
         self.cfg = cfg = cfg or EvalConfig()
         self.mesh = mesh
         self.multiproc = mesh is not None and mesh.world > 1
-        if mesh is not None and batch_size % mesh.world:
+        self.sp = mesh is not None and hasattr(mesh, "seq")
+        if self.sp:
+            S = mesh.seq.world
+            if dataset.max_frames % S:
+                raise ValueError(
+                    f"model.max_frames {dataset.max_frames} must be "
+                    f"divisible by mesh.seq_devices {S}")
+            if model.encoder.seq is not mesh.seq:
+                raise ValueError(
+                    "a ('data', 'seq') mesh needs the model's frame axis "
+                    "sharded over its row (parallel.seq_parallel.sp_model)")
+        shard = batch_sharding(mesh) if self.multiproc else (0, 1)
+        n_data = shard[1]
+        if batch_size % n_data:
             # every batch size shards: the wrap-padded rows are invalid,
             # so the captions stay the one-rank ones
-            padded = -(-batch_size // mesh.world) * mesh.world
+            padded = -(-batch_size // n_data) * n_data
             logging.getLogger(__name__).warning(
                 "eval batch_size %d -> %d (next multiple of the %d-rank "
                 "'data' axis; wrap-padded rows are masked out)",
-                batch_size, padded, mesh.world)
+                batch_size, padded, n_data)
             batch_size = padded
         # both scorers built (and so validated) up front; the pre-tokenized
         # one scores the pipelined drain and keeps its native CIDEr-D pool
@@ -92,8 +114,7 @@ class Evaluator:
                                          pre_tokenized=True)
         self.batcher = Batcher(
             dataset, batch_size=batch_size, max_len=cfg.max_len, mode="video",
-            host_shard=(mesh.rank, mesh.world) if self.multiproc
-            else (0, 1))
+            host_shard=shard)
         self.timing: dict[str, float] = {}
         W, T, ml = cfg.beam_size, cfg.max_len, cfg.min_len
         if cfg.npad_lanes > 0:
@@ -116,10 +137,14 @@ class Evaluator:
         """Upload batch ``bi``'s features and decode it -> tokens [B, T] on
         the model's device."""
         dev = self.model.device
+        feats, masks = batch.feats, batch.feat_masks
+        if self.sp:
+            # only this rank's frames reach the device
+            feats = shard_frames(self.mesh, feats)
+            masks = shard_frames(self.mesh, masks)
         up = lambda d: {k: torch.from_numpy(v).to(dev)  # noqa: E731
                         for k, v in d.items()}
-        return self._decode(self.model, up(batch.feats), up(batch.feat_masks),
-                            bi)
+        return self._decode(self.model, up(feats), up(masks), bi)
 
     def generate(self) -> dict[str, str]:
         """Decode every video of the split -> {video_id: caption string}.

@@ -7,6 +7,7 @@ steps of the same cell the decoders step."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -50,7 +51,13 @@ def shift_right(labels: torch.Tensor) -> torch.Tensor:
 class CaptionModel(nn.Module):
     """Built on ``device`` (default the GPU; raises without one unless
     ``device="cpu"``) with random weights; :func:`convert.load_flax_params`
-    loads a JAX parameter tree."""
+    loads a JAX parameter tree.
+
+    :meth:`set_seq` (``parallel.seq_parallel.sp_model``) puts it on the
+    row of a ``('data', 'seq')`` grid whose ranks each hold a shard of the
+    frame axis: the mean-pool's sums, the temporal bank's attention
+    softmax and the carry-init mean then reduce over it; the parameters
+    are the same either way."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -70,7 +77,20 @@ class CaptionModel(nn.Module):
             Dense(cfg.d_embed, cfg.d_hidden, dtype=dtype)
             for _ in range(cfg.num_layers)
         ])
+        self.seq = None     # the frame axis is whole here (set_seq)
         self.to(resolve_device(device))
+
+    def set_seq(self, seq, seq_axis: str = "seq") -> None:
+        """Shard the frame axis over the row ``seq`` (None: every frame
+        here); ``cfg.seq_axis`` follows. A temporal bank is then
+        frame-sharded, its softmax and carry-init mean collective; a
+        mean-pooled bank is whole on every rank after the pooled sums,
+        and its attention stays local."""
+        if seq is not None and not self.cfg.seq_axis:
+            self.cfg = dataclasses.replace(self.cfg, seq_axis=seq_axis)
+        self.encoder.seq = seq
+        self.seq = seq if self.cfg.encoder == "temporal_attention" else None
+        self.cell.attention.seq = self.seq
 
     @property
     def device(self) -> torch.device:
@@ -80,7 +100,7 @@ class CaptionModel(nn.Module):
                masks: dict[str, torch.Tensor]) -> EncoderOutput:
         memory, mmask = self.encoder(feats, masks)
         memory_proj = self.cell.project_memory(memory)
-        ctx0 = masked_mean(memory, mmask, 1)
+        ctx0 = masked_mean(memory, mmask, 1, self.seq)
         carry = tuple(
             (torch.tanh(self.init_c[i](ctx0)), torch.tanh(self.init_h[i](ctx0)))
             for i in range(self.cfg.num_layers)

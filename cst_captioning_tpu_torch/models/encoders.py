@@ -4,6 +4,11 @@
   memory slot per modality.
 - :class:`TemporalAttentionEncoder`: per-frame embeddings, all modalities
   concatenated along the frame axis.
+
+Under sequence parallelism (``seq`` set) each rank holds a shard of every
+modality's frames: the mean-pool's sums run over the row (the pooled
+bank is then the same on every rank), and the temporal bank stays
+frame-sharded, its slots this rank's frames.
 """
 
 from __future__ import annotations
@@ -16,11 +21,21 @@ from cst_captioning_tpu_torch.device import torch_dtype
 from cst_captioning_tpu_torch.models.layers import Dense
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
-    """Mean over ``dim`` counting only mask==1 positions."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int,
+                row=None) -> torch.Tensor:
+    """Mean over ``dim`` counting only mask==1 positions. ``row``: the seq
+    row ``dim`` is sharded over (sequence parallelism); the numerator and
+    the count are summed over it, in one float32 all-reduce, before the
+    divide, so the result is the unsharded mean."""
     mask = mask.to(x.dtype)
     num = (x * mask.unsqueeze(-1)).sum(dim)
     den = mask.sum(dim)
+    if row is not None:
+        from cst_captioning_tpu_torch.parallel.seq_parallel import seq_sum
+
+        both = seq_sum(torch.cat([num.float(), den.float().unsqueeze(-1)],
+                                 dim=-1), row)
+        num, den = both[..., :-1].to(x.dtype), both[..., -1].to(x.dtype)
     return num / torch.clamp(den, min=1.0).unsqueeze(-1)
 
 
@@ -33,6 +48,8 @@ class _Encoder(nn.Module):
             name: Dense(dim, cfg.d_embed, dtype=self.dtype)
             for name, dim in cfg.modalities
         })
+        # the seq row the frame axis is sharded over (None: all here)
+        self.seq = None
 
 
 class MeanPoolEncoder(_Encoder):
@@ -41,7 +58,8 @@ class MeanPoolEncoder(_Encoder):
         """feats[name]: [B, F, D] -> (memory [B, n_mod, E], mask [B, n_mod])."""
         slots = []
         for name, _ in self.cfg.modalities:
-            pooled = masked_mean(feats[name].to(self.dtype), masks[name], 1)
+            pooled = masked_mean(feats[name].to(self.dtype), masks[name], 1,
+                                 self.seq)
             slots.append(torch.tanh(self.embed[name](pooled)))
         memory = torch.stack(slots, dim=1)
         mmask = torch.ones(memory.shape[:2], dtype=torch.float32,

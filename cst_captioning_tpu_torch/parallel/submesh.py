@@ -22,8 +22,8 @@ Two constraints shape the split, as in the JAX package:
 
 Building a plan creates the sides' process groups, which is collective
 over the whole world: every rank plans, shrinks and grows in the same
-order. The 2-D ``(data, mp)`` mesh is the model- and sequence-parallel
-slice's and is refused.
+order. A 2-D mesh (a ``(data, seq)`` or ``(data, mp)`` grid) is refused:
+its row split comes with the model-parallel slice.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from dataclasses import dataclass
 
 from cst_captioning_tpu_torch.train.mesh import DataMesh, submesh
 
-_MODEL_SEQUENCE = "the model- and sequence-parallel slice"
+_MODEL_PARALLEL = "the model-parallel slice"
 
 
 def largest_divisor(batch: int, upper: int) -> int:
@@ -92,12 +92,12 @@ def plan_submesh(mesh: DataMesh, actor_fraction: float = 0.5,
     both sides keep at least one, then each side clamps down to the
     largest divisor of ``batch_size`` (0 = no batch constraint); actors
     are the first ranks. A mesh of one rank returns the shared plan. A
-    2-D ``(data, mp)`` mesh raises (the model- and sequence-parallel
-    slice). The sides keep the mesh's axis name."""
+    2-D mesh raises: the row split of a grid comes with the
+    model-parallel slice. The sides keep the mesh's axis name."""
     if len(mesh.axis_names) == 2:
         raise ValueError(
             f"plan_submesh got a 2-D {mesh.axis_names!r} mesh: the row split "
-            f"of a (data, mp) grid is not ported yet ({_MODEL_SEQUENCE})")
+            f"of a grid is not ported yet ({_MODEL_PARALLEL})")
     if len(mesh.axis_names) != 1:
         raise ValueError(
             f"plan_submesh needs a 1-D or 2-D mesh, got axes "

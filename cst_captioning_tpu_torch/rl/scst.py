@@ -51,6 +51,13 @@ for token), scores them on the host, and the update
 count and the gradients over the ranks before the one division. A
 drained pipeline's seam is gathered across the ranks, so a resume on the
 same world size replays it.
+
+Sequence parallel (``mesh`` a ``train.mesh.GridMesh``, the model an
+``sp_model`` over its row): the decode and the update are
+``parallel.seq_parallel``'s (``make_sp_decode``, ``make_sp_rl_update``),
+each rank's rows its data coordinate's, its frames its shard; the rollout
+noise is keyed by the data coordinate, so a row's ranks draw alike, and
+the seam gathers one rank a row.
 """
 
 from __future__ import annotations
@@ -197,7 +204,8 @@ def make_parallel_rl_decode(model, mesh, num_rollouts: int,
     rows; ``mesh=None`` is the one-device decode): each rank decodes its
     own rows of the global batch (a decode has no cross-row interaction),
     drawing the noise of its global rows (``rollout_noise``'s
-    ``row_offset``: ``mesh.rank`` times the rows given, so on an actor or
+    ``row_offset``: the data coordinate (``mesh.rank``; a grid's
+    column's) times the rows given, so on an actor or
     learner submesh its index within that side), and the rollouts of the
     global batch equal the one-rank decode's token for token at any world
     size or actor count. The JAX decode folds the axis index into its key
@@ -207,7 +215,9 @@ def make_parallel_rl_decode(model, mesh, num_rollouts: int,
 
     def decode(model, feats, masks, seed: int, noise_fn=None):
         B = next(iter(feats.values())).shape[0]
-        offset = mesh.rank * B if mesh is not None else 0
+        # the rows' global index: the data coordinate's (a grid's column)
+        offset = getattr(mesh, "data", mesh).rank * B if mesh is not None \
+            else 0
         if with_greedy and fused:
             greedy, _, samples, _ = fused_decode(
                 model, feats, masks, seed, num_rollouts=num_rollouts,
@@ -467,7 +477,21 @@ class SCSTTrainer:
         # the loop's stride: the fused decode's, or the per-step exit check
         stride = max(1, min(model.cfg.decode_stride, self.max_len))
         self._stride = stride if wg and stride > 1 else None
-        if mesh is not None:
+        # a ('data', 'seq') grid: the model reduces over its row
+        self.sp = mesh is not None and hasattr(mesh, "seq")
+        if self.sp:
+            from cst_captioning_tpu_torch.parallel.seq_parallel import (
+                make_sp_decode,
+                make_sp_rl_update,
+            )
+
+            self.decode = make_sp_decode(
+                model, mesh, cfg.num_rollouts, cfg.temperature, max_len,
+                with_greedy=wg)
+            self.update = make_sp_rl_update(
+                model, mesh, chunks=cfg.update_chunks, guard=guard,
+                comm=comm, stats=stats)
+        elif mesh is not None:
             self.decode = make_parallel_rl_decode(
                 model, mesh, cfg.num_rollouts, cfg.temperature, max_len,
                 with_greedy=wg)
@@ -634,36 +658,57 @@ class SCSTTrainer:
 
     # ---- the seam of a drained pipeline -----------------------------------
 
-    @staticmethod
-    def _seam_capture(decoded, video_ids) -> dict:
+    def _row_ranks(self) -> int:
+        """Ranks a data coordinate spans: the seq row's width on a
+        ``('data', 'seq')`` grid (whose ranks of a row hold the same
+        rows), else 1."""
+        return self.mesh.seq.world if self.sp else 1
+
+    def _gather_rows(self, t, dim: int) -> np.ndarray:
+        """Every data coordinate's rows of ``t``, in order, on the host."""
+        S = self._row_ranks()
+        full = multihost.allgather_to_host(t, dim=dim)
+        if S == 1:
+            return full
+        parts = np.split(full, multihost.process_count(), axis=dim)
+        return np.concatenate(parts[::S], axis=dim)
+
+    def _seam_capture(self, decoded, video_ids) -> dict:
         """Host copies of a decoded, unscored batch's tokens, gathered
         across the ranks (the global batch's rows, in rank order), so any
         rank of a resumed run can replay its share."""
         greedy, samples = decoded
-        out = {"samples": multihost.allgather_to_host(samples, dim=1),
-               "video_ids": [str(i) for part in multihost.allgather_pyobj(
-                   [str(v) for v in video_ids]) for i in part]}
+        out = {"samples": self._gather_rows(samples, 1),
+               "video_ids": self._global_ids(video_ids)}
         if greedy is not None:
-            out["greedy"] = multihost.allgather_to_host(greedy)
+            out["greedy"] = self._gather_rows(greedy, 0)
         return out
 
-    @staticmethod
-    def _seam_tokens_to_device(seam: dict, device):
+    def _seam_tokens_to_device(self, seam: dict, device):
         """Persisted seam tokens -> (greedy or None, samples) of this
         rank's rows on ``device``, as the decode gives them."""
-        samples = multihost.put_full_global(np.asarray(seam["samples"]),
-                                            device, dim=1)
+        if not self.sp:
+            put = multihost.put_full_global
+        else:
+            d = self.mesh.data
+
+            def put(x, device, dim):
+                t = torch.as_tensor(np.asarray(x))
+                n = t.shape[dim] // d.world
+                return t.narrow(dim, d.rank * n, n).to(device)
+
+        samples = put(np.asarray(seam["samples"]), device, dim=1)
         greedy = seam.get("greedy")
         if greedy is not None:
-            greedy = multihost.put_full_global(np.asarray(greedy), device,
-                                               dim=0)
+            greedy = put(np.asarray(greedy), device, dim=0)
         return greedy, samples
 
-    @staticmethod
-    def _seam_matches(seam: dict, video_ids) -> bool:
-        ids = [i for part in multihost.allgather_pyobj(
-            [str(v) for v in video_ids]) for i in part]
-        return list(seam.get("video_ids", [])) == ids
+    def _global_ids(self, video_ids) -> list[str]:
+        parts = multihost.allgather_pyobj([str(v) for v in video_ids])
+        return [str(i) for part in parts[::self._row_ranks()] for i in part]
+
+    def _seam_matches(self, seam: dict, video_ids) -> bool:
+        return list(seam.get("video_ids", [])) == self._global_ids(video_ids)
 
     # ---- an epoch ----------------------------------------------------------
 

@@ -8,10 +8,18 @@ rank, the world size, this rank's device and the process groups. Batches
 shard along axis 0 across the ranks (:func:`shard_batch`: this rank's
 contiguous rows, the ``Batcher(host_shard=...)`` slicing); parameters and
 optimizer state are replicated, and :func:`replicate` broadcasts them from
-rank 0. The ``('data', 'seq')`` and ``('data', 'mp')`` meshes come with
-the model- and sequence-parallel slice and raise. :func:`submesh` is a
-``DataMesh`` over a subset of the ranks (the actor and learner sides of
-``parallel/submesh.py``), with its own group.
+rank 0. :func:`submesh` is a ``DataMesh`` over a subset of the ranks
+(the actor and learner sides of ``parallel/submesh.py``), with its own
+group.
+
+``make_mesh(seq_devices=S)`` gives the ``('data', 'seq')`` grid of
+sequence parallelism, a :class:`GridMesh`: global rank ``r`` is cell
+``(r // S, r % S)`` (the JAX mesh's ``devices.reshape(n // S, S)``), its
+``.data`` a ``DataMesh`` over this rank's column (the ranks of its seq
+coordinate; the batch axis) and its ``.seq`` one over its row (the ranks
+of its data coordinate; the frame axis). :func:`batch_sharding` is then
+the data coordinate: every rank of a row collates the same rows. The
+``('data', 'mp')`` mesh comes with the model-parallel slice and raises.
 
 The partition rule tables are the JAX package's, as plain data: ordered
 ``(family, path regex, spec)`` rows, the spec a tuple of axis names or
@@ -34,7 +42,7 @@ import torch.distributed as dist
 from cst_captioning_tpu_torch.models.decoder import LSTM_GATE_ORDER
 from cst_captioning_tpu_torch.train import multihost
 
-_MODEL_SEQUENCE = "the model- and sequence-parallel slice"
+_MODEL_PARALLEL = "the model-parallel slice"
 
 
 @dataclass(frozen=True)
@@ -64,23 +72,89 @@ class DataMesh:
     def shape(self) -> dict[str, int]:
         return {self.axis: self.world}
 
+    def __deepcopy__(self, memo):
+        # a mesh names ranks and a live group: a copied model (a
+        # TrainState clone) shares it
+        return self
+
+
+@dataclass(frozen=True)
+class GridMesh:
+    """The ``('data', 'seq')`` grid over ``world`` ranks, seen from global
+    rank ``rank`` = ``data.rank * seq.world + seq.rank``: ``data`` is the
+    column through this rank (the batch axis, over the ranks of its seq
+    coordinate), ``seq`` the row (the frame axis, over the ranks of its
+    data coordinate). ``group`` is the whole grid's."""
+
+    rank: int
+    world: int
+    device: torch.device
+    data: DataMesh
+    seq: DataMesh
+    group: object = None
+
+    @property
+    def global_ranks(self) -> tuple[int, ...]:
+        return tuple(range(self.world))
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return (self.data.axis, self.seq.axis)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.data.axis: self.data.world, self.seq.axis: self.seq.world}
+
+    def __deepcopy__(self, memo):
+        return self
+
+
+def grid_cell(rank: int, seq_devices: int) -> tuple[int, int]:
+    """Global rank -> its (data, seq) coordinates on the grid."""
+    return rank // seq_devices, rank % seq_devices
+
+
+def _grid(rank: int, world: int, seq_devices: int, axis: str,
+          seq_axis: str, dev: torch.device) -> GridMesh:
+    """The grid over ``world`` ranks. Every rank creates every column's
+    group and then every row's, in one order (``multihost.group_of`` is
+    collective over the world)."""
+    S, n = seq_devices, world // seq_devices
+    grouped = dist.is_initialized()
+    cols = [tuple(d * S + s for d in range(n)) for s in range(S)]
+    rows = [tuple(d * S + s for s in range(S)) for d in range(n)]
+    groups = {}
+    for ranks in cols + rows:
+        groups[ranks] = (multihost.group_of(ranks)
+                         if grouped and len(ranks) > 1 else None)
+    d, s = grid_cell(rank, S)
+    col, row = cols[s], rows[d]
+    return GridMesh(
+        rank=rank, world=world, device=dev,
+        data=DataMesh(axis=axis, rank=d, world=n, device=dev,
+                      group=groups[col], ranks=col),
+        seq=DataMesh(axis=seq_axis, rank=s, world=S, device=dev,
+                     group=groups[row], ranks=row),
+        group=dist.group.WORLD if grouped else None)
+
 
 def make_mesh(num_devices: int = 0, axis: str = "data",
               seq_devices: int = 1, mp_devices: int = 1,
-              device=None) -> DataMesh:
-    """The 1-D ``(data,)`` mesh over the initialized process group (world
-    1 without one). ``num_devices`` 0 takes the world size; N > 1 must
-    equal it. ``device`` is this rank's (default ``cuda:<LOCAL_RANK>``)."""
+              device=None, seq_axis: str = "seq"):
+    """The mesh over the initialized process group (world 1 without one):
+    the 1-D ``(data,)`` :class:`DataMesh`, or with ``seq_devices > 1`` the
+    ``('data', 'seq')`` :class:`GridMesh` (``seq_devices`` must divide the
+    world). ``num_devices`` 0 takes the world size; N > 1 must equal it.
+    ``device`` is this rank's (default ``cuda:<LOCAL_RANK>``)."""
     if seq_devices > 1 and mp_devices > 1:
         raise ValueError(
             "seq_devices > 1 and mp_devices > 1 cannot compose yet: the "
             "collective attention softmax and the sharded-vocab decode "
             "assume different second axes (pick one)")
-    if seq_devices > 1 or mp_devices > 1:
+    if mp_devices > 1:
         raise ValueError(
-            f"seq_devices={seq_devices}, mp_devices={mp_devices}: the "
-            "('data', 'seq') and ('data', 'mp') meshes are not ported yet "
-            f"({_MODEL_SEQUENCE})")
+            f"mp_devices={mp_devices}: the ('data', 'mp') mesh is not "
+            f"ported yet ({_MODEL_PARALLEL})")
     rank, world = multihost.host_shard()
     if num_devices and num_devices != world:
         raise ValueError(
@@ -92,6 +166,12 @@ def make_mesh(num_devices: int = 0, axis: str = "data",
             "mesh.num_devices at 0")
     dev = multihost.local_device(torch.device("cuda" if device is None
                                               else device))
+    if seq_devices > 1:
+        if world % seq_devices:
+            raise ValueError(
+                f"seq_devices {seq_devices} must divide the {world} mesh "
+                "devices")
+        return _grid(rank, world, seq_devices, axis, seq_axis, dev)
     return DataMesh(axis=axis, rank=rank, world=world, device=dev,
                     group=dist.group.WORLD if dist.is_initialized() else None,
                     ranks=tuple(range(world)))
@@ -120,15 +200,25 @@ def submesh(mesh: DataMesh, ranks) -> DataMesh | None:
                     device=mesh.device, group=group, ranks=ranks)
 
 
-def batch_sharding(mesh: DataMesh) -> tuple[int, int]:
-    """This rank's share of a batch's axis 0: ``(rank, world)``, the
-    ``Batcher`` ``host_shard`` argument."""
-    return mesh.rank, mesh.world
+def data_axis(mesh):
+    """The mesh's batch axis: a ``DataMesh`` itself, a grid's column."""
+    return mesh.data if isinstance(mesh, GridMesh) else mesh
 
 
-def shard_batch(mesh: DataMesh, batch, dim: int = 0):
+def batch_sharding(mesh) -> tuple[int, int]:
+    """This rank's share of a batch's axis 0, the ``Batcher``
+    ``host_shard`` argument: ``(rank, world)`` on a ``DataMesh``, the
+    data coordinate and the column's width on a grid (every rank of a row
+    takes the same rows)."""
+    d = data_axis(mesh)
+    return d.rank, d.world
+
+
+def shard_batch(mesh, batch, dim: int = 0):
     """A global batch pytree -> this rank's contiguous rows along ``dim``,
-    as ``Batcher(host_shard=(rank, world))`` slices them."""
+    as ``Batcher(host_shard=(rank, world))`` slices them (on a grid, by
+    the data coordinate)."""
+    mesh = data_axis(mesh)
 
     def take(x):
         n = x.shape[dim]

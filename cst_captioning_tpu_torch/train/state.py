@@ -36,7 +36,10 @@ class TrainState:
         """The dropout stream of this step, on the model's device; a
         data-parallel ``rank`` other than 0 folds into the seed (as the
         JAX step folds the axis index), so ranks draw distinct masks and
-        rank 0 draws the one-device step's."""
+        rank 0 draws the one-device step's. On a ``('data', 'seq')``
+        grid ``rank`` is the data coordinate, never the seq one: every
+        dropout site lies on the replicated path, and a row's equal masks
+        keep it replicated."""
         g = torch.Generator(device=self.model.device)
         seed = (self.seed * 1_000_003 + self.step) % (2**63)
         if rank:

@@ -109,8 +109,20 @@ no rank runs ahead of a file it may resume from; every rank resumes from
 the shared directory. Validation runs on every rank (the sharded
 evaluator).
 
-Not ported (ROADMAP.md names their slices): the model- and
-sequence-parallel meshes; their config fields raise (``config.py``).
+Sequence parallel (``mesh.seq_devices = S > 1``; the JAX trainer's SP
+branches): a ``('data', 'seq')`` grid of ranks (``train.mesh.GridMesh``),
+the model's frame axis sharded over its row
+(``parallel.seq_parallel``). Each rank collates its data coordinate's rows
+(every rank of a row the same ones; the batch size must divide the data
+axis) and keeps its shard of the frames; once an epoch the rows' feeds
+are checked (``check_row_feed``: a row fed other videos raises). The XE
+step is ``make_sp_xe_step`` (dropout keyed by the data coordinate), the
+RL epoch ``SCSTTrainer``'s SP branch, validation the evaluator's. A
+degraded continuation on the grid raises, as in the JAX trainer: a lost
+host takes part of every row it held; the strict drain stands.
+
+Not ported (ROADMAP.md names its slice): the model-parallel mesh; its
+config field raises (``config.py``).
 """
 
 from __future__ import annotations
@@ -162,7 +174,9 @@ from cst_captioning_tpu_torch.rl import (
 )
 from cst_captioning_tpu_torch.rl.scst import rollout_seed
 from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.parallel import seq_parallel as sp
 from cst_captioning_tpu_torch.train.mesh import (
+    GridMesh,
     batch_sharding,
     make_mesh,
     replicate,
@@ -293,7 +307,8 @@ class Trainer:
         self.host_id, self._hosts = multihost.host_identity()
         self.rank, self.world = multihost.host_shard()
         n_dev = cfg.mesh.num_devices or self._hosts
-        self.use_mesh = n_dev > 1 if use_mesh is None else use_mesh
+        self.use_mesh = (n_dev > 1 or cfg.mesh.seq_devices > 1) \
+            if use_mesh is None else use_mesh
         # analytic FLOPs per teacher-forced XE row (obs/flops.py): the
         # flops.xe.step counter behind the run report's MFU column
         mc = cfg.model
@@ -378,8 +393,14 @@ class Trainer:
         if rejoining:
             self._join_next_generation()
         self.mesh = (make_mesh(0 if self._degraded_gen
-                               else cfg.mesh.num_devices, device=self.device)
+                               else cfg.mesh.num_devices,
+                               seq_devices=cfg.mesh.seq_devices,
+                               device=self.device)
                      if self.use_mesh else None)
+        # a ('data', 'seq') grid: the frame axis shards over each row
+        self.sp = isinstance(self.mesh, GridMesh)
+        if self.sp:
+            self.model.set_seq(self.mesh.seq)
         self._check_batch_divides()
         # the device layout: one device a host on real ranks (a device is
         # its host's id), else the one device this process drives
@@ -439,13 +460,13 @@ class Trainer:
         setup_span.end()
 
     def _check_batch_divides(self) -> None:
-        if self.mesh is not None and self.cfg.data.batch_size \
-                % self.mesh.world:
+        n_data = self._host_shard()[1]
+        if self.mesh is not None and self.cfg.data.batch_size % n_data:
             # unlike eval (which wrap-pads), padding a training batch would
             # change how rows group into optimizer steps
             raise ValueError(
                 f"training batch_size {self.cfg.data.batch_size} must be "
-                f"divisible by the mesh's {self.mesh.world}-device 'data' "
+                f"divisible by the mesh's {n_data}-device 'data' "
                 "axis; pick a multiple or set mesh.num_devices/seq_devices")
 
     def _host_shard(self) -> tuple[int, int]:
@@ -459,7 +480,11 @@ class Trainer:
     def _build_xe_step(self) -> None:
         """(Re)build the XE step for the current mesh: at init and after
         every shrink or regrow (its gradient reducer holds the group)."""
-        if self.mesh is not None:
+        if self.sp:
+            self.xe_step = sp.make_sp_xe_step(
+                self.model, self.mesh, self.cfg.train.label_smoothing,
+                guard=self.guard, comm=self.comm, stats=self._stats)
+        elif self.mesh is not None:
             self.xe_step = make_parallel_xe_step(
                 self.model, self.mesh, self.cfg.train.label_smoothing,
                 guard=self.guard, comm=self.comm, stats=self._stats)
@@ -648,9 +673,11 @@ class Trainer:
         valid); ``skip`` drops the first batches of the epoch's order."""
         def transform(b):
             b = chaos.visit("xe.batch", b)
-            return (b.feats, b.feat_masks, b.labels.astype(np.int64), b.mask,
-                    b.weights, np.asarray(b.valid, np.float32))
+            arrays = (b.feats, b.feat_masks, b.labels.astype(np.int64),
+                      b.mask, b.weights, np.asarray(b.valid, np.float32))
+            return self._place(arrays)
 
+        self._check_feed(batcher)
         it = itertools.islice(batcher.epoch(), skip, None)
         yield from prefetch_to_device(
             it, size=self.cfg.data.prefetch, transform=transform,
@@ -662,13 +689,31 @@ class Trainer:
         flags (lists) on the host for the reward."""
         def transform(b):
             b = chaos.visit("rl.batch", b)
-            return (b.feats, b.feat_masks, list(b.video_ids),
-                    [bool(v) for v in b.valid])
+            return (*self._place((b.feats, b.feat_masks)),
+                    list(b.video_ids), [bool(v) for v in b.valid])
 
+        self._check_feed(batcher)
         it = itertools.islice(batcher.epoch(shuffle=True), skip, None)
         yield from prefetch_to_device(
             it, size=self.cfg.data.prefetch, transform=transform,
             stop_event=stop_event, device=self.device)
+
+    def _place(self, arrays: tuple) -> tuple:
+        """A batch's host arrays (the XE tuple, or its first two); on a
+        grid, this rank's frames of the features and masks
+        (``shard_frames``; the rows are its data coordinate's already).
+        Only the shard reaches the device."""
+        if not self.sp:
+            return arrays
+        feats, masks, *rest = arrays
+        return (sp.shard_frames(self.mesh, feats),
+                sp.shard_frames(self.mesh, masks), *rest)
+
+    def _check_feed(self, batcher: Batcher) -> None:
+        """On a grid, once an epoch: every rank of a seq row collates the
+        same videos (``check_row_feed``), or every rank raises."""
+        if self.sp:
+            sp.check_row_feed(self.mesh, batcher.epoch_video_ids())
 
     # ---- resilience ------------------------------------------------------------
 
@@ -910,6 +955,12 @@ class Trainer:
         cfg = self.cfg
         if self.health is None or self._all_mesh_devices is None:
             raise err  # the continuation needs the monitor and a mesh
+        if self.sp:
+            raise RuntimeError(
+                "degraded-mesh continuation does not support the "
+                "('data','seq') mesh — a lost host takes part of every seq "
+                "row with it; run elastic='strict' with seq_devices > 1"
+            ) from err
         if self._real_ranks and phase == "rl" \
                 and cfg.train.rl_topology == "decoupled":
             raise RuntimeError(

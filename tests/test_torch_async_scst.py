@@ -466,5 +466,5 @@ def test_several_devices_are_refused(setup):
     class Grid:     # a (data, mp) grid of four virtual ranks
         axis_names, world, group = ("data", "mp"), 4, None
 
-    with pytest.raises(ValueError, match="model- and sequence-parallel"):
+    with pytest.raises(ValueError, match="model-parallel slice"):
         _port(setup, _rl(), mesh=Grid())

@@ -515,8 +515,8 @@ def test_decoupled_topology_across_ranks_is_refused(monkeypatch, tmp_path):
     """The actor/learner split across ranks is ported: at a world of two
     (the rank helpers report it; no process group, so its ranks are
     virtual) the decoupled trainer plans one actor and one learner on the
-    Trainer's mesh. What stays refused is a 2-D mesh, naming the model-
-    and sequence-parallel slice."""
+    Trainer's mesh. What stays refused is the model-parallel mesh, naming
+    its slice."""
     from cst_captioning_tpu_torch.rl import AsyncSCSTTrainer
     from cst_captioning_tpu_torch.train import make_mesh, multihost
 
@@ -530,6 +530,6 @@ def test_decoupled_topology_across_ranks_is_refused(monkeypatch, tmp_path):
     a = AsyncSCSTTrainer(model, None, cfg.rl, batch_size=cfg.data.batch_size,
                          mesh=mesh)
     assert (a._plan.actor_ranks, a._plan.learner_ranks) == ((0,), (1,))
-    with pytest.raises(ValueError, match="model- and sequence-parallel"):
+    with pytest.raises(ValueError, match="model-parallel slice"):
         get_experiment("msrvtt_cst_consensus").override(
             train__rl_topology="decoupled", mesh__mp_devices=2)

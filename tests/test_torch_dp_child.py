@@ -10,10 +10,12 @@ forms a gloo group from ``file://INIT_FILE`` (unless the job's own CLI
 does), runs ``JOB(rank, world, args)`` with ``args`` the pickled dict at
 ARGS, and pickles the job's result dict to ``OUT.rank<RANK>``. Jobs import
 only the port (never jax). :func:`launch` starts the ranks and collects
-their results, with a timeout so a hang fails instead of stalling. A RANK
-of ``standby<i>`` is a host started outside the group (a restarted host
-of an elastic run: :func:`job_elastic`), its result at
-``OUT.standby<i>``.
+their results, with a timeout so a hang fails instead of stalling
+(:func:`start` and :func:`finish` split it, so that several launches run
+at once; ``script=`` launches another module with this command line,
+``test_torch_sp_child.py``). A RANK of ``standby<i>`` is a host started
+outside the group (a restarted host of an elastic run:
+:func:`job_elastic`), its result at ``OUT.standby<i>``.
 """
 
 import os
@@ -33,6 +35,14 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
     wrote none; the exit codes; the stderr texts), the ranks' first. A
     launch past ``timeout`` raises ``subprocess.TimeoutExpired`` after
     killing the processes."""
+    return finish(start(job, args, tmp_dir, world, timeout, standbys))
+
+
+def start(job: str, args: dict, tmp_dir, world: int = 2,
+          timeout: float = 120.0, standbys: int = 0,
+          script: str = __file__) -> dict:
+    """Start :func:`launch`'s processes of ``script`` (a module with this
+    one's command line) and return at once; :func:`finish` waits."""
     tmp_dir = str(tmp_dir)
     init = os.path.join(tmp_dir, f"{job}.init")
     args_path = os.path.join(tmp_dir, f"{job}.args")
@@ -56,21 +66,35 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
         for r, err_path in zip(names, err_paths):
             with open(err_path, "w") as err:
                 procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), job, r,
+                    [sys.executable, os.path.abspath(script), job, r,
                      str(world), init, args_path, out], env=env,
                     stdout=subprocess.DEVNULL, stderr=err))
-        deadline = time.monotonic() + timeout
+    except BaseException:
+        _kill(procs)
+        raise
+    return dict(procs=procs, names=names, out=out, err_paths=err_paths,
+                deadline=time.monotonic() + timeout)
+
+
+def _kill(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish(h: dict) -> tuple[list, list, list]:
+    """Wait for a :func:`start`-ed launch -> :func:`launch`'s result."""
+    procs = h["procs"]
+    try:
         for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            p.wait(timeout=max(1.0, h["deadline"] - time.monotonic()))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    errs = [open(e).read() for e in err_paths]
+        _kill(procs)
+    errs = [open(e).read() for e in h["err_paths"]]
     results = []
-    for r in names:
-        path = f"{out}.rank{r}"
+    for r in h["names"]:
+        path = f"{h['out']}.rank{r}"
         results.append(pickle.load(open(path, "rb"))
                        if os.path.exists(path) else None)
     return results, [p.returncode for p in procs], errs
@@ -79,7 +103,12 @@ def launch(job: str, args: dict, tmp_dir, world: int = 2,
 def launch_ok(job: str, args: dict, tmp_dir, world: int = 2,
               timeout: float = 120.0) -> list:
     """:func:`launch`, asserting every rank exited 0."""
-    results, rcs, errs = launch(job, args, tmp_dir, world, timeout)
+    return finish_ok(start(job, args, tmp_dir, world, timeout), job)
+
+
+def finish_ok(h: dict, job: str = "") -> list:
+    """:func:`finish`, asserting every rank exited 0."""
+    results, rcs, errs = finish(h)
     if any(rcs):
         raise AssertionError(
             f"job {job} ranks exited {rcs}:\n" +

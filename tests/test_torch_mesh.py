@@ -4,8 +4,8 @@ the JAX parameter paths of the port's model (``param_path_names``, from
 ``convert.py``'s layout) equal to the JAX model's on the same config, full
 rule coverage, first-match specs and provenance; ``shard_batch`` /
 ``batch_sharding`` against the host-sharded ``Batcher``; the mesh's
-refusals (the model- and sequence-parallel meshes, a ``num_devices`` the
-run was not launched with). ``replicate`` at two ranks is in
+refusals (the model-parallel mesh, a seq axis that does not divide the
+ranks, a ``num_devices`` the run was not launched with). ``replicate`` at two ranks is in
 ``test_torch_comms.py`` (it shares that file's launch)."""
 
 import jax
@@ -128,9 +128,9 @@ def test_make_mesh_world_one_and_refusals():
     assert tmesh.make_mesh(1, device="cpu").world == 1
     with pytest.raises(ValueError, match="launch 4 processes"):
         tmesh.make_mesh(4, device="cpu")
-    with pytest.raises(ValueError, match="sequence-parallel slice"):
+    with pytest.raises(ValueError, match="must divide the 1 mesh devices"):
         tmesh.make_mesh(seq_devices=2, device="cpu")
-    with pytest.raises(ValueError, match="sequence-parallel slice"):
+    with pytest.raises(ValueError, match="model-parallel slice"):
         tmesh.make_mesh(mp_devices=2, device="cpu")
     with pytest.raises(ValueError, match="cannot compose"):
         tmesh.make_mesh(seq_devices=2, mp_devices=2, device="cpu")

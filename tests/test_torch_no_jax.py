@@ -66,7 +66,8 @@ def test_port_imports_no_jax():
                 "resilience.adaptive", "rl.async_scst", "rl.online",
                 "resilience.health", "obs.fleet", "cli.obs_report",
                 "train.mesh", "train.multihost", "parallel",
-                "parallel.comms", "parallel.submesh"):
+                "parallel.comms", "parallel.submesh",
+                "parallel.seq_parallel"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 

@@ -398,13 +398,13 @@ def test_resilience_knobs_are_accepted(overrides):
 
 
 # (section, name, value, the slice that brings it; None: ported, by the
-# elastic slice)
+# elastic and sequence-parallel slices)
 STILL_UNPORTED = [
     ("train", "elastic", "degraded", None),
     ("train", "elastic_regrow", False, None),
-    ("mesh", "seq_devices", 2, "sequence-parallel"),
-    ("mesh", "mp_devices", 2, "sequence-parallel"),
-    ("model", "seq_axis", "seq", "sequence-parallel"),
+    ("mesh", "seq_devices", 2, None),
+    ("mesh", "mp_devices", 2, "model-parallel"),
+    ("model", "seq_axis", "seq", None),
 ]
 
 
@@ -412,9 +412,9 @@ STILL_UNPORTED = [
                          ids=[f"{s}.{n}" for s, n, _, _ in STILL_UNPORTED])
 def test_still_unported_knobs_raise_naming_their_slice(section, name, value,
                                                        slice_):
-    """A knob still unported raises, naming its slice; the elastic knobs,
-    ported, are accepted and round-trip through JSON as the JAX package's
-    ``to_json()`` of the same override."""
+    """A knob still unported raises, naming its slice; the elastic and
+    sequence-parallel knobs, ported, are accepted and round-trip through
+    JSON as the JAX package's ``to_json()`` of the same override."""
     key = f"{section}__{name}"
     if slice_ is None:
         cfg = get_experiment("msrvtt_cst_consensus").override(**{key: value})

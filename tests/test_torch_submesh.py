@@ -148,13 +148,13 @@ def test_grow_actors_round_trip_restores_initial_plan():
 
 
 def test_two_d_mesh_is_refused_naming_its_slice():
-    """The JAX package splits a (data, mp) grid by rows; the port's meshes
-    are 1-D until the model- and sequence-parallel slice."""
+    """The JAX package splits a (data, mp) grid by rows; the port's plans
+    are 1-D until the model-parallel slice."""
 
     class Grid:
         axis_names = ("data", "mp")
 
-    with pytest.raises(ValueError, match="model- and sequence-parallel"):
+    with pytest.raises(ValueError, match="model-parallel slice"):
         plan_submesh(Grid(), 0.5, batch_size=8)
 
 

@@ -518,10 +518,11 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
 
 # the observability, health and data-parallel knobs are ported
 # (tests/test_torch_obs.py), and so are the degraded and regrown meshes of
-# elastic training (tests/test_torch_elastic.py); the model- and
-# sequence-parallel meshes are not. (section, name, value, still refused)
+# elastic training (tests/test_torch_elastic.py) and the sequence-parallel
+# grid (tests/test_torch_seq_parallel.py); the model-parallel mesh is not.
+# (section, name, value, still refused)
 UNPORTED = [
-    ("mesh", "seq_devices", 2, True), ("mesh", "mp_devices", 2, True),
+    ("mesh", "seq_devices", 2, False), ("mesh", "mp_devices", 2, True),
     ("train", "elastic_regrow", False, False),
     ("train", "elastic", "degraded", False),
 ]
@@ -530,9 +531,9 @@ UNPORTED = [
 @pytest.mark.parametrize("section,name,value,refused", UNPORTED,
                          ids=[f"{s}.{n}" for s, n, _, _ in UNPORTED])
 def test_unported_config_values_raise(section, name, value, refused):
-    """A value whose machinery is not ported raises; one the elastic slice
-    brought is accepted, and its JSON round trip equals the JAX package's
-    ``to_json()`` of the same override."""
+    """A value whose machinery is not ported raises; one the elastic or
+    sequence-parallel slice brought is accepted, and its JSON round trip
+    equals the JAX package's ``to_json()`` of the same override."""
     cfg = get_experiment("msrvtt_cst_consensus")
     key = f"{section}__{name}"
     if refused:
