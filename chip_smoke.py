@@ -6,8 +6,9 @@
 
 With ``--phases`` only the named phases run, each check recorded instead
 of raised (``run_phases``): ``data_parallel`` (8d), ``seq_parallel``
-(8g, on the same corpus and start weights) and ``scst[:N]`` (phase 6 N
-times, each in a process of its own); each phase's line is followed by
+(8g) and ``model_parallel`` (8h, both on the same corpus and start
+weights) and ``scst[:N]`` (phase 6 N times, each in a process of its
+own); each phase's line is followed by
 ``{"gates": PHASE, "failed": [...]}``, and the run exits 1 if a check
 failed.
 
@@ -397,7 +398,7 @@ failed.
    global, at float32 and at bfloat16 compute. The reference: one rank on
    the card, no mesh. Gloo ranks on the one card, this script as
    ``--dp-rank`` children: a (1 x 2) grid (one row of two) and a (2 x 2)
-   grid. On each: the logits of the first caption-mode batch; one XE step
+   grid, launched together. On each: the logits of the first caption-mode batch; one XE step
    at lr 5e-2 (Adam from zero moments); the fused greedy + K=5 rollout
    decode of the first video-mode batch; the SCST update at lr 5e-2 with
    chunks 1 and 5 on the reference's rollouts and seeded advantages;
@@ -435,11 +436,46 @@ failed.
    and bytes a rank) per decode step, per XE step and per update (one
    card time-sliced between the ranks over gloo through the host:
    semantics, not the speed of N cards).
+8h. model_parallel: model parallelism (``ops/decode_mp.py``, the ``('data',
+   'mp')`` ``GridMesh``) with gloo ranks on the one card, this script as
+   ``--dp-rank`` children. (a) The sharded-vocab decode of the serving
+   model (msrvtt_xe_attention at full width, V=9000, seeded random
+   weights) on an 'mp' row of 4 ranks and then of 2 (V_s 2250, 4500; one
+   launch of four ranks, the second row of the (2 x 2) grid waiting), each
+   rank running kernel 2 on its vocabulary slice: the stride at the
+   serving shapes (capacity 32, K=2, S=8, every row's whole bank, no
+   compaction) and beam-5 at B=64 (t=3; row 0 all finished at equal
+   scores, an exact tie), float32 and bfloat16 banks. Gates: tokens and
+   beam candidate ids bitwise equal to the replicated kernel-2 loop (the
+   same decode on a row of one rank), logprobs and scores within 1e-5
+   (``MP_LP_TOL``); against kernel 3 (the stride, no compaction) and
+   kernel 5 equal except at the plain version's near-ties (``TIE_GAP``
+   and ``compare_beam``'s TOL), logprobs and scores within TOL; kernel 2
+   launched S times a stride and once a beam step on every rank; 8
+   collectives a stride step; kernel 2 on each vocabulary slice bitwise
+   its columns of the whole vocabulary (both banks, the stride's and the
+   beam's shapes, mp 2 and 4). Planted faults at mp 2, each of which
+   must fail its gate: the argmax merge given local indices, the
+   embedding rows not summed, the top-W merge breaking ties to the
+   higher flat id. (b) On the data_parallel phase's corpus and start
+   weights (``dp_schedule``, dropout 0.5, deterministic algorithms on):
+   an XE epoch with greedy validation, a CST epoch, a split RL epoch
+   and beam-5 of the 64 val clips at each compute dtype, on two
+   data-parallel ranks and on the (2 x 2) grid (launched together), each
+   grid rank against its data coordinate's rank; float32 bitwise (params, losses,
+   rollouts, captions, metrics), bfloat16 reported; every row's replicas
+   equal; one XE step with the mp-rank-1 replicas' loss scaled by 1 +
+   1e-3 leaves each row equal through the row broadcast and, with the
+   broadcast skipped (planted), apart. Reported: each rank's ms a stride
+   and a beam step beside kernels 3 and 5 and the loop (event ms), the
+   collectives and bytes a rank a step, kernel 2's launches, the
+   epochs' step ms and the row broadcasts (one card time-sliced between
+   the ranks: semantics, not the speed of N cards).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
    rl_online's, resilience's, health's, import's, data_parallel's,
-   rl_split's, elastic's and seq_parallel's included; seq_parallel
-   launches none by design),
+   rl_split's, elastic's, seq_parallel's and model_parallel's included;
+   seq_parallel launches none by design),
    error, times and bound; for the
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
@@ -511,7 +547,7 @@ from cst_captioning_tpu_torch.obs import report as obs_report
 from cst_captioning_tpu_torch.ops import attention as attention_ops
 from cst_captioning_tpu_torch.ops import beam_step as beam_ops
 from cst_captioning_tpu_torch.ops import build
-from cst_captioning_tpu_torch.ops import decode_stride
+from cst_captioning_tpu_torch.ops import decode_mp, decode_stride
 from cst_captioning_tpu_torch.ops.attention import (
     additive_attention_f32,
     additive_attention_plain,
@@ -4525,7 +4561,10 @@ def dp_schedule(root: str, data: dict, start: dict, use_mesh: bool,
     rows), the losses, captions and metrics, the four kernels' launches,
     step times, the ``rl.update.allreduce`` spans and the comm gauges.
     ``over``: more config overrides for every run (the seq_parallel
-    phase's impls, dropout and grid)."""
+    phase's impls, dropout and grid; the model_parallel phase's grid,
+    which the beam-5 evaluation takes too). ``"split"`` in ``phases`` adds
+    a decoupled RL epoch (msrvtt_cst_consensus, the actor/learner split
+    of ``rl/async_scst.py``) from the start weights."""
     from cst_captioning_tpu_torch.rl import scst as scst_mod
     from cst_captioning_tpu_torch.train.mesh import make_mesh
 
@@ -4540,12 +4579,12 @@ def dp_schedule(root: str, data: dict, start: dict, use_mesh: bool,
     out: dict = {}
     orig = scst_mod.SCSTTrainer._score
 
-    def run(name, preset, rl=False, val=None):
+    def run(name, preset, rl=False, val=None, **extra):
         log = os.path.join(root, f"{name}.jsonl")
         obs_dir = os.path.join(root, f"obs_{name}")
         cfg = dp_config(os.path.join(root, name), preset, obs_dir,
                         model__dtype=dtype, data__cider_df=data["cider_df"],
-                        **over)
+                        **over, **extra)
         rows = out.setdefault(f"{name}_rollouts", [])
 
         def recording(self, greedy, samples, *rest, **kw):
@@ -4602,11 +4641,16 @@ def dp_schedule(root: str, data: dict, start: dict, use_mesh: bool,
         run("cst", "msrvtt_cst_consensus", rl=True)
     if "scst" in phases:
         run("scst", "msrvtt_scst", rl=True)
+    if "split" in phases:
+        run("split", "msrvtt_cst_consensus", rl=True,
+            train__rl_topology="decoupled")
     if "beam" in phases:
         ecfg = dp_config(root, "msrvtt_eval_beam5", "", model__dtype=dtype)
         emodel = CaptionModel(ecfg.model, device=DP_DEVICE)
         load_flax_params(emodel, start)
-        mesh = make_mesh(device=DP_DEVICE) if use_mesh else None
+        mp = over.get("mesh__mp_devices", 1)
+        mesh = make_mesh(mp_devices=mp, device=DP_DEVICE) if use_mesh \
+            else None
         t = time.perf_counter()
         res = Evaluator(emodel, ds["val"], ecfg.eval, batch_size=TRAIN_B,
                         mesh=mesh).evaluate()
@@ -4769,8 +4813,15 @@ def dp_child(argv: list) -> int:
     rank, world = int(rank), int(world)
     if a.get("job") == "rl_split":
         return split_child(rank, world, init, a, out_path)
-    if a.get("job") == "seq_parallel":
-        return sp_child(rank, world, init, a, out_path)
+    if a.get("job") in ("seq_parallel", "mp_decode", "mp_epochs"):
+        # six ranks share the host's cores at once: one intra-op thread a
+        # rank keeps their CPU pools from competing (seq_parallel and
+        # model_parallel 208.1 -> 181.4 s in one call on an H100 host).
+        # The two- and three-rank phases keep the default: with one
+        # thread data_parallel took 134.5 s, against 103.0-107.2 without
+        torch.set_num_threads(1)
+        child = sp_child if a["job"] == "seq_parallel" else mp_child
+        return child(rank, world, init, a, out_path)
     DP_DEVICE, DP_MODEL = a["device"], a["model"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4863,6 +4914,13 @@ def spawn_ranks(root: str, args: dict, world: int, label: str,
     """This script as ``world`` ``--dp-rank`` children on the one card
     (gloo), given ``args`` -> each rank's result pickle and the wall
     seconds; a rank that fails fails the phase with its stderr."""
+    return finish_ranks(start_ranks(root, args, world, label, timeout))
+
+
+def start_ranks(root: str, args: dict, world: int, label: str,
+                timeout: float) -> dict:
+    """Start :func:`spawn_ranks`'s children and return at once;
+    :func:`finish_ranks` waits (several launches may run together)."""
     import pickle
 
     path = os.path.join(root, f"{label}.args")
@@ -4871,28 +4929,44 @@ def spawn_ranks(root: str, args: dict, world: int, label: str,
     init = os.path.join(root, f"{label}.init")
     outs = [os.path.join(root, f"{label}.rank{r}.out") for r in range(world)]
     errs = [os.path.join(root, f"{label}.rank{r}.err") for r in range(world)]
-    t = time.perf_counter()
-    procs = []
+    h = {"label": label, "outs": outs, "errs": errs, "procs": [],
+         "t": time.perf_counter(), "deadline": time.monotonic() + timeout}
     try:
         for r in range(world):
             with open(errs[r], "w") as err:
-                procs.append(subprocess.Popen(
+                h["procs"].append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--dp-rank",
                      str(r), str(world), init, path, outs[r]],
                     stdout=subprocess.DEVNULL, stderr=err))
-        deadline = time.monotonic() + timeout
+    except BaseException:
+        _stop(h["procs"])
+        raise
+    return h
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_ranks(h: dict) -> tuple[list, float]:
+    """Wait for a :func:`start_ranks` launch -> :func:`spawn_ranks`'s
+    result."""
+    import pickle
+
+    procs = h["procs"]
+    try:
         for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            p.wait(timeout=max(1.0, h["deadline"] - time.monotonic()))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.perf_counter() - t
+        _stop(procs)
+    wall = time.perf_counter() - h["t"]
     check(all(p.returncode == 0 for p in procs),
-          f"{label}: a rank failed:\n" +
-          "\n".join(open(e).read()[-4000:] for e in errs))
-    return [pickle.load(open(o, "rb")) for o in outs], wall
+          f"{h['label']}: a rank failed:\n" +
+          "\n".join(open(e).read()[-4000:] for e in h["errs"]))
+    return [pickle.load(open(o, "rb")) for o in h["outs"]], wall
 
 
 def dp_launch(root: str, data: dict, start: dict, a: dict,
@@ -6519,16 +6593,25 @@ def sp_child(rank: int, world: int, init: str, a: dict,
                 got = dp_schedule(os.path.join(root, dtype), a["data"],
                                   a["start"], True, dtype, SP_PHASES,
                                   SP_EPOCH_OVER)
+                path = a["dp_ref"].format(rank=rank, dtype=dtype)
+                # whole or not at all: the grid's ranks, launched beside
+                # this run, wait for the file
                 torch.save({k: got[k] for k in _SP_EPOCH_KEYS},
-                           a["dp_ref"].format(rank=rank, dtype=dtype))
+                           path + ".part")
+                os.replace(path + ".part", path)
                 ep = {}
             else:
                 got = dp_schedule(os.path.join(root, dtype), a["data"],
                                   a["start"], True, dtype, SP_PHASES,
                                   {**SP_EPOCH_OVER,
                                    "mesh__seq_devices": SP_SEQ})
-                want = torch.load(a["dp_ref"].format(rank=d, dtype=dtype),
-                                  map_location="cpu")
+                path = a["dp_ref"].format(rank=d, dtype=dtype)
+                deadline = time.monotonic() + SP_TIMEOUT_S
+                while not os.path.exists(path):
+                    check(time.monotonic() < deadline,
+                          f"seq_parallel: no data-parallel reference {path}")
+                    time.sleep(0.5)
+                want = torch.load(path, map_location="cpu")
                 ep = {"compare": sp_epoch_compare(got, want, layout),
                       "digests": {n: multihost.allgather_pyobj(
                           _digest(got[f"{n}_params"])) for n in SP_PHASES}}
@@ -6595,11 +6678,14 @@ def _seq_parallel(root: str, data: dict, start: dict, smi: str
          "data": data, "start": start, "device": DP_DEVICE,
          "model": DP_MODEL, "ref": path,
          "dp_ref": os.path.join(root, "sp_dp_rank{rank}_{dtype}.pt")}
-    runs = {}
-    for world, name in ((SP_SEQ, "1x2"), (2 * SP_SEQ, "2x2")):
-        ranks, wall = spawn_ranks(root, a, world, f"seq_parallel ({name})",
-                                  SP_TIMEOUT_S)
-        runs[name] = {"ranks": ranks, "wall_s": wall}
+    # both grids at once (the (2 x 2) ranks wait for the (1 x 2) run's
+    # data-parallel reference before their epochs' comparison): the
+    # card is time-sliced between six ranks
+    hs = {name: start_ranks(root, a, world, f"seq_parallel ({name})",
+                            SP_TIMEOUT_S)
+          for world, name in ((SP_SEQ, "1x2"), (2 * SP_SEQ, "2x2"))}
+    runs = {name: dict(zip(("ranks", "wall_s"), finish_ranks(h)))
+            for name, h in hs.items()}
     for name, run in runs.items():
         for r in run["ranks"]:
             where = f"seq_parallel {name} rank {r['rank']} {r['cell']}"
@@ -6655,6 +6741,602 @@ def _seq_parallel(root: str, data: dict, start: dict, smi: str
     return line, launched
 
 
+# ---- phase 8h: model parallel ------------------------------------------------
+
+MP_WIDTHS = (2, 4)        # the sharded decode's rows ('mp' ranks)
+MP_GRID = 2               # the (2 x 2) grid's row
+MP_TIMEOUT_S = 600        # a launch, start to exit
+MP_LP_TOL = 1e-5          # logprobs and scores against the replicated loop
+MP_REPS = 5               # timed calls a rank, after the counted one
+MP_FAULTS = ("local_argmax", "no_embed_sum", "topw_high_ties")
+MP_PHASES = ("xe", "cst", "split", "beam")
+# the epochs take dropout 0.5, keyed by the data coordinate
+MP_OVER = {"model__dropout": 0.5}
+MP_EPOCH_KEYS = (*(f"{n}_{k}" for n in ("xe", "cst", "split")
+                   for k in ("params", "losses", "rollouts")),
+                 "val_captions", "beam_captions", "beam_metrics")
+MP_ROW_NOISE = 1e-3       # planted: mp-rank 1's loss scaled by 1 + this
+
+
+def mp_inputs(model, dev, bf16: bool) -> dict:
+    """The sharded decode's inputs at one bank dtype: the serving stride's
+    (``stride_inputs``: capacity 32, K=2, S=8, every row's whole bank, no
+    compaction) and beam-5 at the eval's B=64 (``beam_inputs`` on 64
+    encoded clips, t=3), its row 0 all finished at equal scores: an exact
+    tie of its W PAD continuations, which the top-W merge must break to
+    the lower flat id."""
+    x = stride_inputs(model, dev, bf16)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(9)
+    clips = {"feats": {n: torch.randn((TRAIN_B, cfg.max_frames, d),
+                                      generator=g).to(dev)
+                       for n, d in cfg.modalities},
+             "masks": {n: torch.ones((TRAIN_B, cfg.max_frames), device=dev)
+                       for n, _ in cfg.modalities}}
+    b = beam_inputs(model, clips, bf16, 3, 0)
+    b["finished"][:, 0] = True
+    b["scores"][:, 0] = -1.5
+    return {"stride": {"carry": x["carry"], "token": x["token"],
+                       "finished": x["finished"], "noise": x["noise"],
+                       "bank": x["dense"]},
+            "beam": {k: b[k] for k in ("carry", "token", "finished",
+                                       "scores", "t", "min_len", "bank")}}
+
+
+def mp_stride(model, x, mesh, w=None):
+    s = x["stride"]
+    return decode_mp.mp_decode_stride(
+        model.cell, s["carry"], s["token"], s["finished"], *s["bank"],
+        s["noise"], 0, mesh=mesh, steps=S, temperature=1.0, min_len=0,
+        weights=w)
+
+
+def mp_beam(model, x, mesh, w=None):
+    b = x["beam"]
+    return decode_mp.mp_beam_step(
+        model.cell, b["carry"], b["token"], b["finished"], b["scores"],
+        *b["bank"], mesh=mesh, t=b["t"], min_len=b["min_len"], weights=w)
+
+
+@contextlib.contextmanager
+def mp_planted(kind: str):
+    """A fault planted in the sharded decode's merges, alike on every
+    rank: the argmax merge given local, not global, indices; the
+    embedding rows not summed over the row; the top-W merge breaking ties
+    to the higher flat id."""
+    if kind == "local_argmax":
+        orig = decode_mp._merge_argmax
+
+        def bad(vals, off, row):
+            return orig(vals, 0, row)
+
+        name = "_merge_argmax"
+    elif kind == "no_embed_sum":
+        def bad(table, token, off, row):
+            owned, lic = decode_mp._owned(token, off, table.shape[0])
+            return torch.where(owned[..., None], table[lic],
+                               torch.zeros((), device=table.device))
+
+        name = "_psum_embed"
+    else:
+        orig = decode_mp._merge_topw
+
+        def bad(pool_s, pool_f, W):
+            s, f = orig(pool_s, -pool_f, W)
+            return s, -f
+
+        name = "_merge_topw"
+    with mock.patch.object(decode_mp, name, bad):
+        yield
+
+
+def mp_ms(fn, reps: int = MP_REPS) -> float:
+    """A rank's median host ms of ``fn()`` (synchronised: the gloo merges
+    and the card time-sliced between the ranks are in it)."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def mp_decode_width(model, xs: dict, mesh) -> dict:
+    """This rank's sharded decode on ``mesh``'s 'mp' row: per bank dtype
+    the stride and the beam step through ``ops/decode_mp.py`` on its
+    vocabulary slice (packed once), their outputs, collectives, kernel-2
+    launches and ms; on a row of 2 the planted faults' outputs."""
+    from cst_captioning_tpu_torch.train import multihost
+
+    mp = mesh.mp.world
+    w = decode_mp.shard_weights(stride_weights(model.cell), mesh.mp.rank,
+                                mp)
+    res = {"rank": multihost.process_index(),
+           "cell": (mesh.data.rank, mesh.mp.rank), "planted": {}}
+    calls = {"stride": mp_stride, "beam": mp_beam}
+    ops.reset_launches()
+    with torch.no_grad():
+        for dtype in DP_DTYPES:
+            out = res[dtype] = {}
+            for kind, fn in calls.items():
+                decode_mp.reset_counts()
+                before = fused_decode_step.launches
+                r = fn(model, xs[dtype], mesh, w)
+                torch.cuda.synchronize()
+                out[kind] = [t.cpu() for t in r[1:]]
+                out[f"{kind}_launches"] = fused_decode_step.launches - before
+                out[f"{kind}_counts"] = dict(decode_mp.COUNTS)
+        # the path's launches, read before the timed and planted calls
+        res["launches"] = all_launches()
+        for dtype in DP_DTYPES:
+            for kind, fn in calls.items():
+                res[dtype][f"{kind}_ms"] = mp_ms(
+                    lambda: fn(model, xs[dtype], mesh, w))
+        if mp == 2:
+            for kind in MP_FAULTS:
+                with mp_planted(kind):
+                    res["planted"][kind] = {
+                        k: [t.cpu() for t in fn(model, xs["float32"], mesh,
+                                                w)[1:]]
+                        for k, fn in calls.items()}
+    return res
+
+
+def mp_decode_rank(a: dict) -> dict:
+    """A rank of part (a), on four ranks: the sharded decode on a row of
+    4 (every rank), then on a row of 2 (the first row of a (2 x 2) grid
+    decodes while the other waits, so the card serves one row at a
+    time)."""
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    dev = torch.device(DP_DEVICE)
+    model = CaptionModel(model_config(), device=dev)
+    model.load_state_dict(torch.load(a["model"], map_location=dev))
+    model.eval()
+    xs = torch.load(a["inputs"], map_location=dev)
+    out = {}
+    for mp in sorted(MP_WIDTHS, reverse=True):
+        mesh = make_mesh(mp_devices=mp, device=DP_DEVICE)
+        if mesh.data.rank == 0:
+            out[f"mp{mp}"] = mp_decode_width(model, xs, mesh)
+        multihost.barrier()
+    return out
+
+
+def mp_row_fault(data: dict, start: dict, mesh, row) -> list:
+    """One XE step of the grid at float32 from the start weights on the
+    first caption batch (this rank's rows), with the mp-rank-1 replicas'
+    loss scaled by 1 + MP_ROW_NOISE (a backward that is not
+    deterministic, planted) -> the params; ``row`` None skips the row's
+    broadcast (the planted fault)."""
+    from cst_captioning_tpu_torch.train import steps as steps_mod
+    from cst_captioning_tpu_torch.train.mesh import batch_sharding
+
+    cfg = dp_config("", "msrvtt_cst_consensus", "")
+    mc = cfg.model
+    ds = CaptionDataset(data["info_json"],
+                        {n: data[n] for n, _ in mc.modalities}, "train",
+                        mc.max_frames)
+    batch = next(Batcher(ds, batch_size=TRAIN_B, max_len=mc.max_len,
+                         mode="caption", host_shard=batch_sharding(mesh))
+                 .epoch(shuffle=False))
+    dev = torch.device(DP_DEVICE)
+    up = lambda d: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                    for k, v in d.items()}
+    model = load_flax_params(CaptionModel(mc, device=dev), start)
+    state = create_train_state(model, make_optimizer(cfg.train, 1),
+                               seed=cfg.train.seed)
+    sums = steps_mod._local_loss_sums
+
+    def perturbed(*args, **kw):
+        num, den = sums(*args, **kw)
+        return (num * (1 + MP_ROW_NOISE) if mesh.mp.rank == 1 else num), den
+
+    step = steps_mod.make_parallel_xe_step(model, mesh.data, row=row)
+    valid = torch.from_numpy(batch.valid.astype(np.float32)).to(dev)
+    with mock.patch.object(steps_mod, "_local_loss_sums", perturbed):
+        state, _ = step(state, up(batch.feats), up(batch.feat_masks),
+                        torch.from_numpy(batch.labels).long().to(dev),
+                        torch.from_numpy(batch.mask).float().to(dev),
+                        xe_row_weights("xe", torch.from_numpy(
+                            batch.weights).to(dev), valid))
+    return [p.detach().clone() for p in state.params]
+
+
+def mp_epochs_rank(rank: int, world: int, a: dict) -> dict:
+    """A rank of part (b): the epochs (``dp_schedule``: XE, CST, the split
+    RL epoch, beam-5 of the val clips) at each compute dtype, on two
+    data-parallel ranks or on the (2 x 2) mp grid, their results saved
+    for the parent's comparison; on the grid also the planted row fault.
+    Deterministic algorithms on: the float32 gate is bitwise across two
+    separate runs."""
+    from cst_captioning_tpu_torch.parallel import comms
+    from cst_captioning_tpu_torch.train import multihost
+    from cst_captioning_tpu_torch.train.mesh import make_mesh
+
+    root = os.path.join(a["root"], f"w{world}_rank{rank}")
+    grid = world == 2 * MP_GRID
+    mesh = make_mesh(mp_devices=MP_GRID if grid else 1, device=DP_DEVICE)
+    res = {"cell": (mesh.data.rank, mesh.mp.rank) if grid else (rank, 0)}
+    saved = {}
+    ops.reset_launches()
+    for dtype in DP_DTYPES:
+        over = {**MP_OVER, **({"mesh__mp_devices": MP_GRID} if grid
+                              else {})}
+        comms.reset_row_counts()
+        got = dp_schedule(os.path.join(root, dtype), a["data"], a["start"],
+                          True, dtype, MP_PHASES, over)
+        saved[dtype] = {k: got[k] for k in MP_EPOCH_KEYS}
+        res[dtype] = {
+            "wall_s": got["wall_s"], "row_broadcasts": dict(comms.ROW_COUNTS),
+            "times": {n: {"s": got[f"{n}_s"],
+                          "step_ms_median": got[f"{n}_step_ms"]}
+                      for n in ("xe", "cst", "split")},
+            "digests": {n: multihost.allgather_pyobj(
+                _digest(got[f"{n}_params"])) for n in ("xe", "cst",
+                                                       "split")}}
+    res["launches"] = all_launches()
+    torch.save(saved, a["results"].format(world=world, rank=rank))
+    if grid:
+        multihost.barrier()
+        res["row_fault"] = {
+            name: multihost.allgather_pyobj(_digest(mp_row_fault(
+                a["data"], a["start"], mesh, row)))
+            for name, row in (("broadcast", mesh.mp), ("skipped", None))}
+    return res
+
+
+def mp_epoch_equal(got: dict, want: dict) -> dict:
+    """Each reference key of part (b): equal bit for bit."""
+    out = {}
+    for k in MP_EPOCH_KEYS:
+        g, w = got.get(k), want.get(k)
+        if isinstance(w, list) and w and isinstance(w[0], torch.Tensor):
+            out[k] = len(g) == len(w) and all(
+                torch.equal(x.cpu(), y.cpu()) for x, y in zip(g, w))
+        else:
+            out[k] = g == w
+    return out
+
+
+def mp_child(rank: int, world: int, init: str, a: dict,
+             out_path: str) -> int:
+    """One rank of a model_parallel launch: gloo on the card; part (a)'s
+    sharded decode (``mp_decode``) or part (b)'s epochs (``mp_epochs``)
+    -> a result pickle."""
+    import pickle
+
+    from cst_captioning_tpu_torch.train import multihost
+
+    global DP_DEVICE, DP_MODEL
+    DP_DEVICE, DP_MODEL = a["device"], a["model_over"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if a["job"] == "mp_epochs":
+        # cuBLAS reads this at its first handle; the index kernels of the
+        # embedding's backward take their deterministic spelling
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    multihost.initialize(f"file://{init}", world_size=world, rank=rank,
+                         backend="gloo", device=DP_DEVICE,
+                         timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        res = (mp_decode_rank(a) if a["job"] == "mp_decode"
+               else mp_epochs_rank(rank, world, a))
+        res["rank"] = rank
+    finally:
+        multihost.shutdown()
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def mp_near_ok(tok: torch.Tensor, ref: torch.Tensor, gap: torch.Tensor):
+    """Two token streams [S, G, B] -> (rows that diverge, rows whose first
+    divergence is not at a near-tie of the plain version: top-2 gap above
+    TIE_GAP) and the first-divergence mask for the logprobs."""
+    diff = tok != ref
+    diverged = diff.any(dim=0)
+    first = diff.int().argmax(dim=0)
+    bad = 0
+    for g, b in diverged.nonzero().tolist():
+        bad += int(float(gap[int(first[g, b]), g, b]) > TIE_GAP)
+    upto = ~diverged[None] | (torch.arange(tok.shape[0])[:, None, None]
+                              < first[None])
+    return int(diverged.sum()), bad, upto
+
+
+def mp_beam_near_bad(fl: torch.Tensor, ref: torch.Tensor,
+                     psc: torch.Tensor) -> tuple[int, int]:
+    """Beam candidates [B, W] against another version's [B, W] -> (rows
+    that differ, candidates that differ away from a near-tie of the plain
+    version's totals ``psc``, its first W + 1, within TOL), as
+    ``compare_beam``."""
+    W = fl.shape[1]
+    gap = psc[:, :-1] - psc[:, 1:]
+    near = gap <= TOL
+    near[:, 1:] |= gap[:, :W - 1] <= TOL
+    diff = fl != ref[:, :W]
+    return int(diff.any(dim=1).sum()), int((diff & ~near).sum())
+
+
+def mp_references(model, xs: dict) -> dict:
+    """On this process, per bank dtype: the replicated kernel-2 loop (the
+    sharded decode on a row of one rank: the JAX ``_reference_stride``
+    semantics, no collective), kernels 3 and 5 on the same inputs, the
+    plain versions' top-2 gaps and W + 1 candidates for the near-tie
+    excuses; kernel 2 on each vocabulary slice against its columns of the
+    whole vocabulary, bit for bit, at mp 2 and 4; the event ms of kernels
+    3 and 5 and of the loop."""
+    from cst_captioning_tpu_torch.train.mesh import DataMesh
+
+    dev = model.device
+    one = DataMesh("mp", 0, 1, dev)
+    w = stride_weights(model.cell)
+    out = {}
+    with torch.no_grad():
+        for dtype, x in xs.items():
+            s, b = x["stride"], x["beam"]
+            M = s["bank"][0].shape[1]
+            B = s["token"].shape[1]
+            full = torch.full((B,), M, dtype=torch.int32, device=dev)
+            loop = [t.cpu() for t in mp_stride(model, x, one, w)[1:]]
+            k3 = [t.cpu() for t in fused_decode_stride(
+                model.cell, s["carry"], s["token"], s["finished"],
+                *s["bank"], s["noise"], 0, steps=S, temperature=1.0,
+                min_len=0, weights=w)[1:]]
+            gap = decode_stride_plain(
+                w, s["carry"], s["token"], s["finished"], *s["bank"],
+                s["noise"], 0, B, steps=S, temperature=1.0, min_len=0,
+                mem_lens=full, return_gap=True)[3].cpu()
+            bloop = [t.cpu() for t in mp_beam(model, x, one, w)[1:]]
+            k5 = [t.cpu() for t in fused_beam_step(
+                model.cell, b["carry"], b["token"], b["finished"],
+                b["scores"], *b["bank"], t=b["t"], min_len=b["min_len"],
+                weights=w)[1:]]
+            _, logits = decode_step_plain(w, b["carry"],
+                                          w.embt[b["token"].long()],
+                                          *b["bank"])
+            psc, pfl = beam_topk_plain(logits, b["finished"], b["scores"],
+                                       t=b["t"], min_len=b["min_len"],
+                                       width=BEAM_W + 1)
+            bitwise = {}
+            for kind, y in (("stride", s), ("beam", b)):
+                emb = w.embt[y["token"].long()]
+                dt = y["carry"][0][0].dtype
+                whole = fused_decode_step_(
+                    model.cell, stack_carry(y["carry"]), y["token"],
+                    *y["bank"], dt, emb=emb, weights=w)
+                for mp in MP_WIDTHS:
+                    vs = model.cfg.vocab_size // mp
+                    bitwise[f"{kind}_mp{mp}"] = all(torch.equal(
+                        fused_decode_step_(
+                            model.cell, stack_carry(y["carry"]), y["token"],
+                            *y["bank"], dt, emb=emb,
+                            weights=decode_mp.shard_weights(w, k, mp)),
+                        whole[..., k * vs:(k + 1) * vs]) for k in range(mp))
+            times = time_in_turns({
+                "loop": (lambda: mp_stride(model, x, one, w),
+                         lambda: fused_decode_stride(
+                             model.cell, s["carry"], s["token"],
+                             s["finished"], *s["bank"], s["noise"], 0,
+                             steps=S, temperature=1.0, min_len=0,
+                             weights=w)),
+                "beam": (lambda: mp_beam(model, x, one, w),
+                         lambda: fused_beam_step(
+                             model.cell, b["carry"], b["token"],
+                             b["finished"], b["scores"], *b["bank"],
+                             t=b["t"], min_len=b["min_len"], weights=w))})
+            out[dtype] = {"loop": loop, "k3": k3, "gap": gap,
+                          "beam_loop": bloop, "k5": k5, "psc": psc.cpu(),
+                          "pfl": pfl.cpu(), "bitwise": bitwise,
+                          "ms": {"replicated_loop": times["loop"][0],
+                                 "kernel3": times["loop"][1],
+                                 "replicated_beam": times["beam"][0],
+                                 "kernel5": times["beam"][1]}}
+    return out
+
+
+def mp_gate_decode(mp: int, rank: dict, ref: dict) -> dict:
+    """One rank's sharded decode against the references, through the
+    gates (module docstring, 8h (a)) -> its readings."""
+    read = {}
+    for dtype in DP_DTYPES:
+        x, r = rank[dtype], ref[dtype]
+        where = f"model_parallel mp={mp} rank {rank['rank']} {dtype}"
+        tok, lp = x["stride"]
+        check(torch.equal(tok, r["loop"][0]),
+              f"{where}: stride tokens differ from the replicated loop")
+        lp_err = float((lp - r["loop"][1]).abs().max())
+        check(lp_err <= MP_LP_TOL, f"{where}: logprobs {lp_err:.3e}")
+        div3, bad3, upto = mp_near_ok(tok, r["k3"][0], r["gap"])
+        check(bad3 == 0, f"{where}: {bad3} rows diverge from kernel 3 away "
+              f"from a near-tie")
+        lp3 = float((lp - r["k3"][1]).abs()[upto].max())
+        check(lp3 <= TOL, f"{where}: logprobs vs kernel 3 {lp3:.3e}")
+        sc, fl = x["beam"]
+        check(torch.equal(fl, r["beam_loop"][1]),
+              f"{where}: beam candidates differ from the replicated loop")
+        sc_err = float((sc - r["beam_loop"][0]).abs().max())
+        check(sc_err <= MP_LP_TOL, f"{where}: beam scores {sc_err:.3e}")
+        divp, badp = mp_beam_near_bad(fl, r["pfl"], r["psc"])
+        check(badp == 0, f"{where}: {badp} beam candidates differ from "
+              "the plain beam step away from a near-tie")
+        div5, bad5 = mp_beam_near_bad(fl, r["k5"][1], r["psc"])
+        check(bad5 == 0, f"{where}: {bad5} beam candidates differ from "
+              "kernel 5 away from a near-tie")
+        sc5 = float((sc - r["k5"][0]).abs().max())
+        check(sc5 <= TOL + TOL * float(r["k5"][0].abs().max()),
+              f"{where}: beam scores vs kernel 5 {sc5:.3e}")
+        check(x["stride_launches"] == S and x["beam_launches"] == 1,
+              f"{where}: kernel 2 launched {x['stride_launches']} times a "
+              f"stride, {x['beam_launches']} a beam step")
+        sc_calls = sum(v for k, v in x["stride_counts"].items()
+                       if not k.endswith("_bytes"))
+        check(sc_calls == 8 * S, f"{where}: {sc_calls} collectives a "
+              f"stride of {S} steps, not 8 a step")
+        read[dtype] = {
+            "stride_lp_err": lp_err, "k3_rows_diverged": div3,
+            "k3_lp_err": lp3, "beam_score_err": sc_err,
+            "plain_beam_rows_differ": divp, "k5_rows_differ": div5,
+            "k5_score_err": sc5,
+            "kernel2_launches": {"stride": x["stride_launches"],
+                                 "beam": x["beam_launches"]},
+            "stride_step": {
+                "collectives": sc_calls / S,
+                "bytes": sum(v for k, v in x["stride_counts"].items()
+                             if k.endswith("_bytes")) / S},
+            "beam_step": {
+                "collectives": sum(v for k, v in x["beam_counts"].items()
+                                   if not k.endswith("_bytes")),
+                "bytes": sum(v for k, v in x["beam_counts"].items()
+                             if k.endswith("_bytes"))},
+            "ms": {"stride": x["stride_ms"], "beam": x["beam_ms"]}}
+    return read
+
+
+def model_parallel_phase(root: str, data: dict, start: dict, smi: str
+                         ) -> tuple[dict, dict]:
+    """Model parallelism (module docstring, 8h) on the data_parallel
+    phase's corpus and start weights -> (its line, the launches of its
+    runs)."""
+    try:
+        return _model_parallel(root, data, start, smi)
+    finally:
+        tobs.shutdown()
+
+
+def _model_parallel(root: str, data: dict, start: dict, smi: str
+                    ) -> tuple[dict, dict]:
+    t_phase = time.perf_counter()
+    dev = torch.device(DP_DEVICE)
+    model = make_model(dev)
+    xs = {d: mp_inputs(model, dev, d == "bfloat16") for d in DP_DTYPES}
+    t = time.perf_counter()
+    ref = mp_references(model, xs)
+    ref_s = time.perf_counter() - t
+    paths = {"model": os.path.join(root, "mp_model.pt"),
+             "inputs": os.path.join(root, "mp_inputs.pt")}
+    torch.save(model.state_dict(), paths["model"])
+    torch.save(xs, paths["inputs"])
+    del model, xs
+    torch.cuda.empty_cache()
+    base = {"device": DP_DEVICE, "model_over": DP_MODEL, **paths}
+    launched = dict.fromkeys(SOURCE, 0)
+    ranks, a_wall = spawn_ranks(root, {**base, "job": "mp_decode"},
+                                max(MP_WIDTHS), "model_parallel (a)",
+                                MP_TIMEOUT_S)
+    decode = {"wall_s": a_wall}
+    for mp in MP_WIDTHS:
+        row = [r[f"mp{mp}"] for r in ranks if f"mp{mp}" in r]
+        check(sorted(r["cell"] for r in row) == [(0, k) for k in range(mp)],
+              f"model_parallel mp={mp}: cells {[r['cell'] for r in row]}")
+        decode[f"mp{mp}"] = {"ranks": [{"rank": r["rank"],
+                                        **mp_gate_decode(mp, r, ref)}
+                                       for r in row]}
+        for r in row:
+            for k, v in r["launches"].items():
+                launched[k] += v
+        planted = {}
+        for kind, got in row[0]["planted"].items():
+            f32 = ref["float32"]
+            stride_ok = torch.equal(got["stride"][0], f32["loop"][0])
+            beam_ok = torch.equal(got["beam"][1], f32["beam_loop"][1])
+            gate = beam_ok if kind == "topw_high_ties" else stride_ok
+            check(not gate, f"model_parallel: planted {kind} passed its gate")
+            planted[kind] = {"stride_tokens_equal": stride_ok,
+                             "beam_ids_equal": beam_ok}
+        if planted:
+            decode[f"mp{mp}"]["planted"] = planted
+    for dtype in DP_DTYPES:
+        check(all(ref[dtype]["bitwise"].values()),
+              f"model_parallel {dtype}: kernel 2 on a vocabulary slice is "
+              f"not bitwise its columns of the whole {ref[dtype]['bitwise']}")
+    # part (b): the (2 x 2) grid and two data-parallel ranks, launched
+    # together (their times are the card time-sliced between six ranks)
+    a = {**base, "job": "mp_epochs", "root": os.path.join(root, "mp"),
+         "data": data, "start": start,
+         "results": os.path.join(root, "mp_w{world}_rank{rank}.pt")}
+    t = time.perf_counter()
+    hs = {name: start_ranks(root, a, world, f"model_parallel (b) {name}",
+                            MP_TIMEOUT_S)
+          for world, name in ((MP_GRID, "dp"), (2 * MP_GRID, "2x2"))}
+    epochs = {name: dict(zip(("ranks", "wall_s"), finish_ranks(h)))
+              for name, h in hs.items()}
+    b_wall = time.perf_counter() - t
+    for e in epochs.values():
+        for r in e["ranks"]:
+            for k, v in r["launches"].items():
+                launched[k] += v
+    layout = dp_layout(start)
+    for r in epochs["2x2"]["ranks"]:
+        where = f"model_parallel 2x2 rank {r['rank']} {r['cell']}"
+        d = r["cell"][0]
+        got = torch.load(a["results"].format(world=4, rank=r["rank"]),
+                         map_location="cpu")
+        want = torch.load(a["results"].format(world=2, rank=d),
+                          map_location="cpu")
+        for dtype in DP_DTYPES:
+            x = r[dtype]
+            for n, dg in x["digests"].items():
+                check(dg[2 * d] == dg[2 * d + 1],
+                      f"{where} {dtype}: its row's {n} params differ")
+            x["equal"] = mp_epoch_equal(got[dtype], want[dtype])
+            g, w_ = got[dtype], want[dtype]
+            if dtype == "float32" or r["cell"][1]:
+                continue
+            # bfloat16, reported once a row: how far it sits from the
+            # data-parallel rank where it is not bitwise
+            x["compare"] = {
+                "params": {n: dp_close(g[f"{n}_params"], w_[f"{n}_params"],
+                                       None, layout)
+                           for n in ("xe", "cst", "split")},
+                "rollout_rows_equal": {n: dp_rows_equal(
+                    g[f"{n}_rollouts"], w_[f"{n}_rollouts"])
+                    for n in ("cst", "split")},
+                "val_agreement": dp_caption_agreement(g["val_captions"],
+                                                      w_["val_captions"])}
+        bad = [k for k, ok in r["float32"]["equal"].items() if not ok]
+        check(not bad, f"{where}: float32 not bitwise the data-parallel "
+              f"rank's: {bad}")
+        del got, want
+        rf = r["row_fault"]
+        check(rf["broadcast"][2 * d] == rf["broadcast"][2 * d + 1],
+              f"{where}: the row broadcast left a perturbed replica apart")
+        check(rf["skipped"][2 * d] != rf["skipped"][2 * d + 1],
+              f"{where}: planted (row broadcast skipped) passed its gate")
+    line = {
+        "phase": "model_parallel", "preset": "msrvtt_xe_attention",
+        "widths": list(MP_WIDTHS),
+        "vocab_a_shard": {f"mp{mp}": model_config().vocab_size // mp
+                          for mp in MP_WIDTHS},
+        "stride": {"capacity": CAPACITY, "K": K, "steps": S},
+        "beam": {"W": BEAM_W, "B": TRAIN_B},
+        "bounds": {"loop": MP_LP_TOL, "kernels_3_5": TOL,
+                   "tie_gap": TIE_GAP},
+        "references": {d: {"ms": ref[d]["ms"],
+                           "kernel2_slice_bitwise": ref[d]["bitwise"]}
+                       for d in DP_DTYPES},
+        "references_s": ref_s, "decode": decode, "epochs_wall_s": b_wall,
+        "epochs": {name: {"wall_s": e["wall_s"], "ranks": [
+            {"rank": r["rank"], "cell": r["cell"],
+             **{dt: {k: v for k, v in r[dt].items() if k != "digests"}
+                for dt in DP_DTYPES},
+             **({"row_fault_rows_equal": {
+                 k: [v[0] == v[1], v[2] == v[3]]
+                 for k, v in r["row_fault"].items()}}
+                if "row_fault" in r else {})}
+            for r in e["ranks"]]} for name, e in epochs.items()},
+        "note": "gloo ranks time-sliced on one card: semantics and the "
+                "merges' host cost, not the speed of N cards",
+        "launches": launched,
+        "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    return line, launched
+
+
 def scst_setup(corpus: dict, dev) -> tuple:
     """Phase 6's model fitted on ``corpus`` (its model_fit line printed),
     trainer and state -> (scfg, model, trainer, state)."""
@@ -6682,7 +7364,7 @@ def scst_line(scfg, sc: dict, smi: str) -> dict:
             "stride": scfg.model.decode_stride, **sc, "nvidia_smi": smi}
 
 
-PHASES = ("data_parallel", "seq_parallel", "scst")
+PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst")
 
 
 def run_phases(phases: list[str], smi: str) -> int:
@@ -6726,7 +7408,9 @@ def run_phases(phases: list[str], smi: str) -> int:
             else:
                 if data is None:
                     data, start, _ = dp_start(root)
-                emit(seq_parallel_phase(root, data, start, smi)[0])
+                run = (seq_parallel_phase if name == "seq_parallel"
+                       else model_parallel_phase)
+                emit(run(root, data, start, smi)[0])
             emit({"gates": phase, "failed": failed[before:]})
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -7042,10 +7726,13 @@ def main(argv: list[str]) -> int:
         emit(elastic)
         seq, seq_launches = seq_parallel_phase(root, dp_data, dp_start, smi)
         emit(seq)
+        mp_line, mp_launches = model_parallel_phase(root, dp_data, dp_start,
+                                                    smi)
+        emit(mp_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for launched in (dp_launches, split_launches, elastic_launches,
-                     seq_launches):
+                     seq_launches, mp_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

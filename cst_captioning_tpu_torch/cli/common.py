@@ -41,10 +41,11 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="torch.distributed init URL (e.g. file:///tmp/x) "
                         "with RANK / WORLD_SIZE from the env; default: the "
                         "launcher's env:// (MASTER_ADDR / MASTER_PORT)")
-    # the JAX CLI's flag; the sanitizer is not ported, so the config it
-    # sets raises
+    # the JAX CLI's flag: sets train.debug_nans (the Trainer's anomaly
+    # mode and forward NaN hooks)
     p.add_argument("--debug-nans", action="store_true",
-                   help="NaN sanitizer (not ported: raises)")
+                   help="NaN sanitizer: raise at the first non-finite "
+                        "module output or backward op")
 
 
 def parse_overrides(pairs: list[str]) -> dict:

@@ -15,7 +15,9 @@ Under ``python -m torch.distributed.run --nproc-per-node N`` (or
 batch on ``cuda:<LOCAL_RANK>``, rank 0 scores and writes the results.
 ``--set mesh__seq_devices=S`` carries the training layout into the eval:
 a ``('data', 'seq')`` grid of the N ranks, each holding its shard of the
-frame axis (``parallel.seq_parallel``).
+frame axis (``parallel.seq_parallel``); ``--set mesh__mp_devices=M`` the
+``('data', 'mp')`` grid, whose rows decode the same rows with the
+replicated kernels, as the JAX evaluator does.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from cst_captioning_tpu_torch.cli.common import (
 from cst_captioning_tpu_torch.eval.evaluator import evaluate_split
 from cst_captioning_tpu_torch.models import CaptionModel
 from cst_captioning_tpu_torch.train import multihost
-from cst_captioning_tpu_torch.train.mesh import GridMesh, make_mesh
+from cst_captioning_tpu_torch.train.mesh import is_seq_grid, make_mesh
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -72,15 +74,17 @@ def _evaluate(args, cfg, split: str) -> dict:
     with obs.span("setup"):
         ds = open_dataset(args, cfg, split)
         # seq_devices > 1 carries the training layout into the eval: the
-        # frames shard over each seq row of the grid
+        # frames shard over each seq row of the grid (an mp grid's rows
+        # decode alike with the replicated kernels)
         mesh = (make_mesh(cfg.mesh.num_devices,
                           seq_devices=cfg.mesh.seq_devices,
+                          mp_devices=cfg.mesh.mp_devices,
                           device=args.device)
                 if multihost.is_multiprocess() or cfg.mesh.seq_devices > 1
                 else None)
         model = CaptionModel(cfg.model, device=mesh.device if mesh
                              else args.device)
-        if isinstance(mesh, GridMesh):
+        if is_seq_grid(mesh):
             model.set_seq(mesh.seq)
         if args.jax_ckpt:
             if not os.path.exists(os.path.join(args.jax_ckpt,

@@ -33,6 +33,17 @@ the batch by N/S; the kernels stay off, ``attention_impl`` and
         -m cst_captioning_tpu_torch.cli.train --preset msrvtt_xe_attention \
         ... --set mesh__num_devices=4 --set mesh__seq_devices=2
 
+Model parallel: ``--set mesh__mp_devices=M`` makes the N ranks a
+``('data', 'mp')`` grid of N/M rows of M ranks. The batch shards by the
+data coordinate only, so a row's M ranks are replicas that take the row's
+first rank's reduced gradients each step (the batch divides by N/M; M
+divides the vocabulary, ``d_hidden`` and N). Only the sharded-vocab
+decode, ``ops/decode_mp.py``, shards the vocabulary over a row:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m cst_captioning_tpu_torch.cli.train --preset msrvtt_cst_consensus \
+        ... --set mesh__num_devices=4 --set mesh__mp_devices=2
+
 The decoupled RL topology across ranks: the XE phase runs data parallel
 on every rank, then each RL epoch splits the ranks into actors (the first
 ``round(N * rl.actor_fraction)``) and learners, each side clamped to a

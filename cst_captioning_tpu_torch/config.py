@@ -8,18 +8,17 @@ and ``section__field`` overrides. Field names and defaults match the JAX
 package; ``DataConfig.feature_files`` name the port's feature files
 (``data/dataset.py``) in place of h5 files.
 
-A field whose machinery the port does not have yet (the model-parallel
-mesh, ``mesh.mp_devices``) raises ``ValueError`` when it is set to anything
-but its default, naming what is missing: nothing is accepted and then
-ignored. The health monitor's knobs (``train.health*``, ``peer_timeout_s``,
-``dcn_stall_s``), both elastic modes (``train.elastic`` "strict" or
-"degraded", and ``elastic_regrow``: the degraded-mesh continuation and
-grow-back of ``train/trainer.py``), the data mesh (``mesh.num_devices``:
-one rank a device, ``train/mesh.py``), the gradient-communication knobs
-(``train.comm_*``, ``parallel/comms.py``) and sequence parallelism
-(``mesh.seq_devices``, ``model.seq_axis``: the ``('data', 'seq')`` grid of
-ranks, ``parallel/seq_parallel.py``) are ported, with the JAX package's
-checks on them.
+Every field of the JAX config is ported, with the JAX package's checks
+on it: among them the health monitor's knobs (``train.health*``,
+``peer_timeout_s``, ``dcn_stall_s``), both elastic modes
+(``train.elastic`` "strict" or "degraded", and ``elastic_regrow``: the
+degraded-mesh continuation and grow-back of ``train/trainer.py``), the
+data mesh (``mesh.num_devices``: one rank a device, ``train/mesh.py``),
+the gradient-communication knobs (``train.comm_*``,
+``parallel/comms.py``), sequence parallelism (``mesh.seq_devices``,
+``model.seq_axis``: the ``('data', 'seq')`` grid of ranks,
+``parallel/seq_parallel.py``) and model parallelism (``mesh.mp_devices``:
+the ``('data', 'mp')`` grid, ``ops/decode_mp.py``).
 """
 
 from __future__ import annotations
@@ -133,24 +132,6 @@ class DataConfig:
             object.__setattr__(
                 self, "feature_files",
                 tuple((str(k), str(v)) for k, v in self.feature_files))
-
-
-def _refuse_unported(cfg, section: str, missing: Mapping[str, str]) -> None:
-    """Raise for each field of ``missing`` set away from its default."""
-    for f in dataclasses.fields(cfg):
-        if f.name in missing and getattr(cfg, f.name) != f.default:
-            raise ValueError(
-                f"{section}.{f.name}={getattr(cfg, f.name)!r} is not "
-                f"supported by the PyTorch port: {missing[f.name]} is not "
-                "ported yet (leave it at its default "
-                f"{f.default!r})")
-
-
-# each refused knob names the machinery it needs and the port slice that
-# brings it (ROADMAP.md "Modules still to port")
-_MESH_UNPORTED = {
-    "mp_devices": "model parallelism (the model-parallel slice)",
-}
 
 
 @dataclass(frozen=True)
@@ -395,13 +376,16 @@ class MeshConfig:
             raise ValueError(
                 f"mesh.seq_devices {self.seq_devices} must be >= 1 "
                 "(1 = no sequence parallelism)")
+        if self.mp_devices < 1:
+            raise ValueError(
+                f"mesh.mp_devices {self.mp_devices} must be >= 1 "
+                "(1 = no model parallelism)")
         if self.seq_devices > 1 and self.mp_devices > 1:
             # both want the second mesh axis (the JAX package's message)
             raise ValueError(
                 "mesh.mp_devices > 1 cannot compose with the "
                 "sequence-parallel ('seq_devices > 1') path yet — "
                 "pick one second mesh axis")
-        _refuse_unported(self, "mesh", _MESH_UNPORTED)
 
 
 @dataclass(frozen=True)
@@ -457,8 +441,8 @@ class ExperimentConfig:
                     "(0, 1) — both submeshes need at least one device's "
                     "share")
             if sp:
-                # a split over a ('data', 'seq') grid needs 2-D plans,
-                # which come with model parallelism
+                # the JAX refusal: the SP decode and update run over the
+                # whole row, which a split of 'data' under it would cut
                 raise ValueError(
                     "train.rl_topology='decoupled' is not implemented for "
                     "the sequence-parallel ('seq_devices > 1') path")
@@ -469,6 +453,7 @@ class ExperimentConfig:
                 "train.comm_overlap requires rl.update_chunks >= 2 (the "
                 f"chunk boundary is the overlap seam; got "
                 f"{self.rl.update_chunks})")
+        self._check_mp()
         if self.rl.online_batch_size < 1:
             raise ValueError(
                 f"rl.online_batch_size {self.rl.online_batch_size} must be "
@@ -477,6 +462,28 @@ class ExperimentConfig:
             raise ValueError(
                 f"rl.swap_every {self.rl.swap_every} must be >= 1 (learner "
                 "updates between param publishes into the serving engine)")
+
+    def _check_mp(self) -> None:
+        """The model-parallel grid's divisibility (the JAX package's
+        checks and messages)."""
+        mp = self.mesh.mp_devices
+        if mp <= 1:
+            return
+        if self.model.vocab_size % mp:
+            raise ValueError(
+                f"mesh.mp_devices {mp} must divide model.vocab_size "
+                f"{self.model.vocab_size} (the vocab head and embedding "
+                "shard in equal slices)")
+        if self.model.d_hidden % mp:
+            raise ValueError(
+                f"mesh.mp_devices {mp} must divide model.d_hidden "
+                f"{self.model.d_hidden} (the LSTM gate matrices shard in "
+                "equal columns)")
+        if self.mesh.num_devices and self.mesh.num_devices % mp:
+            raise ValueError(
+                f"mesh.mp_devices {mp} must divide mesh.num_devices "
+                f"{self.mesh.num_devices} (the mesh is a dense data x mp "
+                "grid)")
 
     # ---- serialization ----------------------------------------------------
 

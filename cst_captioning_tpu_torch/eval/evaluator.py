@@ -38,6 +38,11 @@ uploads only its shard of the frames (the dataset's ``max_frames`` must
 divide over the row); greedy, beam and NPAD decode over the sharded bank,
 and the merge is the data-parallel one (a row's ranks give the same
 captions).
+
+Model parallel (``mesh`` a ``('data', 'mp')`` ``GridMesh``): the batch
+shards by the data coordinate, every rank of an ``'mp'`` row decodes the
+same rows with the replicated kernels, as the JAX evaluator does, and the
+merge is the data-parallel one.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ from cst_captioning_tpu_torch.metrics.scorer import CaptionScorer
 from cst_captioning_tpu_torch.metrics.tokenizer import ptb_tokenize
 from cst_captioning_tpu_torch.parallel.seq_parallel import shard_frames
 from cst_captioning_tpu_torch.train import multihost
-from cst_captioning_tpu_torch.train.mesh import batch_sharding
+from cst_captioning_tpu_torch.train.mesh import batch_sharding, is_seq_grid
 
 
 def npad_batch_seed(npad_seed: int, batch_index: int) -> int:
@@ -84,7 +89,7 @@ class Evaluator:
         self.cfg = cfg = cfg or EvalConfig()
         self.mesh = mesh
         self.multiproc = mesh is not None and mesh.world > 1
-        self.sp = mesh is not None and hasattr(mesh, "seq")
+        self.sp = is_seq_grid(mesh)
         if self.sp:
             S = mesh.seq.world
             if dataset.max_frames % S:

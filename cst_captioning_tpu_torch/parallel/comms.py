@@ -193,6 +193,34 @@ def _all_reduce(t: torch.Tensor, mesh, async_op: bool = False):
     return dist.all_reduce(t, group=mesh.group, async_op=async_op)
 
 
+# the model-parallel row's broadcasts (broadcast_row) since
+# reset_row_counts(): calls and bytes a rank
+ROW_COUNTS: dict[str, int] = {}
+
+
+def reset_row_counts() -> None:
+    ROW_COUNTS.clear()
+
+
+def broadcast_row(tensors, row) -> list[torch.Tensor]:
+    """The ``'mp'`` row's first rank's ``tensors`` on every rank of the
+    row, in one flat float32 broadcast -> new tensors in their own dtypes
+    (the inputs when the row is one rank). A row's ranks compute the same
+    rows; the broadcast keeps them bitwise equal where a backward kernel
+    is not deterministic (a JAX device mesh replicates exactly)."""
+    if row is None or row.world == 1 or row.group is None:
+        return list(tensors)
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ROW_COUNTS["broadcasts"] = ROW_COUNTS.get("broadcasts", 0) + 1
+    ROW_COUNTS["bytes"] = ROW_COUNTS.get("bytes", 0) + flat.numel() * 4
+    dist.broadcast(flat, src=row.global_ranks[0], group=row.group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
+        off += t.numel()
+    return out
+
+
 def reduce_sums(num: torch.Tensor, den: torch.Tensor, mesh):
     """A loss's sum form ``(num, den)`` summed over the ranks, in one
     all-reduce -> (num, den) float32 tensors."""

@@ -22,17 +22,26 @@ Two constraints shape the split, as in the JAX package:
 
 Building a plan creates the sides' process groups, which is collective
 over the whole world: every rank plans, shrinks and grows in the same
-order. A 2-D mesh (a ``(data, seq)`` or ``(data, mp)`` grid) is refused:
-its row split comes with the model-parallel slice.
+order.
+
+A 2-D grid (``train.mesh.GridMesh``, the ``(data, mp)`` grid of model
+parallelism) splits along its DATA rows, as the JAX package's
+``_plan_submesh_2d``: whole rows move together, so each side keeps every
+mp column. Its sides are ``GridMesh`` views (the side's share of this
+rank's column, and this rank's row), its ranks the sides' rows in
+row-major order, and ``column`` the 1-D plan of this rank's column alone
+(the same row split), which the split trainer runs with its row's
+replicas. :func:`shrink_actors` and :func:`grow_actors` refuse a 2-D plan
+with the JAX messages: one device out of a grid would break its mp
+columns.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from cst_captioning_tpu_torch.train.mesh import DataMesh, submesh
-
-_MODEL_PARALLEL = "the model-parallel slice"
+from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.train.mesh import DataMesh, GridMesh, submesh
 
 
 def largest_divisor(batch: int, upper: int) -> int:
@@ -60,7 +69,9 @@ class SubmeshPlan:
     actor_ranks: tuple
     learner_ranks: tuple
     shared: bool
-    mesh: DataMesh | None = None
+    mesh: DataMesh | GridMesh | None = None
+    # a 2-D plan: this rank's column's 1-D split
+    column: "SubmeshPlan | None" = None
 
     @property
     def n_actors(self) -> int:
@@ -78,10 +89,12 @@ def _plan(mesh: DataMesh, actors, learners) -> SubmeshPlan:
                        learner_ranks=learners, shared=False, mesh=mesh)
 
 
-def shared_plan(mesh: DataMesh) -> SubmeshPlan:
+def shared_plan(mesh: DataMesh | GridMesh) -> SubmeshPlan:
     """Both roles on the full mesh (strict replay / 1-rank layout)."""
     ranks = mesh.global_ranks
-    return SubmeshPlan(mesh, mesh, ranks, ranks, shared=True, mesh=mesh)
+    column = shared_plan(mesh.data) if isinstance(mesh, GridMesh) else None
+    return SubmeshPlan(mesh, mesh, ranks, ranks, shared=True, mesh=mesh,
+                       column=column)
 
 
 def plan_submesh(mesh: DataMesh, actor_fraction: float = 0.5,
@@ -92,12 +105,10 @@ def plan_submesh(mesh: DataMesh, actor_fraction: float = 0.5,
     both sides keep at least one, then each side clamps down to the
     largest divisor of ``batch_size`` (0 = no batch constraint); actors
     are the first ranks. A mesh of one rank returns the shared plan. A
-    2-D mesh raises: the row split of a grid comes with the
-    model-parallel slice. The sides keep the mesh's axis name."""
+    2-D grid splits along its data rows (module docstring). The sides keep
+    the mesh's axis names."""
     if len(mesh.axis_names) == 2:
-        raise ValueError(
-            f"plan_submesh got a 2-D {mesh.axis_names!r} mesh: the row split "
-            f"of a grid is not ported yet ({_MODEL_PARALLEL})")
+        return _plan_submesh_2d(mesh, actor_fraction, batch_size)
     if len(mesh.axis_names) != 1:
         raise ValueError(
             f"plan_submesh needs a 1-D or 2-D mesh, got axes "
@@ -112,6 +123,40 @@ def plan_submesh(mesh: DataMesh, actor_fraction: float = 0.5,
     return _plan(mesh, ranks[:n_actor], ranks[n_actor:n_actor + n_learner])
 
 
+def _plan_submesh_2d(grid: GridMesh, actor_fraction: float,
+                     batch_size: int) -> SubmeshPlan:
+    """Row split of a ``(data, mp)`` grid: whole mp columns move
+    together. Every column's side groups are created, in column order, on
+    every rank (collective over the world)."""
+    rows, M = grid.data.world, grid.row.world
+    if rows < 2:
+        return shared_plan(grid)
+    n_actor = max(1, min(rows - 1, round(rows * actor_fraction)))
+    n_actor = largest_divisor(batch_size, n_actor)
+    n_learner = largest_divisor(batch_size, rows - n_actor)
+    a_rows = range(n_actor)
+    l_rows = range(n_actor, n_actor + n_learner)
+    for s in range(M):
+        for side in (a_rows, l_rows):
+            if len(side) > 1 and grid.group is not None:
+                multihost.group_of([d * M + s for d in side])
+    col = grid.data.global_ranks
+    column = _plan(grid.data, [col[d] for d in a_rows],
+                   [col[d] for d in l_rows])
+
+    def view(side, sub):
+        return None if sub is None else GridMesh(
+            rank=sub.rank * M + grid.row.rank, world=len(side) * M,
+            device=grid.device, data=sub, row=grid.row)
+
+    return SubmeshPlan(
+        actor=view(a_rows, column.actor), learner=view(l_rows,
+                                                       column.learner),
+        actor_ranks=tuple(d * M + s for d in a_rows for s in range(M)),
+        learner_ranks=tuple(d * M + s for d in l_rows for s in range(M)),
+        shared=False, mesh=grid, column=column)
+
+
 def shrink_actors(plan: SubmeshPlan, drop_index: int,
                   batch_size: int = 0) -> SubmeshPlan | None:
     """Remove one actor rank (an ``actor_preempt`` casualty) from the plan.
@@ -122,6 +167,11 @@ def shrink_actors(plan: SubmeshPlan, drop_index: int,
     the caller falls back to the sync schedule on the learner submesh."""
     if plan.shared or plan.n_actors <= 1:
         return None
+    if len(plan.mesh.axis_names) != 1:
+        raise ValueError(
+            "shrink_actors only handles 1-D plans: dropping one device from "
+            "a (data, mp) grid would break the mp columns — shed a whole "
+            "data row by re-planning instead")
     survivors = list(plan.actor_ranks)
     del survivors[drop_index % len(survivors)]
     keep = largest_divisor(batch_size, len(survivors))
@@ -145,6 +195,10 @@ def grow_actors(plan: SubmeshPlan | None, rank: int, initial: SubmeshPlan,
     initial plan."""
     if initial.shared:
         return None
+    if len(initial.mesh.axis_names) != 1:
+        raise ValueError(
+            "grow_actors only handles 1-D plans: re-admission into a "
+            "(data, mp) grid re-plans a whole data row instead")
     if rank not in initial.actor_ranks:
         raise ValueError(
             f"grow_actors rank {rank} was never in the initial actor plan "

@@ -42,6 +42,15 @@ Layouts (``mesh=``, a ``train.mesh.DataMesh``):
   the learner's state (parameters, Adam moments, step and seed, broadcast
   from the learner root): the JAX split's "pushed back to the full mesh on
   return".
+- A ``('data', 'mp')`` grid (``train.mesh.GridMesh``): ``plan_submesh``
+  splits it along its data rows, and each mp column runs the split above
+  over its own data ranks (the plan's ``column``), with the handoff and
+  the broadcast inside the column. The ranks of an ``'mp'`` row are
+  replicas, as in the sync trainer: the learners' reduced gradients are
+  broadcast over the row (``row=`` of the update), and the exchanges that
+  gather over the world keep this column's ranks. A preemption or rejoin
+  of one rank refuses the 2-D plan (``shrink_actors``, ``grow_actors``),
+  as in the JAX package.
 - Several virtual ranks: a mesh without a process group and a world above
   1 plans the split by the same rules but runs every role in this process
   (every row decoded and updated here). Its schedule, events and ledgers
@@ -115,7 +124,7 @@ from cst_captioning_tpu_torch.parallel.submesh import (
 from cst_captioning_tpu_torch.resilience import chaos
 from cst_captioning_tpu_torch.rl.scst import SCSTTrainer, _host_copy
 from cst_captioning_tpu_torch.train import multihost
-from cst_captioning_tpu_torch.train.mesh import replicate
+from cst_captioning_tpu_torch.train.mesh import mp_row, replicate
 from cst_captioning_tpu_torch.train.state import TrainState
 
 # pending actor preemptions and rejoins; the running epoch services them
@@ -334,19 +343,29 @@ class AsyncSCSTTrainer(SCSTTrainer):
             bound = depth - 1
         elif implicit:
             depth, bound = 1, 0
+        # a ('data', 'mp') grid: the split runs in each column, a row's
+        # ranks are replicas
+        row = mp_row(mesh)
+        grid = mesh if row is not None else None
+        if grid is not None:
+            mesh = grid.data
         self._full_mesh = mesh
+        self._column = set(mesh.global_ranks) if mesh is not None else set()
         self._batch_size = int(batch_size)
         # ranks of a process group: the roles run on different processes
         self._real = (mesh is not None and mesh.group is not None
                       and mesh.world > 1)
         self._me = multihost.process_index() if self._real else 0
+        self._grid_plan = None
         if mesh is None:
             plan = None
         elif self._strict:
             plan = shared_plan(mesh)
         else:
-            plan = plan_submesh(mesh, cfg.actor_fraction,
+            plan = plan_submesh(grid or mesh, cfg.actor_fraction,
                                 batch_size=batch_size)
+            if grid is not None:
+                self._grid_plan, plan = plan, plan.column
         self._plan = plan
         # the pristine plan: a regrow restores membership and order from
         # it, minus the ranks the dead-actor ledger still names as lost
@@ -356,7 +375,7 @@ class AsyncSCSTTrainer(SCSTTrainer):
         self._bcast_group = None
         super().__init__(model, reward, cfg, max_len=max_len, guard=guard,
                          stats=stats, retry=retry, on_event=on_event,
-                         mesh=self._learner_mesh(), comm=comm)
+                         mesh=self._learner_mesh(), comm=comm, row=row)
         self._wg = cfg.baseline == "greedy"
         self._depth = depth
         self._bound = bound
@@ -366,6 +385,14 @@ class AsyncSCSTTrainer(SCSTTrainer):
         self._actor_version = -1
         self._learner_version = 0
         self._sends: list = []
+        gp = self._grid_plan
+        if gp is not None and self._split():
+            # every column's broadcast group, in column order on every rank
+            # (group creation is collective over the world)
+            M = row.world
+            for s in range(M):
+                multihost.group_of(
+                    {gp.learner_ranks[s], *gp.actor_ranks[s::M]})
         self._adopt(plan)
         # per-epoch ledgers the smoke run and the tests read back (the same
         # on every rank)
@@ -410,6 +437,11 @@ class AsyncSCSTTrainer(SCSTTrainer):
         b = B // len(side)
         i = side.index(self._me)
         return slice(i * b, (i + 1) * b)
+
+    def _of_column(self, every: list) -> list:
+        """A world-wide gather's per-rank values -> this column's (every
+        rank's on a 1-D mesh; a grid's other columns hold replicas)."""
+        return [x for r, x in enumerate(every) if r in self._column]
 
     def _learner_mesh(self):
         """The update's mesh: the learner submesh across ranks, None for a
@@ -553,8 +585,8 @@ class AsyncSCSTTrainer(SCSTTrainer):
         valid rows combined over every learner's rows."""
         if not self._split():
             return m
-        parts = [x for x in multihost.allgather_pyobj(
-            m if self._is_learner() else None) if x is not None]
+        parts = [x for x in self._of_column(multihost.allgather_pyobj(
+            m if self._is_learner() else None)) if x is not None]
         out = dict(parts[0])
         rows = [float(x["valid_rows"]) for x in parts]
         total = sum(rows)
@@ -600,7 +632,7 @@ class AsyncSCSTTrainer(SCSTTrainer):
             if self._plan is not None and not self._plan.shared:
                 ranks = self._plan.actor_ranks
                 self._dead_actors.add(ranks[idx % len(ranks)])
-                new_plan = shrink_actors(self._plan, idx,
+                new_plan = shrink_actors(self._grid_plan or self._plan, idx,
                                          batch_size=self._batch_size)
             if new_plan is None:
                 self._fallback_sync = True
@@ -628,8 +660,9 @@ class AsyncSCSTTrainer(SCSTTrainer):
             rank = init.actor_ranks[idx % len(init.actor_ranks)]
             self._dead_actors.discard(rank)
             new_plan = grow_actors(
-                None if self._fallback_sync else self._plan, rank, init,
-                batch_size=self._batch_size, dead=self._dead_actors)
+                None if self._fallback_sync else self._plan, rank,
+                self._grid_plan or init, batch_size=self._batch_size,
+                dead=self._dead_actors)
             if new_plan is None:
                 continue    # already present: a duplicate rejoin
             lost.extend(self._ring.drain_meta())
@@ -658,9 +691,10 @@ class AsyncSCSTTrainer(SCSTTrainer):
                         "start": np.asarray(meta["rows"].start or 0)}
                 if greedy is not None:
                     mine["greedy"] = greedy.cpu().numpy()
-            parts = sorted((p for p in (multihost.allgather_arrays(mine)
-                                        if self._real else [mine])
-                            if p is not None), key=lambda p: int(p["start"]))
+            every = (self._of_column(multihost.allgather_arrays(mine))
+                     if self._real else [mine])
+            parts = sorted((p for p in every if p is not None),
+                           key=lambda p: int(p["start"]))
             e = {"samples": np.concatenate([p["samples"] for p in parts], 1),
                  "lps": np.concatenate([p["lps"] for p in parts], 1),
                  "video_ids": [str(v) for v in meta["all_ids"]],

@@ -58,6 +58,15 @@ Sequence parallel (``mesh`` a ``train.mesh.GridMesh``, the model an
 each rank's rows its data coordinate's, its frames its shard; the rollout
 noise is keyed by the data coordinate, so a row's ranks draw alike, and
 the seam gathers one rank a row.
+
+Model parallel (``mesh`` a ``('data', 'mp')`` ``GridMesh``): the ranks of an
+``'mp'`` row are replicas, as the JAX training factories compute
+mp-replicated. The decode and the update are the data-parallel ones over
+the grid's data column (each rank's rows its data coordinate's, its noise
+theirs), and the update's reduced gradients are broadcast over the row
+(``row=``: ``train.steps.row_sync``); the seam gathers one rank a row.
+``row`` names that ``'mp'`` row where ``mesh`` is a column already (the
+learner side of a split over a grid, ``rl/async_scst.py``).
 """
 
 from __future__ import annotations
@@ -88,8 +97,9 @@ from cst_captioning_tpu_torch.resilience.retry import RetryPolicy, retry_call
 from cst_captioning_tpu_torch.rl.rewards import scb_baseline
 from cst_captioning_tpu_torch.train.schedule import global_norm
 from cst_captioning_tpu_torch.train import multihost
+from cst_captioning_tpu_torch.train.mesh import data_axis, is_seq_grid, mp_row
 from cst_captioning_tpu_torch.train.state import TrainState
-from cst_captioning_tpu_torch.train.steps import _apply
+from cst_captioning_tpu_torch.train.steps import _apply, row_sync
 
 _M64 = (1 << 64) - 1
 
@@ -339,12 +349,13 @@ def _chunked_loss_grads(model, params, feats, masks, samples, advantage,
 
 
 def make_rl_update(model, chunks: int = 1, guard: bool = False,
-                   stats: bool = False) -> Callable:
+                   stats: bool = False, row=None) -> Callable:
     """-> update(state, feats, masks, samples [K, B, T], advantage [K, B],
     valid [B]) -> (state, metrics). ``chunks > 1`` accumulates the gradient
     over slices of the rollout axis (the same total gradient up to float
     summation order). The state's model is updated in place. ``stats``
-    adds the update ratios (``train.steps.update_ratios``)."""
+    adds the update ratios (``train.steps.update_ratios``); ``row``, the
+    ``'mp'`` row this update's ranks replicate (``train.steps.row_sync``)."""
     del model  # the state carries it; kept for the JAX factory's signature
 
     def update(state: TrainState, feats, masks, samples, advantage, valid):
@@ -365,6 +376,7 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
             loss = num / torch.clamp(den, min=1.0)
             grads = torch.autograd.grad(loss, params)
             loss = loss.detach()
+        grads, loss = row_sync(grads, loss, row)
         return _apply(state, grads, loss, global_norm(grads), guard,
                       key="rl_loss", stats=stats)
 
@@ -373,13 +385,13 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
 
 def make_parallel_rl_update(model, mesh, chunks: int = 1,
                             guard: bool = False, comm=None,
-                            stats: bool = False) -> Callable:
+                            stats: bool = False, row=None) -> Callable:
     """The data-parallel REINFORCE update, in the sum form: each rank's
     ``(num, den)`` and the gradient of ``num`` over its rows, ``num`` and
     ``den`` summed in one all-reduce, the gradients by
     ``parallel.comms.GradReducer``, then the division by the global
     ``max(den, 1)`` and the update, alike on every rank. ``chunks``,
-    ``guard`` and ``stats`` as :func:`make_rl_update`. ``comm.overlap``
+    ``guard``, ``stats`` and ``row`` as :func:`make_rl_update`. ``comm.overlap``
     "defer" / "eager" reduce each chunk's gradients as they come
     (:func:`_chunked_loss_grads`) and need ``chunks >= 2``."""
     from cst_captioning_tpu_torch.parallel.comms import (
@@ -414,8 +426,8 @@ def make_parallel_rl_update(model, mesh, chunks: int = 1,
         den_t = torch.clamp(den_t, min=1.0)
         if overlap == "off":
             g = reducer(g)
-        grads = [x / den_t for x in g]
-        return _apply(state, grads, num_t / den_t, global_norm(grads), guard,
+        grads, loss = row_sync([x / den_t for x in g], num_t / den_t, row)
+        return _apply(state, grads, loss, global_norm(grads), guard,
                       key="rl_loss", stats=stats)
 
     return update
@@ -441,7 +453,7 @@ class SCSTTrainer:
     def __init__(self, model, reward, cfg: RLConfig,
                  max_len: int | None = None, guard: bool = False,
                  stats: bool = False, retry: RetryPolicy | None = None,
-                 on_event=None, mesh=None, comm=None):
+                 on_event=None, mesh=None, comm=None, row=None):
         self.model = model
         self.reward = reward
         self.cfg = cfg
@@ -477,8 +489,12 @@ class SCSTTrainer:
         # the loop's stride: the fused decode's, or the per-step exit check
         stride = max(1, min(model.cfg.decode_stride, self.max_len))
         self._stride = stride if wg and stride > 1 else None
-        # a ('data', 'seq') grid: the model reduces over its row
-        self.sp = mesh is not None and hasattr(mesh, "seq")
+        # a grid's ranks of a row hold the same rows: on a ('data', 'seq')
+        # grid the model reduces over the row, on a ('data', 'mp') grid
+        # they are replicas that take the row's first rank's update
+        self.sp = is_seq_grid(mesh)
+        mp = row if row is not None else mp_row(mesh)
+        self.row = mesh.seq if self.sp else mp
         if self.sp:
             from cst_captioning_tpu_torch.parallel.seq_parallel import (
                 make_sp_decode,
@@ -492,18 +508,19 @@ class SCSTTrainer:
                 model, mesh, chunks=cfg.update_chunks, guard=guard,
                 comm=comm, stats=stats)
         elif mesh is not None:
+            column = data_axis(mesh)
             self.decode = make_parallel_rl_decode(
-                model, mesh, cfg.num_rollouts, cfg.temperature, max_len,
+                model, column, cfg.num_rollouts, cfg.temperature, max_len,
                 with_greedy=wg)
             self.update = make_parallel_rl_update(
-                model, mesh, chunks=cfg.update_chunks, guard=guard,
-                comm=comm, stats=stats)
+                model, column, chunks=cfg.update_chunks, guard=guard,
+                comm=comm, stats=stats, row=mp)
         else:
             self.decode = make_rl_decode(
                 model, cfg.num_rollouts, cfg.temperature, max_len,
                 with_greedy=wg)
             self.update = make_rl_update(model, chunks=cfg.update_chunks,
-                                         guard=guard, stats=stats)
+                                         guard=guard, stats=stats, row=mp)
 
     # ---- reward / advantage (host) ------------------------------------------
 
@@ -659,10 +676,9 @@ class SCSTTrainer:
     # ---- the seam of a drained pipeline -----------------------------------
 
     def _row_ranks(self) -> int:
-        """Ranks a data coordinate spans: the seq row's width on a
-        ``('data', 'seq')`` grid (whose ranks of a row hold the same
-        rows), else 1."""
-        return self.mesh.seq.world if self.sp else 1
+        """Ranks a data coordinate spans: a grid row's width (its ranks
+        hold the same rows), else 1."""
+        return self.row.world if self.row is not None else 1
 
     def _gather_rows(self, t, dim: int) -> np.ndarray:
         """Every data coordinate's rows of ``t``, in order, on the host."""
@@ -687,15 +703,16 @@ class SCSTTrainer:
     def _seam_tokens_to_device(self, seam: dict, device):
         """Persisted seam tokens -> (greedy or None, samples) of this
         rank's rows on ``device``, as the decode gives them."""
-        if not self.sp:
+        if self.row is None:
             put = multihost.put_full_global
         else:
-            d = self.mesh.data
+            d = data_axis(self.mesh)
+            rank, world = (d.rank, d.world) if d is not None else (0, 1)
 
             def put(x, device, dim):
                 t = torch.as_tensor(np.asarray(x))
-                n = t.shape[dim] // d.world
-                return t.narrow(dim, d.rank * n, n).to(device)
+                n = t.shape[dim] // world
+                return t.narrow(dim, rank * n, n).to(device)
 
         samples = put(np.asarray(seam["samples"]), device, dim=1)
         greedy = seam.get("greedy")

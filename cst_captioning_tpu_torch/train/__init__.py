@@ -11,6 +11,7 @@ from cst_captioning_tpu_torch.train.state import (
 )
 from cst_captioning_tpu_torch.train.mesh import (
     DataMesh,
+    GridMesh,
     batch_sharding,
     make_mesh,
     replicate,
@@ -25,6 +26,7 @@ from cst_captioning_tpu_torch.train.steps import (
 
 __all__ = [
     "DataMesh",
+    "GridMesh",
     "Optimizer",
     "TrainState",
     "batch_sharding",

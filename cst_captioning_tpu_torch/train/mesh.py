@@ -13,13 +13,18 @@ rank 0. :func:`submesh` is a ``DataMesh`` over a subset of the ranks
 group.
 
 ``make_mesh(seq_devices=S)`` gives the ``('data', 'seq')`` grid of
-sequence parallelism, a :class:`GridMesh`: global rank ``r`` is cell
-``(r // S, r % S)`` (the JAX mesh's ``devices.reshape(n // S, S)``), its
-``.data`` a ``DataMesh`` over this rank's column (the ranks of its seq
-coordinate; the batch axis) and its ``.seq`` one over its row (the ranks
-of its data coordinate; the frame axis). :func:`batch_sharding` is then
-the data coordinate: every rank of a row collates the same rows. The
-``('data', 'mp')`` mesh comes with the model-parallel slice and raises.
+sequence parallelism and ``make_mesh(mp_devices=M)`` the ``('data',
+'mp')`` grid of model parallelism, each a :class:`GridMesh`: global rank
+``r`` is cell ``(r // S, r % S)`` (the JAX mesh's ``devices.reshape(n //
+S, S)``), its ``.data`` a ``DataMesh`` over this rank's column (the ranks
+of its second coordinate; the batch axis) and its ``.row`` one over its
+row (the ranks of its data coordinate), named by the second axis:
+``.seq`` (the frame axis) or ``.mp`` (the decode's vocabulary,
+``ops/decode_mp.py``). :func:`batch_sharding` is then the data
+coordinate: every rank of a row collates the same rows. As in the JAX
+package, a grid is sequence parallel when ``'seq'`` is among its axis
+names (:func:`is_seq_grid`) and model parallel when ``'mp'`` is
+(:func:`mp_row`).
 
 The partition rule tables are the JAX package's, as plain data: ordered
 ``(family, path regex, spec)`` rows, the spec a tuple of axis names or
@@ -41,8 +46,6 @@ import torch.distributed as dist
 
 from cst_captioning_tpu_torch.models.decoder import LSTM_GATE_ORDER
 from cst_captioning_tpu_torch.train import multihost
-
-_MODEL_PARALLEL = "the model-parallel slice"
 
 
 @dataclass(frozen=True)
@@ -80,17 +83,19 @@ class DataMesh:
 
 @dataclass(frozen=True)
 class GridMesh:
-    """The ``('data', 'seq')`` grid over ``world`` ranks, seen from global
-    rank ``rank`` = ``data.rank * seq.world + seq.rank``: ``data`` is the
-    column through this rank (the batch axis, over the ranks of its seq
-    coordinate), ``seq`` the row (the frame axis, over the ranks of its
-    data coordinate). ``group`` is the whole grid's."""
+    """A ``('data', <second>)`` grid over ``world`` ranks, seen from
+    global rank ``rank`` = ``data.rank * row.world + row.rank``: ``data``
+    is the column through this rank (the batch axis, over the ranks of its
+    second coordinate), ``row`` the row (over the ranks of its data
+    coordinate), whose axis names the grid's kind: ``'seq'`` (sequence
+    parallel, :attr:`seq`) or ``'mp'`` (model parallel, :attr:`mp`).
+    ``group`` is the whole grid's."""
 
     rank: int
     world: int
     device: torch.device
     data: DataMesh
-    seq: DataMesh
+    row: DataMesh
     group: object = None
 
     @property
@@ -99,27 +104,44 @@ class GridMesh:
 
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return (self.data.axis, self.seq.axis)
+        return (self.data.axis, self.row.axis)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.data.axis: self.data.world, self.seq.axis: self.seq.world}
+        return {self.data.axis: self.data.world, self.row.axis: self.row.world}
+
+    def _named(self, axis: str) -> DataMesh:
+        if self.row.axis != axis:
+            raise AttributeError(
+                f"a {self.axis_names!r} grid has no {axis!r} axis")
+        return self.row
+
+    @property
+    def seq(self) -> DataMesh:
+        """The row of a sequence-parallel grid (AttributeError else)."""
+        return self._named("seq")
+
+    @property
+    def mp(self) -> DataMesh:
+        """The row of a model-parallel grid (AttributeError else)."""
+        return self._named("mp")
 
     def __deepcopy__(self, memo):
         return self
 
 
-def grid_cell(rank: int, seq_devices: int) -> tuple[int, int]:
-    """Global rank -> its (data, seq) coordinates on the grid."""
-    return rank // seq_devices, rank % seq_devices
+def grid_cell(rank: int, row_devices: int) -> tuple[int, int]:
+    """Global rank -> its (data, second-axis) coordinates on the grid."""
+    return rank // row_devices, rank % row_devices
 
 
-def _grid(rank: int, world: int, seq_devices: int, axis: str,
-          seq_axis: str, dev: torch.device) -> GridMesh:
-    """The grid over ``world`` ranks. Every rank creates every column's
-    group and then every row's, in one order (``multihost.group_of`` is
-    collective over the world)."""
-    S, n = seq_devices, world // seq_devices
+def _grid(rank: int, world: int, row_devices: int, axis: str,
+          row_axis: str, dev: torch.device) -> GridMesh:
+    """The grid over ``world`` ranks with ``row_devices`` ranks a row on
+    axis ``row_axis``. Every rank creates every column's group and then
+    every row's, in one order (``multihost.group_of`` is collective over
+    the world)."""
+    S, n = row_devices, world // row_devices
     grouped = dist.is_initialized()
     cols = [tuple(d * S + s for d in range(n)) for s in range(S)]
     rows = [tuple(d * S + s for s in range(S)) for d in range(n)]
@@ -133,9 +155,22 @@ def _grid(rank: int, world: int, seq_devices: int, axis: str,
         rank=rank, world=world, device=dev,
         data=DataMesh(axis=axis, rank=d, world=n, device=dev,
                       group=groups[col], ranks=col),
-        seq=DataMesh(axis=seq_axis, rank=s, world=S, device=dev,
+        row=DataMesh(axis=row_axis, rank=s, world=S, device=dev,
                      group=groups[row], ranks=row),
         group=dist.group.WORLD if grouped else None)
+
+
+def is_seq_grid(mesh) -> bool:
+    """Whether ``mesh`` is sequence parallel: ``'seq'`` among its axis
+    names (the JAX trainer's test)."""
+    return mesh is not None and "seq" in mesh.axis_names
+
+
+def mp_row(mesh) -> DataMesh | None:
+    """The ``'mp'`` row of a model-parallel grid, else None."""
+    if isinstance(mesh, GridMesh) and mesh.row.axis == "mp":
+        return mesh.row
+    return None
 
 
 def make_mesh(num_devices: int = 0, axis: str = "data",
@@ -143,18 +178,15 @@ def make_mesh(num_devices: int = 0, axis: str = "data",
               device=None, seq_axis: str = "seq"):
     """The mesh over the initialized process group (world 1 without one):
     the 1-D ``(data,)`` :class:`DataMesh`, or with ``seq_devices > 1`` the
-    ``('data', 'seq')`` :class:`GridMesh` (``seq_devices`` must divide the
-    world). ``num_devices`` 0 takes the world size; N > 1 must equal it.
+    ``('data', 'seq')`` and with ``mp_devices > 1`` the ``('data', 'mp')``
+    :class:`GridMesh` (either must divide the world; they do not compose).
+    ``num_devices`` 0 takes the world size; N > 1 must equal it.
     ``device`` is this rank's (default ``cuda:<LOCAL_RANK>``)."""
     if seq_devices > 1 and mp_devices > 1:
         raise ValueError(
             "seq_devices > 1 and mp_devices > 1 cannot compose yet: the "
             "collective attention softmax and the sharded-vocab decode "
             "assume different second axes (pick one)")
-    if mp_devices > 1:
-        raise ValueError(
-            f"mp_devices={mp_devices}: the ('data', 'mp') mesh is not "
-            f"ported yet ({_MODEL_PARALLEL})")
     rank, world = multihost.host_shard()
     if num_devices and num_devices != world:
         raise ValueError(
@@ -166,12 +198,13 @@ def make_mesh(num_devices: int = 0, axis: str = "data",
             "mesh.num_devices at 0")
     dev = multihost.local_device(torch.device("cuda" if device is None
                                               else device))
-    if seq_devices > 1:
-        if world % seq_devices:
-            raise ValueError(
-                f"seq_devices {seq_devices} must divide the {world} mesh "
-                "devices")
-        return _grid(rank, world, seq_devices, axis, seq_axis, dev)
+    for n, name, row_axis in ((seq_devices, "seq_devices", seq_axis),
+                              (mp_devices, "mp_devices", "mp")):
+        if n > 1:
+            if world % n:
+                raise ValueError(
+                    f"{name} {n} must divide the {world} mesh devices")
+            return _grid(rank, world, n, axis, row_axis, dev)
     return DataMesh(axis=axis, rank=rank, world=world, device=dev,
                     group=dist.group.WORLD if dist.is_initialized() else None,
                     ranks=tuple(range(world)))

@@ -13,6 +13,12 @@ one all-reduce sums ``num`` and ``den``, a ``parallel.comms.GradReducer``
 sums the gradients, and both divide by the global ``max(den, 1)``, so the
 step equals the one-device step on the concatenated batch up to float
 summation order; the update then runs alike on every rank.
+
+``row`` (both factories): the ``'mp'`` row of a model-parallel grid, whose
+ranks compute the same rows (``mesh`` is then the grid's data column): the
+row's first rank broadcasts the reduced gradients and the loss over it in
+one flat tensor (``parallel.comms.broadcast_row``) before the update, so
+the row steps bitwise alike.
 """
 
 from __future__ import annotations
@@ -112,6 +118,17 @@ def xe_loss_and_grads(state: TrainState, feats, masks, labels, mask,
 
 
 
+def row_sync(grads, loss: torch.Tensor, row):
+    """The ``'mp'`` row's first rank's (gradients, loss) on every rank of
+    ``row`` (module docstring); as given without a row."""
+    if row is None:
+        return grads, loss
+    from cst_captioning_tpu_torch.parallel.comms import broadcast_row
+
+    *grads, loss = broadcast_row([*grads, loss], row)
+    return grads, loss
+
+
 def xe_row_weights(loss: str, weights: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """The ``weights`` argument of the XE step: 1 on the batch's valid rows
@@ -125,16 +142,17 @@ def xe_row_weights(loss: str, weights: torch.Tensor,
 
 
 def make_xe_step(model=None, label_smoothing: float = 0.0,
-                 guard: bool = False, stats: bool = False):
+                 guard: bool = False, stats: bool = False, row=None):
     """-> step(state, feats, masks, labels, mask, weights) -> (state,
     metrics). The state (over ``model``) is updated in place; ``guard``
     adds the ``nonfinite`` metric and skips a non-finite update;
-    ``stats`` adds the update ratios."""
+    ``stats`` adds the update ratios; ``row`` as the module docstring."""
     del model  # the state carries it; kept for the JAX factory's signature
 
     def step(state: TrainState, feats, masks, labels, mask, weights):
         loss, grads = xe_loss_and_grads(state, feats, masks, labels, mask,
                                         weights, label_smoothing)
+        grads, loss = row_sync(grads, loss, row)
         return _apply(state, grads, loss, global_norm(grads), guard,
                       stats=stats)
 
@@ -143,7 +161,7 @@ def make_xe_step(model=None, label_smoothing: float = 0.0,
 
 def make_parallel_xe_step(model, mesh, label_smoothing: float = 0.0,
                           guard: bool = False, comm=None,
-                          stats: bool = False):
+                          stats: bool = False, row=None):
     """-> step(state, feats, masks, labels, mask, weights) -> (state,
     metrics) over this rank's rows of the global batch (module docstring).
     ``comm`` (``parallel.comms.CommConfig``) selects the gradient
@@ -165,8 +183,9 @@ def make_parallel_xe_step(model, mesh, label_smoothing: float = 0.0,
         grads_num = torch.autograd.grad(num, state.params)
         num_t, den_t = reduce_sums(num, den, mesh)
         den_t = torch.clamp(den_t, min=1.0)
-        grads = [g / den_t for g in reduce(grads_num)]
-        return _apply(state, grads, num_t / den_t, global_norm(grads),
-                      guard, stats=stats)
+        grads, loss = row_sync([g / den_t for g in reduce(grads_num)],
+                               num_t / den_t, row)
+        return _apply(state, grads, loss, global_norm(grads), guard,
+                      stats=stats)
 
     return step

@@ -121,8 +121,20 @@ RL epoch ``SCSTTrainer``'s SP branch, validation the evaluator's. A
 degraded continuation on the grid raises, as in the JAX trainer: a lost
 host takes part of every row it held; the strict drain stands.
 
-Not ported (ROADMAP.md names its slice): the model-parallel mesh; its
-config field raises (``config.py``).
+Model parallel (``mesh.mp_devices = M > 1``): a ``('data', 'mp')`` grid
+of ranks, as the JAX trainer builds it. Training, RL and validation shard
+the batch by the data coordinate only, so the ranks of an ``'mp'`` row are
+replicas (the JAX training factories compute mp-replicated): the XE step
+and the RL update are the data-parallel ones over the grid's data column,
+dropout and rollout noise keyed by the data coordinate, and the row's
+first rank broadcasts each step's reduced gradients over the row
+(``train.steps.row_sync``), so a row stays bitwise equal. Validation runs
+the replicated kernels on every rank; rank 0 writes. The decoupled
+topology splits the grid along its data rows (``parallel.submesh``), each
+column running the split. A degraded continuation goes on as a 1-D data
+mesh over the survivors, as in the JAX trainer. The sharded-vocab decode
+itself is ``ops/decode_mp.py``'s, which no training path calls (the JAX
+package's neither).
 """
 
 from __future__ import annotations
@@ -176,9 +188,11 @@ from cst_captioning_tpu_torch.rl.scst import rollout_seed
 from cst_captioning_tpu_torch.train import multihost
 from cst_captioning_tpu_torch.parallel import seq_parallel as sp
 from cst_captioning_tpu_torch.train.mesh import (
-    GridMesh,
     batch_sharding,
+    data_axis,
+    is_seq_grid,
     make_mesh,
+    mp_row,
     replicate,
 )
 from cst_captioning_tpu_torch.train.schedule import make_optimizer
@@ -395,10 +409,12 @@ class Trainer:
         self.mesh = (make_mesh(0 if self._degraded_gen
                                else cfg.mesh.num_devices,
                                seq_devices=cfg.mesh.seq_devices,
+                               mp_devices=cfg.mesh.mp_devices,
                                device=self.device)
                      if self.use_mesh else None)
-        # a ('data', 'seq') grid: the frame axis shards over each row
-        self.sp = isinstance(self.mesh, GridMesh)
+        # a ('data', 'seq') grid: the frame axis shards over each row (an
+        # ('data', 'mp') grid's rows are replicas: _build_xe_step)
+        self.sp = is_seq_grid(self.mesh)
         if self.sp:
             self.model.set_seq(self.mesh.seq)
         self._check_batch_divides()
@@ -486,8 +502,9 @@ class Trainer:
                 guard=self.guard, comm=self.comm, stats=self._stats)
         elif self.mesh is not None:
             self.xe_step = make_parallel_xe_step(
-                self.model, self.mesh, self.cfg.train.label_smoothing,
-                guard=self.guard, comm=self.comm, stats=self._stats)
+                self.model, data_axis(self.mesh),
+                self.cfg.train.label_smoothing, guard=self.guard,
+                comm=self.comm, stats=self._stats, row=mp_row(self.mesh))
         else:
             self.xe_step = make_xe_step(
                 self.model, self.cfg.train.label_smoothing, guard=self.guard,

@@ -448,8 +448,9 @@ def test_several_devices_are_refused(setup):
     """A layout of several devices is the actor/learner split: at world 2
     (a mesh of two virtual ranks, run in this process) the plan is one
     actor and one learner, and the epoch equals the one-device run bit for
-    bit; only a 2-D mesh is refused, naming the model- and
-    sequence-parallel slice."""
+    bit. A (2 x 2) ('data', 'mp') grid of virtual ranks splits along its
+    data rows: this rank's column runs the same one-actor, one-learner
+    split, and its epoch equals the 1-D split's bit for bit."""
     mesh = ttrain.DataMesh("data", 0, 2, torch.device("cpu"))
     a, state = _port(setup, _rl(), mesh=mesh, batch_size=B)
     plan = a._plan
@@ -463,8 +464,16 @@ def test_several_devices_are_refused(setup):
     _same_run(om, m, one.reward, a.reward)
     _equal_params(o_state, state)
 
-    class Grid:     # a (data, mp) grid of four virtual ranks
-        axis_names, world, group = ("data", "mp"), 4, None
-
-    with pytest.raises(ValueError, match="model-parallel slice"):
-        _port(setup, _rl(), mesh=Grid())
+    dev = torch.device("cpu")
+    grid = ttrain.GridMesh(rank=1, world=4, device=dev,
+                           data=ttrain.DataMesh("data", 0, 2, dev,
+                                                ranks=(1, 3)),
+                           row=ttrain.DataMesh("mp", 1, 2, dev,
+                                               ranks=(0, 1)))
+    g, g_state = _port(setup, _rl(), mesh=grid, batch_size=B)
+    assert (g._grid_plan.actor_ranks, g._grid_plan.learner_ranks) == \
+        ((0, 1), (2, 3))
+    assert (g.plan.actor_ranks, g.plan.learner_ranks) == ((1,), (3,))
+    g_state, gm = g.train_epoch(g_state, _torch_batches(setup, 2), _seeds())
+    _same_run(m, gm, a.reward, g.reward)
+    _equal_params(state, g_state)

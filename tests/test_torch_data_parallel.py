@@ -515,8 +515,10 @@ def test_decoupled_topology_across_ranks_is_refused(monkeypatch, tmp_path):
     """The actor/learner split across ranks is ported: at a world of two
     (the rank helpers report it; no process group, so its ranks are
     virtual) the decoupled trainer plans one actor and one learner on the
-    Trainer's mesh. What stays refused is the model-parallel mesh, naming
-    its slice."""
+    Trainer's mesh. With the model-parallel mesh the config takes the
+    decoupled topology, as the JAX config does (its JSON equals the JAX
+    package's), and refuses it with the sequence-parallel one, with the
+    JAX message."""
     from cst_captioning_tpu_torch.rl import AsyncSCSTTrainer
     from cst_captioning_tpu_torch.train import make_mesh, multihost
 
@@ -530,6 +532,14 @@ def test_decoupled_topology_across_ranks_is_refused(monkeypatch, tmp_path):
     a = AsyncSCSTTrainer(model, None, cfg.rl, batch_size=cfg.data.batch_size,
                          mesh=mesh)
     assert (a._plan.actor_ranks, a._plan.learner_ranks) == ((0,), (1,))
-    with pytest.raises(ValueError, match="model-parallel slice"):
-        get_experiment("msrvtt_cst_consensus").override(
-            train__rl_topology="decoupled", mesh__mp_devices=2)
+    kw = dict(train__rl_topology="decoupled", mesh__mp_devices=2)
+    got = get_experiment("msrvtt_cst_consensus").override(**kw)
+    want = jax_preset("msrvtt_cst_consensus").override(**kw)
+    assert got.mesh.mp_devices == 2
+    assert json.loads(got.to_json()) == json.loads(want.to_json())
+    kw = dict(train__rl_topology="decoupled", mesh__seq_devices=2)
+    with pytest.raises(ValueError) as mine:
+        get_experiment("msrvtt_cst_consensus").override(**kw)
+    with pytest.raises(ValueError) as theirs:
+        jax_preset("msrvtt_cst_consensus").override(**kw)
+    assert str(mine.value) == str(theirs.value)

@@ -130,8 +130,16 @@ def test_make_mesh_world_one_and_refusals():
         tmesh.make_mesh(4, device="cpu")
     with pytest.raises(ValueError, match="must divide the 1 mesh devices"):
         tmesh.make_mesh(seq_devices=2, device="cpu")
-    with pytest.raises(ValueError, match="model-parallel slice"):
+    # the ('data', 'mp') grid needs mp_devices to divide the world: the
+    # JAX message, at the JAX mesh of as many devices
+    with pytest.raises(ValueError) as mine:
         tmesh.make_mesh(mp_devices=2, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jmesh.make_mesh(1, mp_devices=2)
+    assert str(mine.value) == str(theirs.value) == \
+        "mp_devices 2 must divide the 1 mesh devices"
+    assert tmesh.make_mesh(mp_devices=1, device="cpu").axis_names == \
+        ("data",)
     with pytest.raises(ValueError, match="cannot compose"):
         tmesh.make_mesh(seq_devices=2, mp_devices=2, device="cpu")
     with pytest.raises(ValueError, match="cannot compose"):

@@ -398,12 +398,12 @@ def test_resilience_knobs_are_accepted(overrides):
 
 
 # (section, name, value, the slice that brings it; None: ported, by the
-# elastic and sequence-parallel slices)
+# elastic, sequence-parallel and model-parallel slices)
 STILL_UNPORTED = [
     ("train", "elastic", "degraded", None),
     ("train", "elastic_regrow", False, None),
     ("mesh", "seq_devices", 2, None),
-    ("mesh", "mp_devices", 2, "model-parallel"),
+    ("mesh", "mp_devices", 2, None),
     ("model", "seq_axis", "seq", None),
 ]
 

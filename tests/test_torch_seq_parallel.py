@@ -619,7 +619,7 @@ def test_place_takes_a_grid_ranks_block():
     for s in range(2):
         grid = GridMesh(rank=2 + s, world=4, device=dev,
                         data=DataMesh("data", 1, 2, dev),
-                        seq=DataMesh("seq", s, 2, dev))
+                        row=DataMesh("seq", s, 2, dev))
         got = shard_frames(grid, feats)
         frames = slice(s * F // 2, (s + 1) * F // 2)
         np.testing.assert_array_equal(got["resnet"], x[:, frames])

@@ -3,7 +3,7 @@ against the JAX package's on the same counts, case for case with
 ``tests/test_async_scst.py:86-170``: the JAX side plans over the
 conftest's virtual CPU devices, the port over the ranks of a ``DataMesh``
 (a plan's arithmetic needs no process group), and device index i of the
-JAX mesh is rank i of the port's. Also the refusal of a 2-D mesh, and
+JAX mesh is rank i of the port's. Also the row split of a 2-D grid, and
 ``train.mesh.submesh``'s view of a side."""
 
 import jax
@@ -17,6 +17,7 @@ from cst_captioning_tpu.parallel import largest_divisor as jax_divisor
 from cst_captioning_tpu.parallel import plan_submesh as jax_plan
 from cst_captioning_tpu.parallel import shared_plan as jax_shared
 from cst_captioning_tpu.parallel import shrink_actors as jax_shrink
+from cst_captioning_tpu.train.mesh import make_mesh as jax_make_mesh
 from cst_captioning_tpu_torch.parallel import (
     SubmeshPlan,
     grow_actors,
@@ -25,7 +26,7 @@ from cst_captioning_tpu_torch.parallel import (
     shared_plan,
     shrink_actors,
 )
-from cst_captioning_tpu_torch.train.mesh import DataMesh, submesh
+from cst_captioning_tpu_torch.train.mesh import DataMesh, GridMesh, submesh
 
 torch.set_num_threads(1)
 
@@ -148,14 +149,49 @@ def test_grow_actors_round_trip_restores_initial_plan():
 
 
 def test_two_d_mesh_is_refused_naming_its_slice():
-    """The JAX package splits a (data, mp) grid by rows; the port's plans
-    are 1-D until the model-parallel slice."""
-
-    class Grid:
-        axis_names = ("data", "mp")
-
-    with pytest.raises(ValueError, match="model-parallel slice"):
-        plan_submesh(Grid(), 0.5, batch_size=8)
+    """A (data, mp) grid splits along its data rows, as the JAX package's
+    ``_plan_submesh_2d`` on as many virtual devices (device i = rank i):
+    each side keeps every mp column, seen from each rank; only the 1-D
+    shrink and grow refuse the 2-D plan, with the JAX messages."""
+    jmesh = jax_make_mesh(mp_devices=2)                 # (4, 2)
+    jplan = jax_plan(jmesh, actor_fraction=0.5, batch_size=4)
+    dev = torch.device("cpu")
+    for me in range(8):
+        grid = GridMesh(rank=me, world=8, device=dev,
+                        data=DataMesh("data", me // 2, 4, dev,
+                                      ranks=tuple(range(me % 2, 8, 2))),
+                        row=DataMesh("mp", me % 2, 2, dev,
+                                     ranks=(me - me % 2, me - me % 2 + 1)))
+        plan = plan_submesh(grid, 0.5, batch_size=4)
+        assert not plan.shared
+        assert plan.actor_ranks == _ids(jplan.actor_devices)
+        assert plan.learner_ranks == _ids(
+            jplan.learner_devices)
+        side = plan.actor if me in plan.actor_ranks else plan.learner
+        assert (plan.actor is None) == (me not in plan.actor_ranks)
+        assert (plan.learner is None) == (me not in plan.learner_ranks)
+        assert side.axis_names == jplan.actor.axis_names == ("data", "mp")
+        assert side.shape["mp"] == 2 and side.row is grid.row
+        # this rank's column: the same row split of its data ranks
+        col = plan.column
+        assert col.actor_ranks == tuple(r for r in plan.actor_ranks
+                                        if r % 2 == me % 2)
+        assert col.learner_ranks == tuple(r for r in plan.learner_ranks
+                                          if r % 2 == me % 2)
+        assert col.mesh is grid.data
+    assert jplan.actor.shape["data"] + jplan.learner.shape["data"] == 4
+    for mine, theirs in (
+            (lambda: shrink_actors(plan, 0, batch_size=4),
+             lambda: jax_shrink(jplan, 0, batch_size=4)),
+            (lambda: grow_actors(plan, plan.actor_ranks[0], plan,
+                                 batch_size=4),
+             lambda: jax_grow(jplan, jplan.actor_devices[0], jplan,
+                              batch_size=4))):
+        with pytest.raises(ValueError, match="1-D") as m:
+            mine()
+        with pytest.raises(ValueError) as t:
+            theirs()
+        assert str(m.value) == str(t.value)
 
 
 def test_submesh_views_a_side_from_each_rank():

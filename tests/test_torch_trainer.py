@@ -519,10 +519,11 @@ def test_reward_threads_reach_the_scorer(corpus, tmp_path, monkeypatch,
 # the observability, health and data-parallel knobs are ported
 # (tests/test_torch_obs.py), and so are the degraded and regrown meshes of
 # elastic training (tests/test_torch_elastic.py) and the sequence-parallel
-# grid (tests/test_torch_seq_parallel.py); the model-parallel mesh is not.
+# grid (tests/test_torch_seq_parallel.py) and the model-parallel one
+# (tests/test_torch_model_parallel.py).
 # (section, name, value, still refused)
 UNPORTED = [
-    ("mesh", "seq_devices", 2, False), ("mesh", "mp_devices", 2, True),
+    ("mesh", "seq_devices", 2, False), ("mesh", "mp_devices", 2, False),
     ("train", "elastic_regrow", False, False),
     ("train", "elastic", "degraded", False),
 ]
