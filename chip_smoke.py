@@ -7,8 +7,9 @@
 With ``--phases`` only the named phases run, each check recorded instead
 of raised (``run_phases``): ``data_parallel`` (8d), ``seq_parallel``
 (8g) and ``model_parallel`` (8h, both on the same corpus and start
-weights) and ``scst[:N]`` (phase 6 N times, each in a process of its
-own); each phase's line is followed by
+weights), ``scst[:N]`` (phase 6 N times, each in a process of its
+own) and ``syncs`` (6f, after the models it drives are built and
+fitted); each phase's line is followed by
 ``{"gates": PHASE, "failed": [...]}``, and the run exits 1 if a check
 failed.
 
@@ -216,6 +217,19 @@ failed.
    launches, the detection latency (the peer's last beat to the
    ``peer_lost`` event) beside its bound, the drains' save ms, the
    restart's restore ms, the serve drain, snapshot load and replay times.
+6f. syncs: the runtime cross-check of the port's lint (GL001, GL003,
+   GL013), as ``pytest --sanitize`` is the JAX lint's. A burst of 16 of
+   the serve phase's requests (capacity 32, K=2, S=8, paged, full
+   width), one XE step of phase 4's model and one greedy-baseline SCST
+   step of phase 6's, each under ``torch.cuda.set_sync_debug_mode
+   ("warn")``, every synchronizing call recorded by the file and line
+   that made it (``warnings.catch_warnings(record=True)``). Reported:
+   the syncs per serve stride, per XE step and per SCST step, by site.
+   Gate: every site in the port's ``train/``, ``rl/``, ``decoding/`` or
+   ``ops/`` (the kernels' wrappers, which those call each step) is a
+   finding of ``python -m cst_captioning_tpu_torch.tools.graftlint``
+   (new or in ``graftlint_torch.baseline``); the mode is off again
+   after the phase.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -7364,7 +7378,134 @@ def scst_line(scfg, sc: dict, smi: str) -> dict:
             "stride": scfg.model.decode_stride, **sc, "nvidia_smi": smi}
 
 
-PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst")
+# ---- phase 6f: the runtime cross-check of the lint's sync rules ---------------
+
+SYNC_REQUESTS = 16
+SYNC_GATED = tuple(f"cst_captioning_tpu_torch/{p}/"
+                   for p in ("train", "rl", "decoding", "ops"))
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+@contextlib.contextmanager
+def sync_watch(sites: dict):
+    """Run the block under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count each synchronizing call into ``sites`` by its repo-relative
+    ``path:line`` (the Python line that made the call); the mode is off
+    again when the block ends, however it ends."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        path = os.path.relpath(os.path.abspath(w.filename), REPO_DIR)
+        key = f"{path.replace(os.sep, '/')}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+
+
+def lint_sites() -> dict[tuple[str, int], str]:
+    """(path, line) -> rule ids of every finding of the port's lint in the
+    gated packages, baselined ones included (stdlib only: no torch). The
+    index covers the package; the rules run on the gated files."""
+    from cst_captioning_tpu_torch.tools.graftlint import Baseline, lint_paths
+    from cst_captioning_tpu_torch.tools.graftlint.core import (
+        BASELINE_NAME,
+        iter_py_files,
+    )
+
+    gated = list(iter_py_files(
+        [os.path.join(REPO_DIR, g) for g in SYNC_GATED]))
+    res = lint_paths([os.path.join(REPO_DIR, "cst_captioning_tpu_torch")],
+                     REPO_DIR,
+                     baseline=Baseline.load(os.path.join(REPO_DIR,
+                                                         BASELINE_NAME)),
+                     cache_path="", only_files=gated)
+    out: dict[tuple[str, int], str] = {}
+    for f in res.findings:
+        key = (f.path, f.line)
+        out[key] = ",".join(sorted(set(out.get(key, "").split(",")) - {""}
+                                   | {f.rule + ("(b)" if f.baselined
+                                                else "")}))
+    return out
+
+
+def syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
+                scfg, smi: str) -> dict:
+    """Phase 6f: one serve burst of SYNC_REQUESTS at full width, one XE
+    step and one SCST step under sync debug mode, each synchronizing call
+    recorded by site; every site in the port's train/, rl/, decoding/ or
+    ops/ must be a finding of the port's lint (new or baselined). The XE
+    and SCST steps run on clones of their states, so neither model
+    moves."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    burst = reqs[:SYNC_REQUESTS]
+    service(model).serve(burst[:4])          # first-call costs stay out
+    svc = service(model)
+    step = make_xe_step(tmodel, tcfg.train.label_smoothing, guard=True)
+    xe_state = create_train_state(
+        tmodel, make_optimizer(tcfg.train, steps_per_epoch=1),
+        seed=tcfg.train.seed).clone()
+    batch = xe_batch(tcfg, corpus, 0, dev)
+    s_state = create_train_state(
+        smodel, make_optimizer(scfg.train, 1, lr_override=scfg.rl.lr),
+        seed=scfg.train.seed).clone()
+    serve_sites: dict = {}
+    xe_sites: dict = {}
+    scst_sites: dict = {}
+    t = time.perf_counter()
+    with sync_watch(serve_sites):
+        rep = svc.serve(burst)
+    with sync_watch(xe_sites):
+        xe_state, m = step(xe_state, *batch)
+    with sync_watch(scst_sites):
+        s_state, sm = s_trainer.train_step(
+            s_state, corpus["feats"], corpus["masks"], corpus["vids"],
+            seed=900)
+    watched_s = time.perf_counter() - t
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "syncs: sync debug mode still on after the phase")
+    check(rep.completed == SYNC_REQUESTS and np.isfinite(m["loss"])
+          and np.isfinite(sm["rl_loss"]),
+          f"syncs: the watched paths did not finish cleanly ({rep.completed}"
+          f" requests, XE loss {m['loss']}, rl_loss {sm['rl_loss']})")
+    t = time.perf_counter()
+    lint = lint_sites()
+    lint_s = time.perf_counter() - t
+    covered, missed = {}, []
+    for sites in (serve_sites, xe_sites, scst_sites):
+        for key in sites:
+            path, _, line = key.rpartition(":")
+            if not path.startswith(SYNC_GATED):
+                continue
+            rules = lint.get((path, int(line)))
+            if rules:
+                covered[key] = rules
+            else:
+                missed.append(key)
+    check(not missed, f"syncs: sites the port's lint misses: {missed}")
+
+    def per(sites: dict, n: int) -> dict:
+        return {"total": sum(sites.values()), "per_unit": sum(
+            sites.values()) / max(n, 1), "by_site": dict(sorted(
+                sites.items(), key=lambda kv: -kv[1]))}
+
+    return {"phase": "syncs", "serve_requests": SYNC_REQUESTS,
+            "serve_strides": rep.strides,
+            "serve": per(serve_sites, rep.strides),
+            "xe_step": per(xe_sites, 1), "scst_step": per(scst_sites, 1),
+            "scst_decode_steps": sm["decode_steps"],
+            "gated_sites_covered": covered, "gated_sites_missed": missed,
+            "watched_s": watched_s, "lint_s": lint_s,
+            "phase_s": time.perf_counter() - t0, "nvidia_smi": smi}
+
+
+PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst", "syncs")
 
 
 def run_phases(phases: list[str], smi: str) -> int:
@@ -7402,6 +7543,14 @@ def run_phases(phases: list[str], smi: str) -> int:
                 scfg, _, trainer, state = scst_setup(corpus, dev)
                 emit(scst_line(scfg, scst_phase(scfg, corpus, trainer,
                                                 state), smi))
+            elif name == "syncs":
+                model = make_model(dev)
+                tcfg = train_config()
+                corpus = train_corpus(tcfg, dev)
+                tmodel = train_model(tcfg, corpus, dev)
+                scfg, smodel, trainer, _ = scst_setup(corpus, dev)
+                emit(syncs_phase(model, requests(model.cfg), tcfg, corpus,
+                                 tmodel, trainer, smodel, scfg, smi))
             elif name == "data_parallel":
                 line, _, data, start = data_parallel_phase(root, smi)
                 emit(line)
@@ -7670,6 +7819,10 @@ def main(argv: list[str]) -> int:
     # ---- phase 6e: the health monitor and the fleet merge ------------------
     healthy, health_launches = health_phase(model, reqs, smi)
     emit(healthy)
+
+    # ---- phase 6f: the lint's sync rules held against the card -------------
+    emit(syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
+                     scfg, smi))
 
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it

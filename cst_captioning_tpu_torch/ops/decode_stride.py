@@ -380,7 +380,8 @@ def fused_decode_stride(cell, carry, token, finished, memory, memory_proj,
         )
     n_active = B if n_active is None else int(n_active)
     if mem_lens is None:
-        mem_lens = torch.full((B,), M, dtype=torch.int32)
+        mem_lens = torch.full((B,), M, dtype=torch.int32,
+                              device=memory.device)
     w = weights if weights is not None else stride_weights(cell)
     if _device_of(memory).type == "cpu":
         return decode_stride_plain(
@@ -423,7 +424,8 @@ def fused_decode_stride_paged(cell, carry, token, finished, mem_pool,
     width = page_table.shape[1]
     n_active = B if n_active is None else int(n_active)
     if mem_lens is None:
-        mem_lens = torch.full((B,), width * P, dtype=torch.int32)
+        mem_lens = torch.full((B,), width * P, dtype=torch.int32,
+                              device=mem_pool.device)
     w = weights if weights is not None else stride_weights(cell)
     if _device_of(mem_pool).type == "cpu":
         memory, memory_proj, memory_mask = gather_pages(

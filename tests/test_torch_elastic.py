@@ -458,7 +458,17 @@ def jax_two_device(ranks_corpus, tmp_path_factory):
     a = _rank_args(ranks_corpus, str(root), False)
     from cst_captioning_tpu_torch.presets import get_experiment
 
+    # The planned faults decide this run's events (both losses are the
+    # partial_preempt faults, host 1's readmission is the host_rejoin
+    # fault), so staleness must never decide one. A simulated host beats
+    # only once, at its rejoin: if the watchdog reads that beat while
+    # readmit is between its membership update and the beat file's
+    # removal, a stall past peer_timeout_s declares host 1 lost by
+    # heartbeat timeout, and the planned rl.step kill then finds no peer.
+    # Its rendezvous never wait (survivor markers are written by the run
+    # itself), so a timeout no stall reaches changes nothing else.
     ov = {**a["overrides"], "train__health_sim_hosts": 2,
+          "train__peer_timeout_s": 60.0,
           "train__ckpt_dir": str(root / "ck")}
     cfg = get_experiment(a["preset"]).override(**ov)
     ds = JaxDataset(jp["info_json"], {"resnet": jp["resnet"]}, "train", 4)

@@ -67,7 +67,11 @@ def test_port_imports_no_jax():
                 "resilience.health", "obs.fleet", "cli.obs_report",
                 "train.mesh", "train.multihost", "parallel",
                 "parallel.comms", "parallel.submesh",
-                "parallel.seq_parallel"):
+                "parallel.seq_parallel", "tools", "tools.graftlint",
+                "tools.graftlint.core", "tools.graftlint.project",
+                "tools.graftlint.rules", "tools.graftlint.fixes",
+                "tools.graftlint.cli", "tools.graftlint.__main__",
+                "tools.graftlint.contract"):
         assert f"cst_captioning_tpu_torch.{mod}" in rep["modules"]
 
 
