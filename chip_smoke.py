@@ -8,8 +8,9 @@ With ``--phases`` only the named phases run, each check recorded instead
 of raised (``run_phases``): ``data_parallel`` (8d), ``seq_parallel``
 (8g) and ``model_parallel`` (8h, both on the same corpus and start
 weights), ``scst[:N]`` (phase 6 N times, each in a process of its
-own) and ``syncs`` (6f, after the models it drives are built and
-fitted); each phase's line is followed by
+own), ``syncs`` (6f, after the models it drives are built and
+fitted) and ``serve_composite`` (3c, after kernel 1's decode-shape
+lines and phase 3's kernel serve); each phase's line is followed by
 ``{"gates": PHASE, "failed": [...]}``, and the run exits 1 if a check
 failed.
 
@@ -32,7 +33,11 @@ failed.
      one rounding) plus 1e-3 of the row's largest value of the kernel's
      numerics in float32 (``additive_attention_f32``; the plain composite
      also rounds scores and weights to bfloat16, so its distance is only
-     reported); its gradient equals the plain version's autograd;
+     reported); its gradient equals the plain version's autograd; and at
+     the composite serving stride's shape (B=32 rows, one query each,
+     over the dense bank's M=56 slots, bfloat16, no gradient), checked
+     and timed (``decode_attention``: event medians in turns with the
+     plain version, device time, the bound);
    - the decode-step kernel at G=5, B=64 through the rollout's in-place
      wrapper, float32 bank and carry, and bfloat16 bank and carry (the
      rollout's), and at G=1 (greedy decoding's shape): logits within 1e-4,
@@ -80,6 +85,24 @@ failed.
    bfloat16 service's fallback to 1. Policies: ``static_batch_serve`` at
    capacity 32 beside the continuous engine (requests/s, p50, p99). SLO:
    ``set_slo`` at twice the median solo latency, ``slo_snapshot``.
+3c. serve_composite: the composite stride (decode_impl "xla") on the
+   ``msrvtt_xe_attention`` model as the preset has it (decode_impl and
+   attention_impl "xla", bfloat16 compute, full width) with phase 3's
+   weights, on phase 3's burst (capacity 32, S=8, frame bucket 4). (a)
+   K=2: no kernel launches, the lanes on the card, >= 95% of (request,
+   lane) token rows equal to phase 3's kernel serve; requests/s, p50,
+   p99. (b) ``min_len=3``: no EOS or PAD before a request's local step 3;
+   8 requests each served alone at the same capacity, bitwise equal
+   (``COMPOSITE_ALONE``), and decoded offline alone through
+   ``fused_decode`` (B=1, the same counter noise): tokens equal
+   (``COMPOSITE_OFFLINE_TOKENS``), logprobs within 1e-4, the bitwise
+   share reported. (c) K=0: greedy rows equal to (a)'s lane 0 on >= 95%.
+   (d) attention_impl "pallas": kernel 1 launches exactly strides x S x
+   G times, >= 95% of rows equal to (a)'s. (e) ``rl.OnlineSCSTTrainer``
+   (msrvtt_scst's K and reward, batches of 16) on a composite service of
+   32 requests named after a seeded corpus's clips: at least one update
+   and one publish swapped in, finite losses. No arm launches a stride
+   kernel.
 4. train: msrvtt_cst_consensus at full width with attention_impl and
    decode_impl "pallas" (seeded random weights with a unigram prior on the
    corpus words, see ``train_model``), on a seeded in-memory corpus of 64
@@ -224,7 +247,9 @@ failed.
    step of phase 6's, each under ``torch.cuda.set_sync_debug_mode
    ("warn")``, every synchronizing call recorded by the file and line
    that made it (``warnings.catch_warnings(record=True)``). Reported:
-   the syncs per serve stride, per XE step and per SCST step, by site.
+   the syncs per serve stride, per XE step and per SCST step, by site,
+   and those of one stride of a composite serve of the same burst
+   (reported, not gated, as the serve's).
    Gate: every site in the port's ``train/``, ``rl/``, ``decoding/`` or
    ``ops/`` (the kernels' wrappers, which those call each step) is a
    finding of ``python -m cst_captioning_tpu_torch.tools.graftlint``
@@ -486,7 +511,8 @@ failed.
    epochs' step ms and the row broadcasts (one card time-sliced between
    the ranks: semantics, not the speed of N cards).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
-   its paths (the recipe's, serve_lifecycle's, rl_decoupled's,
+   its paths (the recipe's, serve_lifecycle's, serve_composite's,
+   rl_decoupled's,
    rl_online's, resilience's, health's, import's, data_parallel's,
    rl_split's, elastic's, seq_parallel's and model_parallel's included;
    seq_parallel launches none by design),
@@ -494,7 +520,8 @@ failed.
    decode and beam steps also
    their device time by launch, and the decode step's at G=1; for the
    attention its warm and cold device and event times at B=320, and the
-   same at B=64 and M=1000.
+   same at B=64 and M=1000, and its times at the composite stride's
+   shape (``decode_b32``).
 
 Each phase prints one JSON line; the card's nvidia-smi line and the kernels
 line come before the last line, ``{"ok": true, "device": {...}}``. Any
@@ -917,7 +944,8 @@ def requests(cfg):
 
 
 def service(model, **kw):
-    return CaptionService(model, capacity=CAPACITY, num_rollouts=K, stride=S,
+    kw = {"num_rollouts": K, **kw}
+    return CaptionService(model, capacity=CAPACITY, stride=S,
                           frame_bucket=FRAME_BUCKET, device=SERVE_DEVICE, **kw)
 
 
@@ -1238,6 +1266,48 @@ def time_attention(att: dict, smi: str) -> dict:
               "shape": k, "rows": x[0].shape[0], "slots": x[2].shape[1],
               **res[k], "clocks_sm_power_draw": clocks, "nvidia_smi": smi})
     return res
+
+
+def decode_attention(model, smi: str) -> dict:
+    """Kernel 1 at the composite stride's shape: a capacity's rows, one
+    query each (the top layer's carry through ``query_proj``), over the
+    dense bank's 56 slots, bfloat16 as the serving model computes, on
+    inputs that need no gradient (the serve runs under no_grad): checked
+    against its plain version (a kernel_check line), CUDA-event medians in
+    turns with the plain version, device time from torch.profiler, the
+    bound (a kernel_time line) -> the kernels line's ``decode_b32``."""
+    dev = model.device
+    x = stride_inputs(model, dev, True)
+    att = model.cell.attention
+    bf = torch.bfloat16
+    with torch.no_grad():
+        q = att.query_proj(x["carry"][-1][1][0].to(bf)).contiguous()
+        xs = (q, att.score.detach().to(bf), x["dense"][0].contiguous(),
+              x["dense"][1].contiguous(), x["dense"][2].contiguous())
+    res = compare_attention(xs)
+    emit({"phase": "kernel_check", "kernel": "fused_additive_attention",
+          "shape": "decode_b32", "rows": q.shape[0],
+          "slots": xs[2].shape[1], "dtype": "bfloat16", **res})
+    with torch.no_grad():
+        ms, plain_ms = time_in_turns({"decode_b32": (
+            lambda: fused_additive_attention(*xs),
+            lambda: additive_attention_plain(*xs))})["decode_b32"]
+        device_ms = attention_device_ms(
+            lambda: fused_additive_attention(*xs))
+    bnd, by = attention_bound(xs)
+    n_e, passes = attention_ops.attention_split(
+        q.shape[0], xs[2].shape[2], xs[2].element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    line = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "share": bnd / ms, "device_ms": device_ms,
+            "device_share": bnd / device_ms, "n_e": n_e, "passes": passes,
+            "max_abs_err": res["max_abs_err"]}
+    emit({"phase": "kernel_time", "kernel": "fused_additive_attention",
+          "shape": "decode_b32", "rows": q.shape[0],
+          "slots": xs[2].shape[1], **line,
+          "clocks_sm_power_draw": smi_query("clocks.sm,power.draw"),
+          "nvidia_smi": smi})
+    return line
 
 
 def step_inputs(model, corpus, bf16: bool, seed=3, G=None) -> dict:
@@ -2076,12 +2146,13 @@ ONLINE_RL = dict(online_batch_size=16, rollout_depth=2, staleness_bound=4,
                  swap_every=1)
 
 
-def online_requests(host: dict, mc) -> list:
-    """ONLINE_REQUESTS requests of a seeded Poisson trace (its seeds and
+def online_requests(host: dict, mc, n_requests: int = ONLINE_REQUESTS
+                    ) -> list:
+    """``n_requests`` requests of a seeded Poisson trace (its seeds and
     order), each named after a train-corpus clip (``<clip>#<i>``) and
     carrying that clip's frames. Served as a burst: admission, and with it
     the learner, does not depend on the clock."""
-    trace = make_trace(TrafficSpec(num_requests=ONLINE_REQUESTS, seed=11))
+    trace = make_trace(TrafficSpec(num_requests=n_requests, seed=11))
     n = len(host["vids"])
     out = []
     for i, item in enumerate(trace.items):
@@ -3725,6 +3796,231 @@ def serve_lifecycle_phase(model, reqs, smi) -> tuple[dict, dict]:
             "grouped_admission": grouped, "policies": policies, "slo": slo,
             "launches": dict(total), "wall_s": time.perf_counter() - t0,
             "nvidia_smi": smi}, total
+
+
+# ---- phase 3c: the composite serving stride ------------------------------------
+
+COMPOSITE_MIN_LEN = 3     # arm (b)'s min_len
+COMPOSITE_SOLO = 8        # arm (b)'s requests served alone and offline
+COMPOSITE_ONLINE = 32     # arm (e)'s requests: two learner batches of 16
+# arm (b)'s gates, at what the card showed (PERF.md §6): a request
+# mid-flight is bitwise itself alone at the same capacity; against the
+# offline B=1 decode its tokens are equal and its logprobs within TOL
+# (cuBLAS sums in another order at one row)
+COMPOSITE_ALONE = 1.0
+COMPOSITE_OFFLINE_TOKENS = 1.0
+
+
+def composite_model(dev, **over):
+    """The serving model as the preset has it (decode_impl and
+    attention_impl "xla", bfloat16 compute) with phase 3's weights;
+    ``over`` replaces config fields (arm (d): attention_impl)."""
+    cfg = dataclasses.replace(get_preset("msrvtt_xe_attention").model, **over)
+    model = CaptionModel(cfg, device=dev)
+    return load_flax_params(model, random_flax_params(cfg, seed=0,
+                                                      eos_bias=2.0)).eval()
+
+
+def row_agreement(got, want, lanes=None) -> float:
+    """Share of (request, lane) token rows equal between two reports, over
+    ``lanes`` (default every lane of ``got``)."""
+    eq = [np.array_equal(res.tokens[g], want.results[r].tokens[g])
+          for r, res in got.results.items()
+          for g in (lanes if lanes is not None else range(len(res.tokens)))]
+    return float(np.mean(eq))
+
+
+def stride_launches() -> int:
+    return fused_decode_stride.launches + fused_decode_stride_paged.launches
+
+
+def latency_line(rep, wall: float) -> dict:
+    lat = np.array([r.latency_s for r in rep.results.values()])
+    return {"requests_per_s": len(rep.results) / wall, "wall_s": wall,
+            "p50_latency_s": float(np.percentile(lat, 50)),
+            "p99_latency_s": float(np.percentile(lat, 99)),
+            "strides": rep.strides}
+
+
+def offline_alone(model, req, Kr: int, min_len: int):
+    """``req`` decoded offline alone (B=1) through ``fused_decode`` at its
+    padded frame count, on the service's counter noise -> (tokens [G, T],
+    logprobs [G, T])."""
+    dev = model.device
+    F = -(-req.num_frames // FRAME_BUCKET) * FRAME_BUCKET
+    feats = {n: torch.from_numpy(np.pad(
+        np.asarray(req.feats[n], np.float32),
+        ((0, F - req.num_frames), (0, 0)))[None]).to(dev)
+        for n, _ in model.cfg.modalities}
+    masks = {n: torch.from_numpy(np.pad(
+        np.asarray(req.masks[n], np.float32),
+        ((0, F - req.num_frames),))[None]).to(dev)
+        for n, _ in model.cfg.modalities}
+    seed = torch.tensor([req.seed], device=dev)
+    V = model.cfg.vocab_size
+
+    def noise(t):
+        ts = torch.full((1, 1), t, dtype=torch.int64, device=dev)
+        return counter_gumbel_noise(seed, ts, Kr, V)[0]
+
+    g, gl, sm, sl = decoding_fused.fused_decode(
+        model, feats, masks, num_rollouts=Kr, min_len=min_len,
+        decode_stride=S, noise_fn=noise)
+    tok = torch.cat([g[None], sm])[:, 0].cpu().numpy()
+    lp = torch.cat([gl[None], sl])[:, 0].cpu().numpy()
+    return tok, lp
+
+
+def composite_online(model) -> dict:
+    """Arm (e): an OnlineSCSTTrainer on a composite service (msrvtt_scst's
+    K and reward, batches of 16, a publish after each update) over
+    COMPOSITE_ONLINE requests named after clips of a seeded corpus."""
+    scfg = scst_config()
+    rl = dataclasses.replace(scfg.rl, **ONLINE_RL)
+    host = make_corpus(model.cfg, COMPOSITE_ONLINE, 5, seed=0)
+    reqs = online_requests(host, model.cfg, COMPOSITE_ONLINE)
+    reward = RewardComputer(
+        host["vocab"], host["gts"], cider_weight=rl.reward_cider_weight,
+        bleu_weight=rl.reward_bleu4_weight, bleu_scale=rl.reward_bleu4_scale,
+        num_threads=rl.reward_threads)
+    learner = copy.deepcopy(model)
+    state = create_train_state(
+        learner, make_optimizer(scfg.train, 1, lr_override=rl.lr),
+        seed=scfg.train.seed)
+    trainer = OnlineSCSTTrainer(learner, reward, rl, state, guard=True,
+                                ref_id=lambda r: r.req_id.split("#")[0])
+    svc = service(model, num_rollouts=rl.num_rollouts)
+    trainer.attach(svc)
+    ops.reset_launches()
+    rep, wall = serve_timed(svc, reqs)
+    trainer.flush()
+    n_stride = stride_launches()
+    check(rep.completed == COMPOSITE_ONLINE,
+          f"serve_composite (e): {rep.completed} of {COMPOSITE_ONLINE} "
+          "requests completed")
+    check(trainer.last_applied >= 1 and len(svc._swap_history) >= 1,
+          f"serve_composite (e): {trainer.last_applied} updates, "
+          f"{len(svc._swap_history)} publishes swapped in")
+    check(n_stride == 0, f"serve_composite (e): {n_stride} stride launches")
+    check(all(np.isfinite(m["rl_loss"]) for m in trainer.history),
+          "serve_composite (e): a non-finite rl_loss")
+    return {"requests": COMPOSITE_ONLINE, "rollouts": rl.num_rollouts,
+            "updates": trainer.last_applied, "dropped": trainer.last_dropped,
+            "publishes_swapped": len(svc._swap_history),
+            "param_versions": sorted({r.param_version
+                                      for r in rep.results.values()}),
+            "reward_mean": [m["reward_mean"] for m in trainer.history],
+            **latency_line(rep, wall), "launches": all_launches()}
+
+
+def serve_composite_phase(reqs, kernel_rep, smi) -> tuple[dict, dict]:
+    """Phase 3c (module docstring) on phase 3's burst, against phase 3's
+    kernel serve ``kernel_rep`` -> (its line, kernel 1's launches)."""
+    t0 = time.perf_counter()
+    dev = torch.device(SERVE_DEVICE)
+    model = composite_model(dev)
+    cfg = model.cfg
+    check(cfg.decode_impl == "xla" and cfg.attention_impl == "xla",
+          f"serve_composite: the preset's model has decode_impl "
+          f"{cfg.decode_impl!r}, attention_impl {cfg.attention_impl!r}")
+    service(model).serve(reqs[:4])                  # first-call costs
+    # (a) K=2 beside phase 3's kernel serve
+    svc = service(model)
+    check(not svc.use_kernel and not svc.paged and svc.device.type == "cuda",
+          f"serve_composite: use_kernel {svc.use_kernel}, paged "
+          f"{svc.paged}, device {svc.device}")
+    ops.reset_launches()
+    rep_a, wall_a = serve_timed(svc, reqs)
+    launched = all_launches()
+    check_results(rep_a, cfg)
+    check(not any(launched.values()), f"serve_composite (a): {launched}")
+    check(svc._lanes.token.device.type == "cuda",
+          "serve_composite (a): the lanes left the card")
+    agree_a = row_agreement(rep_a, kernel_rep)
+    check(agree_a >= AGREE, f"serve_composite (a): {agree_a:.3f} of rows "
+          f"equal to the kernel serve's < {AGREE}")
+    gen = int(sum((r.tokens != PAD_ID).sum() for r in rep_a.results.values()))
+    arm_a = {**latency_line(rep_a, wall_a), "tokens_per_s": gen / wall_a,
+             "kernel_serve_agreement": agree_a, "launches": launched}
+    # (b) per-row min_len; mid-flight against alone and against offline
+    ops.reset_launches()
+    rep_b, wall_b = serve_timed(service(model, min_len=COMPOSITE_MIN_LEN),
+                                reqs)
+    early = [r for r, res in rep_b.results.items()
+             if ((res.tokens[:, :COMPOSITE_MIN_LEN] == EOS_ID)
+                 | (res.tokens[:, :COMPOSITE_MIN_LEN] == PAD_ID)).any()]
+    check(rep_b.completed == N_REQUESTS and not early,
+          f"serve_composite (b): {rep_b.completed} completed, EOS before "
+          f"step {COMPOSITE_MIN_LEN} in {early[:4]}")
+    alone_eq, offline_eq, offline_tok_eq, offline_lp = [], [], [], 0.0
+    for req in reqs[:COMPOSITE_SOLO]:
+        res = rep_b.results[req.req_id]
+        alone = service(model, min_len=COMPOSITE_MIN_LEN).serve(
+            [req]).results[req.req_id]
+        alone_eq.append(same_result(res, alone))
+        tok, lp = offline_alone(model, req, K, COMPOSITE_MIN_LEN)
+        offline_eq.append(np.array_equal(res.tokens, tok)
+                          and np.array_equal(res.logprobs, lp))
+        offline_tok_eq.append(np.array_equal(res.tokens, tok))
+        if offline_tok_eq[-1]:
+            offline_lp = max(offline_lp,
+                             float(np.abs(res.logprobs - lp).max()))
+    alone_share = float(np.mean(alone_eq))
+    check(alone_share >= COMPOSITE_ALONE,
+          f"serve_composite (b): {alone_share:.3f} of requests bitwise "
+          f"equal to themselves alone < {COMPOSITE_ALONE}")
+    offline_share = float(np.mean(offline_tok_eq))
+    check(offline_share >= COMPOSITE_OFFLINE_TOKENS and offline_lp <= TOL,
+          f"serve_composite (b): {offline_share:.3f} of requests with the "
+          f"offline decode's tokens < {COMPOSITE_OFFLINE_TOKENS}, or their "
+          f"logprobs {offline_lp:.3e} apart > {TOL}")
+    check(stride_launches() == 0,
+          f"serve_composite (b): {stride_launches()} stride launches")
+    arm_b = {"min_len": COMPOSITE_MIN_LEN, **latency_line(rep_b, wall_b),
+             "solo_requests": COMPOSITE_SOLO,
+             "alone_bitwise_share": alone_share,
+             "offline_bitwise_share": float(np.mean(offline_eq)),
+             "offline_tokens_equal_share": offline_share,
+             "offline_max_logprob_diff": offline_lp}
+    # (c) greedy-only lanes
+    ops.reset_launches()
+    rep_c, wall_c = serve_timed(service(model, num_rollouts=0), reqs)
+    check(rep_c.completed == N_REQUESTS and all(
+        r.tokens.shape == (1, cfg.max_len) and r.best_lane == 0
+        for r in rep_c.results.values()),
+          f"serve_composite (c): {rep_c.completed} completed")
+    agree_c = row_agreement(rep_c, rep_a, lanes=(0,))
+    check(agree_c >= AGREE and stride_launches() == 0,
+          f"serve_composite (c): {agree_c:.3f} of greedy rows equal to "
+          f"(a)'s lane 0, {stride_launches()} stride launches")
+    arm_c = {**latency_line(rep_c, wall_c), "lane0_agreement": agree_c}
+    # (d) kernel 1 in the decode cell
+    pal = composite_model(dev, attention_impl="pallas")
+    service(pal).serve(reqs[:4])
+    svc_d = service(pal)
+    ops.reset_launches()
+    rep_d, wall_d = serve_timed(svc_d, reqs)
+    att = fused_additive_attention.launches
+    want = rep_d.strides * svc_d.S * svc_d.G
+    check(att == want and stride_launches() == 0,
+          f"serve_composite (d): {att} attention launches for "
+          f"{rep_d.strides} strides x S={svc_d.S} x G={svc_d.G} = {want}, "
+          f"{stride_launches()} stride launches")
+    agree_d = row_agreement(rep_d, rep_a)
+    check(agree_d >= AGREE, f"serve_composite (d): {agree_d:.3f} of rows "
+          f"equal to (a)'s < {AGREE}")
+    arm_d = {**latency_line(rep_d, wall_d), "attention_launches": att,
+             "xla_agreement": agree_d}
+    del pal, svc_d
+    # (e) the online learner on a composite service
+    arm_e = composite_online(model)
+    return {"phase": "serve_composite", "preset": "msrvtt_xe_attention",
+            "dtype": cfg.dtype, "capacity": CAPACITY, "K": K, "stride": S,
+            "frame_bucket": FRAME_BUCKET, "requests": N_REQUESTS,
+            "a_k2": arm_a, "b_min_len": arm_b, "c_greedy_only": arm_c,
+            "d_attention_kernel": arm_d, "e_online": arm_e,
+            "phase_s": time.perf_counter() - t0, "nvidia_smi": smi}, {
+                "fused_additive_attention": att}
 
 
 # ---- phase 8b: importing a distribution ------------------------------------------
@@ -7441,7 +7737,8 @@ def syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
     recorded by site; every site in the port's train/, rl/, decoding/ or
     ops/ must be a finding of the port's lint (new or baselined). The XE
     and SCST steps run on clones of their states, so neither model
-    moves."""
+    moves. One stride of a composite serve of the same burst is watched
+    too, and its sites reported without the gate."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     burst = reqs[:SYNC_REQUESTS]
@@ -7468,12 +7765,33 @@ def syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
             s_state, corpus["feats"], corpus["masks"], corpus["vids"],
             seed=900)
     watched_s = time.perf_counter() - t
+    # one stride of a composite service (the second: admissions done),
+    # reported by site and not gated, like the serve's
+    cmodel = composite_model(dev)
+    service(cmodel).serve(burst[:4])
+    csvc = service(cmodel)
+    comp_sites: dict = {}
+    run_stride = csvc._run_stride
+
+    def watched(report, now):
+        if report.strides == 1:
+            with sync_watch(comp_sites):
+                run_stride(report, now)
+        else:
+            run_stride(report, now)
+
+    csvc._run_stride = watched
+    crep = csvc.serve(burst)
+    del cmodel, csvc
     check(torch.cuda.get_sync_debug_mode() == 0,
           "syncs: sync debug mode still on after the phase")
     check(rep.completed == SYNC_REQUESTS and np.isfinite(m["loss"])
           and np.isfinite(sm["rl_loss"]),
           f"syncs: the watched paths did not finish cleanly ({rep.completed}"
           f" requests, XE loss {m['loss']}, rl_loss {sm['rl_loss']})")
+    check(crep.completed == SYNC_REQUESTS and crep.strides > 1,
+          f"syncs: the composite serve completed {crep.completed} in "
+          f"{crep.strides} strides")
     t = time.perf_counter()
     lint = lint_sites()
     lint_s = time.perf_counter() - t
@@ -7499,13 +7817,15 @@ def syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
             "serve_strides": rep.strides,
             "serve": per(serve_sites, rep.strides),
             "xe_step": per(xe_sites, 1), "scst_step": per(scst_sites, 1),
+            "composite_stride": per(comp_sites, 1),
             "scst_decode_steps": sm["decode_steps"],
             "gated_sites_covered": covered, "gated_sites_missed": missed,
             "watched_s": watched_s, "lint_s": lint_s,
             "phase_s": time.perf_counter() - t0, "nvidia_smi": smi}
 
 
-PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst", "syncs")
+PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst", "syncs",
+          "serve_composite")
 
 
 def run_phases(phases: list[str], smi: str) -> int:
@@ -7551,6 +7871,14 @@ def run_phases(phases: list[str], smi: str) -> int:
                 scfg, smodel, trainer, _ = scst_setup(corpus, dev)
                 emit(syncs_phase(model, requests(model.cfg), tcfg, corpus,
                                  tmodel, trainer, smodel, scfg, smi))
+            elif name == "serve_composite":
+                model = make_model(dev)
+                reqs = requests(model.cfg)
+                decode_attention(model, smi)
+                service(model).serve(reqs[:4])
+                kernel_rep, _ = serve_timed(service(model), reqs)
+                emit(serve_composite_phase(reqs, kernel_rep, smi)[0])
+                del model
             elif name == "data_parallel":
                 line, _, data, start = data_parallel_phase(root, smi)
                 emit(line)
@@ -7692,7 +8020,8 @@ def main(argv: list[str]) -> int:
         att_t[k]["n_e"], att_t[k]["passes"] = attention_ops.attention_split(
             q.shape[0], mem.shape[2], mem.element_size(), sms)
     kernels["fused_additive_attention"].update(
-        att_t["b320"], b64=att_t["b64"], m1000=att_t["m1000"])
+        att_t["b320"], b64=att_t["b64"], m1000=att_t["m1000"],
+        decode_b32=decode_attention(model, smi))
     for key, x in (("fused_decode_stride_paged", timed[KERNELS[1]]),
                    ("fused_decode_stride_scst", scst_x)):
         emit({"phase": "stride_phases", "kernel": key,
@@ -7768,6 +8097,10 @@ def main(argv: list[str]) -> int:
     lifecycle, lifecycle_launches = serve_lifecycle_phase(model, reqs, smi)
     emit(lifecycle)
 
+    # ---- phase 3c: the composite serving stride ------------------------------
+    composite, composite_launches = serve_composite_phase(reqs, rep, smi)
+    emit(composite)
+
     # ---- phase 4: training --------------------------------------------------
     state = create_train_state(
         tmodel, make_optimizer(tcfg.train, steps_per_epoch=1),
@@ -7836,8 +8169,9 @@ def main(argv: list[str]) -> int:
         + sc["launches"]["fused_additive_attention"],
         "fused_decode_step": cst["launches"]["fused_decode_step"],
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
-    for launched in (lifecycle_launches, decoupled_launches,
-                     online_launches, resil_launches, health_launches):
+    for launched in (lifecycle_launches, composite_launches,
+                     decoupled_launches, online_launches, resil_launches,
+                     health_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

@@ -5,8 +5,10 @@ The serving engine is the actor. A live
 the same (1+K)-lane programs SCST trains on (lane 0 greedy, K sampled
 lanes on the request's own seed); its ``feedback`` hook hands each
 completed request's host tokens and logprobs to :meth:`on_result`, at no
-extra launch. Full batches of ``rl.online_batch_size`` captures go through
-a :class:`~cst_captioning_tpu_torch.rl.async_scst.RolloutRing`; the
+extra launch, whichever stride the served model's ``decode_impl`` picks
+(the stride kernel, or the composite stride of every preset). Full
+batches of ``rl.online_batch_size`` captures go through a
+:class:`~cst_captioning_tpu_torch.rl.async_scst.RolloutRing`; the
 learner scores them with the consensus reward (greedy lane as the
 baseline) and applies the REINFORCE update, and every ``rl.swap_every``
 updates it publishes its parameters back into the service

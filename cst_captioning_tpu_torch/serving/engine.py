@@ -2,12 +2,21 @@
 
 A fixed pool of ``capacity`` decode lanes steps S-step strides; between
 strides finished requests leave their lanes and queued requests take them.
-Each stride is one launch of the stride kernel
-(``ops/decode_stride.py``) per live parameter version: the engine packs the
-lanes in flight into a dense prefix (``perm`` / ``inv`` / ``n_active``)
-and hands the kernel the page pools and the permuted page table
-(``paged=True``, the default) or a dense bank gathered from them
-(``paged=False``).
+The engine packs the lanes in flight into a dense prefix (``perm`` /
+``inv`` / ``n_active``) and runs each stride once per live parameter
+version, by the model's ``decode_impl``:
+
+- ``"pallas"``: one launch of the stride kernel (``ops/decode_stride.py``),
+  handed the page pools and the permuted page table (``paged=True``, the
+  default there) or a dense bank gathered from them (``paged=False``);
+- ``"xla"`` (every preset's default): the composite stride, S steps of
+  ``decoding.common.lane_decode_step`` over every lane of a dense bank
+  gathered from the pools (``paged`` must stay unset or False), each step
+  masking the special tokens, blocking EOS per row while the request's
+  own local step is below ``min_len``, then lane 0's argmax and the
+  sampled lanes' ``argmax(logits / temperature + noise)``. The decode
+  cell runs the additive-attention kernel at ``attention_impl="pallas"``
+  (once a lane a step). ``num_rollouts=0`` serves the greedy lane alone.
 
 **Per-request determinism.** A request's encoder output lands in its own
 pages and every decode row reads only its own row. The sampled lanes'
@@ -60,7 +69,8 @@ monitor's ``peer_lost`` flag (``resilience/health.py``) and drains with
 reason ``"peer_loss"``: the snapshot holds the queue and the lanes in
 flight, and ``load_snapshot`` replays them elsewhere.
 
-Not carried from the JAX engine: ``min_len > 0`` and the XLA scan stride.
+The stride kernel refuses ``min_len > 0`` (its min-len mask is
+stride-global) and ``num_rollouts < 1``; the composite stride serves both.
 """
 
 from __future__ import annotations
@@ -82,7 +92,11 @@ from cst_captioning_tpu_torch import obs
 from cst_captioning_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
 from cst_captioning_tpu_torch.decoding.common import (
     counter_gumbel_noise,
+    forbid_special,
+    lane_decode_step,
     npad_best_lane_index,
+    selected_logprob,
+    step_outputs,
 )
 from cst_captioning_tpu_torch.decoding.fused import fused_decode
 from cst_captioning_tpu_torch.device import resolve_device
@@ -283,8 +297,11 @@ class CaptionService:
 
     ``capacity`` decode lanes, ``num_rollouts`` K sampled lanes per request
     (lane 0 greedy), ``stride`` steps per launch (default
-    ``cfg.decode_stride``). The paged bank holds ``num_pages`` pages of
-    ``page_size`` slots; admission backpressures on page exhaustion.
+    ``cfg.decode_stride``), EOS blocked while a request's local step is
+    below ``min_len`` (the composite stride only). The paged bank holds
+    ``num_pages`` pages of ``page_size`` slots; admission backpressures on
+    page exhaustion. ``paged`` (default: the stride kernel is in use) reads
+    the pages in the kernel; otherwise each stride gathers a dense bank.
     ``frame_bucket`` pads each clip's frame axis up to a multiple of it, so
     short clips hold fewer pages. ``admit_group`` caps the requests of one
     encoder pass (module docstring). ``slo_target_s > 0`` arms the
@@ -308,7 +325,7 @@ class CaptionService:
         num_pages: int | None = None,
         frame_bucket: int | None = None,
         admit_group: int = 1,
-        paged: bool = True,
+        paged: bool | None = None,
         clock: Callable[[], float] = time.monotonic,
         slo_target_s: float = 0.0,
         slo_objective: float = 0.99,
@@ -320,21 +337,17 @@ class CaptionService:
         device=None,
     ):
         cfg = model.cfg
-        if cfg.decode_impl != "pallas":
+        self.use_kernel = cfg.decode_impl == "pallas"
+        if self.use_kernel and min_len > 0:
             raise ValueError(
-                "the port serves through the stride kernel only: set "
-                "decode_impl='pallas' (the JAX package's XLA scan stride is "
-                "not ported)"
+                "decode_impl='pallas' serving does not support min_len > 0 "
+                "(the stride kernel's min-len mask is stride-global, not "
+                "per-row) — use the XLA decode path"
             )
-        if min_len > 0:
+        if self.use_kernel and num_rollouts < 1:
             raise ValueError(
-                "stride-kernel serving does not support min_len > 0 (the "
-                "kernel's min-len mask is stride-global, not per-row)"
-            )
-        if num_rollouts < 1:
-            raise ValueError(
-                "stride-kernel serving needs num_rollouts >= 1 (the kernel "
-                "requires the (1+K)-lane layout)"
+                "decode_impl='pallas' serving needs num_rollouts >= 1 (the "
+                "stride kernel requires the (1+K)-lane layout)"
             )
         if capacity < 1:
             raise ValueError(f"capacity {capacity} must be >= 1")
@@ -346,6 +359,7 @@ class CaptionService:
         self.G = 1 + self.K
         self.T = int(max_len or cfg.max_len)
         self.temperature = float(temperature)
+        self.min_len = int(min_len)
         self.S = max(1, min(int(stride or cfg.decode_stride), self.T))
         self.n_mod = len(cfg.modalities)
         self.frame_bucket = int(frame_bucket or cfg.max_frames)
@@ -359,13 +373,19 @@ class CaptionService:
         pages_per_row = -(-m_max // page)
         if num_pages is None:
             num_pages = self.B * pages_per_row
-        self.paged = bool(paged)
+        self.paged = self.use_kernel if paged is None else bool(paged)
+        if self.paged and not self.use_kernel:
+            raise ValueError(
+                "paged=True needs decode_impl='pallas' — the XLA decode "
+                "path has no in-kernel page reader (it runs the "
+                "gather_bank fallback); leave paged unset or False"
+            )
         if not self.paged and int(num_pages) > self.B * pages_per_row:
             raise ValueError(
                 f"num_pages {num_pages} exceeds one batch's dense-bank "
                 f"footprint ({self.B} lanes x {pages_per_row} pages): the "
                 "dense-gather path can never admit the surplus; use "
-                "paged=True"
+                "decode_impl='pallas' with paged=True"
             )
         self.bank = PageBank(num_pages, page, self.device)
         self.table_width = pages_per_row
@@ -398,11 +418,13 @@ class CaptionService:
                      if slo_target_s > 0 else None)
         self._feedback = feedback
         # hot swaps: the active version is self.model with its packed
-        # float32 stride weights; a version that still has requests in
-        # flight keeps (model, weights) in _old_versions
+        # float32 stride weights (None on the composite stride); a version
+        # that still has requests in flight keeps (model, weights) in
+        # _old_versions
         self.param_version = 0
         self._weights: StrideWeights | None = None
-        self._old_versions: dict[int, tuple[CaptionModel, StrideWeights]] = {}
+        self._old_versions: dict[
+            int, tuple[CaptionModel, StrideWeights | None]] = {}
         self._pending_publish: tuple[int, CaptionModel] | None = None
         self._swap_history: list[dict] = []
         obs.gauge("serving.param_version").set(0.0)
@@ -549,7 +571,7 @@ class CaptionService:
         if self._inflight or self._staged:
             self._old_versions[prev] = (self.model, self._weights)
         self.model = model
-        self._weights = stride_weights(model.cell)
+        self._weights = self._pack(model)
         self.param_version = version
         self._swap_history.append({"version": version, "from": prev,
                                    "inflight_pinned": len(self._inflight)})
@@ -559,7 +581,13 @@ class CaptionService:
                   inflight_pinned=len(self._inflight))
         return True
 
-    def _version(self, version: int) -> tuple[CaptionModel, StrideWeights]:
+    def _pack(self, model: CaptionModel) -> StrideWeights | None:
+        """The stride kernel's packed weights of ``model`` (None on the
+        composite stride, which steps the cell module)."""
+        return stride_weights(model.cell) if self.use_kernel else None
+
+    def _version(self, version: int
+                 ) -> tuple[CaptionModel, StrideWeights | None]:
         if version == self.param_version:
             return self.model, self._weights
         return self._old_versions[version]
@@ -595,7 +623,7 @@ class CaptionService:
         pre = PreemptionHandler().install()
         try:
             with torch.no_grad():
-                self._weights = stride_weights(self.model.cell)
+                self._weights = self._pack(self.model)
                 while True:
                     chaos.visit("serving.step")
                     if pre.requested:
@@ -686,15 +714,20 @@ class CaptionService:
         """The analytic cost of one stride at full occupancy (every lane, G
         lanes of S steps; ``obs.flops.compiled_cost``, ``backend:
         "analytic"``: the JAX engine reads XLA's cost analysis here). Bytes
-        are the bank's (``serving_bank_bytes_per_stride``). None until the
+        are the bank's (``serving_bank_bytes_per_stride``); the composite
+        stride gathers the dense bank once (pool read, bank write) and its
+        attention reads it on each of the G x S lane steps. None until the
         service has admitted a request (the pools exist then)."""
         if self._lanes is None or self.bank.mem is None:
             return None
         width = self.table_width * self.bank.page_size
-        nbytes = serving_bank_bytes_per_stride(
-            self.B, width, int(self.bank.mem.shape[-1]),
-            int(self.bank.proj.shape[-1]), self.bank.mem.element_size(),
-            paged=self.paged)
+        args = (self.B, width, int(self.bank.mem.shape[-1]),
+                int(self.bank.proj.shape[-1]), self.bank.mem.element_size())
+        if self.use_kernel:
+            nbytes = serving_bank_bytes_per_stride(*args, paged=self.paged)
+        else:
+            nbytes = (2 + self.G * self.S) * serving_bank_bytes_per_stride(
+                *args, paged=True)
         return compiled_cost(self.B * self.G * self.S * self._tok_flops,
                              nbytes)
 
@@ -907,8 +940,9 @@ class CaptionService:
         self._retire_versions()
 
     def _launch(self, perm, inv, n_active, by_ver, versions):
-        """One stride: a kernel launch per live version, then the one
-        readback -> (tokens [V, S, G, n], logprobs, finished [G, n])."""
+        """One stride: a kernel launch (or a composite stride) per live
+        version, then the one readback -> (tokens [V, S, G, n], logprobs,
+        finished [G, n])."""
         lanes = self._lanes
         # compaction permutes table rows, never pages
         table = self.bank.row_table[perm]
@@ -917,7 +951,8 @@ class CaptionService:
         # steps past T clamp to T-1: they only feed discarded emissions. A
         # lane's draws depend on its own step only, so one draw serves
         # every version's launch
-        ts = torch.clamp(lanes.t_local[perm][None, :] + steps, max=self.T - 1)
+        t_c = lanes.t_local[perm]
+        ts = torch.clamp(t_c[None, :] + steps, max=self.T - 1)
         noise = self._noise_fn(lanes.seeds[perm], ts, self.K,
                                self.model.cfg.vocab_size)
         pools = (self.bank.mem, self.bank.proj, self.bank.mask)
@@ -942,10 +977,13 @@ class CaptionService:
                 new_carry, toks, lps = fused_decode_stride_paged(
                     model.cell, carry, token, fin_in, *pools, table, noise,
                     0, n_active, weights=weights, **kw)
-            else:
+            elif self.use_kernel:
                 new_carry, toks, lps = fused_decode_stride(
                     model.cell, carry, token, fin_in, *dense, noise, 0,
                     n_active, weights=weights, **kw)
+            else:
+                new_carry, toks, lps = self._composite_stride(
+                    model, carry, token, fin_in, dense, noise, t_c)
             new_fin = fin_in | (toks == EOS_ID).any(dim=0)
             new_token = toks[-1]
             step = self.S
@@ -966,6 +1004,33 @@ class CaptionService:
         return (torch.stack([t for t, _ in outs]).cpu().numpy(),
                 torch.stack([lp for _, lp in outs]).cpu().numpy(),
                 lanes.finished[:, perm[:n_active]].cpu().numpy())
+
+    def _composite_stride(self, model, carry, token, finished, bank, noise,
+                          t_c):
+        """S steps of the cell over every lane of the dense ``bank`` (the
+        JAX engine's XLA scan stride): ``t_c`` [B] holds each lane's local
+        step at the stride's start, so min_len holds per request ->
+        (carry, tokens [S, G, B] int32, logprobs [S, G, B] float32)."""
+        enc = EncoderOutput(*bank, ())
+        steps = torch.arange(self.S, device=t_c.device)[:, None]
+        blocked = (t_c[None, :] + steps) < self.min_len         # [S, B]
+        toks, lps = [], []
+        for s in range(self.S):
+            carry, logits = lane_decode_step(model, carry, token, enc)
+            logits = forbid_special(logits)
+            if self.min_len > 0:
+                logits[..., EOS_ID] = torch.where(
+                    blocked[s][None, :], -1.0e9, logits[..., EOS_ID])
+            nxt = logits[0].argmax(dim=-1)[None]
+            if self.K:
+                tl = logits[1:] / self.temperature
+                nxt = torch.cat([nxt, (tl + noise[s]).argmax(dim=-1)])
+            nxt = nxt.to(torch.int32)
+            lp = selected_logprob(logits, nxt)
+            token, lp, finished = step_outputs(nxt, lp, finished)
+            toks.append(token)
+            lps.append(lp)
+        return carry, torch.stack(toks), torch.stack(lps)
 
     def _complete(self, ticket: _Ticket, report: ServeReport, now) -> None:
         with obs.span("serving.detok", req=ticket.req.req_id):

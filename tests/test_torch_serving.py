@@ -266,11 +266,14 @@ def test_counter_noise_is_a_function_of_its_counters():
 
 def test_service_validation(setup):
     _, _, tmodel = setup
-    with pytest.raises(ValueError, match="decode_impl='pallas'"):
-        xla = TorchCaptionModel(dataclasses.replace(tmodel.cfg,
-                                                    decode_impl="xla"),
-                                device="cpu")
-        CaptionService(xla, device="cpu")
+    xla = TorchCaptionModel(dataclasses.replace(tmodel.cfg,
+                                                decode_impl="xla"),
+                            device="cpu")
+    with pytest.raises(ValueError, match="paged=True needs "
+                                         "decode_impl='pallas'"):
+        CaptionService(xla, paged=True, device="cpu")
+    # the stride kernel refuses these; the composite stride serves them
+    # (tests/test_torch_serving_composite.py)
     with pytest.raises(ValueError, match="min_len"):
         _service(tmodel, min_len=2)
     with pytest.raises(ValueError, match="num_rollouts"):
