@@ -9,8 +9,9 @@ of raised (``run_phases``): ``data_parallel`` (8d), ``seq_parallel``
 (8g) and ``model_parallel`` (8h, both on the same corpus and start
 weights), ``scst[:N]`` (phase 6 N times, each in a process of its
 own), ``syncs`` (6f, after the models it drives are built and
-fitted) and ``serve_composite`` (3c, after kernel 1's decode-shape
-lines and phase 3's kernel serve); each phase's line is followed by
+fitted), ``serve_composite`` (3c, after kernel 1's decode-shape
+lines and phase 3's kernel serve) and ``param_bf16`` (6g, on the train
+corpus and the serve burst); each phase's line is followed by
 ``{"gates": PHASE, "failed": [...]}``, and the run exits 1 if a check
 failed.
 
@@ -255,6 +256,34 @@ failed.
    finding of ``python -m cst_captioning_tpu_torch.tools.graftlint``
    (new or in ``graftlint_torch.baseline``); the mode is off again
    after the phase.
+6g. param_bf16: ``ModelConfig.param_dtype="bfloat16"`` at phase 4's
+   model (msrvtt_cst_consensus full width, the kernels on, the train
+   corpus's weights and clips). (a) At compute dtype bfloat16 and float32,
+   a bf16-param model (the seeded float32 weights ``.to(bfloat16)``) and
+   a float32-param model holding the same bf16-rounded values, bitwise
+   equal on: the XE logits (kernel 1), the CST sampling decode (K=5,
+   kernel 2), the SCST fused decode (K=1, kernel 3), 16 requests of the
+   serve burst (capacity 32, K=2, S=8, kernel 4) and beam-5 of 8 clips
+   (kernel 5); every kernel launched. (b) Kernels 1-5 against their
+   plain versions on the bf16 model's packed weights, at phase 2's
+   tolerances (bfloat16 banks). (c) Three XE steps and one CST step at
+   bf16 params: finite, params and Adam moments bfloat16; one XE step
+   (16 clips, dropout 0) on the card and by the port on the CPU from the
+   same bf16 params, at each compute dtype, held by what the step
+   computed (``bf16p_step_close``): the loss within 2^-10 and the grad
+   norm within 2^-8 relative, and the Adam moments (after one step ``mu
+   = 0.1 g``, ``nu = 0.001 g^2``) by ``moments_close``: each leaf's
+   element errors within 2^-4 (mu) and 2^-3 (nu) of its largest value,
+   each leaf's relative L2 distance within 2^-4 and 2^-3, the whole
+   tree's within 2^-6 and 2^-5 (the CPU tests' bounds). Two controls must
+   be refused by the same gate: the card's step on the first 8 clips, and
+   the card's moments scaled by 1.05. The bitwise shares of params and
+   moments are reported. (d) Parameter and Adam-moment bytes
+   (numel x element size) exactly half the float32 state's; a save and
+   restore of the bf16 state bitwise, both files' sizes reported. Also
+   reported: ``stride_weights`` ms a pack from bf16 and float32
+   parameters (once a decode in training, once a version in serving),
+   the phase's seconds.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -512,7 +541,7 @@ failed.
    the ranks: semantics, not the speed of N cards).
 9. kernels: one JSON line with each kernel's TPU counterpart, launches on
    its paths (the recipe's, serve_lifecycle's, serve_composite's,
-   rl_decoupled's,
+   param_bf16's, rl_decoupled's,
    rl_online's, resilience's, health's, import's, data_parallel's,
    rl_split's, elastic's, seq_parallel's and model_parallel's included;
    seq_parallel launches none by design),
@@ -553,6 +582,7 @@ import torch
 from cst_captioning_tpu_torch import obs as tobs
 from cst_captioning_tpu_torch import ops
 from cst_captioning_tpu_torch.ckpt import load_params as ckpt_load_params
+from cst_captioning_tpu_torch.ckpt.checkpoint import load_state, save_state
 from cst_captioning_tpu_torch.cli import eval as cli_eval
 from cst_captioning_tpu_torch.cli import import_msrvtt as cli_import_msrvtt
 from cst_captioning_tpu_torch.cli import import_msvd as cli_import_msvd
@@ -1053,15 +1083,22 @@ def train_corpus(cfg, dev, seed=0) -> dict:
     return on_device(make_corpus(cfg.model, TRAIN_B, 5, seed), cfg.model, dev)
 
 
-def train_model(cfg, corpus, dev, eos_bias: float = 7.5):
-    """Seeded random weights with a unigram prior in the output bias: +4
-    on the corpus's words and +7.5 on EOS, so that rollouts use the
-    corpus's words and end after about ten tokens, as a model past its
-    first XE epochs would (no trained checkpoint is in the repo)."""
-    tree = random_flax_params(cfg.model, seed=0, eos_bias=eos_bias)
+def train_tree(mc, corpus, eos_bias: float = 7.5) -> dict:
+    """Seeded random weights (a flax tree, float32) with a unigram prior
+    in the output bias: +4 on the corpus's words and ``eos_bias`` on
+    EOS."""
+    tree = random_flax_params(mc, seed=0, eos_bias=eos_bias)
     bias = tree["params"]["cell"]["out_proj"]["bias"]
     bias[np.asarray(corpus["vocab"].encode(corpus["words"]))] += np.float32(4.0)
-    return load_flax_params(CaptionModel(cfg.model, device=dev), tree)
+    return tree
+
+
+def train_model(cfg, corpus, dev, eos_bias: float = 7.5):
+    """``train_tree``'s weights: +7.5 on EOS, so that rollouts use the
+    corpus's words and end after about ten tokens, as a model past its
+    first XE epochs would (no trained checkpoint is in the repo)."""
+    return load_flax_params(CaptionModel(cfg.model, device=dev),
+                            train_tree(cfg.model, corpus, eos_bias))
 
 
 def xe_batch(cfg, corpus, step: int, dev):
@@ -7824,8 +7861,312 @@ def syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
             "phase_s": time.perf_counter() - t0, "nvidia_smi": smi}
 
 
+# ---- phase 6g: bfloat16 parameters --------------------------------------------
+
+BF16P_DEVICE = "cuda"
+BF16P_SERVE = 16          # the serve burst's requests served by each model
+BF16P_BEAM = 8            # clips of the beam-5 check
+BF16P_CPU_B = 16          # clips of the XE step held against the CPU's
+BF16P_XE_STEPS = 3
+BF16P_PACKS = 20          # timed stride_weights packs, each dtype
+
+
+def bf16p_models(mc, tree, dev):
+    """-> (the bf16-param model, the float32-param model holding the same
+    bf16-rounded values), both in eval mode: ``tree`` in a float32 model,
+    its state dict ``.to(torch.bfloat16)`` into a bf16 one, and that
+    widened back into the float32 model."""
+    f32 = load_flax_params(CaptionModel(dataclasses.replace(
+        mc, param_dtype="float32"), device=dev), tree)
+    b16 = CaptionModel(dataclasses.replace(mc, param_dtype="bfloat16"),
+                       device=dev)
+    b16.load_state_dict({k: v.to(torch.bfloat16)
+                         for k, v in f32.state_dict().items()})
+    f32.load_state_dict(b16.state_dict())
+    return b16.eval(), f32.eval()
+
+
+def bf16p_equal(a, b) -> bool:
+    """Bitwise equality of tensors, arrays or tuples of them."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bf16p_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return np.array_equal(a, b)
+
+
+def bf16p_paths(b16, f32, tcfg, corpus, reqs) -> dict:
+    """Phase 6g (a): each path on the bf16 model and on the float32 one
+    -> {path: bitwise equal}."""
+    dev = b16.device
+    feats, masks = corpus["feats"], corpus["masks"]
+    labels = xe_batch(tcfg, corpus, 0, dev)[2]
+    few = {n: x[:BF16P_BEAM] for n, x in feats.items()}
+    few_m = {n: x[:BF16P_BEAM] for n, x in masks.items()}
+    out = {}
+    with torch.no_grad():
+        runs = {
+            "xe_logits": lambda m: m(feats, masks, labels),
+            "cst_sample_k2": lambda m: decoding_sample.sample_decode(
+                m, feats, masks, seed=5, num_rollouts=tcfg.rl.num_rollouts),
+            "scst_stride_k3": lambda m: decoding_fused.fused_decode(
+                m, feats, masks, seed=6, num_rollouts=1),
+            "beam5_k5": lambda m: beam_search(m, few, few_m, beam_size=BEAM_W),
+        }
+        for key, run in runs.items():
+            out[key] = bf16p_equal(run(b16), run(f32))
+    got = [service(m).serve(reqs[:BF16P_SERVE]) for m in (b16, f32)]
+    out["serve_k4"] = all(
+        np.array_equal(r.tokens, got[1].results[i].tokens)
+        and np.array_equal(r.logprobs, got[1].results[i].logprobs)
+        for i, r in got[0].results.items()) and \
+        got[0].completed == BF16P_SERVE
+    return out
+
+
+def bf16p_kernels(b16, corpus, dev) -> dict:
+    """Phase 6g (b): kernels 1-5 against their plain versions on the bf16
+    model's packed weights, at phase 2's tolerances -> largest errors."""
+    err = {}
+    for name in KERNELS:
+        err[name] = compare(name, b16, stride_inputs(b16, dev, True))[
+            "max_abs_err"]
+    err["fused_additive_attention"] = compare_attention(attention_inputs(
+        b16, corpus, torch.bfloat16, TRAIN_B))["max_abs_err"]
+    err["fused_decode_step"] = compare_step(
+        b16, step_inputs(b16, corpus, True))["max_abs_err"]
+    err["fused_beam_step"] = compare_beam(
+        b16, beam_inputs(b16, corpus, True, 3, 0))["max_abs_err"]
+    return err
+
+
+def bf16p_bytes(state) -> int:
+    """Parameter and Adam-moment bytes: numel x element size."""
+    return sum(t.numel() * t.element_size()
+               for t in state.params + state.opt_state["mu"]
+               + state.opt_state["nu"])
+
+
+# card vs CPU, one bf16-param XE step from zero moments: the first moment
+# is mu = 0.1 g (the clipped gradient) and nu = 0.001 g^2, so the moments
+# carry what the step computed; Adam's first update is about lr an element
+# whatever the gradient, so the parameters carry little. (mu, nu) bounds:
+# each leaf's element errors over its largest value, each leaf's relative
+# L2 distance, the whole tree's (the CPU tests' moments_close)
+BF16P_ELEM = (2.0 ** -4, 2.0 ** -3)
+BF16P_LEAF_L2 = (2.0 ** -4, 2.0 ** -3)
+BF16P_TREE_L2 = (2.0 ** -6, 2.0 ** -5)
+BF16P_LOSS = 2.0 ** -10         # relative
+BF16P_GRAD_NORM = 2.0 ** -8     # relative
+
+
+def moments_close(ref, other, which: int) -> tuple[bool, dict]:
+    """Two lists of one Adam moment (``which``: 0 mu, 1 nu) as float32 CPU
+    tensors -> (within the BF16P bounds, the worst element error over its
+    leaf's largest value, the worst leaf's and the tree's relative L2
+    distances)."""
+    worst = {"elem": 0.0, "leaf_l2": 0.0}
+    d2 = w2 = 0.0
+    for w, g in zip(ref, other):
+        d = (g - w).abs().double()
+        top = max(float(w.abs().max()), 1e-30)
+        worst["elem"] = max(worst["elem"], float(d.max()) / top)
+        worst["leaf_l2"] = max(worst["leaf_l2"], float(
+            d.norm() / max(float(w.double().norm()), 1e-30)))
+        d2 += float((d * d).sum())
+        w2 += float((w.double() ** 2).sum())
+    worst["tree_l2"] = (d2 / max(w2, 1e-60)) ** 0.5
+    ok = (worst["elem"] <= BF16P_ELEM[which]
+          and worst["leaf_l2"] <= BF16P_LEAF_L2[which]
+          and worst["tree_l2"] <= BF16P_TREE_L2[which])
+    return ok, worst
+
+
+def bf16p_step_close(ref: dict, other: dict) -> tuple[bool, dict]:
+    """Two XE steps' results (:func:`bf16p_xe_step`) -> (the loss, grad
+    norm, mu and nu within their BF16P bounds, what was read)."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    read = {"loss_rel": rel(other["loss"], ref["loss"]),
+            "grad_norm_rel": rel(other["grad_norm"], ref["grad_norm"])}
+    ok = read["loss_rel"] <= BF16P_LOSS and \
+        read["grad_norm_rel"] <= BF16P_GRAD_NORM
+    for which, m in enumerate(("mu", "nu")):
+        good, read[m] = moments_close(ref[m], other[m], which)
+        ok = ok and good
+    return ok, read
+
+
+def bf16p_xe_step(mc, tree, tcfg, b, dev, rows) -> dict:
+    """One guarded XE step of the bf16-param model on ``dev`` over ``rows``
+    of the batch ``b`` -> its loss, grad norm, params, mu and nu (float32
+    CPU tensors)."""
+    model = load_flax_params(CaptionModel(mc, device=dev), tree)
+    state = create_train_state(model, make_optimizer(tcfg.train, 1),
+                               seed=tcfg.train.seed)
+    batch = ({n: x[rows].to(dev) for n, x in b[0].items()},
+             {n: x[rows].to(dev) for n, x in b[1].items()},
+             *(x[rows].to(dev) for x in b[2:]))
+    state, m = make_xe_step(model, 0.0, guard=True)(state, *batch)
+    check(m["nonfinite"] == 0.0, f"param_bf16 (c): {dev} step {m}")
+    f32 = lambda ts: [t.detach().cpu().float() for t in ts]  # noqa: E731
+    return {"loss": m["loss"], "grad_norm": m["grad_norm"],
+            "params": f32(state.params), "mu": f32(state.opt_state["mu"]),
+            "nu": f32(state.opt_state["nu"])}
+
+
+def bf16p_vs_cpu(mc, tree, tcfg, corpus) -> dict:
+    """Phase 6g (c2): one XE step (dropout 0: the two devices draw other
+    masks) on the card and by the port on the CPU from the same bf16
+    params, held by :func:`bf16p_step_close`; and two controls the gate
+    must refuse: the card's step on the first half of the clips, and the
+    card's moments scaled by 1.05."""
+    mc = dataclasses.replace(mc, param_dtype="bfloat16", dropout=0.0)
+    card = torch.device(BF16P_DEVICE)
+    b = xe_batch(tcfg, corpus, 0, card)
+    rows = slice(0, BF16P_CPU_B)
+    got = bf16p_xe_step(mc, tree, tcfg, b, card, rows)
+    cpu = bf16p_xe_step(mc, tree, tcfg, b, torch.device("cpu"), rows)
+    ok, read = bf16p_step_close(cpu, got)
+    half = bf16p_xe_step(mc, tree, tcfg, b, card,
+                         slice(0, BF16P_CPU_B // 2))
+    half_ok, half_read = bf16p_step_close(cpu, half)
+    scaled = dict(got, mu=[t * 1.05 for t in got["mu"]],
+                  nu=[t * 1.05 for t in got["nu"]])
+    scaled_ok, scaled_read = bf16p_step_close(cpu, scaled)
+    n = sum(t.numel() for t in got["params"])
+    share = lambda k: sum(int((a == c).sum()) for a, c in zip(  # noqa: E731
+        got[k], cpu[k])) / n
+    return {"ok": ok, "read": read, "elements": n,
+            "bitwise_share": {k: share(k) for k in ("params", "mu", "nu")},
+            "loss_card": got["loss"], "loss_cpu": cpu["loss"],
+            "grad_norm_card": got["grad_norm"],
+            "grad_norm_cpu": cpu["grad_norm"],
+            "control_half_batch": {"refused": not half_ok,
+                                   "read": half_read},
+            "control_scaled_1.05": {"refused": not scaled_ok,
+                                    "read": scaled_read}}
+
+
+def bf16p_pack_ms(b16, f32) -> dict:
+    """stride_weights on each model: CUDA-event ms a pack (the decode and
+    the SCST step pack once a decode; serving once a version)."""
+    out = {}
+    for key, m in (("bfloat16", b16), ("float32", f32)):
+        times = event_times(lambda m=m: stride_weights(m.cell),
+                            reps=BF16P_PACKS)
+        out[key] = float(np.median(times))
+    return out
+
+
+def param_bf16_phase(tcfg, corpus, reqs, smi: str) -> tuple[dict, dict]:
+    """Phase 6g (module docstring) -> (its line, the launches of (a) and
+    (c))."""
+    t0 = time.perf_counter()
+    dev = torch.device(BF16P_DEVICE)
+    line = {"phase": "param_bf16", "preset": tcfg.name}
+    tree = train_tree(tcfg.model, corpus)
+    launched = {k: 0 for k in SOURCE}
+    for dtype in ("bfloat16", "float32"):
+        mc = dataclasses.replace(tcfg.model, dtype=dtype)
+        b16, f32 = bf16p_models(mc, tree, dev)
+        check({p.dtype for p in b16.parameters()} == {torch.bfloat16},
+              "param_bf16: the bf16 model has other parameter dtypes")
+        if dtype == "bfloat16":
+            line["kernel_max_abs_err"] = bf16p_kernels(b16, corpus, dev)
+            line["pack_ms"] = bf16p_pack_ms(b16, f32)
+        ops.reset_launches()
+        same = bf16p_paths(b16, f32, tcfg, corpus, reqs)
+        for k, v in all_launches().items():
+            launched[k] += v
+        line[f"bitwise_{dtype}"] = same
+        check(all(same.values()), f"param_bf16 (a) at {dtype} compute: "
+              f"bf16 and float32 params differ on {same}")
+        del b16, f32
+    check(all(v > 0 for v in launched.values()),
+          f"param_bf16 (a): a kernel was not launched: {launched}")
+    line["launches_a"] = dict(launched)
+
+    # (c) training at bf16 params, the preset's compute dtype
+    mc = dataclasses.replace(tcfg.model, param_dtype="bfloat16")
+    model = load_flax_params(CaptionModel(mc, device=dev), tree)
+    state = create_train_state(model, make_optimizer(tcfg.train, 1),
+                               seed=tcfg.train.seed)
+    ref = create_train_state(
+        load_flax_params(CaptionModel(tcfg.model, device=dev), tree),
+        make_optimizer(tcfg.train, 1), seed=tcfg.train.seed)
+    ops.reset_launches()
+    step = make_xe_step(model, tcfg.train.label_smoothing, guard=True)
+    xe_losses = []
+    for i in range(BF16P_XE_STEPS):
+        state, m = step(state, *xe_batch(tcfg, corpus, i, dev))
+        check(m["nonfinite"] == 0.0 and np.isfinite(m["loss"]),
+              f"param_bf16 (c): XE step {i} {m}")
+        xe_losses.append(m["loss"])
+    rl = tcfg.rl
+    trainer = SCSTTrainer(model, RewardComputer(
+        corpus["vocab"], corpus["gts"], cider_weight=rl.reward_cider_weight,
+        bleu_weight=rl.reward_bleu4_weight, bleu_scale=rl.reward_bleu4_scale,
+        num_threads=rl.reward_threads), rl, guard=True)
+    rl_state = create_train_state(
+        model, make_optimizer(tcfg.train, 1, lr_override=rl.lr),
+        seed=tcfg.train.seed)
+    rl_state, cm = trainer.train_step(rl_state, corpus["feats"],
+                                      corpus["masks"], corpus["vids"],
+                                      seed=100)
+    check(cm["nonfinite"] == 0.0 and np.isfinite(cm["rl_loss"]),
+          f"param_bf16 (c): CST step {cm}")
+    for k, v in all_launches().items():
+        launched[k] += v
+    for st in (state, rl_state):
+        kinds = {t.dtype for t in st.params + st.opt_state["mu"]
+                 + st.opt_state["nu"]}
+        check(kinds == {torch.bfloat16},
+              f"param_bf16 (c): params and moments are {kinds}")
+    cpu = {dtype: bf16p_vs_cpu(dataclasses.replace(tcfg.model, dtype=dtype),
+                               tree, tcfg, corpus)
+           for dtype in ("float32", "bfloat16")}
+    for dtype, c in cpu.items():
+        check(c["ok"], f"param_bf16 (c) at {dtype} compute: card vs CPU "
+              f"{c['read']}")
+        check(c["control_half_batch"]["refused"]
+              and c["control_scaled_1.05"]["refused"],
+              f"param_bf16 (c) at {dtype} compute: a control passed the "
+              f"card-vs-CPU gate {c}")
+
+    # (d) bytes and the checkpoint round trip
+    nb, nf = bf16p_bytes(rl_state), bf16p_bytes(ref)
+    check(2 * nb == nf, f"param_bf16 (d): bytes {nb} bf16 vs {nf} float32")
+    root = tempfile.mkdtemp(prefix="chip_smoke_bf16p_")
+    try:
+        save_state(root, "bf16", rl_state)
+        save_state(root, "f32", ref)
+        fresh = create_train_state(
+            load_flax_params(CaptionModel(mc, device=dev),
+                             random_flax_params(mc, seed=1)),
+            make_optimizer(tcfg.train, 1), seed=0)
+        back, _ = load_state(root, "bf16", fresh)
+        ok = all(bf16p_equal(a, b) for a, b in zip(
+            rl_state.params + rl_state.opt_state["mu"]
+            + rl_state.opt_state["nu"],
+            back.params + back.opt_state["mu"] + back.opt_state["nu"]))
+        check(ok and back.step == rl_state.step,
+              "param_bf16 (d): the bf16 checkpoint did not round-trip")
+        size = {k: os.path.getsize(os.path.join(root, k, "state.npz"))
+                for k in ("bf16", "f32")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line.update(
+        launches=launched, xe_losses=xe_losses, cst_rl_loss=cm["rl_loss"],
+        cst_grad_norm=cm["grad_norm"], xe_vs_cpu=cpu,
+        param_moment_bytes={"bfloat16": nb, "float32": nf},
+        ckpt_bytes=size, ckpt_round_trip_bitwise=ok,
+        phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+    return line, launched
+
+
 PHASES = ("data_parallel", "seq_parallel", "model_parallel", "scst", "syncs",
-          "serve_composite")
+          "serve_composite", "param_bf16")
 
 
 def run_phases(phases: list[str], smi: str) -> int:
@@ -7871,6 +8212,10 @@ def run_phases(phases: list[str], smi: str) -> int:
                 scfg, smodel, trainer, _ = scst_setup(corpus, dev)
                 emit(syncs_phase(model, requests(model.cfg), tcfg, corpus,
                                  tmodel, trainer, smodel, scfg, smi))
+            elif name == "param_bf16":
+                tcfg = train_config()
+                emit(param_bf16_phase(tcfg, train_corpus(tcfg, dev),
+                                      requests(tcfg.model), smi)[0])
             elif name == "serve_composite":
                 model = make_model(dev)
                 reqs = requests(model.cfg)
@@ -8157,6 +8502,12 @@ def main(argv: list[str]) -> int:
     emit(syncs_phase(model, reqs, tcfg, corpus, tmodel, s_trainer, smodel,
                      scfg, smi))
 
+    # ---- phase 6g: bfloat16 parameters --------------------------------------
+    bf16p, bf16p_launches = param_bf16_phase(tcfg, corpus, reqs, smi)
+    emit(bf16p)
+    for k, v in bf16p["kernel_max_abs_err"].items():
+        record(k, {"max_abs_err": v})
+
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it
     path_launches = {
@@ -8171,7 +8522,7 @@ def main(argv: list[str]) -> int:
         "fused_beam_step": ev["launches"]["fused_beam_step"]}
     for launched in (lifecycle_launches, composite_launches,
                      decoupled_launches, online_launches, resil_launches,
-                     health_launches):
+                     health_launches, bf16p_launches):
         for k, v in launched.items():
             path_launches[k] += v
 

@@ -8,12 +8,17 @@ Layout per checkpoint name (``best`` / ``latest`` / ``step_00001200``):
     <dir>/<name>/manifest.json   sha256 + size per file, checked on load
 
 ``state.npz`` is an uncompressed numpy archive read with
-``allow_pickle=False``: float32 arrays under flax-path names in the JAX
-layout (``params/cell/out_proj/kernel``; the Adam moments as
+``allow_pickle=False``: arrays under flax-path names in the JAX layout
+(``params/cell/out_proj/kernel``; the Adam moments as
 ``opt_state/mu/<the same path>`` and ``opt_state/nu/...``), and the
-scalars ``opt_state/count``, ``step`` and ``seed``. A save moves the state
-to the host in one copy (the tensors are packed into one buffer on the
-device first), not a tensor at a time.
+scalars ``opt_state/count``, ``step`` and ``seed``. Each array keeps its
+tensor's dtype: float32, or for a bfloat16 tensor (``param_dtype=
+"bfloat16"``: the params, and their moments until a data-parallel or
+chunked update widens them to float32) its ``uint16`` bit patterns,
+2 bytes an element, since numpy has no bfloat16; a ``uint16`` array reads
+back as bfloat16, bit for bit. A save moves the state to the host in one
+copy a dtype (the tensors are packed into one buffer on the device
+first), not a tensor at a time.
 
 Saves are durable as the JAX package's are: every file is fsync'd in a
 ``<name>.tmp`` directory with a checksum manifest, an existing checkpoint
@@ -24,7 +29,8 @@ leaves an intact generation.
 A JAX checkpoint (``state.msgpack``, written by flax) loads through the
 pure-Python decoder in ``ckpt/msgpack.py``: the params through
 ``convert.py``, the optax chain's Adam moments and count onto the port's
-optimizer state, and the step. :func:`load_state`, :func:`load_params` and
+optimizer state, and the step (bfloat16 leaves bit for bit).
+:func:`load_state`, :func:`load_params` and
 ``CheckpointManager.restore_latest`` read either format, by the state
 file the directory holds. Saves and restores run in ``ckpt.save`` /
 ``ckpt.restore`` obs spans; a full disk and a corrupt candidate count on
@@ -102,14 +108,20 @@ def _names(model: torch.nn.Module) -> list[str]:
 
 
 def _to_host(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """One device-to-host copy for all of ``tensors`` (float32)."""
-    if not tensors:
-        return []
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors]).cpu()
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].view(t.shape))
-        at += t.numel()
+    """One device-to-host copy a dtype for all of ``tensors``, each in its
+    own dtype."""
+    out: list = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1)
+                          for i in idx]).cpu()
+        at = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[at:at + n].view(tensors[i].shape)
+            at += n
     return out
 
 
@@ -123,7 +135,8 @@ def state_arrays(state: TrainState) -> dict[str, np.ndarray]:
                                     for t in state.opt_state[m]])
 
     def flat(prefix, tensors):
-        tree = state_dict_to_flax(cfg, dict(zip(names, tensors)))["params"]
+        tree = state_dict_to_flax(cfg, dict(zip(names, tensors)),
+                                  bits=True)["params"]
         return {f"{prefix}/{k}": v for k, v in _flatten(tree).items()}
 
     out = flat("params", host[:n])
@@ -212,6 +225,8 @@ def _install(state: TrainState, loaded: dict) -> TrainState:
     with torch.no_grad():
         for p, v in zip(state.params, params):
             p.copy_(v)
+    # the moments keep the file's dtypes, as a flax restore does (float32
+    # moments of bfloat16 parameters after a data-parallel or chunked step)
     opt = {"count": int(loaded["count"])}
     for m, ts in moments.items():
         opt[m] = [t.to(dev) for t in ts]

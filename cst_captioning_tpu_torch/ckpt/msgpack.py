@@ -8,7 +8,9 @@ into ``{"__msgpack_chunked_array__": True, "shape": ..., "chunks": ...}``
 maps. :func:`restore` reads all of it with numpy and the standard library
 only (the machine the port trains on need not have ``msgpack`` or
 ``flax``); it gives what ``flax.serialization.msgpack_restore`` gives,
-with ``bfloat16`` arrays widened to float32.
+with each ``bfloat16`` array as its ``uint16`` bit patterns (numpy has no
+bfloat16; ``convert.py`` reads such an array back as a bfloat16 tensor,
+bit for bit).
 """
 
 from __future__ import annotations
@@ -114,8 +116,7 @@ def _ndarray(data: bytes) -> np.ndarray:
     if isinstance(dtype, bytes):
         dtype = dtype.decode()
     if dtype == "bfloat16":
-        bits = np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16
-        arr = bits.view(np.float32)
+        arr = np.frombuffer(buf, dtype="<u2").astype(np.uint16)
     else:
         arr = np.frombuffer(buf, dtype=np.dtype(dtype))
     return arr.reshape(tuple(shape)).copy()

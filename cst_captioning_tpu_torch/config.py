@@ -91,10 +91,8 @@ class ModelConfig:
             )
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute dtype {self.dtype!r}")
-        if self.param_dtype != "float32":
-            raise ValueError(
-                f"unsupported param dtype {self.param_dtype!r} (float32 only)"
-            )
+        if self.param_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unsupported param dtype {self.param_dtype!r}")
         if self.decode_impl == "pallas" and self.seq_axis:
             # the kernels' softmax is one device's; a frame-sharded bank
             # needs the collective one

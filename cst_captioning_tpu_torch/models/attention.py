@@ -31,18 +31,24 @@ from cst_captioning_tpu_torch.ops import attention as attention_ops
 
 class AdditiveAttention(nn.Module):
     def __init__(self, d_memory: int, d_query: int, d_att: int,
-                 dtype: torch.dtype = torch.float32, impl: str = "xla"):
+                 dtype: torch.dtype = torch.float32, impl: str = "xla",
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.impl = impl
         # the row the bank's frames are sharded over (None: all here)
         self.seq = None
-        self.mem_proj = Dense(d_memory, d_att, bias=False, dtype=dtype)
-        self.query_proj = Dense(d_query, d_att, dtype=dtype)
-        # v: the flax ``score`` Dense kernel [A, 1] without its unit axis
-        self.score = nn.Parameter(torch.empty(d_att))
+        self.mem_proj = Dense(d_memory, d_att, bias=False, dtype=dtype,
+                              param_dtype=param_dtype)
+        self.query_proj = Dense(d_query, d_att, dtype=dtype,
+                                param_dtype=param_dtype)
+        # v: the flax ``score`` Dense kernel [A, 1] without its unit axis,
+        # drawn in float32 and stored in param_dtype; every use reads it in
+        # the compute dtype (the kernel takes v in the bank's dtype)
+        score = torch.empty(d_att)
         bound = 1.0 / math.sqrt(d_att)
-        nn.init.uniform_(self.score, -bound, bound)
+        nn.init.uniform_(score, -bound, bound)
+        self.score = nn.Parameter(score.to(param_dtype))
 
     def project_memory(self, memory: torch.Tensor) -> torch.Tensor:
         """[B, M, E] -> [B, M, d_att]."""

@@ -50,8 +50,10 @@ def shift_right(labels: torch.Tensor) -> torch.Tensor:
 
 class CaptionModel(nn.Module):
     """Built on ``device`` (default the GPU; raises without one unless
-    ``device="cpu"``) with random weights; :func:`convert.load_flax_params`
-    loads a JAX parameter tree.
+    ``device="cpu"``) with random weights, every parameter stored in
+    ``cfg.param_dtype`` and computed in ``cfg.dtype`` (flax's
+    ``param_dtype`` / ``dtype``); :func:`convert.load_flax_params` loads a
+    JAX parameter tree.
 
     :meth:`set_seq` (``parallel.seq_parallel.sp_model``) puts it on the
     row of a ``('data', 'seq')`` grid whose ranks each hold a shard of the
@@ -69,12 +71,13 @@ class CaptionModel(nn.Module):
             self.encoder = TemporalAttentionEncoder(cfg)
         self.cell = DecoderCell(cfg)
         # the LSTM carry starts from the pooled memory
+        pdtype = torch_dtype(cfg.param_dtype)
         self.init_c = nn.ModuleList([
-            Dense(cfg.d_embed, cfg.d_hidden, dtype=dtype)
+            Dense(cfg.d_embed, cfg.d_hidden, dtype=dtype, param_dtype=pdtype)
             for _ in range(cfg.num_layers)
         ])
         self.init_h = nn.ModuleList([
-            Dense(cfg.d_embed, cfg.d_hidden, dtype=dtype)
+            Dense(cfg.d_embed, cfg.d_hidden, dtype=dtype, param_dtype=pdtype)
             for _ in range(cfg.num_layers)
         ])
         self.seq = None     # the frame axis is whole here (set_seq)

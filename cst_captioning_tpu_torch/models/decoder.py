@@ -36,7 +36,8 @@ class LSTMCell(nn.Module):
     i|f|g|o; the input matmul has no bias."""
 
     def __init__(self, in_features: int, hidden: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.weight_i = nn.Parameter(torch.empty(4 * hidden, in_features))
@@ -46,6 +47,7 @@ class LSTMCell(nn.Module):
                          1 / math.sqrt(in_features))
         nn.init.uniform_(self.weight_h, -1 / math.sqrt(hidden),
                          1 / math.sqrt(hidden))
+        self.to(param_dtype)  # drawn in float32, stored in param_dtype
 
     def forward(self, carry, x: torch.Tensor):
         c, h = carry
@@ -75,15 +77,19 @@ class DecoderCell(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype = torch_dtype(cfg.dtype)
+        pdtype = torch_dtype(cfg.param_dtype)
         E, H = cfg.d_embed, cfg.d_hidden
-        self.word_embed = nn.Embedding(cfg.vocab_size, E)
+        self.word_embed = nn.Embedding(cfg.vocab_size, E).to(pdtype)
         self.attention = AdditiveAttention(E, H, cfg.d_att, dtype=dtype,
-                                           impl=cfg.attention_impl)
+                                           impl=cfg.attention_impl,
+                                           param_dtype=pdtype)
         self.lstm = nn.ModuleList([
-            LSTMCell(2 * E if i == 0 else H, H, dtype=dtype)
+            LSTMCell(2 * E if i == 0 else H, H, dtype=dtype,
+                     param_dtype=pdtype)
             for i in range(cfg.num_layers)
         ])
-        self.out_proj = Dense(H, cfg.vocab_size, dtype=dtype)
+        self.out_proj = Dense(H, cfg.vocab_size, dtype=dtype,
+                              param_dtype=pdtype)
 
     def project_memory(self, memory: torch.Tensor) -> torch.Tensor:
         return self.attention.project_memory(memory)

@@ -45,7 +45,8 @@ class _Encoder(nn.Module):
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         self.embed = nn.ModuleDict({
-            name: Dense(dim, cfg.d_embed, dtype=self.dtype)
+            name: Dense(dim, cfg.d_embed, dtype=self.dtype,
+                        param_dtype=torch_dtype(cfg.param_dtype))
             for name, dim in cfg.modalities
         })
         # the seq row the frame axis is sharded over (None: all here)

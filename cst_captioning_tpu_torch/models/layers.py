@@ -8,15 +8,18 @@ from torch import nn
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
-    cast to the compute dtype first, while the parameters stay float32 —
-    flax's ``Dense(dtype=..., param_dtype=float32)``. The weight is
-    ``[out, in]``, the transpose of flax's kernel."""
+    """``nn.Linear`` stored in ``param_dtype`` that computes in ``dtype``:
+    input, weight and bias are cast to the compute dtype first — flax's
+    ``Dense(dtype=..., param_dtype=...)``. The parameters are drawn in
+    float32 and rounded to ``param_dtype``. The weight is ``[out, in]``,
+    the transpose of flax's kernel."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.to(param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype

@@ -12,7 +12,10 @@ is one reduction through a fresh one), behind the ``train.comm_*`` knobs:
   f32 is bitwise equal to one all-reduce a leaf.
 - **bf16 on the wire** (``comm_dtype="bf16"``): the buffers cast to
   bfloat16 before the collective and back after, half the bytes; the
-  parameters and Adam moments stay float32.
+  parameters and Adam moments keep ``param_dtype``. Otherwise a leaf goes
+  on the wire in its own dtype (the JAX ``_wire_dtype_of``), so a
+  bfloat16 model's gradients travel as bfloat16 at ``comm_dtype="f32"``
+  too.
 - **Overlap** (``comm_overlap``, with ``rl.update_chunks``): each chunk's
   buckets start (``async_op=True``) while the next chunk's backward runs
   (``rl/scst._chunked_loss_grads``); ``"eager"`` waits at once and is the
@@ -205,7 +208,8 @@ def reset_row_counts() -> None:
 def broadcast_row(tensors, row) -> list[torch.Tensor]:
     """The ``'mp'`` row's first rank's ``tensors`` on every rank of the
     row, in one flat float32 broadcast -> new tensors in their own dtypes
-    (the inputs when the row is one rank). A row's ranks compute the same
+    (the inputs when the row is one rank; a bfloat16 tensor widens and
+    narrows back exactly). A row's ranks compute the same
     rows; the broadcast keeps them bitwise equal where a backward kernel
     is not deterministic (a JAX device mesh replicates exactly)."""
     if row is None or row.world == 1 or row.group is None:

@@ -254,7 +254,8 @@ def row_reduce_grads(grads, local: list[int], row) -> list:
     """``grads`` reduced over the row's ranks in one flat float32
     all-reduce: the entries at ``local`` (the frame-local parameters')
     summed, the others averaged (for two ranks, or any power of two, an
-    average of equal values is exact)."""
+    average of equal values is exact), each rounded back to its own dtype
+    once (a bfloat16 leaf's sum is taken in float32)."""
     grads = list(grads)
     group = _group(row)
     if group is None:
@@ -323,20 +324,27 @@ def _reducers(model, mesh, comm):
             frame_local_params(model))
 
 
-def _finish(state, num, den, g, mesh, reducer, local, guard, stats, key):
+def _finish(state, num, den, g, mesh, reducer, local, guard, stats, key,
+            promote: bool = False):
     """Reduce the gradients over the row (:func:`row_reduce_grads`), sum
-    (num, den) and the gradients over the column, divide by the global ``max(den, 1)`` and
-    apply -> (state, metrics)."""
+    (num, den) and the gradients over the column, divide by the global
+    ``max(den, 1)`` and apply -> (state, metrics). ``promote``: divide as
+    ``train.steps.divide_grads`` (the JAX chunked SP update divides by a
+    float32 array, which widens bfloat16 gradients; its XE step and
+    unchunked update differentiate the divided loss and keep the leaf
+    dtype)."""
     from cst_captioning_tpu_torch.parallel.comms import reduce_sums
     from cst_captioning_tpu_torch.train.schedule import global_norm
-    from cst_captioning_tpu_torch.train.steps import _apply
+    from cst_captioning_tpu_torch.train.steps import _apply, divide_grads
 
     g = row_reduce_grads(g, local, mesh.seq)
     num_t, den_t = reduce_sums(num, den, mesh.data)
     den_t = torch.clamp(den_t, min=1.0)
-    grads = [x / den_t for x in reducer(g)]
-    return _apply(state, grads, num_t / den_t, global_norm(grads), guard,
-                  key=key, stats=stats)
+    g = reducer(g)
+    grads = divide_grads(g, den_t) if promote else [x / den_t for x in g]
+    return _apply(state, grads, num_t / den_t,
+                  global_norm(grads, state.leaves), guard, key=key,
+                  stats=stats)
 
 
 def make_sp_xe_step(model, mesh, label_smoothing: float = 0.0,
@@ -393,6 +401,6 @@ def make_sp_rl_update(model, mesh, chunks: int = 1, guard: bool = False,
                 advantage.reshape(K * B), valid.repeat(K))
             g = torch.autograd.grad(num, params)
         return _finish(state, num, den, g, mesh, reducer, local, guard,
-                       stats, "rl_loss")
+                       stats, "rl_loss", promote=chunks > 1)
 
     return update

@@ -99,7 +99,11 @@ from cst_captioning_tpu_torch.train.schedule import global_norm
 from cst_captioning_tpu_torch.train import multihost
 from cst_captioning_tpu_torch.train.mesh import data_axis, is_seq_grid, mp_row
 from cst_captioning_tpu_torch.train.state import TrainState
-from cst_captioning_tpu_torch.train.steps import _apply, row_sync
+from cst_captioning_tpu_torch.train.steps import (
+    _apply,
+    divide_grads,
+    row_sync,
+)
 
 _M64 = (1 << 64) - 1
 
@@ -353,7 +357,9 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
     """-> update(state, feats, masks, samples [K, B, T], advantage [K, B],
     valid [B]) -> (state, metrics). ``chunks > 1`` accumulates the gradient
     over slices of the rollout axis (the same total gradient up to float
-    summation order). The state's model is updated in place. ``stats``
+    summation order), divided as ``train.steps.divide_grads`` divides (a
+    bfloat16 model's gradients and moments come out float32, as JAX's do
+    there). The state's model is updated in place. ``stats``
     adds the update ratios (``train.steps.update_ratios``); ``row``, the
     ``'mp'`` row this update's ranks replicate (``train.steps.row_sync``)."""
     del model  # the state carries it; kept for the JAX factory's signature
@@ -366,7 +372,7 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
                 model, params, feats, masks, samples, advantage, valid, chunks)
             den = torch.clamp(den, min=1.0)
             loss = num / den
-            grads = [g / den for g in g_sum]
+            grads = divide_grads(g_sum, den)
         else:
             K, B, T = samples.shape
             enc = model.encode(feats, masks)
@@ -377,8 +383,8 @@ def make_rl_update(model, chunks: int = 1, guard: bool = False,
             grads = torch.autograd.grad(loss, params)
             loss = loss.detach()
         grads, loss = row_sync(grads, loss, row)
-        return _apply(state, grads, loss, global_norm(grads), guard,
-                      key="rl_loss", stats=stats)
+        return _apply(state, grads, loss, global_norm(grads, state.leaves),
+                      guard, key="rl_loss", stats=stats)
 
     return update
 
@@ -426,9 +432,9 @@ def make_parallel_rl_update(model, mesh, chunks: int = 1,
         den_t = torch.clamp(den_t, min=1.0)
         if overlap == "off":
             g = reducer(g)
-        grads, loss = row_sync([x / den_t for x in g], num_t / den_t, row)
-        return _apply(state, grads, loss, global_norm(grads), guard,
-                      key="rl_loss", stats=stats)
+        grads, loss = row_sync(divide_grads(g, den_t), num_t / den_t, row)
+        return _apply(state, grads, loss, global_norm(grads, state.leaves),
+                      guard, key="rl_loss", stats=stats)
 
     return update
 

@@ -13,7 +13,7 @@ as the JAX step folds ``state.step`` into its key.
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -27,10 +27,25 @@ class TrainState:
     opt_state: dict
     step: int = 0
     seed: int = 0
+    _leaves: list | None = field(default=None, init=False, repr=False,
+                                 compare=False)
 
     @property
     def params(self) -> list[torch.nn.Parameter]:
         return list(self.model.parameters())
+
+    @property
+    def leaves(self):
+        """The JAX leaves of the parameters (``train.mesh.param_leaves``,
+        found once), which the global norm of a bfloat16 tree sums by;
+        None for float32 parameters, whose norm does not need them."""
+        if all(p.dtype == torch.float32 for p in self.model.parameters()):
+            return None
+        if self._leaves is None:
+            from cst_captioning_tpu_torch.train.mesh import param_leaves
+
+            self._leaves = param_leaves(self.model)
+        return self._leaves
 
     def dropout_generator(self, rank: int = 0) -> torch.Generator:
         """The dropout stream of this step, on the model's device; a
@@ -50,7 +65,7 @@ class TrainState:
     def apply_gradients(self, grads) -> "TrainState":
         params = self.params
         updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                 params)
+                                                 params, self.leaves)
         with torch.no_grad():
             for p, u in zip(params, updates):
                 p.add_(u)
@@ -73,8 +88,13 @@ def guarded_apply_gradients(state: TrainState, grads, loss: torch.Tensor,
     """-> (state, nonfinite): a non-finite loss or grad norm leaves the
     params, the optimizer state and the step untouched (any NaN or inf in a
     gradient makes the global norm non-finite). Reading the two scalars
-    waits for the step's device work."""
+    waits for the step's device work. A skipped update still takes the
+    moments to the dtype the update would have given them, as the JAX
+    guard's select of the old state against the new one does (float32
+    gradients of bfloat16 parameters: ``Optimizer.widen``)."""
     ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
     if ok:
         state.apply_gradients(grads)
+    else:
+        state.opt_state = state.tx.widen(state.opt_state, grads)
     return state, 0.0 if ok else 1.0

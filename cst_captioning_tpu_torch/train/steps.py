@@ -89,6 +89,16 @@ def _apply(state: TrainState, grads, loss, gnorm, guard: bool,
     return state, metrics
 
 
+def divide_grads(grads, den: torch.Tensor) -> list[torch.Tensor]:
+    """``g / den`` for each gradient, in the dtype jnp's promotion gives:
+    the JAX data-parallel and chunked steps divide the summed gradients by
+    a float32 array, so a bfloat16 gradient comes out float32 (optax then
+    widens its Adam moments to float32 from that update on). Torch would
+    keep bfloat16 against a 0-dim ``den``."""
+    return [g.to(torch.promote_types(g.dtype, den.dtype)) / den
+            for g in grads]
+
+
 def _local_loss_sums(state: TrainState, feats, masks, labels, mask,
                      weights, label_smoothing: float, rank: int = 0):
     """(numerator, denominator) of the masked XE on these rows, dropout
@@ -153,8 +163,8 @@ def make_xe_step(model=None, label_smoothing: float = 0.0,
         loss, grads = xe_loss_and_grads(state, feats, masks, labels, mask,
                                         weights, label_smoothing)
         grads, loss = row_sync(grads, loss, row)
-        return _apply(state, grads, loss, global_norm(grads), guard,
-                      stats=stats)
+        return _apply(state, grads, loss, global_norm(grads, state.leaves),
+                      guard, stats=stats)
 
     return step
 
@@ -183,9 +193,9 @@ def make_parallel_xe_step(model, mesh, label_smoothing: float = 0.0,
         grads_num = torch.autograd.grad(num, state.params)
         num_t, den_t = reduce_sums(num, den, mesh)
         den_t = torch.clamp(den_t, min=1.0)
-        grads, loss = row_sync([g / den_t for g in reduce(grads_num)],
+        grads, loss = row_sync(divide_grads(reduce(grads_num), den_t),
                                num_t / den_t, row)
-        return _apply(state, grads, loss, global_norm(grads), guard,
-                      stats=stats)
+        return _apply(state, grads, loss, global_norm(grads, state.leaves),
+                      guard, stats=stats)
 
     return step

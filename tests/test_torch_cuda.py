@@ -29,6 +29,7 @@ Marked ``gpu``: these skip without a CUDA device and run on the H100
 shapes)."""
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1054,3 +1055,183 @@ def test_online_loop_on_the_card(dev):
     # the publish after the flush waits for the service's next stride
     assert 1 <= svc.param_version <= trainer.version
     assert all(np.isfinite(m["rl_loss"]) for m in trainer.history)
+
+
+# ---- bfloat16 parameters ---------------------------------------------------------
+
+
+def _bf16_pair(dev, dtype, seed=11):
+    """(a bf16-param model, a float32-param model holding the same values)
+    at the serving widths, kernels on, computing in ``dtype``."""
+    kw = dict(vocab_size=V, modalities=(("resnet", 20),), d_embed=E,
+              d_hidden=E, d_att=A, encoder="temporal_attention",
+              max_frames=F, max_len=10, dtype=dtype, decode_impl="pallas",
+              attention_impl="pallas", decode_stride=S)
+    torch.manual_seed(seed)
+    f32 = CaptionModel(tcfg.ModelConfig(**kw), device=dev)
+    with torch.no_grad():
+        f32.cell.out_proj.bias[EOS_ID] += 2.0
+    b16 = CaptionModel(tcfg.ModelConfig(**kw, param_dtype="bfloat16"),
+                       device=dev)
+    b16.load_state_dict({k: v.bfloat16() for k, v in
+                         f32.state_dict().items()})
+    f32.load_state_dict(b16.state_dict())
+    return b16.eval(), f32.eval()
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_params_equal_float32_holding_the_same_values(dev, dtype):
+    """Kernels 1-5 read float32-packed weights, so a bf16-param model and
+    a float32 one holding the same values give bitwise equal teacher
+    forcing (kernel 1), sampling (kernel 2), the fused decode (kernel 3),
+    beam search (kernel 5) and a serve (kernel 4)."""
+    from cst_captioning_tpu_torch import ops
+    from cst_captioning_tpu_torch.decoding import (
+        beam_search,
+        fused_decode,
+        sample_decode,
+    )
+    from cst_captioning_tpu_torch.serving import CaptionService
+
+    b16, f32 = _bf16_pair(dev, dtype)
+    g = torch.Generator().manual_seed(3)
+    feats = {"resnet": torch.randn(B, F, 20, generator=g).to(dev)}
+    masks = {"resnet": torch.ones(B, F, device=dev)}
+    labels = torch.randint(3, V, (B, 10), generator=g).to(dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        for run in (lambda m: m(feats, masks, labels),
+                    lambda m: sample_decode(m, feats, masks, seed=1,
+                                            num_rollouts=3),
+                    lambda m: fused_decode(m, feats, masks, seed=2,
+                                           num_rollouts=1),
+                    lambda m: beam_search(m, feats, masks, beam_size=5)):
+            assert _same(run(b16), run(f32))
+    reps = [CaptionService(m, capacity=3, num_rollouts=K, frame_bucket=2,
+                           device=dev).serve(_serving_requests(6, 300))
+            for m in (b16, f32)]
+    for rid, res in reps[0].results.items():
+        assert np.array_equal(res.tokens, reps[1].results[rid].tokens)
+        assert np.array_equal(res.logprobs, reps[1].results[rid].logprobs)
+    assert fused_additive_attention.launches > 0
+    assert fused_decode_step.launches > 0 and fused_beam_step.launches > 0
+    assert fused_decode_stride.launches > 0
+    assert fused_decode_stride_paged.launches > 0
+
+
+def _bf16_step_close(ref, other):
+    """chip_smoke's ``bf16p_step_close``: the loss within 2^-10 and the grad
+    norm within 2^-8 relative; each Adam moment (mu = 0.1 g and nu = 0.001
+    g^2 after one step) with each leaf's element errors within 2^-4 (mu)
+    and 2^-3 (nu) of its largest value, each leaf's relative L2 distance
+    within 2^-4 and 2^-3, the whole tree's within 2^-6 and 2^-5."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    ok = rel(other["loss"], ref["loss"]) <= 2.0 ** -10 and \
+        rel(other["grad_norm"], ref["grad_norm"]) <= 2.0 ** -8
+    for which, m in enumerate(("mu", "nu")):
+        d2 = w2 = 0.0
+        for w, g in zip(ref[m], other[m]):
+            d = (g - w).abs().double()
+            top = max(float(w.abs().max()), 1e-30)
+            ok = ok and float(d.max()) <= 2.0 ** (which - 4) * top
+            ok = ok and float(d.norm()) <= 2.0 ** (which - 4) * float(
+                w.double().norm())
+            d2 += float((d * d).sum())
+            w2 += float((w.double() ** 2).sum())
+        ok = ok and d2 ** 0.5 <= 2.0 ** (which - 6) * w2 ** 0.5
+    return ok
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_xe_step_on_the_card_against_the_cpu(dev, dtype):
+    """One XE step of a bf16-param model (dropout 0) on the card and on
+    the CPU from the same params: params and moments stay bfloat16, and
+    the step is held by what it computed (``_bf16_step_close``: loss,
+    grad norm and the Adam moments, which carry the gradient; Adam's
+    first update is about lr an element whatever the gradient). The same
+    gate refuses the card's step on half of the rows and the card's
+    moments scaled by 1.05."""
+    from cst_captioning_tpu_torch import train as ttrain
+
+    b16, _ = _bf16_pair(dev, dtype)
+    sd = {k: v.cpu() for k, v in b16.state_dict().items()}
+    g = torch.Generator().manual_seed(4)
+    feats = {"resnet": torch.randn(B, F, 20, generator=g)}
+    masks = {"resnet": torch.ones(B, F)}
+    labels = torch.randint(3, V, (B, 10), generator=g)
+    mask = torch.ones(B, 10)
+
+    # dropout 0: the two devices' generators draw other masks
+    cfg = dataclasses.replace(b16.cfg, dropout=0.0)
+
+    def step(d, rows):
+        m = CaptionModel(cfg, device=d)
+        m.load_state_dict(sd)
+        state = ttrain.create_train_state(m, ttrain.make_optimizer(
+            tcfg.TrainConfig(lr=1e-3, grad_clip=5.0), 10))
+        state, met = ttrain.make_xe_step(m, guard=True)(
+            state, {k: x[:rows].to(d) for k, x in feats.items()},
+            {k: x[:rows].to(d) for k, x in masks.items()},
+            labels[:rows].to(d), mask[:rows].to(d),
+            torch.ones(rows, device=d))
+        assert met["nonfinite"] == 0.0
+        assert {t.dtype for t in state.params + state.opt_state["mu"]
+                + state.opt_state["nu"]} == {torch.bfloat16}
+        f32 = lambda ts: [t.detach().float().cpu() for t in ts]  # noqa
+        return dict(loss=met["loss"], grad_norm=met["grad_norm"],
+                    mu=f32(state.opt_state["mu"]),
+                    nu=f32(state.opt_state["nu"]))
+
+    card, cpu = step(dev, B), step(torch.device("cpu"), B)
+    assert _bf16_step_close(cpu, card)
+    assert not _bf16_step_close(cpu, step(dev, B // 2))
+    assert not _bf16_step_close(cpu, dict(
+        card, mu=[t * 1.05 for t in card["mu"]],
+        nu=[t * 1.05 for t in card["nu"]]))
+
+
+def test_bf16_trainer_epochs_and_checkpoint_on_the_card(dev, tmp_path):
+    """An XE and a CST epoch of the Trainer at param_dtype bfloat16 with
+    the kernels on: finite losses, params and moments bfloat16, and the
+    epoch-end checkpoint restoring them bit for bit."""
+    import json
+
+    from cst_captioning_tpu_torch.ckpt.checkpoint import load_state
+    from cst_captioning_tpu_torch.data import (
+        CaptionDataset,
+        make_synthetic_dataset,
+    )
+    from cst_captioning_tpu_torch.presets import get_experiment
+    from cst_captioning_tpu_torch.train.trainer import Trainer
+
+    mods = {"resnet": 40}
+    paths = make_synthetic_dataset(str(tmp_path / "data"), num_videos=24,
+                                   modalities=mods, max_frames=6, seed=3,
+                                   caption_style="template")
+    vocab = len(json.load(open(paths["info_json"]))["vocab"])
+    cfg = get_experiment("msrvtt_cst_consensus").override(
+        model__vocab_size=vocab, model__modalities=tuple(mods.items()),
+        model__d_embed=32, model__d_hidden=32, model__d_att=16,
+        model__max_len=10, model__max_frames=6, model__param_dtype="bfloat16",
+        model__attention_impl="pallas", model__decode_impl="pallas",
+        data__batch_size=8, train__epochs=1, rl__epochs=1,
+        rl__num_rollouts=3, train__ckpt_dir=str(tmp_path / "ck"))
+    ds = {s: CaptionDataset(paths["info_json"], {"resnet": paths["resnet"]},
+                            s, 6) for s in ("train", "val")}
+    tr = Trainer(cfg, ds["train"], ds["val"], device=dev)
+    tr.train_xe()
+    tr.train_rl()
+    st = tr.state
+    assert {t.dtype for t in st.params + st.opt_state["mu"]
+            + st.opt_state["nu"]} == {torch.bfloat16}
+    fresh = Trainer(cfg, ds["train"], ds["val"], device=dev).state
+    back, _ = load_state(str(tmp_path / "ck"), "latest", fresh)
+    for a, b in zip(st.params + st.opt_state["nu"],
+                    back.params + back.opt_state["nu"]):
+        assert _same(a, b)

@@ -313,6 +313,117 @@ def job_steps(rank, world, a):
     return out
 
 
+def _step_record(state, m, key):
+    """A step's result as plain data: the loss and grad norm, the params
+    and Adam moments as float32 arrays, and their dtypes."""
+    import torch  # graftlint: disable=GL006
+
+    f32 = lambda ts: [t.detach().float().numpy().copy()  # noqa: E731
+                      for t in ts]
+    return dict(loss=m[key], grad_norm=m["grad_norm"],
+                params=f32(state.params), mu=f32(state.opt_state["mu"]),
+                nu=f32(state.opt_state["nu"]),
+                pdt={str(p.dtype) for p in state.params},
+                mdt={str(x.dtype) for x in state.opt_state["mu"]
+                     + state.opt_state["nu"]},
+                finite=all(bool(torch.isfinite(t).all())
+                           for t in state.params))
+
+
+def job_bf16_steps(rank, world, a):
+    """A bf16-param model's steps on two ranks, from the same weights:
+    the data-parallel XE step and RL update in each comm spelling (and the
+    RL update at chunks 3, overlapped or not); the sequence-parallel XE
+    step and RL update (chunks 1 and 3) on a (1 x 2) ``('data', 'seq')``
+    grid; the XE step and chunked RL update of a (1 x 2) ``('data',
+    'mp')`` grid, whose row broadcasts the reduced gradients -> per case
+    :func:`_step_record`."""
+    import numpy as np
+    import torch  # graftlint: disable=GL006
+
+    from cst_captioning_tpu_torch.config import ModelConfig, TrainConfig
+    from cst_captioning_tpu_torch.convert import load_flax_params
+    from cst_captioning_tpu_torch.parallel import seq_parallel as sp
+    from cst_captioning_tpu_torch.parallel.comms import CommConfig
+    from cst_captioning_tpu_torch.rl.scst import make_parallel_rl_update
+    from cst_captioning_tpu_torch.train import (
+        create_train_state, make_mesh, make_optimizer, make_parallel_xe_step,
+        shard_batch)
+    from test_torch_sp_child import _sp_inputs
+
+    t = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
+
+    def fresh(model):
+        return create_train_state(model, make_optimizer(
+            TrainConfig(**a["train"]), 10), seed=1)
+
+    def rows(mesh, feats, masks):
+        feats, masks = shard_batch(mesh, (feats, masks))
+        return ({k: t(v) for k, v in feats.items()},
+                {k: t(v) for k, v in masks.items()})
+
+    def batches(mesh, frames=rows):
+        """This rank's XE and RL inputs; ``frames`` shards (feats, masks)
+        (the SP grid's shards the frame axis too)."""
+        feats, masks = frames(mesh, *a["xe"][:2])
+        labels, mask, weights = shard_batch(mesh, a["xe"][2:])
+        xe = (feats, masks, t(labels).long(), t(mask), t(weights))
+        rf, rm = frames(mesh, a["rl"]["feats"], a["rl"]["masks"])
+        samples, adv = shard_batch(
+            mesh, (a["rl"]["samples"], a["rl"]["adv"]), dim=1)
+        return xe, (rf, rm, t(samples).long(), t(adv),
+                    t(shard_batch(mesh, a["rl"]["valid"])))
+
+    out = {}
+    mesh = make_mesh(device="cpu")
+    xe, rl = batches(mesh)
+    cases = [("xe_none", "xe", None, 1), ("xe_f32", "xe", CommConfig(), 1),
+             ("xe_bf16", "xe", CommConfig(dtype="bf16"), 1),
+             ("rl_none", "rl", None, 1), ("rl_f32", "rl", CommConfig(), 1),
+             ("rl_bf16", "rl", CommConfig(dtype="bf16"), 1),
+             ("rl_c3", "rl", CommConfig(), 3),
+             ("rl_c3_eager", "rl", CommConfig(overlap="eager"), 3),
+             ("rl_c3_defer", "rl", CommConfig(overlap="defer"), 3)]
+    for key, kind, comm, chunks in cases:
+        model = _small_model(a)
+        if kind == "xe":
+            step = make_parallel_xe_step(model, mesh, comm=comm)
+            state, m = step(fresh(model), *xe)
+        else:
+            upd = make_parallel_rl_update(model, mesh, chunks=chunks,
+                                          comm=comm)
+            state, m = upd(fresh(model), *rl)
+        out[key] = _step_record(state, m, "loss" if kind == "xe"
+                                else "rl_loss")
+
+    grid = make_mesh(seq_devices=2, device="cpu")
+    xe, rl = batches(grid, _sp_inputs)
+    for key, chunks in (("sp_xe", 0), ("sp_rl1", 1), ("sp_rl3", 3)):
+        model = load_flax_params(sp.sp_model(ModelConfig(**a["model"]),
+                                             grid, device="cpu"),
+                                 a["params"])
+        if chunks == 0:
+            state, m = sp.make_sp_xe_step(model, grid)(fresh(model), *xe)
+        else:
+            state, m = sp.make_sp_rl_update(model, grid, chunks=chunks)(
+                fresh(model), *rl)
+        out[key] = _step_record(state, m, "loss" if chunks == 0
+                                else "rl_loss")
+
+    grid = make_mesh(mp_devices=2, device="cpu")
+    xe, rl = batches(grid)
+    model = _small_model(a)
+    state, m = make_parallel_xe_step(model, grid.data, row=grid.mp)(
+        fresh(model), *xe)
+    out["mp_xe"] = _step_record(state, m, "loss")
+    model = _small_model(a)
+    state, m = make_parallel_rl_update(model, grid.data, chunks=3,
+                                       comm=CommConfig(), row=grid.mp)(
+        fresh(model), *rl)
+    out["mp_rl3"] = _step_record(state, m, "rl_loss")
+    return out
+
+
 def _port_trainer(a, rank, ckpt_dir, **extra):
     from cst_captioning_tpu_torch.data import CaptionDataset
     from cst_captioning_tpu_torch.presets import get_experiment
