@@ -265,9 +265,10 @@ failed.
    kernel 2), the SCST fused decode (K=1, kernel 3), 16 requests of the
    serve burst (capacity 32, K=2, S=8, kernel 4) and beam-5 of 8 clips
    (kernel 5); every kernel launched. (b) Kernels 1-5 against their
-   plain versions on the bf16 model's packed weights, at phase 2's
-   tolerances (bfloat16 banks). (c) Three XE steps and one CST step at
-   bf16 params: finite, params and Adam moments bfloat16; one XE step
+   plain versions on the bf16 model's packed weights (bfloat16), at
+   phase 2's shapes and tolerances (bfloat16 banks). (c) Three XE steps
+   and one CST step at bf16 params: finite, params and Adam moments
+   bfloat16; one XE step
    (16 clips, dropout 0) on the card and by the port on the CPU from the
    same bf16 params, at each compute dtype, held by what the step
    computed (``bf16p_step_close``): the loss within 2^-10 and the grad
@@ -280,10 +281,23 @@ failed.
    the card's moments scaled by 1.05. The bitwise shares of params and
    moments are reported. (d) Parameter and Adam-moment bytes
    (numel x element size) exactly half the float32 state's; a save and
-   restore of the bf16 state bitwise, both files' sizes reported. Also
-   reported: ``stride_weights`` ms a pack from bf16 and float32
-   parameters (once a decode in training, once a version in serving),
-   the phase's seconds.
+   restore of the bf16 state bitwise, both files' sizes reported. (e)
+   Kernels 2-5 read the bf16 model's weight pack in bfloat16 and widen
+   it in the kernel, as the TPU kernels do: at phase 2's shapes (serve
+   capacity 32, K=2, S=8, dense and paged; SCST B=64, K=1; the decode
+   step at G=5 and G=1; the beam step at W=5, B=64) each launched on the
+   bf16 pack and on the float32 pack of the same values (the float32
+   model's), outputs bitwise equal (tokens, logprobs, logits, carry,
+   beam scores and flat ids); the bf16 pack exactly half the float32
+   pack's bytes; kernels 2-5 launched on a bf16 pack on (a)'s and (c)'s
+   paths (``bf16_pack_launches``, also in the kernels line). Also
+   reported: each of those calls' CUDA-event ms (in turns, each pack
+   beside the other) and device ms (``queued_device_ms``: 10 calls
+   queued behind a sleep kernel) with each pack,
+   ``torch.cuda.max_memory_allocated`` over one greedy decode of the 64
+   clips by each model, ``stride_weights`` ms a pack from bf16 and
+   float32 parameters (once a decode in training, once a version in
+   serving), the phase's seconds.
 7. profile: device time by kernel over one more serve, one more CST step
    and one beam-5 search of 64 clips, from torch.profiler, and the
    device's idle share.
@@ -525,7 +539,9 @@ failed.
    beam's shapes, mp 2 and 4). Planted faults at mp 2, each of which
    must fail its gate: the argmax merge given local indices, the
    embedding rows not summed, the top-W merge breaking ties to the
-   higher flat id. (b) On the data_parallel phase's corpus and start
+   higher flat id. (b) On the data_parallel phase's corpus, its train
+   split cut to its first 192 clips (``MP_EPOCH_CLIPS``: epochs of 3
+   steps, not 6, to keep the script inside its time limit), and start
    weights (``dp_schedule``, dropout 0.5, deterministic algorithms on):
    an XE epoch with greedy validation, a CST epoch, a split RL epoch
    and beam-5 of the 64 val clips at each compute dtype, on two
@@ -640,6 +656,7 @@ from cst_captioning_tpu_torch.ops.decode_step import (
 )
 from cst_captioning_tpu_torch.parallel import CommConfig
 from cst_captioning_tpu_torch.ops.decode_stride import (
+    PACK_FIELDS,
     decode_stride_plain,
     fused_decode_stride,
     fused_decode_stride_paged,
@@ -1232,25 +1249,49 @@ def cold_copies(x, total=2 * L2_BYTES) -> list:
             for _ in range(int(total // nbytes) + 2)]
 
 
-def attention_device_ms(fn, reps: int = 10) -> float:
-    """Device ms a call of ``fn`` spends in the attention kernel, from
-    torch.profiler over ``reps`` calls after a warm-up; the kernel must
-    appear once a call."""
+PROFILE_TRIES = 3   # whole traces taken before a launch count is judged
+
+
+def profile_calls(fn, reps: int, complete) -> list:
+    """torch.profiler's ``key_averages()`` over ``reps`` calls of ``fn``
+    after a warm-up, traced again (at most PROFILE_TRIES times in all)
+    while ``complete(events)`` says the trace missed launches: on the
+    card the tracer has dropped some or all of a trace's kernel records
+    (0 to 3 of 10 calls' kernels, in a whole run late or early). The
+    caller then checks the last trace's counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms, count = 0.0, 0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") \
-                and "additive_attention_kernel" in e.key:
-            ms += e.self_device_time_total / 1e3
-            count += e.count
+    for i in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if complete(events):
+            break
+        print(f"chip_smoke: torch.profiler missed launches in trace {i + 1}"
+              f" of {PROFILE_TRIES}", file=sys.stderr, flush=True)
+    return events
+
+
+def attention_device_ms(fn, reps: int = 10) -> float:
+    """Device ms a call of ``fn`` spends in the attention kernel, from
+    torch.profiler over ``reps`` calls after a warm-up (``profile_calls``);
+    the kernel must appear once a call."""
+    def seen(events):
+        ms, count = 0.0, 0
+        for e in events:
+            if str(e.device_type).endswith("CUDA") \
+                    and "additive_attention_kernel" in e.key:
+                ms += e.self_device_time_total / 1e3
+                count += e.count
+        return ms, count
+
+    ms, count = seen(profile_calls(fn, reps,
+                                   lambda ev: seen(ev)[1] == reps))
     check(count == reps, f"attention launches seen by the profiler {count}, "
           f"expected {reps}")
     return ms / reps
@@ -3184,35 +3225,32 @@ def step_phases(fn, layers: int, beam: bool, reps: int = 10) -> dict:
     beam-step) kernel spends in each of its launches, from torch.profiler
     over ``reps`` calls of ``fn`` after a warm-up; ``total`` is their sum
     and ``other`` the wrapper's own device work (casts) beside them. Each
-    launch must appear as often as the step runs it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    launch must appear as often as the step runs it (``profile_calls``)."""
     want = {"q": 1, "attend": 1, "gates": layers, "cell": layers,
             "logits": 1, **({"merge": 1} if beam else {})}
-    ms = dict.fromkeys(want, 0.0)
-    count = dict.fromkeys(want, 0)
-    other = 0.0
-    for e in prof.key_averages():
-        if not (str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0):
-            continue
-        phase = next((v for k, v in STEP_LAUNCHES.items() if k in e.key),
-                     None)
-        if phase is None:
-            other += e.self_device_time_total / 1e3 / reps
-            continue
-        ms[phase] += e.self_device_time_total / 1e3 / reps
-        count[phase] += e.count
-    check(count == {k: n * reps for k, n in want.items()},
-          f"step launches seen by the profiler {count}, expected "
-          f"{want} x {reps}")
+    want = {k: n * reps for k, n in want.items()}
+
+    def seen(events):
+        ms = dict.fromkeys(want, 0.0)
+        count = dict.fromkeys(want, 0)
+        other = 0.0
+        for e in events:
+            if not (str(e.device_type).endswith("CUDA")
+                    and e.self_device_time_total > 0):
+                continue
+            phase = next((v for k, v in STEP_LAUNCHES.items()
+                          if k in e.key), None)
+            if phase is None:
+                other += e.self_device_time_total / 1e3 / reps
+                continue
+            ms[phase] += e.self_device_time_total / 1e3 / reps
+            count[phase] += e.count
+        return ms, count, other
+
+    ms, count, other = seen(profile_calls(
+        fn, reps, lambda ev: seen(ev)[1] == want))
+    check(count == want, f"step launches seen by the profiler {count}, "
+          f"expected {want}")
     return {**ms, "total": sum(ms.values()), "other": other}
 
 
@@ -7545,13 +7583,32 @@ def mp_gate_decode(mp: int, rank: dict, ref: dict) -> dict:
     return read
 
 
+MP_EPOCH_CLIPS = 3 * TRAIN_B   # part (b)'s train clips: 3 steps an epoch
+
+
+def epoch_corpus(data: dict, root: str, n_train: int) -> dict:
+    """``data`` with its train split cut to its first ``n_train`` clips
+    (a new info json under ``root``; val and test whole)."""
+    info = json.load(open(data["info_json"]))
+    train = [v for v in info["videos"] if v["split"] == "train"]
+    keep = {v["id"] for v in train[:n_train]}
+    path = os.path.join(root, f"info_train{n_train}.json")
+    with open(path, "w") as f:
+        json.dump(dict(info, videos=[v for v in info["videos"]
+                                     if v["split"] != "train"
+                                     or v["id"] in keep]), f)
+    return dict(data, info_json=path)
+
+
 def model_parallel_phase(root: str, data: dict, start: dict, smi: str
                          ) -> tuple[dict, dict]:
     """Model parallelism (module docstring, 8h) on the data_parallel
-    phase's corpus and start weights -> (its line, the launches of its
-    runs)."""
+    phase's corpus, its train split cut to MP_EPOCH_CLIPS, and start
+    weights -> (its line, the launches of its runs)."""
     try:
-        return _model_parallel(root, data, start, smi)
+        return _model_parallel(root, epoch_corpus(data, root,
+                                                  MP_EPOCH_CLIPS),
+                               start, smi)
     finally:
         tobs.shutdown()
 
@@ -7925,20 +7982,148 @@ def bf16p_paths(b16, f32, tcfg, corpus, reqs) -> dict:
     return out
 
 
-def bf16p_kernels(b16, corpus, dev) -> dict:
+def bf16p_inputs(b16, corpus, dev) -> dict:
+    """Kernels 2-5's inputs at phase 2's shapes on the bf16 model (its
+    bf16 weight pack in ``w``): the serve stride (capacity 32, K=2, S=8;
+    dense and paged), the SCST stride (B=64, K=1), the decode step at G=5
+    and G=1, the beam step (W=5, B=64)."""
+    serve = stride_inputs(b16, dev, True)
+    return {"fused_decode_stride": serve, "fused_decode_stride_paged": serve,
+            "fused_decode_stride_scst": stride_inputs(b16, dev, True, seed=6,
+                                                      B=TRAIN_B, K=1),
+            "fused_decode_step": step_inputs(b16, corpus, True),
+            "fused_decode_step_g1": step_inputs(b16, corpus, True, G=1),
+            "fused_beam_step": beam_inputs(b16, corpus, True, 3, 0)}
+
+
+def bf16p_kernels(b16, corpus, xs) -> dict:
     """Phase 6g (b): kernels 1-5 against their plain versions on the bf16
-    model's packed weights, at phase 2's tolerances -> largest errors."""
+    model's bf16 weight pack, at phase 2's shapes and tolerances ->
+    largest errors."""
     err = {}
-    for name in KERNELS:
-        err[name] = compare(name, b16, stride_inputs(b16, dev, True))[
-            "max_abs_err"]
+    for key, x in xs.items():
+        name = key.replace("_scst", "").replace("_g1", "")
+        if name == "fused_decode_step":
+            res = compare_step(b16, x)
+        elif name == "fused_beam_step":
+            res = compare_beam(b16, x)
+        else:
+            res = compare(name, b16, x)
+        err[name] = max(err.get(name, 0.0), res["max_abs_err"])
     err["fused_additive_attention"] = compare_attention(attention_inputs(
         b16, corpus, torch.bfloat16, TRAIN_B))["max_abs_err"]
-    err["fused_decode_step"] = compare_step(
-        b16, step_inputs(b16, corpus, True))["max_abs_err"]
-    err["fused_beam_step"] = compare_beam(
-        b16, beam_inputs(b16, corpus, True, 3, 0))["max_abs_err"]
     return err
+
+
+BF16P_KERNELS = ("fused_decode_step", "fused_decode_stride",
+                 "fused_decode_stride_paged", "fused_beam_step")
+
+
+def pack_bytes(w) -> int:
+    return sum(getattr(w, n).numel() * getattr(w, n).element_size()
+               for n in PACK_FIELDS)
+
+
+QUEUE_SLEEP_CYCLES = 100_000_000   # about 50 ms of the card's clock
+
+
+def queued_device_ms(fn, reps: int = 10) -> float:
+    """Device ms a call of ``fn`` takes: CUDA events around ``reps`` calls
+    queued behind a sleep kernel, so the host's launch time stays off the
+    device's timeline (the wrapper's own device work, a gather or a cast,
+    included). The calls must be queued before the sleep ends. Late in the
+    whole script torch.profiler lost a share of these calls' launches."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    check(host_ms < ev[0].elapsed_time(ev[1]),
+          f"queued_device_ms: the calls took {host_ms:.1f} ms to queue, "
+          "longer than the sleep ahead of them")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def bf16p_runner(key: str, model, x, w):
+    """-> (a call of ``key``'s kernel on ``x`` with the pack ``w`` that
+    returns every output, a step's or beam step's carry stepped on a fresh
+    stack so calls are independent; the call phase 2 times, which steps
+    ``x``'s own stack in place)."""
+    xw = dict(x, w=w)
+    if "stride" in key:
+        name = key.replace("_scst", "")
+        run = lambda: run_kernel(name, model, xw)  # noqa: E731
+        return run, run
+    step = run_beam_kernel if "beam" in key else run_step_kernel
+
+    def fresh():
+        state = stack_carry(x["carry"])
+        return step(model, xw, state), state
+    return fresh, lambda: step(model, xw)
+
+
+def bf16p_weight_packs(b16, f32, xs, corpus, smi: str) -> dict:
+    """Phase 6g (e): kernels 2-5 on the bf16 model's bf16 weight pack and
+    on the float32 pack of the same values (the float32 model's), at
+    phase 2's shapes: bitwise equal outputs; event ms in turns (each pack
+    beside the other) and device ms (``queued_device_ms``); the packs'
+    bytes; the peak memory of
+    one greedy decode (G=1, the 64 clips) of each model."""
+    from cst_captioning_tpu_torch.decoding import greedy_decode
+
+    wb, wf = stride_weights(b16.cell), stride_weights(f32.cell)
+    check(wb.dtype == torch.bfloat16 and wf.dtype == torch.float32
+          and all(torch.equal(getattr(wb, n).float(), getattr(wf, n))
+                  for n in PACK_FIELDS),
+          "param_bf16 (e): the packs are not bf16 and its float32 values")
+    nb, nf = pack_bytes(wb), pack_bytes(wf)
+    check(2 * nb == nf, f"param_bf16 (e): pack bytes {nb} bf16, {nf} f32")
+    out = {"pack_bytes": {"bfloat16": nb, "float32": nf}, "bitwise": {}}
+    timed = {}
+    for key, x in xs.items():
+        (rb, tb), (rf, tf) = (bf16p_runner(key, b16, x, w) for w in (wb, wf))
+        same = bf16p_equal(rb(), rf())
+        out["bitwise"][key] = same
+        check(same, f"param_bf16 (e): {key} on the bf16 pack differs from "
+              "the float32 pack's")
+        timed[key] = (tb, tf)
+    times = time_in_turns(timed)
+    for key, fns in timed.items():
+        dev_ms = [queued_device_ms(t) for t in fns]
+        out[key] = {"bf16_pack_ms": times[key][0],
+                    "f32_pack_ms": times[key][1],
+                    "bf16_pack_device_ms": dev_ms[0],
+                    "f32_pack_device_ms": dev_ms[1]}
+    peak = {}
+    for dtype, m in (("bfloat16", b16), ("float32", f32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            greedy_decode(m, corpus["feats"], corpus["masks"])
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        peak[dtype] = {"peak_bytes": top, "above_start_bytes": top - start}
+    out["greedy_max_memory_allocated"] = peak
+    out["nvidia_smi"] = smi
+    return out
+
+
+def bf16p_launches() -> dict:
+    """Kernels 2-5's launches on a bf16 weight pack since the last
+    reset."""
+    return {"fused_decode_step": fused_decode_step.launches_bf16,
+            "fused_decode_stride": fused_decode_stride.launches_bf16,
+            "fused_decode_stride_paged":
+                fused_decode_stride_paged.launches_bf16,
+            "fused_beam_step": fused_beam_step.launches_bf16}
 
 
 def bf16p_bytes(state) -> int:
@@ -8067,18 +8252,25 @@ def param_bf16_phase(tcfg, corpus, reqs, smi: str) -> tuple[dict, dict]:
     line = {"phase": "param_bf16", "preset": tcfg.name}
     tree = train_tree(tcfg.model, corpus)
     launched = {k: 0 for k in SOURCE}
+    launched_bf16 = {k: 0 for k in BF16P_KERNELS}
     for dtype in ("bfloat16", "float32"):
         mc = dataclasses.replace(tcfg.model, dtype=dtype)
         b16, f32 = bf16p_models(mc, tree, dev)
         check({p.dtype for p in b16.parameters()} == {torch.bfloat16},
               "param_bf16: the bf16 model has other parameter dtypes")
         if dtype == "bfloat16":
-            line["kernel_max_abs_err"] = bf16p_kernels(b16, corpus, dev)
+            xs = bf16p_inputs(b16, corpus, dev)
+            line["kernel_max_abs_err"] = bf16p_kernels(b16, corpus, xs)
+            line["weight_packs"] = bf16p_weight_packs(b16, f32, xs, corpus,
+                                                      smi)
             line["pack_ms"] = bf16p_pack_ms(b16, f32)
+            del xs
         ops.reset_launches()
         same = bf16p_paths(b16, f32, tcfg, corpus, reqs)
         for k, v in all_launches().items():
             launched[k] += v
+        for k, v in bf16p_launches().items():
+            launched_bf16[k] += v
         line[f"bitwise_{dtype}"] = same
         check(all(same.values()), f"param_bf16 (a) at {dtype} compute: "
               f"bf16 and float32 params differ on {same}")
@@ -8118,6 +8310,10 @@ def param_bf16_phase(tcfg, corpus, reqs, smi: str) -> tuple[dict, dict]:
           f"param_bf16 (c): CST step {cm}")
     for k, v in all_launches().items():
         launched[k] += v
+    for k, v in bf16p_launches().items():
+        launched_bf16[k] += v
+    check(all(v > 0 for v in launched_bf16.values()),
+          f"param_bf16: a kernel never ran on a bf16 pack: {launched_bf16}")
     for st in (state, rl_state):
         kinds = {t.dtype for t in st.params + st.opt_state["mu"]
                  + st.opt_state["nu"]}
@@ -8157,7 +8353,8 @@ def param_bf16_phase(tcfg, corpus, reqs, smi: str) -> tuple[dict, dict]:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     line.update(
-        launches=launched, xe_losses=xe_losses, cst_rl_loss=cm["rl_loss"],
+        launches=launched, bf16_pack_launches=launched_bf16,
+        xe_losses=xe_losses, cst_rl_loss=cm["rl_loss"],
         cst_grad_norm=cm["grad_norm"], xe_vs_cpu=cpu,
         param_moment_bytes={"bfloat16": nb, "float32": nf},
         ckpt_bytes=size, ckpt_round_trip_bitwise=ok,
@@ -8507,6 +8704,13 @@ def main(argv: list[str]) -> int:
     emit(bf16p)
     for k, v in bf16p["kernel_max_abs_err"].items():
         record(k, {"max_abs_err": v})
+    # kernels 2-5 on the bf16 weight pack: their launches on phase 6g's
+    # paths, and each phase-2 shape's times beside the float32 pack's
+    for k in BF16P_KERNELS:
+        kernels[k]["bf16_pack_launches"] = bf16p["bf16_pack_launches"][k]
+        kernels[k]["bf16_pack"] = {
+            key: v for key, v in bf16p["weight_packs"].items()
+            if key in (k, k + "_scst", k + "_g1")}
 
     # launches of each kernel on the paths it runs on, each path counted
     # from 0 just before it

@@ -94,7 +94,7 @@ def lane_decode_step(model, carry, token, enc, weights=None):
     Every lane reads the same encoder output; ``carry`` is the loop's carry
     from :func:`lane_carry`. ``decode_impl == "pallas"`` calls
     ``ops.decode_step.fused_decode_step_`` (the decode-step kernel on the
-    GPU; ``weights`` are its packed float32 weights), which steps the carry
+    GPU; ``weights`` are its packed weights), which steps the carry
     in place, rounded to the encoder carry's dtype; ``"xla"`` steps the cell
     module lane by lane."""
     if model.cfg.decode_impl == "pallas":

@@ -167,7 +167,7 @@ def fused_decode(model, feats, masks, seed: int = 0, num_rollouts: int = 1,
         noise_fn = rollout_noise(seed, K, B, cfg.vocab_size,
                                  enc.memory.device, row_offset)
     draw = lambda t: noise_fn(min(t, T - 1))  # noqa: E731
-    # the kernels' float32 weights, packed once for the whole decode
+    # the kernels' weights (the parameters' dtype), packed once a decode
     weights = stride_weights(model.cell) if cfg.decode_impl == "pallas" \
         else None
     if S == 1:

@@ -50,7 +50,7 @@ def sample_decode(model, feats, masks, seed: int = 0, num_rollouts: int = 1,
     if noise_fn is None:
         noise_fn = rollout_noise(seed, K, B, cfg.vocab_size,
                                  enc.memory.device, row_offset)
-    # the kernel's float32 weights, packed once for the whole loop
+    # the kernel's weights (the parameters' dtype), packed once for the loop
     weights = stride_weights(model.cell) if cfg.decode_impl == "pallas" \
         else None
 

@@ -23,11 +23,11 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     _decode_stride.reset_launches()
     fused_additive_attention.launches = 0
-    fused_decode_step.launches = 0
-    fused_beam_step.launches = 0
+    for fn in (fused_decode_step, fused_beam_step):
+        fn.launches = fn.launches_bf16 = 0
 
 
 __all__ = [

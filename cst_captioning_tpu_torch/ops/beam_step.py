@@ -23,7 +23,8 @@ carry kept as one float32 tensor [2, L, W, B, H] and updated in place.
 On CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/beam_step.cu`` (the step's launches from ``csrc/step.cuh``, then a
 merge; built by ``ops/build.py``) and count the launch in
-``fused_beam_step.launches``; on CPU tensors they run
+``fused_beam_step.launches`` (those on a bfloat16 pack in
+``launches_bf16`` too); on CPU tensors they run
 :func:`beam_step_plain`. The kernel writes no logits: its logits GEMM
 leaves per-tile selection partials in a workspace
 (:func:`beam_workspace`) that a merge launch reduces. Nothing falls back:
@@ -170,6 +171,7 @@ def _launch(w: StrideWeights, state, emb, finished, scores, mem, proj, mask,
         msg = lib.beam_step_error_string(rc).decode()
         raise RuntimeError(f"beam_step launch failed: {msg} (cudaError {rc})")
     fused_beam_step.launches += 1
+    fused_beam_step.launches_bf16 += int(w.dtype == torch.bfloat16)
     return top_scores, top_flat
 
 
@@ -233,4 +235,4 @@ def fused_beam_step_(cell, state, token, finished, scores, memory,
                    memory_mask, carry_dtype, t, min_len, logits)
 
 
-fused_beam_step.launches = 0
+fused_beam_step.launches = fused_beam_step.launches_bf16 = 0

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles, on first use, into a shared library with
 a plain C interface under ``ops/_build/`` (git-ignored), named by a hash of
-the source, the shared headers (``csrc/*.cuh``) and the flags so an edited
-source or header rebuilds. No PyTorch headers
+every source under ``csrc/`` (a ``.cu`` may include another) and the flags
+so an edited source or header rebuilds. No PyTorch headers
 are involved, so a build takes seconds. A failed build raises with the
 compiler's output. Each build feeds ``jit.compiles`` and
 ``jit.compile_seconds`` (``obs.metrics.record_compile``; with builds
@@ -47,7 +47,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cu*")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -24,8 +24,9 @@
 //
 // Bound: at W=5, B=64 and the msrvtt width the step does about 5.1 GFLOP
 // of float32 multiply-adds (Wx, Wh, Wo and Wq for 320 lane rows) against
-// about 37 MB of weights and bank: the card's float32 rate bounds it,
-// 0.076 ms at 67 TFLOP/s; the memory bound is 0.011 ms at 3.35 TB/s.
+// about 37 MB of float32 weights and bank (21 MB with the bfloat16 weights
+// of a bfloat16 model): the card's float32 rate bounds it, 0.076 ms at 67
+// TFLOP/s; the memory bound is 0.011 ms at 3.35 TB/s.
 //
 // Design: the decode step's launches (step.cuh, shared with decode_step.cu:
 // split-K row-GEMM tiles for q and the gates, the attention a block a row,

@@ -9,8 +9,9 @@
 //
 // Bound: at G=5, B=64 and the msrvtt width the step does about 5.1 GFLOP
 // of float32 multiply-adds (Wx, Wh and Wo dominate) and moves about 50 MB
-// (float32 weights 31.6 MB, logits 11.5 MB, bank 5.5 MB): the card's
-// float32 rate bounds it (0.076 ms at 67 TFLOP/s), not its memory. These
+// (float32 weights 31.6 MB, 15.8 MB as the bfloat16 weights of a bfloat16
+// model; logits 11.5 MB, bank 5.5 MB): the card's float32 rate bounds it
+// (0.076 ms at 67 TFLOP/s), not its memory. These
 // GEMMs run on the CUDA cores in full float32, as the plain version does
 // with TF32 off; the tensor cores would need TF32 or bf16 rounding.
 //

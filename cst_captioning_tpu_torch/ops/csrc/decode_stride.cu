@@ -19,13 +19,18 @@
 // frozen, as the TPU kernel freezes a dead block's carry); rows b >= n_active
 // emit PAD/0 for every step and pass their carry through. Argmax ties go to
 // the lowest token id, across column tiles too. All arithmetic is float32;
-// the carry stays float32 for the whole stride.
+// the carry stays float32 for the whole stride. The decoder weights and
+// the embedding table are float32, or bfloat16 with weights_bf16 (the
+// model's parameter dtype, as the TPU kernels take them): each is widened
+// to float32 where it is read (rowgemm.cuh), so a launch on bfloat16
+// weights gives, bit for bit, the launch on their float32 values.
 //
 // Bound: per step and live (row, lane) the decoder's weights (Wq, Wx, Wh,
-// Wo: 7.88 M float32 at the msrvtt presets) take about two operations
-// each, so the card's float32 rate bounds a stride, not its memory
-// (chip_smoke.bound_ms counts both). The weights are 31.5 MB: read once a
-// step for all rows they fit in the 50 MB L2; read once per row they do not.
+// Wo: 7.88 M at the msrvtt presets) take about two operations each, so
+// the card's float32 rate bounds a stride, not its memory
+// (chip_smoke.bound_ms counts both). The weights are 31.5 MB in float32,
+// 15.8 MB in bfloat16: read once a step for all rows they fit in the 50 MB
+// L2; read once per row they do not.
 //
 // Design: one persistent cooperative grid (occupancy x SMs blocks, all
 // co-resident) walks the S steps in lockstep, with grid-wide barriers
@@ -48,7 +53,10 @@
 // rebuilds the same list of live rows after every barrier, so finished rows
 // cost nothing and the stride ends early, for the whole grid at once, when
 // no row is live. Sums run in an order fixed by the shapes alone, so the
-// dense and paged entries, and any grid size, give the same bits. The
+// dense and paged entries, and any grid size, give the same bits. This
+// file builds the float32-weight kernels; decode_stride_bf16.cu (this
+// file with DECODE_STRIDE_BF16_WEIGHTS defined) the bfloat16-weight ones,
+// a library of its own, so the two builds run side by side. The
 // workspace comes from the caller (sizes: stride_workspace in
 // ops/decode_stride.py, checked here). A card that refuses the cooperative
 // launch returns its error; nothing falls back. Given a timeline buffer,
@@ -73,16 +81,17 @@ struct StrideArgs {
   const void* proj;
   const float* mask;
   const int* table;
-  // decoder weights, float32, [in, out] layouts
-  const float* wq;      // [H, A]
-  const float* bq;      // [A]
-  const float* v;       // [A]
-  const float* wx;      // layer 0 [E + Em, 4H], then layers 1.. [H, 4H]
-  const float* wh;      // [L, H, 4H]
-  const float* bg;      // [L, 4H]
-  const float* wo;      // [H, V]
-  const float* bo;      // [V]
-  const float* embt;    // [V, E]
+  // decoder weights, [in, out] layouts: float32, or bfloat16 with
+  // weights_bf16
+  const void* wq;       // [H, A]
+  const void* bq;       // [A]
+  const void* v;        // [A]
+  const void* wx;       // layer 0 [E + Em, 4H], then layers 1.. [H, 4H]
+  const void* wh;       // [L, H, 4H]
+  const void* bg;       // [L, 4H]
+  const void* wo;       // [H, V]
+  const void* bo;       // [V]
+  const void* embt;     // [V, E]
   // lane state
   const int* token;     // [G, B]
   const int* finished;  // [G, B]
@@ -96,6 +105,7 @@ struct StrideArgs {
   float* c_out;         // [L, G, B, H]
   float* h_out;         // [L, G, B, H]
   int bank_bf16;        // 1: mem/proj are bfloat16, 0: float32
+  int weights_bf16;     // 1: the weights above are bfloat16, 0: float32
   int slots;            // dense: M; paged: page size P
   int width;            // paged: table width in pages; dense: unused
   int G, B, S, V, E, Em, A, H, L;
@@ -137,6 +147,7 @@ using attend::kNeg;
 using attend::sigmoid_f32;
 using attend::to_f32;
 using attend::warp_sum;
+using rowgemm::weight;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -307,6 +318,7 @@ __device__ __forceinline__ int job_slices(const Job& j) {
 }
 
 // Selection epilogue: this tile's partials for each of its rows.
+template <typename WT>
 __device__ __forceinline__ void select_epilogue(
     const StrideArgs& p, const Workspace& ws, const Dims& d, int step,
     int tile, int n0, const int* rows, int n_rows, float (&acc)[kTM][4]) {
@@ -333,7 +345,7 @@ __device__ __forceinline__ void select_epilogue(
     for (int j = 0; j < 4; ++j) {
       const int vv = n0 + tx * 4 + j;
       if (ok && vv < p.V) {
-        float lg = acc[i][j] + p.bo[vv];
+        float lg = acc[i][j] + weight<WT>(p.bo, vv);
         if (vv == kPad || vv == kBos || (eos_blocked && vv == kEos)) lg = kNeg;
         lse_merge(lm, ls, lg, 1.0f);
         const float sel = nz ? lg / p.temperature + nz[vv] : lg;
@@ -355,7 +367,8 @@ __device__ __forceinline__ void select_epilogue(
 }
 
 // The tiles of up to two jobs, spread over the grid: (column tile, row
-// chunk, k slice) each.
+// chunk, k slice) each; weights of type WT.
+template <typename WT>
 __device__ void gemm_phase(const StrideArgs& p, const Workspace& ws,
                            const Dims& d, const Job* jobs, int n_jobs,
                            const int* live, int n_live, float* smem,
@@ -386,9 +399,9 @@ __device__ void gemm_phase(const StrideArgs& p, const Workspace& ws,
     const int n_rows = min(Tile::BM, n_live - rc * Tile::BM);
     const int n0 = ct * rowgemm::BN;
     float acc[kTM][4];
-    Tile::run(job.seg, kb, ke, job.N, n0, rows, n_rows, smem, acc);
+    Tile::run<WT>(job.seg, kb, ke, job.N, n0, rows, n_rows, smem, acc);
     if (job.out == nullptr) {
-      select_epilogue(p, ws, d, step, ct, n0, rows, n_rows, acc);
+      select_epilogue<WT>(p, ws, d, step, ct, n0, rows, n_rows, acc);
       continue;
     }
     float* out = job.out + (size_t)slice * d.R * job.N;
@@ -459,7 +472,7 @@ __device__ int select_row(const StrideArgs& p, const Workspace& ws,
 }
 
 // One row's attention for the step: x[r] = (emb of tok | ctx).
-template <class Bank>
+template <class Bank, typename WT>
 __device__ void attend_row(const StrideArgs& p, const Bank& bank,
                            const Workspace& ws, const Dims& d, int r, int tok,
                            float* smem) {
@@ -473,9 +486,11 @@ __device__ void attend_row(const StrideArgs& p, const Bank& bank,
   float* att = q + A;                              // [W]
   int* slot_of = reinterpret_cast<int*>(att + W);  // [W]
   float* xr = ws.x + (size_t)r * (E + Em);
-  for (int e = tid; e < E; e += kThreads) xr[e] = p.embt[(size_t)tok * E + e];
+  for (int e = tid; e < E; e += kThreads) {
+    xr[e] = weight<WT>(p.embt, (size_t)tok * E + e);
+  }
   for (int a = tid; a < A; a += kThreads) {
-    float acc = p.bq[a];
+    float acc = weight<WT>(p.bq, a);
     for (int k = 0; k < d.ksq; ++k) {
       acc += __ldcg(ws.qpart + ((size_t)k * d.R + r) * A + a);
     }
@@ -493,7 +508,8 @@ __device__ void attend_row(const StrideArgs& p, const Bank& bank,
     if (m < len) {
       const size_t base = (size_t)slot_of[m] * A;
       for (int a = sub; a < A; a += kSlotLanes) {
-        acc += tanhf(to_f32(bank.proj[base + a]) + q[a]) * p.v[a];
+        acc += tanhf(to_f32(bank.proj[base + a]) + q[a]) *
+               weight<WT>(p.v, a);
       }
     }
     for (int o = kSlotLanes / 2; o > 0; o >>= 1) {
@@ -541,20 +557,23 @@ __device__ void attend_row(const StrideArgs& p, const Bank& bank,
 }
 
 // The gate GEMM of layer l: [x_l, h_l] . [Wx_l; Wh_l] into split-K partials.
+template <typename WT>
 __device__ __forceinline__ Job gate_job(const StrideArgs& p,
                                         const Workspace& ws, const Dims& d,
                                         int l) {
   const int H4 = 4 * p.H;
   const size_t layer = (size_t)d.R * p.H;
+  const WT* wx = static_cast<const WT*>(p.wx);
+  const WT* wh = static_cast<const WT*>(p.wh);
   Job j;
   if (l == 0) {
-    j.seg[0] = rowgemm::Seg{ws.x, p.E + p.Em, p.wx, p.E + p.Em};
+    j.seg[0] = rowgemm::Seg{ws.x, p.E + p.Em, wx, p.E + p.Em};
   } else {
     j.seg[0] = rowgemm::Seg{
         ws.h + (l - 1) * layer, p.H,
-        p.wx + (size_t)(p.E + p.Em) * H4 + (size_t)(l - 1) * p.H * H4, p.H};
+        wx + (size_t)(p.E + p.Em) * H4 + (size_t)(l - 1) * p.H * H4, p.H};
   }
-  j.seg[1] = rowgemm::Seg{ws.h + l * layer, p.H, p.wh + (size_t)l * p.H * H4,
+  j.seg[1] = rowgemm::Seg{ws.h + l * layer, p.H, wh + (size_t)l * p.H * H4,
                           p.H};
   j.N = H4;
   j.kslice = kSplitK;
@@ -598,7 +617,7 @@ __device__ __forceinline__ void mark(const StrideArgs& p, int& n, int code) {
   ++n;
 }
 
-template <class Bank>
+template <class Bank, typename WT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     stride_kernel(const StrideArgs p, const Bank bank) {
   cg::grid_group grid = cg::this_grid();
@@ -647,7 +666,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   int n_live = build_live(ws.fin, R, live, red_i);
   Job jobs[2];
   jobs[0] = q_job(p, ws, d);
-  gemm_phase(p, ws, d, jobs, 1, live, n_live, smem, 0);
+  gemm_phase<WT>(p, ws, d, jobs, 1, live, n_live, smem, 0);
   grid.sync();
   mark(p, marks, kPhaseQ);
 
@@ -660,7 +679,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                                                 red_i)
                                    : __ldcg(ws.tok + r);
       if (tok == kEos && pending >= 0) continue;
-      attend_row(p, bank, ws, d, r, tok, smem);
+      attend_row<Bank, WT>(p, bank, ws, d, r, tok, smem);
     }
     pending = -1;
     grid.sync();
@@ -669,19 +688,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (n_live == 0) break;  // the same in every block
     // ---- LSTM stack
     for (int l = 0; l < L; ++l) {
-      jobs[0] = gate_job(p, ws, d, l);
-      gemm_phase(p, ws, d, jobs, 1, live, n_live, smem, s);
+      jobs[0] = gate_job<WT>(p, ws, d, l);
+      gemm_phase<WT>(p, ws, d, jobs, 1, live, n_live, smem, s);
       grid.sync();
       mark(p, marks, kPhaseGates);
       const int ks = job_slices(jobs[0]);
-      const float* bg = p.bg + (size_t)l * H4;
+      const size_t bg = (size_t)l * H4;
       float* c = ws.c + (size_t)l * d.R * H;
       float* h = ws.h + (size_t)l * d.R * H;
       for (size_t i = gtid; i < (size_t)n_live * H; i += gstride) {
         const int r = live[i / H];
         const int j = (int)(i % H);
-        float gi = bg[j], gf = bg[H + j], gg = bg[2 * H + j],
-              go = bg[3 * H + j];
+        float gi = weight<WT>(p.bg, bg + j),
+              gf = weight<WT>(p.bg, bg + H + j),
+              gg = weight<WT>(p.bg, bg + 2 * H + j),
+              go = weight<WT>(p.bg, bg + 3 * H + j);
         for (int k = 0; k < ks; ++k) {
           const float* gp = ws.gpart + ((size_t)k * d.R + r) * H4;
           gi += __ldcg(gp + j);
@@ -702,7 +723,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     int n_jobs = 0;
     if (s + 1 < S) jobs[n_jobs++] = q_job(p, ws, d);
     jobs[n_jobs++] = logits_job(p, ws, d);
-    gemm_phase(p, ws, d, jobs, n_jobs, live, n_live, smem, s);
+    gemm_phase<WT>(p, ws, d, jobs, n_jobs, live, n_live, smem, s);
     grid.sync();
     mark(p, marks, kPhaseLogits);
     pending = s;
@@ -726,15 +747,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   mark(p, marks, kPhaseEnd);
 }
 
-template <class Bank>
-int launch(const StrideArgs& p, const Bank& bank, int W, cudaStream_t stream) {
+template <class Bank, typename WT>
+int launch_typed(const StrideArgs& p, const Bank& bank, int W,
+                 cudaStream_t stream) {
   if (p.ws == nullptr || p.ws_floats < carve(p, nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const void* fn = reinterpret_cast<const void*>(&stride_kernel<Bank>);
+  const void* fn = reinterpret_cast<const void*>(&stride_kernel<Bank, WT>);
   const size_t bytes =
       ((size_t)phase_floats(p.A, W) + (size_t)p.G * p.B) * sizeof(float);
   // the grid for (device, shared bytes), worked out on first use
@@ -764,6 +786,23 @@ int launch(const StrideArgs& p, const Bank& bank, int W, cudaStream_t stream) {
                                   args, bytes, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// This library's weight type (see the header comment).
+#ifdef DECODE_STRIDE_BF16_WEIGHTS
+using LibWeight = __nv_bfloat16;
+#else
+using LibWeight = float;
+#endif
+
+// The stride kernel of this library's weight type; arguments that name
+// the other type are refused.
+template <class Bank>
+int launch(const StrideArgs& p, const Bank& bank, int W, cudaStream_t stream) {
+  if (p.weights_bf16 != (int)std::is_same<LibWeight, __nv_bfloat16>::value) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_typed<Bank, LibWeight>(p, bank, W, stream);
 }
 
 }  // namespace

@@ -10,8 +10,13 @@
 //   gates  = [emb, ctx] Wx + h Wh + b    split i|f|g|o, per LSTM layer
 //   logits = h_top Wo + bo               -> [G, B, V] float32
 //
-// All arithmetic is float32 whatever the bank dtype; the embedding rows are
-// gathered by the caller, as in the TPU kernels.
+// All arithmetic is float32 whatever the bank dtype and the weight dtype;
+// the embedding rows are gathered by the caller, as in the TPU kernels.
+// With weights_bf16 every weight (Wq, bq, v, Wx, Wh, b, Wo, bo) and the
+// embedding rows are bfloat16, the model's parameter dtype, and each is
+// widened to float32 where it is read (rowgemm.cuh), as the TPU kernels
+// widen the parameter-dtype weights in their body: the results are bit
+// for bit those of the same launch on the float32 values.
 //
 // The carry is float32 [L, G, B, H] c and h, stepped in place so a decode
 // loop keeps one buffer for its whole run. With carry_bf16 the new c and h
@@ -59,15 +64,16 @@ struct StepArgs {
   const void* mem;      // [B, M, Em]
   const void* proj;     // [B, M, A]
   const float* mask;    // [B, M]
-  const float* wq;      // [H, A]
-  const float* bq;      // [A]
-  const float* v;       // [A]
-  const float* wx;      // layer 0 [E + Em, 4H], then layers 1.. [H, 4H]
-  const float* wh;      // [L, H, 4H]
-  const float* bg;      // [L, 4H]
-  const float* wo;      // [H, V]
-  const float* bo;      // [V]
-  const float* emb;     // [G, B, E]
+  // weights and embedding rows: float32, or bfloat16 with weights_bf16
+  const void* wq;       // [H, A]
+  const void* bq;       // [A]
+  const void* v;        // [A]
+  const void* wx;       // layer 0 [E + Em, 4H], then layers 1.. [H, 4H]
+  const void* wh;       // [L, H, 4H]
+  const void* bg;       // [L, 4H]
+  const void* wo;       // [H, V]
+  const void* bo;       // [V]
+  const void* emb;      // [G, B, E]
   float* c;             // [L, G, B, H] carry, stepped in place
   float* h;             // [L, G, B, H]
   float* logits;        // [G, B, V]; unused by the beam step
@@ -75,6 +81,7 @@ struct StepArgs {
   long long scratch_floats;
   int bank_bf16;        // 1: mem/proj are bfloat16, 0: float32
   int carry_bf16;       // 1: round the new c, h to bfloat16, 0: float32
+  int weights_bf16;     // 1: the weights and emb are bfloat16, 0: float32
   int G, B, M, V, E, Em, A, H, L;
 };
 
@@ -99,6 +106,7 @@ using attend::kFull;
 using attend::kNeg;
 using attend::sigmoid_f32;
 using attend::warp_sum;
+using rowgemm::weight;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -183,7 +191,9 @@ struct Job {
   float* out;  // [cdiv(k, kSplitK), R, N]
 };
 
-// Block (column tile x, row tile y, k slice z) of a split-K job.
+// Block (column tile x, row tile y, k slice z) of a split-K job, the
+// weights of type WT.
+template <typename WT>
 __device__ __forceinline__ void split_gemm(const Job& j) {
   __shared__ __align__(16) float smem[Tile::kSmemFloats];
   __shared__ int rows[Tile::BM];
@@ -195,7 +205,8 @@ __device__ __forceinline__ void split_gemm(const Job& j) {
   const int n_rows = min(Tile::BM, j.R - row0);
   if (threadIdx.x < Tile::BM) rows[threadIdx.x] = row0 + threadIdx.x;
   float acc[kTM][4];
-  Tile::run(j.seg, kb, ke, j.N, n0, rows, n_rows, smem, acc);  // syncs first
+  // syncs first
+  Tile::run<WT>(j.seg, kb, ke, j.N, n0, rows, n_rows, smem, acc);
   const int ty = threadIdx.x / 16;
   const int col = n0 + (threadIdx.x % 16) * 4;
   float* out = j.out + (size_t)slice * j.R * j.N;
@@ -211,21 +222,24 @@ __device__ __forceinline__ void split_gemm(const Job& j) {
 }
 
 // Two kernels of one body, so a profile tells q from the gates.
+template <typename WT>
 __global__ void __launch_bounds__(kThreads, 2) step_q_gemm(const Job j) {
-  split_gemm(j);
+  split_gemm<WT>(j);
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(kThreads, 2) step_gates_gemm(const Job j) {
-  split_gemm(j);
+  split_gemm<WT>(j);
 }
 
+template <typename WT>
 inline int run_split(const Job& j, bool gates, cudaStream_t st) {
   const dim3 grid(cdiv(j.N, rowgemm::BN), cdiv(j.R, Tile::BM),
                   cdiv(j.seg[0].k + j.seg[1].k, kSplitK));
   if (gates) {
-    step_gates_gemm<<<grid, kThreads, 0, st>>>(j);
+    step_gates_gemm<WT><<<grid, kThreads, 0, st>>>(j);
   } else {
-    step_q_gemm<<<grid, kThreads, 0, st>>>(j);
+    step_q_gemm<WT><<<grid, kThreads, 0, st>>>(j);
   }
   return (int)cudaGetLastError();
 }
@@ -233,8 +247,9 @@ inline int run_split(const Job& j, bool gates, cudaStream_t st) {
 // ---- attention --------------------------------------------------------------
 
 // x0[r] = [emb[r], ctx[r]] for r = g * B + b, attending over bank row b
-// with q[r] = bq + q's split-K partials, summed in slice order.
-template <typename T>
+// with q[r] = bq + q's split-K partials, summed in slice order; bank type
+// T, weight type WT.
+template <typename T, typename WT>
 __global__ void __launch_bounds__(kThreads)
     step_attend(const StepArgs p, const Scratch s, const Dims d) {
   extern __shared__ float smem[];
@@ -246,15 +261,17 @@ __global__ void __launch_bounds__(kThreads)
   const size_t r = blockIdx.x;
   const size_t b = r % p.B;
   for (int a = threadIdx.x; a < A; a += kThreads) {
-    float acc = p.bq[a];
+    float acc = weight<WT>(p.bq, a);
     for (int k = 0; k < d.ksq; ++k) {
       acc += s.qpart[((size_t)k * d.R + r) * A + a];
     }
     q_s[a] = acc;
-    v_s[a] = p.v[a];
+    v_s[a] = weight<WT>(p.v, a);
   }
   float* xr = s.x0 + r * (E + Em);
-  for (int e = threadIdx.x; e < E; e += kThreads) xr[e] = p.emb[r * E + e];
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    xr[e] = weight<WT>(p.emb, r * E + e);
+  }
   __syncthreads();
   attend::attend_row<T, false, kWarps>(
       q_s, v_s, static_cast<const T*>(p.proj) + b * M * A,
@@ -263,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = threadIdx.x; e < Em; e += kThreads) xr[E + e] = ctx_s[e];
 }
 
-template <typename T>
+template <typename T, typename WT>
 inline int run_attend(const StepArgs& p, const Scratch& s, const Dims& d,
                       cudaStream_t st) {
   const size_t bytes =
@@ -271,11 +288,11 @@ inline int run_attend(const StepArgs& p, const Scratch& s, const Dims& d,
       sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&step_attend<T>),
+        reinterpret_cast<const void*>(&step_attend<T, WT>),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  step_attend<T><<<d.R, kThreads, bytes, st>>>(p, s, d);
+  step_attend<T, WT><<<d.R, kThreads, bytes, st>>>(p, s, d);
   return (int)cudaGetLastError();
 }
 
@@ -284,19 +301,22 @@ inline int run_attend(const StepArgs& p, const Scratch& s, const Dims& d,
 // Layer l: gates = bg + the ks split-K partials (slice order), split
 // i|f|g|o -> c, h [R, H] in place (rounded to bfloat16 with carry_bf16)
 // and xh [R, H], the new h unrounded.
+template <typename WT>
 __global__ void __launch_bounds__(kThreads)
     step_cell(const StepArgs p, const Scratch s, const Dims d, int l, int ks) {
   const int H = p.H;
   const int H4 = 4 * H;
   const size_t n = (size_t)d.R * H;
-  const float* bg = p.bg + (size_t)l * H4;
+  const size_t bg = (size_t)l * H4;
   float* c = p.c + (size_t)l * n;
   float* h = p.h + (size_t)l * n;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     const size_t r = i / H;
     const int j = (int)(i % H);
-    float gi = bg[j], gf = bg[H + j], gg = bg[2 * H + j], go = bg[3 * H + j];
+    float gi = weight<WT>(p.bg, bg + j), gf = weight<WT>(p.bg, bg + H + j),
+          gg = weight<WT>(p.bg, bg + 2 * H + j),
+          go = weight<WT>(p.bg, bg + 3 * H + j);
     for (int k = 0; k < ks; ++k) {
       const float* gp = s.gpart + ((size_t)k * d.R + r) * H4;
       gi += gp[j];
@@ -379,7 +399,7 @@ __device__ __forceinline__ void tile_partials(const float* row, int n0, int V,
 
 // Block (column tile x, row tile y): logits = xh Wo + bo, then with
 // kBeam the selection partials of each row, else the logits themselves.
-template <bool kBeam>
+template <bool kBeam, typename WT>
 __global__ void __launch_bounds__(kThreads, 2)
     step_logits(const StepArgs p, const float* xh, const Sel sel) {
   __shared__ __align__(16) float smem[Tile::kSmemFloats];
@@ -396,13 +416,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   rowgemm::Seg seg[2] = {rowgemm::Seg{xh, p.H, p.wo, p.H},
                          rowgemm::Seg{xh, p.H, p.wo, 0}};
   float acc[kTM][4];
-  Tile::run(seg, 0, p.H, V, n0, rows, n_rows, smem, acc);  // syncs at end
+  Tile::run<WT>(seg, 0, p.H, V, n0, rows, n_rows, smem, acc);  // syncs at end
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const int col = n0 + tx * 4;
   float bias[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) bias[j] = col + j < V ? p.bo[col + j] : 0.0f;
+  for (int j = 0; j < 4; ++j) {
+    bias[j] = col + j < V ? weight<WT>(p.bo, col + j) : 0.0f;
+  }
   if (!kBeam) {
     const bool vec = (V % 4 == 0) && aligned16(p.logits);
 #pragma unroll
@@ -438,24 +460,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <bool kBeam>
+template <bool kBeam, typename WT>
 inline int run_logits(const StepArgs& p, const float* xh, const Sel& sel,
                       cudaStream_t st) {
   const dim3 grid(cdiv(p.V, rowgemm::BN), cdiv(p.G * p.B, Tile::BM));
-  step_logits<kBeam><<<grid, kThreads, 0, st>>>(p, xh, sel);
+  step_logits<kBeam, WT><<<grid, kThreads, 0, st>>>(p, xh, sel);
   return (int)cudaGetLastError();
 }
 
 // ---- the whole step ---------------------------------------------------------
 
-// The step, with the logits written to p.logits (sel == nullptr) or reduced
-// to sel's partials; 0 or the first launch's cudaError.
-inline int run(const StepArgs& p, const Sel* sel, cudaStream_t st) {
+// The step with weights of type WT (run below picks it).
+template <typename WT>
+inline int run_typed(const StepArgs& p, const Sel* sel, cudaStream_t st) {
   const Dims d = dims_of(p);
-  if (d.R == 0) return 0;
-  if (p.scratch == nullptr || p.scratch_floats < carve(p, nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
   Scratch s;
   carve(p, &s);
   const int H = p.H, H4 = 4 * p.H, X0 = p.E + p.Em;
@@ -463,12 +481,13 @@ inline int run(const StepArgs& p, const Sel* sel, cudaStream_t st) {
   const float* h_top = p.h + (p.L - 1) * layer;
   Job q{{rowgemm::Seg{h_top, H, p.wq, H}, rowgemm::Seg{h_top, H, p.wq, 0}},
         p.A, d.R, s.qpart};
-  int rc = run_split(q, false, st);
+  int rc = run_split<WT>(q, false, st);
   if (rc) return rc;
-  rc = p.bank_bf16 ? run_attend<__nv_bfloat16>(p, s, d, st)
-                   : run_attend<float>(p, s, d, st);
+  rc = p.bank_bf16 ? run_attend<__nv_bfloat16, WT>(p, s, d, st)
+                   : run_attend<float, WT>(p, s, d, st);
   if (rc) return rc;
-  const float* wx = p.wx;
+  const WT* wx = static_cast<const WT*>(p.wx);
+  const WT* wh = static_cast<const WT*>(p.wh);
   const int cell_blocks = (int)((layer + kThreads - 1) / kThreads < 4096
                                     ? (layer + kThreads - 1) / kThreads
                                     : 4096);
@@ -476,18 +495,29 @@ inline int run(const StepArgs& p, const Sel* sel, cudaStream_t st) {
     const int n_in = l == 0 ? X0 : H;
     const float* x = l == 0 ? s.x0 : s.xh;
     Job g{{rowgemm::Seg{x, n_in, wx, n_in},
-           rowgemm::Seg{p.h + l * layer, H, p.wh + (size_t)l * H * H4, H}},
+           rowgemm::Seg{p.h + l * layer, H, wh + (size_t)l * H * H4, H}},
           H4, d.R, s.gpart};
-    rc = run_split(g, true, st);
+    rc = run_split<WT>(g, true, st);
     if (rc) return rc;
-    step_cell<<<cell_blocks, kThreads, 0, st>>>(p, s, d, l,
-                                               cdiv(n_in + H, kSplitK));
+    step_cell<WT><<<cell_blocks, kThreads, 0, st>>>(p, s, d, l,
+                                                   cdiv(n_in + H, kSplitK));
     rc = (int)cudaGetLastError();
     if (rc) return rc;
     wx += (size_t)n_in * H4;
   }
-  return sel ? run_logits<true>(p, s.xh, *sel, st)
-             : run_logits<false>(p, s.xh, Sel{nullptr, 0, 0}, st);
+  return sel ? run_logits<true, WT>(p, s.xh, *sel, st)
+             : run_logits<false, WT>(p, s.xh, Sel{nullptr, 0, 0}, st);
+}
+
+// The step, with the logits written to p.logits (sel == nullptr) or reduced
+// to sel's partials; 0 or the first launch's cudaError.
+inline int run(const StepArgs& p, const Sel* sel, cudaStream_t st) {
+  if (dims_of(p).R == 0) return 0;
+  if (p.scratch == nullptr || p.scratch_floats < carve(p, nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return p.weights_bf16 ? run_typed<__nv_bfloat16>(p, sel, st)
+                        : run_typed<float>(p, sel, st);
 }
 
 }  // namespace step

@@ -122,9 +122,9 @@ def mp_cell_specs(model, axis: str = "mp") -> dict:
 
 
 def shard_weights(w: StrideWeights, shard: int, mp: int) -> StrideWeights:
-    """The packed weights of vocabulary slice ``shard`` of ``mp``:
-    contiguous copies of its ``wo``, ``bo`` and ``embt`` columns and rows,
-    the recurrent weights shared with ``w``."""
+    """The packed weights of vocabulary slice ``shard`` of ``mp``, in the
+    pack's dtype: contiguous copies of its ``wo``, ``bo`` and ``embt``
+    columns and rows, the recurrent weights shared with ``w``."""
     vs = w.bo.shape[0] // mp
     cols = slice(shard * vs, (shard + 1) * vs)
     return dataclasses.replace(

@@ -12,15 +12,18 @@ with the decoder cell module in place of its flax parameter tree:
 
 All arithmetic is float32 whatever the model dtype; PAD and BOS are not
 masked and no token is selected (the decode loop does both). The embedding
-rows are gathered outside the kernel, as in the JAX op. ``weights`` takes
-the cell's packed float32 weights (``stride_weights``) so a decode loop
-packs them once, not once per step. :func:`fused_decode_step_` is the same
+rows are gathered outside the kernel, as in the JAX op, in the pack's
+dtype. ``weights`` takes the cell's packed weights (``stride_weights``, in
+the parameters' dtype, float32 or bfloat16) so a decode loop packs them
+once, not once per step; the kernel and the plain version widen each
+weight where they read it. :func:`fused_decode_step_` is the same
 step on a carry kept as one float32 tensor across a decode loop and
 updated in place.
 
 On CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/decode_step.cu`` (its launches in ``csrc/step.cuh``, built by
-``ops/build.py``) and count the launch in ``fused_decode_step.launches``;
+``ops/build.py``) and count the launch in ``fused_decode_step.launches``
+(those on a bfloat16 pack in ``launches_bf16`` too);
 on CPU tensors they run :func:`decode_step_plain`. The wrapper allocates
 the kernel's scratch (:func:`step_workspace`, which the kernel checks).
 Decode never takes gradients, so there is no autograd rule. Nothing falls
@@ -48,11 +51,12 @@ from cst_captioning_tpu_torch.ops.decode_stride import (
 def decode_step_plain(w: StrideWeights, carry, emb, memory, memory_proj,
                       memory_mask):
     """The JAX op's float32 reference composite (``_reference``) with the
-    embedding rows ``emb`` [G, B, E] given."""
+    embedding rows ``emb`` [G, B, E] given; each weight is widened to
+    float32 where it is used (the identity on a float32 pack)."""
     h_top = carry[-1][1].float()
-    q = h_top @ w.wq + w.bq                                       # [G, B, A]
+    q = h_top @ w.wq.float() + w.bq.float()                       # [G, B, A]
     t = torch.tanh(memory_proj.float()[None] + q[:, :, None, :])
-    s = t @ w.v                                                   # [G, B, M]
+    s = t @ w.v.float()                                           # [G, B, M]
     s = torch.where(memory_mask[None] > 0, s, torch.full_like(s, NEG))
     att = torch.softmax(s, dim=-1)
     ctx = torch.einsum("gbm,bme->gbe", att, memory.float())
@@ -62,15 +66,15 @@ def decode_step_plain(w: StrideWeights, carry, emb, memory, memory_proj,
     off = 0
     for layer, (c, h) in enumerate(carry):
         n_in = x.shape[-1]
-        wx = w.wx[off:off + n_in * H4].view(n_in, H4)
+        wx = w.wx[off:off + n_in * H4].view(n_in, H4).float()
         off += n_in * H4
-        gates = x @ wx + h.float() @ w.wh[layer] + w.bg[layer]
+        gates = x @ wx + h.float() @ w.wh[layer].float() + w.bg[layer].float()
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         new_carry.append((c_new.to(c.dtype), h_new.to(h.dtype)))
         x = h_new
-    return tuple(new_carry), x @ w.wo + w.bo
+    return tuple(new_carry), x @ w.wo.float() + w.bo.float()
 
 
 # ---- the kernel's binding ----------------------------------------------------
@@ -112,8 +116,8 @@ class _StepArgs(ctypes.Structure):
         "emb", "c", "h", "logits", "scratch",
     )] + [("scratch_floats", ctypes.c_longlong)] + [
         (n, ctypes.c_int) for n in (
-            "bank_bf16", "carry_bf16", "G", "B", "M", "V", "E", "Em", "A",
-            "H", "L")]
+            "bank_bf16", "carry_bf16", "weights_bf16", "G", "B", "M", "V",
+            "E", "Em", "A", "H", "L")]
 
 
 @functools.cache
@@ -136,6 +140,7 @@ def step_args(w: StrideWeights, state, emb, mem, proj, mask,
 
     ``state`` [2, L, G, B, H] steps in place; ``logits`` [G, B, V] receives
     the logits (None: the beam step, which reduces them in the kernel).
+    The weights and ``emb`` are in the pack's dtype (``weights_bf16``).
     The caller keeps the scratch alive until the launch is queued."""
     dev = mem.device
     G, B, E = emb.shape
@@ -150,15 +155,15 @@ def step_args(w: StrideWeights, state, emb, mem, proj, mask,
     _expect(mem, "memory", dev, bank_types, (B, M, Em))
     _expect(proj, "memory_proj", dev, (mem.dtype,), (B, M, A))
     _expect(mask, "memory_mask", dev, (torch.float32,), (B, M))
-    _expect(emb, "emb", dev, (torch.float32,), (G, B, E))
+    _expect(emb, "emb", dev, (w.dtype,), (G, B, E))
     _expect(state, "carry", dev, (torch.float32,), (2, L, G, B, H))
-    if (dev, E, Em, A, H, L) not in w.checked:
+    if (dev, E, Em, A, H, L, w.dtype) not in w.checked:
         shapes = {"wq": (H, A), "bq": (A,), "v": (A,), "wh": (L, H, 4 * H),
                   "bg": (L, 4 * H), "wo": (H, V), "bo": (V,),
                   "wx": ((E + Em) * 4 * H + (L - 1) * H * 4 * H,)}
         for name, shape in shapes.items():
-            _expect(getattr(w, name), name, dev, (torch.float32,), shape)
-        w.checked.add((dev, E, Em, A, H, L))
+            _expect(getattr(w, name), name, dev, (w.dtype,), shape)
+        w.checked.add((dev, E, Em, A, H, L, w.dtype))
     n = sum(step_workspace(G, B, E, Em, A, H).values())
     scratch = torch.empty((n,), dtype=torch.float32, device=dev)
     args = _StepArgs(
@@ -170,7 +175,8 @@ def step_args(w: StrideWeights, state, emb, mem, proj, mask,
         logits=None if logits is None else logits.data_ptr(),
         scratch=scratch.data_ptr(), scratch_floats=n,
         bank_bf16=int(mem.dtype == torch.bfloat16),
-        carry_bf16=int(carry_dtype == torch.bfloat16), G=G, B=B, M=M, V=V,
+        carry_bf16=int(carry_dtype == torch.bfloat16),
+        weights_bf16=int(w.dtype == torch.bfloat16), G=G, B=B, M=M, V=V,
         E=E, Em=Em, A=A, H=H, L=L,
     )
     return args, scratch
@@ -195,6 +201,7 @@ def _launch(w: StrideWeights, state, emb, mem, proj, mask,
         msg = lib.decode_step_error_string(rc).decode()
         raise RuntimeError(f"decode_step launch failed: {msg} (cudaError {rc})")
     fused_decode_step.launches += 1
+    fused_decode_step.launches_bf16 += int(w.dtype == torch.bfloat16)
     return logits
 
 
@@ -258,4 +265,4 @@ def fused_decode_step_(cell, state, token, memory, memory_proj, memory_mask,
                    carry_dtype)
 
 
-fused_decode_step.launches = 0
+fused_decode_step.launches = fused_decode_step.launches_bf16 = 0

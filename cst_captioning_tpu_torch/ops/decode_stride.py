@@ -17,13 +17,19 @@ noise)``; ties go to the lowest token id. Finished rows emit PAD with
 logprob 0; rows ``b >= n_active`` do no work and pass their carry through.
 Each row attends over its own first ``mem_lens[b]`` slots (clipped to
 [1, W]). All arithmetic is float32; the carry is rounded to its dtype only
-when written out. ``weights`` takes the cell's packed float32 weights
+when written out. ``weights`` takes the cell's packed weights
 (:func:`stride_weights`) so a decode or a service packs them once, not
-once per stride.
+once per stride. The pack keeps the parameters' dtype, float32 or
+bfloat16, as the TPU kernels take the cell parameters: the kernel and the
+plain version widen each weight to float32 where they read it, so a
+bfloat16 pack gives bit for bit what the float32 pack of the same values
+gives, and no float32 copy of a bfloat16 decoder is made.
 
 On CUDA tensors the wrappers launch the hand-written kernel
-``csrc/decode_stride.cu`` (built by ``ops/build.py``) and count the launch
-in their ``launches`` attribute; on CPU tensors they run the plain version.
+``csrc/decode_stride.cu`` (built by ``ops/build.py``; a bfloat16 pack's
+launches from its build as ``decode_stride_bf16``) and count the launch
+in their ``launches`` attribute (those on a bfloat16 pack in
+``launches_bf16`` too); on CPU tensors they run the plain version.
 The kernel is one cooperative launch (a grid whose blocks are all resident
 at once, stepping in lockstep); the wrapper allocates its workspace
 (:func:`stride_workspace`). Nothing falls back: a CUDA call that cannot
@@ -43,9 +49,17 @@ from cst_captioning_tpu_torch.config import BOS_ID, EOS_ID, PAD_ID
 NEG = -1.0e9
 
 
+# the dtypes a pack may hold (the kernels' weights_bf16 flag), and its
+# tensors
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+PACK_FIELDS = ("wq", "bq", "v", "wx", "wh", "bg", "wo", "bo", "embt")
+
+
 @dataclass(frozen=True)
 class StrideWeights:
-    """The decoder cell's float32 weights in the kernel's [in, out] layout."""
+    """The decoder cell's weights in the kernel's [in, out] layout, all in
+    one dtype of :data:`WEIGHT_DTYPES` (the parameters'); a pack that mixes
+    dtypes, or holds another, raises."""
 
     wq: torch.Tensor    # [H, A]
     bq: torch.Tensor    # [A]
@@ -56,19 +70,31 @@ class StrideWeights:
     wo: torch.Tensor    # [H, V]
     bo: torch.Tensor    # [V]
     embt: torch.Tensor  # [V, E]
-    # (device, widths) the step wrappers have checked these tensors for
-    # (ops/decode_step.step_args), so a decode loop checks them once
+    # (device, widths, dtype) the step wrappers have checked these tensors
+    # for (ops/decode_step.step_args), so a decode loop checks them once
     checked: set = field(default_factory=set, init=False, compare=False,
                          repr=False)
+
+    def __post_init__(self):
+        kinds = {getattr(self, n).dtype for n in PACK_FIELDS}
+        if len(kinds) != 1 or not kinds <= set(WEIGHT_DTYPES):
+            raise ValueError(
+                f"a stride weight pack holds one dtype of {WEIGHT_DTYPES}; "
+                f"got {sorted(str(k) for k in kinds)}")
 
     @property
     def num_layers(self) -> int:
         return self.wh.shape[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.wq.dtype
+
 
 def stride_weights(cell) -> StrideWeights:
-    """Pack a ``DecoderCell``'s parameters for the stride (float32)."""
-    f = lambda t: t.detach().float()  # noqa: E731
+    """Pack a ``DecoderCell``'s parameters for the stride, in their dtype
+    (float32 or bfloat16; the transposes are the only copies)."""
+    f = lambda t: t.detach()  # noqa: E731
     att = cell.attention
     return StrideWeights(
         wq=f(att.query_proj.weight).t().contiguous(),
@@ -155,13 +181,18 @@ def decode_stride_plain(w: StrideWeights, carry, token, finished, memory,
     cs = [c.float() for c, _ in carry]
     hs = [h.float() for _, h in carry]
     H4 = w.bg.shape[1]
-    emb = w.embt[token.long()]
+    # the weights widened to float32 as the TPU kernels widen the
+    # parameter-dtype weights (the identity on a float32 pack); the
+    # embedding rows as they are gathered
+    wq, bq, v, wx_all, wh, bg, wo, bo = (t.float() for t in (
+        w.wq, w.bq, w.v, w.wx, w.wh, w.bg, w.wo, w.bo))
+    emb = w.embt[token.long()].float()
     toks, lps, gaps = [], [], []
     for s in range(steps):
         live = ~fin
-        q = hs[-1] @ w.wq + w.bq                                      # [G, B, A]
+        q = hs[-1] @ wq + bq                                          # [G, B, A]
         t = torch.tanh(proj[None] + q[:, :, None, :])
-        sc = t @ w.v                                                  # [G, B, M]
+        sc = t @ v                                                    # [G, B, M]
         sc = torch.where(memory_mask[None] > 0, sc, torch.full_like(sc, NEG))
         sc = torch.where(in_row[None], sc, torch.full_like(sc, -torch.inf))
         att = torch.softmax(sc, dim=-1)
@@ -170,9 +201,9 @@ def decode_stride_plain(w: StrideWeights, carry, token, finished, memory,
         off = 0
         for layer in range(w.num_layers):
             n_in = x.shape[-1]
-            wx = w.wx[off:off + n_in * H4].view(n_in, H4)
+            wx = wx_all[off:off + n_in * H4].view(n_in, H4)
             off += n_in * H4
-            gates = x @ wx + hs[layer] @ w.wh[layer] + w.bg[layer]
+            gates = x @ wx + hs[layer] @ wh[layer] + bg[layer]
             i, f, g, o = gates.chunk(4, dim=-1)
             c_new = torch.sigmoid(f) * cs[layer] + torch.sigmoid(i) * torch.tanh(g)
             h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -180,7 +211,7 @@ def decode_stride_plain(w: StrideWeights, carry, token, finished, memory,
             cs[layer] = torch.where(live[..., None], c_new, cs[layer])
             hs[layer] = torch.where(live[..., None], h_new, hs[layer])
             x = h_new
-        logits = x @ w.wo + w.bo                                      # [G, B, V]
+        logits = x @ wo + bo                                          # [G, B, V]
         logits[..., PAD_ID] = NEG
         logits[..., BOS_ID] = NEG
         if t0 + s < min_len:
@@ -195,7 +226,7 @@ def decode_stride_plain(w: StrideWeights, carry, token, finished, memory,
         nxt = torch.where(fin, torch.full_like(nxt, PAD_ID), nxt)
         lp = torch.where(fin, torch.zeros_like(lp), lp)
         fin = fin | (nxt == EOS_ID)
-        emb = w.embt[nxt]
+        emb = w.embt[nxt].float()
         toks.append(nxt.to(torch.int32))
         lps.append(lp)
     new_carry = tuple(
@@ -217,18 +248,20 @@ class _StrideArgs(ctypes.Structure):
         "wo", "bo", "embt", "token", "finished", "mem_lens", "c_in", "h_in",
         "noise", "tokens", "logprobs", "c_out", "h_out",
     )] + [(n, ctypes.c_int) for n in (
-        "bank_bf16", "slots", "width", "G", "B", "S", "V", "E", "Em", "A",
-        "H", "L", "t0", "n_active", "min_len",
+        "bank_bf16", "weights_bf16", "slots", "width", "G", "B", "S", "V",
+        "E", "Em", "A", "H", "L", "t0", "n_active", "min_len",
     )] + [("temperature", ctypes.c_float), ("ws", ctypes.c_void_p),
           ("ws_floats", ctypes.c_longlong), ("timeline", ctypes.c_void_p)]
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel library (built on first use) with its C signatures."""
+def _lib(bf16: bool = False) -> ctypes.CDLL:
+    """The kernel library for float32 or (``bf16``) bfloat16 weights,
+    built on first use, with its C signatures."""
     from cst_captioning_tpu_torch.ops import build
 
-    lib = build.load("decode_stride")
+    lib = build.load("decode_stride_bf16") if bf16 else \
+        build.load("decode_stride")
     for fn in (lib.decode_stride_dense, lib.decode_stride_paged):
         fn.argtypes = [ctypes.POINTER(_StrideArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -277,8 +310,8 @@ def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
     if table is not None:
         _expect(table, "page_table", dev, (torch.int32,), (B, width))
     _expect(noise, "noise", dev, (torch.float32,), (steps, G - 1, B, V))
-    for name in ("wq", "bq", "v", "wx", "wh", "bg", "wo", "bo", "embt"):
-        _expect(getattr(w, name), name, dev, (torch.float32,))
+    for name in PACK_FIELDS:
+        _expect(getattr(w, name), name, dev, (w.dtype,))
     if w.wx.numel() != (E + Em) * 4 * H + (L - 1) * H * 4 * H:
         raise ValueError("LSTM input weights do not match [E + Em, 4H]")
     if timeline is not None:
@@ -310,13 +343,14 @@ def _launch(entry: str, w: StrideWeights, carry, token, finished, mem, proj,
         c_in=ptr(c_in), h_in=ptr(h_in), noise=ptr(noise),
         tokens=ptr(tokens), logprobs=ptr(logprobs), c_out=ptr(c_out),
         h_out=ptr(h_out),
-        bank_bf16=int(mem.dtype == torch.bfloat16), slots=slots, width=width,
+        bank_bf16=int(mem.dtype == torch.bfloat16),
+        weights_bf16=int(w.dtype == torch.bfloat16), slots=slots, width=width,
         G=G, B=B, S=steps, V=V, E=E, Em=Em, A=A, H=H, L=L, t0=int(t0),
         n_active=int(n_active), min_len=int(min_len),
         temperature=float(temperature), ws=ptr(ws), ws_floats=ws.numel(),
         timeline=ptr(timeline),
     )
-    lib = _lib()
+    lib = _lib(w.dtype == torch.bfloat16)
     # the launch is asynchronous; the temporaries above may be freed on
     # return because the caching allocator reuses their memory only for
     # work queued later on this same stream
@@ -395,6 +429,7 @@ def fused_decode_stride(cell, carry, token, finished, memory, memory_proj,
         temperature, min_len, mem_lens,
     )
     fused_decode_stride.launches += 1
+    fused_decode_stride.launches_bf16 += int(w.dtype == torch.bfloat16)
     return out
 
 
@@ -442,13 +477,15 @@ def fused_decode_stride_paged(cell, carry, token, finished, mem_pool,
         steps, temperature, min_len, mem_lens,
     )
     fused_decode_stride_paged.launches += 1
+    fused_decode_stride_paged.launches_bf16 += int(w.dtype == torch.bfloat16)
     return out
 
 
-fused_decode_stride.launches = 0
+fused_decode_stride.launches = fused_decode_stride.launches_bf16 = 0
 fused_decode_stride_paged.launches = 0
+fused_decode_stride_paged.launches_bf16 = 0
 
 
 def reset_launches() -> None:
-    fused_decode_stride.launches = 0
-    fused_decode_stride_paged.launches = 0
+    for fn in (fused_decode_stride, fused_decode_stride_paged):
+        fn.launches = fn.launches_bf16 = 0

@@ -1087,10 +1087,12 @@ def _same(a, b):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bf16_params_equal_float32_holding_the_same_values(dev, dtype):
-    """Kernels 1-5 read float32-packed weights, so a bf16-param model and
-    a float32 one holding the same values give bitwise equal teacher
-    forcing (kernel 1), sampling (kernel 2), the fused decode (kernel 3),
-    beam search (kernel 5) and a serve (kernel 4)."""
+    """Kernels 2-5 read the bf16 model's bf16 weight pack and widen it
+    exactly, kernel 1 its score vector in the compute dtype, so a
+    bf16-param model and a float32 one holding the same values give
+    bitwise equal teacher forcing (kernel 1), sampling (kernel 2), the
+    fused decode (kernel 3), beam search (kernel 5) and a serve (kernel
+    4)."""
     from cst_captioning_tpu_torch import ops
     from cst_captioning_tpu_torch.decoding import (
         beam_search,
@@ -1123,6 +1125,9 @@ def test_bf16_params_equal_float32_holding_the_same_values(dev, dtype):
     assert fused_decode_step.launches > 0 and fused_beam_step.launches > 0
     assert fused_decode_stride.launches > 0
     assert fused_decode_stride_paged.launches > 0
+    for fn in (fused_decode_step, fused_beam_step, fused_decode_stride,
+               fused_decode_stride_paged):
+        assert 0 < fn.launches_bf16 < fn.launches, fn.__name__
 
 
 def _bf16_step_close(ref, other):
@@ -1235,3 +1240,124 @@ def test_bf16_trainer_epochs_and_checkpoint_on_the_card(dev, tmp_path):
     for a, b in zip(st.params + st.opt_state["nu"],
                     back.params + back.opt_state["nu"]):
         assert _same(a, b)
+
+
+# ---- bfloat16 weight packs ---------------------------------------------------------
+
+PACKED = ("wq", "bq", "v", "wx", "wh", "bg", "wo", "bo", "embt")
+
+
+def _pack_pair(model):
+    """(the model's weights rounded to a bfloat16 pack, the float32 pack of
+    the same values)."""
+    w = stride_weights(model.cell)
+    wb = dataclasses.replace(w, **{n: getattr(w, n).bfloat16()
+                                   for n in PACKED})
+    wf = dataclasses.replace(w, **{n: getattr(wb, n).float()
+                                   for n in PACKED})
+    return wb, wf
+
+
+def _bits_equal(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_bits_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the base shapes (A=40 and 4H=192 take the 16-byte bf16 weight copies,
+# V=301 the element-wise ones) and widths that are not multiples of 8
+BF16_CASES = {"base": dict(layers=2), "odd_widths": dict(layers=2, E_=45)}
+
+
+def _bf16_case(dev, case):
+    c = BF16_CASES[case]
+    if "E_" in c:
+        return _stride_case(dev, c["layers"], B, K, V, c["E_"])
+    return _inputs(dev, c["layers"], torch.bfloat16)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_stride_kernel_bf16_pack_is_bitwise_the_float32_pack(dev, case,
+                                                             paged):
+    model, carry, token, fin, bank, noise, lens = _bf16_case(dev, case)
+    wb, wf = _pack_pair(model)
+    kw = dict(steps=S, temperature=0.8, min_len=2, mem_lens=lens)
+    fn = fused_decode_stride_paged if paged else fused_decode_stride
+    ins = _paged(bank) if paged else bank
+    before = (fn.launches, fn.launches_bf16)
+    got = fn(model.cell, carry, token, fin, *ins, noise, 1, B - 1,
+             weights=wb, **kw)
+    want = fn(model.cell, carry, token, fin, *ins, noise, 1, B - 1,
+              weights=wf, **kw)
+    pc, ptok, plp = decode_stride_plain(
+        wb, carry, token, fin, *(gather_pages(*ins) if paged else bank),
+        noise, 1, B - 1, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0] + 2, before[1] + 1)
+    assert _bits_equal(got, want)
+    assert torch.equal(got[1], ptok)
+    torch.testing.assert_close(got[2], plp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("G_", [1, G])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_decode_step_kernel_bf16_pack_is_bitwise_the_float32_pack(dev, case,
+                                                                  G_):
+    model, carry, token, _, bank, _, _ = _bf16_case(dev, case)
+    carry = tuple((c[:G_].bfloat16(), h[:G_].bfloat16()) for c, h in carry)
+    token = token[:G_]
+    wb, wf = _pack_pair(model)
+    out = []
+    for w in (wb, wf):
+        state = stack_carry(carry)
+        before = fused_decode_step.launches_bf16
+        out.append((fused_decode_step_(model.cell, state, token, *bank,
+                                       torch.bfloat16, weights=w), state))
+        assert fused_decode_step.launches_bf16 == before + (w is wb)
+    pc, plog = decode_step_plain(wb, carry, wb.embt[token.long()], *bank)
+    torch.cuda.synchronize()
+    assert _bits_equal(out[0], out[1])
+    torch.testing.assert_close(out[0][0], plog, rtol=TOL, atol=TOL)
+    for (a, b), (c, d) in zip(unstack_carry(out[0][1], torch.bfloat16), pc):
+        torch.testing.assert_close(a.float(), c.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+        torch.testing.assert_close(b.float(), d.float(), rtol=TOL + BF16_ULP,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_beam_step_kernel_bf16_pack_is_bitwise_the_float32_pack(dev, case):
+    model, carry, token, fin, bank, _, _ = _bf16_case(dev, case)
+    scores = 2.0 * torch.randn(G, B, generator=torch.Generator()
+                               .manual_seed(1)).to(dev)
+    wb, wf = _pack_pair(model)
+    before = (fused_beam_step.launches, fused_beam_step.launches_bf16)
+    got, want = (fused_beam_step(model.cell, carry, token, fin, scores,
+                                 *bank, t=1, min_len=3, weights=w)
+                 for w in (wb, wf))
+    pc, logits = decode_step_plain(wb, carry, wb.embt[token.long()], *bank)
+    psc, pfl = beam_topk_plain(logits, fin, scores, t=1, min_len=3,
+                               width=G + 1)
+    torch.cuda.synchronize()
+    assert (fused_beam_step.launches, fused_beam_step.launches_bf16) == \
+        (before[0] + 2, before[1] + 1)
+    assert _bits_equal(got, want)
+    _assert_beam_close(got[1], got[2], psc, pfl)
+    for (a, b), (c, d) in zip(got[0], pc):
+        torch.testing.assert_close(a, c, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(b, d, rtol=TOL, atol=TOL)
+
+
+def test_bf16_pack_refusals_on_the_card(dev):
+    """No path widens a pack to reach the float32 kernel: embedding rows
+    in another dtype than the pack's, and a pack that mixes dtypes,
+    raise."""
+    model, carry, token, _, bank, _, _ = _inputs(dev, 1, torch.float32)
+    wb, _ = _pack_pair(model)
+    with pytest.raises(ValueError, match="emb has dtype"):
+        fused_decode_step(model.cell, carry, token, *bank,
+                          emb=wb.embt[token.long()].float(), weights=wb)
+    with pytest.raises(ValueError, match="one dtype"):
+        dataclasses.replace(wb, wo=wb.wo.float())

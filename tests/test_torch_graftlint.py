@@ -372,8 +372,8 @@ def test_gl020_holds_the_four_mirrors_against_their_structs():
         structs, funcs = parse_c(read_c(os.path.join(ops, "csrc", src)))
         sizes[struct] = len(structs[struct])
         assert funcs, src
-    assert sizes == {"StepArgs": 28, "BeamArgs": 9, "AttentionArgs": 13,
-                     "StrideArgs": 42}
+    assert sizes == {"StepArgs": 29, "BeamArgs": 9, "AttentionArgs": 13,
+                     "StrideArgs": 43}
     res = lint_paths([ops], REPO, rule_ids=["GL020"], cache_path="")
     assert res.findings == []
 
@@ -665,8 +665,9 @@ PLANTS = {
         "dist.all_reduce(y, op=op, group=group)",
         "dist.all_reduce(y, op=op)", "GL016"),
     "stride_wrapper_readback": (
-        "ops/decode_stride.py", "    lib = _lib()\n",
-        "    lib = _lib()\n    probe = tokens.sum().item()\n", "GL001"),
+        "ops/decode_stride.py", "    lib = _lib(w.dtype == torch.bfloat16)\n",
+        "    lib = _lib(w.dtype == torch.bfloat16)\n"
+        "    probe = tokens.sum().item()\n", "GL001"),
     "decoder_imports_jax": (
         "models/decoder.py", "import math\n", "import math\n\nimport jax\n",
         "GL006"),

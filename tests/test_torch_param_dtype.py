@@ -376,7 +376,7 @@ def _service_noise(seeds, ts, k, v):
 def test_caption_service_matches_jax(setup, impl):
     """Six ragged requests through capacity 2, K=2, stride 4: the kernel
     service (``decode_impl="pallas"``, the stride kernel's plain version
-    on float32-packed bf16 weights) and the composite one against the JAX
+    on the bf16 weight pack) and the composite one against the JAX
     service on the same bf16 tree; a publish of a bf16 state dict swaps
     in."""
     s = setup
@@ -396,8 +396,8 @@ def test_caption_service_matches_jax(setup, impl):
         assert res.caption_ids == jres.caption_ids
     if svc.use_kernel:
         w = svc._weights
-        assert w.wo.dtype == torch.float32
-        assert torch.equal(w.wo, model.cell.out_proj.weight.float().t())
+        assert w.wo.dtype == torch.bfloat16
+        assert torch.equal(w.wo, model.cell.out_proj.weight.t())
     assert svc.publish_params(model.state_dict())
     again = svc.serve(_requests(ClipRequest))
     assert svc.param_version == 1
@@ -705,14 +705,15 @@ def test_bucket_plan_matches_jax_bf16(setup, kw):
 
 
 def test_stride_weights_pack_bf16_exactly(setup):
-    """The kernels' packed float32 weights of the bf16 model equal the
-    float32 model's holding the same values."""
+    """The kernels' packed weights of the bf16 model are bf16 and, widened,
+    equal the float32 model's holding the same values."""
     s = setup
     a = stride_weights(_pmodel(s).cell)
     b = stride_weights(_pmodel(s, param_dtype="float32").cell)
     for name in ("wq", "bq", "v", "wx", "wh", "bg", "wo", "bo", "embt"):
         x, y = getattr(a, name), getattr(b, name)
-        assert x.dtype == torch.float32 and torch.equal(x, y), name
+        assert x.dtype == torch.bfloat16 and y.dtype == torch.float32, name
+        assert torch.equal(x.float(), y), name
 
 
 # ---- the CLIs: train, resume, hand off, evaluate -------------------------------
